@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`nomad_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, one JSON line each; any failed phase exits nonzero:
 
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build   — nvcc builds the fused wave kernel from
-               nomad_tpu_torch/solver/csrc/ into nomad_tpu_torch/_build/.
-  3. kernel  — the kernel against its plain torch version on the card at
-               the main path's widths: score mode (Gp=128, Np=10,240,
+  2. build   — nvcc builds the fused wave kernels from
+               nomad_tpu_torch/solver/csrc/ into nomad_tpu_torch/_build/;
+               a `ptxas` line gives each kernel's registers, static
+               shared memory and spills.
+  3. kernel  — the kernels against their plain torch version on the card
+               at the main path's widths: score mode (Gp=128, Np=10,240,
                one spread over V=4, and once with device and blocked
                planes) and topk mode with per-value tables (Gp=4,
-               Np=10,240, 128 extracted, TK=36).  Counters equal, scores
-               within 4 ulp, indices equal wherever the plain scores are
-               separated by more than that; median times of >= 20 launches.
+               Np=10,240, 128 extracted, TK=36), and the topk merge kernel
+               alone.  Counters equal, scores within 4 ulp, indices equal
+               wherever the plain scores are separated by more than that.
+               Times: kernel-only (the recorded C launch repeated, no
+               wrapper around it) warm over 50 back-to-back launches and
+               cold as the median of 50 launches each after a 128 MB write
+               that flushes the L2; the whole wrapper call; the plain
+               version.  The bound share is taken on the cold time.  With
+               --baseline DIR the kernels of the checkout at DIR (e.g. the
+               parent commit) are timed the same way, in turns.
   4. solve   — the slice end to end through `Solver(device="cuda").solve`
                on bench.py's config-3 cluster (10,000 nodes, 4 dcs, 64
                racks, 16 zones) loaded with 100,000 resident allocs:
@@ -29,7 +38,8 @@ Phases, one JSON line each; any failed phase exits nonzero:
                end oversubscribed.
 
 The line before the last lists every kernel with its launches on the main
-path, error against the plain version, times and bound; the last line is
+path, error against the plain version, times (`ms` is the kernel-only
+cold time) and bound; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -94,12 +104,46 @@ def phase_device(torch):
 
 
 # ------------------------------------------------------------ phase 2
+def ptxas_kernels(text):
+    """Registers, static shared memory and spill bytes per kernel from
+    `nvcc -Xptxas -v` output, keyed `name<N>` for a kernel instantiated
+    with the integer template argument N."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            z = re.match(r"_Z(\d+)", name)          # Itanium-mangled
+            if z:
+                end = z.end() + int(z.group(1))
+                t = re.match(r"ILi(\d+)E", name[end:])
+                name = name[z.end():end] + (f"<{t.group(1)}>" if t else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_store_bytes"] = int(m.group(1))
+            out[name]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
 def phase_build(wk):
     t0 = time.perf_counter()
     path = wk.build()
     secs = time.perf_counter() - t0
+    report = open(str(path) + ".ptxas.txt").read()
     emit({"phase": "build", "seconds": round(secs, 3),
           "library": os.path.relpath(path, HERE)})
+    emit({"phase": "ptxas", "kernels": ptxas_kernels(report)})
 
 
 # ------------------------------------------------------------ phase 3
@@ -145,7 +189,10 @@ def wave_inputs(torch, Gp, Np, S, V, D, with_blocked, seed, device):
         t(vnode.astype(np.int16)),
         t(np.where(vnode >= 0, f32(16 / V), f32(-1.0)).astype(f32)),
         t(sp_used), t(np.ones((Gp, S), f32)),
-        t(rng.random((Gp, S)) < 0.5), t(np.ones((Gp, S), np.int8)),
+        # int8, as the kernel reads it, so no wrapper makes a temporary
+        # copy that a replayed launch (raw_launch) would not own
+        t((rng.random((Gp, S)) < 0.5).astype(np.int8)),
+        t(np.ones((Gp, S), np.int8)),
         t(np.where(anyp, np.where(pres, sp_used, np.inf).min(2), 0)
           .astype(f32)),
         t(np.where(anyp, sp_used.max(2), 0).astype(f32)),
@@ -175,6 +222,150 @@ def time_ms(torch, fn, reps=30, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def raw_launch(torch, wk, kw):
+    """Record the C launch that one `wk.fused_wave(**kw)` call makes and
+    return a function that repeats exactly that launch: the same
+    arguments, pointers and output buffers, with none of the wrapper's
+    Python, checks, allocations or torch ops around it.  The buffers the
+    wrapper allocates are kept alive in the closure.  Works on any
+    checkout of `wave_kernel.py` whose wrapper allocates with
+    `torch.empty` / `torch.zeros` and calls `_load().nomad_wave_launch`,
+    so an older commit's kernel runs through the same timer."""
+    lib = wk._load()
+    real = lib.nomad_wave_launch
+    rec, kept = {}, []
+
+    class Lib:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def nomad_wave_launch(self, *args):
+            rec["args"] = args
+            return real(*args)
+
+    class Torch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def empty(self, *a, **k):
+            kept.append(torch.empty(*a, **k))
+            return kept[-1]
+
+        def zeros(self, *a, **k):
+            kept.append(torch.zeros(*a, **k))
+            return kept[-1]
+
+    launches = wk.fused_wave.launches
+    wk._lib, wk.torch = Lib(), Torch()
+    try:
+        wk.fused_wave(**kw)
+    finally:
+        wk._lib, wk.torch = lib, torch
+    wk.fused_wave.launches = launches
+    args = rec["args"]
+
+    return replay(real, args, kept)
+
+
+def replay(real, args, kept):
+    def launch():
+        rc = real(*args)
+        check(rc == 0, f"raw launch failed with CUDA error {rc}")
+    launch.real, launch.args, launch.kept = real, args, kept
+    return launch
+
+
+def keys_to_pairs(torch, keys):
+    """(score, column) of the topk kernel's int64 order keys (the inverse
+    of csrc/wave_kernel.cu key_of)."""
+    hi = (keys >> 32) & 0xFFFFFFFF
+    bits = torch.where(hi >= 1 << 31, hi & 0x7FFFFFFF, ~hi & 0xFFFFFFFF)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return (bits.to(torch.int32).view(torch.float32),
+            (~keys & 0xFFFFFFFF).to(torch.int32))
+
+
+def merge_case(torch, wk, launch, shape, call):
+    """The topk merge kernel alone (mode 2 of the C launch) on the
+    partials `launch` left, against the plain version of that merge (the
+    stable sort `_lex_topk_rows` over the same partials)."""
+    Gp, Np = shape["Gp"], shape["Np"]
+    plan = wk.launch_plan("topk", Gp, Np, NE=call["n_extract"],
+                          TK=call["TK"], tables_v=call["tables_v"])
+    launch()
+    torch.cuda.synchronize()
+    part, vpart = [t for t in launch.kept if t.dtype == torch.int64]
+    top_s, tab_s = [t for t in launch.kept if t.dtype == torch.float32]
+    cnt, tcnt, top_i, tab_i = [t for t in launch.kept
+                               if t.dtype == torch.int32]
+    ps, pi = keys_to_pairs(torch, part.reshape(Gp, -1))
+    vs, vi = keys_to_pairs(torch, vpart.transpose(0, 1).reshape(
+        Gp, plan["Vs"] + 1, -1))
+
+    def plain():
+        return (wk._lex_topk_rows(ps, pi, plan["NE"], Np),
+                wk._lex_topk_rows(vs, vi, plan["TKv"], Np))
+    (ws, wi), (wvs, wvi) = plain()
+    merge = replay(launch.real, (2,) + tuple(launch.args[1:]), launch.kept)
+    merge()
+    torch.cuda.synchronize()
+    for got, want in ((top_s, ws), (top_i, wi), (tab_s, wvs), (tab_i, wvi)):
+        check(torch.equal(got, want), "merge kernel differs from the "
+              "plain merge of the same partials")
+    cold, warm = kernel_ms(torch, merge)
+    # keys read, tile counters read; scores, columns and counters written
+    nbytes = (8 * (part.numel() + vpart.numel()) + 4 * tcnt.numel()
+              + 8 * (top_s.numel() + tab_s.numel()) + 4 * cnt.numel())
+    bound = nbytes / HBM_BYTES_S * 1e3
+    row = {"phase": "kernel", "case": "topk merge", "max_abs_err": 0.0,
+           "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
+           "wrapper_ms": None, "plain_ms": time_ms(torch, plain),
+           "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+           "bound_share_cold": bound / cold, **plan}
+    emit(row)
+    return row
+
+
+#: GPU cycles the timer stalls the card for (torch.cuda._sleep) before a
+#: timed window, so the host has queued the whole window before the card
+#: reaches it and the events time the card, not the host's submissions
+#: (a ctypes launch takes longer on the host than the smallest kernels
+#: take on the card)
+STALL_WARM, STALL_COLD = 4_000_000, 200_000
+
+
+def kernel_ms(torch, launch, reps=50):
+    """Kernel-only times of a prepared launch: warm = CUDA events around
+    `reps` back-to-back launches, over `reps`; cold = the median of
+    `reps` single launches, each after writing a 128 MB scratch tensor
+    (outside the events) so the 50 MB L2 holds none of the inputs."""
+    launch()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(STALL_WARM)
+    a.record()
+    for _ in range(reps):
+        launch()
+    b.record()
+    b.synchronize()
+    warm = a.elapsed_time(b) / reps
+    scratch = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE)
+    cold = []
+    for i in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        scratch.fill_(float(i))
+        torch.cuda._sleep(STALL_COLD)
+        a.record()
+        launch()
+        b.record()
+        b.synchronize()
+        cold.append(a.elapsed_time(b))
+    del scratch
+    return statistics.median(cold), warm
 
 
 def ops_per_pair(R, D, S):
@@ -235,40 +426,85 @@ def wave_bytes(torch, kw, res):
     return total
 
 
-def phase_kernel(torch, wk):
+KERNEL_CASES = [
+    ("score", dict(Gp=128, Np=10240, S=1, V=4, D=0, with_blocked=False),
+     dict(mode="score", TK=260, n_extract=384)),
+    ("score+dev+blocked",
+     dict(Gp=128, Np=10240, S=1, V=4, D=1, with_blocked=True),
+     dict(mode="score", TK=260, n_extract=384)),
+    ("topk+tables", dict(Gp=4, Np=10240, S=1, V=4, D=1, with_blocked=False),
+     dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
+]
+
+
+def load_baseline(path):
+    """`nomad_tpu_torch.solver.wave_kernel` of another checkout (for
+    example the parent commit, unpacked with `git archive`), imported
+    under the package name `baseline_nomad_tpu_torch`; it builds its own
+    library into that checkout's `nomad_tpu_torch/_build/`."""
+    import importlib
+    import importlib.util
+    root = os.path.join(os.path.abspath(path), "nomad_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_nomad_tpu_torch", os.path.join(root, "__init__.py"),
+        submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(spec.name + ".solver.wave_kernel")
+
+
+def phase_kernel(torch, wk, base_wk=None):
+    """Each kernel against its plain version at the main path's shapes,
+    then its times: kernel-only cold and warm (`kernel_ms`), the whole
+    wrapper call and the plain version.  With `base_wk` (another
+    checkout's module) both kernels are also timed kernel-only in turns,
+    baseline, this tree, this tree, baseline."""
     dev = torch.device(DEVICE)
-    cases = [
-        ("score", dict(Gp=128, Np=10240, S=1, V=4, D=0, with_blocked=False),
-         dict(mode="score", TK=260, n_extract=384)),
-        ("score+dev+blocked",
-         dict(Gp=128, Np=10240, S=1, V=4, D=1, with_blocked=True),
-         dict(mode="score", TK=260, n_extract=384)),
-        ("topk+tables", dict(Gp=4, Np=10240, S=1, V=4, D=1,
-                             with_blocked=False),
-         dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
-    ]
     out = {}
-    for i, (name, shape, call) in enumerate(cases):
+    for i, (name, shape, call) in enumerate(KERNEL_CASES):
         kw = wave_inputs(torch, seed=100 + i, device=dev, **shape)
         kw.update(call, seed=1 + i)
         res_k = wk.fused_wave(**kw)
         res_p = wk.fused_wave_plain(**kw)
         torch.cuda.synchronize()
         err = compare_wave(torch, name, kw, res_k, res_p)
-        ms = time_ms(torch, lambda: wk.fused_wave(**kw))
+        launch = raw_launch(torch, wk, kw)
+        cold, warm = kernel_ms(torch, launch)
+        wrapper_ms = time_ms(torch, lambda: wk.fused_wave(**kw))
         plain_ms = time_ms(torch, lambda: wk.fused_wave_plain(**kw))
         nbytes = wave_bytes(torch, kw, res_k)
         ops = (shape["Gp"] * shape["Np"]
                * ops_per_pair(4, shape["D"], shape["S"]))
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = ops / F32_OPS_S * 1e3
+        bound = max(t_bytes, t_ops)
         row = {"phase": "kernel", "case": name, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-               "ops": ops, "bound_ms": max(t_bytes, t_ops),
+               "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "bytes": nbytes, "ops": ops, "bound_ms": bound,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_share_cold": bound / cold,
                **shape, **{k: v for k, v in call.items() if k != "mode"}}
+        if base_wk is not None:
+            res_b = base_wk.fused_wave(**kw)
+            torch.cuda.synchronize()
+            compare_wave(torch, name + " (baseline)", kw, res_b, res_p)
+            base = raw_launch(torch, base_wk, kw)
+            turns = [kernel_ms(torch, f) for f in (base, launch, launch,
+                                                   base)]
+            row["turns"] = {
+                "order": ["baseline", "this", "this", "baseline"],
+                "cold_ms": [t[0] for t in turns],
+                "warm_ms": [t[1] for t in turns],
+                "baseline_wrapper_ms": time_ms(
+                    torch, lambda: base_wk.fused_wave(**kw))}
+            del base
         emit(row)
         out[name] = row
+        if call["mode"] == "topk":
+            out["topk merge"] = merge_case(torch, wk, launch, shape, call)
+        del launch
     return out
 
 
@@ -419,7 +655,7 @@ def phase_solve(torch, wk, n_nodes, resident, n_evals):
 
     # ---- the main path, launch counts zeroed just before ----
     wk.fused_wave.launches = 0
-    wk.fused_wave.mode_launches = {"score": 0, "topk": 0}
+    wk.fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
     torch.cuda.synchronize()
     walls, placed, failed, waves, resc = [], 0, 0, [], []
     packs, devs = [], []
@@ -448,13 +684,14 @@ def phase_solve(torch, wk, n_nodes, resident, n_evals):
     m_out = solver.solve(nodes, merged_asks, by_node)
     merged_s = time.perf_counter() - t1
     torch.cuda.synchronize()
-    counts = {"score": wk.fused_wave.mode_launches["score"],
-              "topk": wk.fused_wave.mode_launches["topk"]}
+    counts = dict(wk.fused_wave.mode_launches)
     m_placed = sum(p.node is not None for p in m_out.placements)
     check(counts["topk"] > 0, "one-eval solves launched no topk kernel")
     check(counts["score"] > 0, "merged batch launched no score kernel")
     check(topk_launches == counts["topk"],
           "merged batch unexpectedly ran topk mode")
+    check(counts["merge"] == counts["topk"],
+          "a topk launch ran without its merge kernel")
     check(placed > 0 and m_placed > 0, "nothing was placed")
     for p in m_out.placements:
         check(p.node is None or np.isfinite(p.score), "non-finite score")
@@ -505,25 +742,39 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="also time the fused wave kernel of the checkout "
+                    "at DIR (e.g. the parent commit), kernel-only, in "
+                    "turns with this tree's")
+    args = ap.parse_args()
     sys.path.insert(0, HERE)
     from nomad_tpu_torch.solver import wave_kernel as wk
 
     card = phase_device(torch)
     phase_build(wk)
-    kern = phase_kernel(torch, wk)
+    base_wk = load_baseline(args.baseline) if args.baseline else None
+    kern = phase_kernel(torch, wk, base_wk)
     counts = phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
     src = "nomad_tpu_torch/solver/csrc/wave_kernel.cu"
     kernels = []
-    for mode, case, line in (("score", "score", 317),
-                             ("topk", "topk+tables", 543)):
+    # fused_wave[topk] is the whole topk launch (tile kernel + merge);
+    # fused_wave[topk merge] is the merge kernel alone
+    for name, mode, case, line in (
+            ("fused_wave[score]", "score", "score", 317),
+            ("fused_wave[topk]", "topk", "topk+tables", 543),
+            ("fused_wave[topk merge]", "merge", "topk merge", 333)):
         r = kern[case]
         kernels.append({
-            "name": f"fused_wave[{mode}]", "route": "cuda", "source": src,
+            "name": name, "route": "cuda", "source": src,
             "replaces": f"nomad_tpu/solver/pallas_kernel.py:{line}",
             "launches": counts[mode], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "kernel_ms_cold": r["kernel_ms_cold"],
+            "kernel_ms_warm": r["kernel_ms_warm"],
+            "wrapper_ms": r["wrapper_ms"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,32 +6,36 @@ modes "score" and "topk", with the per-value spread tables) with one
 hand-written CUDA C++ source, `csrc/wave_kernel.cu`, built with nvcc for
 sm_90a:
 
-  mode "score": one thread per (group, node) pair writes the [Gp, Np]
-      score plane and folds the per-group explainability counters in with
-      integer warp sums and atomics;
-  mode "topk": one block per (node tile, group) keeps the tile's scores in
-      shared memory and extracts its top `n_extract` entries in (score
-      desc, column asc) order — and, with `tables_v`, the top entries of
-      each spread value class plus the missing-value class — so the
-      [Gp, Np] plane never reaches device memory.  The tile partials merge
-      here with a stable sort, which keeps the lower column first among
-      equal scores (torch.topk does not promise that order).
+  mode "score": a block owns a 1,024-node stripe for a few groups, reads
+      the node rows once and the [Gp, Np] planes 16 bytes a thread, writes
+      the score plane and folds the per-group explainability counters in
+      with one atomic per block, group and counter slot;
+  mode "topk": one block per (256-node tile, group) ranks the tile's
+      entries in (score desc, column asc) order by counting, and writes its
+      top `n_extract` keys — and, with `tables_v`, those of each spread
+      value class plus the missing-value class — so the [Gp, Np] plane
+      never reaches device memory; a second kernel merges the tile lists
+      (binary-search ranks, no sort), so the lower column stays first
+      among equal scores (torch.topk does not promise that order).
 
-Bound on the H100: the pass is memory-bound.  A full wave must read the
-three f32 [Gp, Np] planes (affinity, jitter, collocation), the spread
-planes (i16 value ranks, f32 desired counts), the bit-packed masks and the
-small [Np, R] node planes, and in score mode write the f32 score plane;
-at Gp=128, Np=10,240 that is about 30 MB, 9 us at 3.35 TB/s.  The kernel
-reads each of those bytes once with neighbouring threads on neighbouring
-nodes and keeps every intermediate in registers or shared memory
-(`PERF.md` holds the measured times beside the bound).
+Bound on the H100: memory.  A score wave must read the three f32
+[Gp, Np] planes (affinity, jitter, collocation), the spread planes (i16
+value ranks, f32 desired counts), the bit-packed masks and the small
+[Np, R] node planes, and write the f32 score plane: at Gp=128,
+Np=10,240 about 30 MB, 9 us at 3.35 TB/s.  A topk wave at Gp=4 moves
+1.3 MB and is bound by the depth of its dependent steps.  The design
+notes are in the source; `PERF.md` holds the measured times beside the
+bounds.
 
-`fused_wave` launches the kernel for CUDA tensors and counts the launch in
-`fused_wave.launches` (and per mode in `fused_wave.mode_launches`); for
-CPU tensors it returns `fused_wave_plain`, the same function in plain
-torch (the CPU tests and chip_smoke.py's comparison use it).  There is no fallback: a failed build or launch
-raises.  The shared library is built from `csrc/` on first use into
-`nomad_tpu_torch/_build/`.
+`launch_plan` is the launch geometry as plain Python (the CPU tests check
+it).  `fused_wave` launches the kernels for CUDA tensors and counts each
+call in `fused_wave.launches` and per mode in `fused_wave.mode_launches`
+("score", "topk", and "merge" for the topk merge kernel that every topk
+call launches); for CPU tensors it returns `fused_wave_plain`, the same
+function in plain torch (the CPU tests and chip_smoke.py's comparison use
+it).  There is no fallback: a failed build or launch, or a launch the
+plan cannot fit, raises.  The shared library is built from `csrc/` on
+first use into `nomad_tpu_torch/_build/`.
 """
 from __future__ import annotations
 
@@ -58,10 +62,22 @@ _V_MAX = 16
 #: the reference's per-tile working-set budget, in [Gp, T] elements; the
 #: mode pick keeps its tile rule so both packages pick the same mode
 _TILE_ELEMS = 1 << 18
-#: node-tile width of the CUDA topk kernel (one block per tile and group)
-_CUDA_TILE = 512
 #: counter slots before the per-dimension ones: n_feas, n_exh, n_placeable
 _CNT_HEAD = 3
+
+# CUDA launch geometry (the constants of csrc/wave_kernel.cu)
+#: score mode: threads a block, nodes a thread, most groups a block
+SCORE_THREADS, SCORE_NODES, SCORE_MAX_GB = 256, 4, 8
+#: topk mode: node-tile width, one node a thread and one tile a block
+TOPK_TILE = 256
+MERGE_THREADS = 1024
+#: widest topk row (n_extract, or the table width) the merge serves
+MERGE_MAX_WIDTH = 1024
+#: the H100's streaming multiprocessors and a block's shared-memory limit
+N_SMS = 132
+SMEM_LIMIT = 232_448
+#: shared memory the merge aims to stay within (room for two blocks an SM)
+_MERGE_SMEM_BUDGET = 96 * 1024
 
 _R_CPU, _R_MEM = 0, 1
 
@@ -82,6 +98,62 @@ def pick_tile(Np: int, Gp: int) -> int:
         if Np % t == 0 and t <= budget:
             return t
     return Np
+
+
+def launch_plan(mode: str, Gp: int, Np: int, NE: int = 0, TK: int = 0,
+                tables_v: int = 0) -> dict:
+    """Geometry of one CUDA launch of the fused wave, as a plain dict (no
+    torch, no GPU): what `_launch` passes to csrc/wave_kernel.cu.
+
+      score: a block of SCORE_THREADS threads owns a stripe of
+             SCORE_THREADS * SCORE_NODES nodes for `groups_per_block`
+             groups, the fewest that keep the grid within one round of
+             two blocks an SM (the kernel's ~100 registers a thread allow
+             two), so no second round of a few blocks trails the first.
+      topk:  one block per (TOPK_TILE-node tile, group); each tile writes
+             `partial_widths[t]` sorted keys (`table_partial_widths[t]`
+             per class table); the merge runs one block of
+             MERGE_THREADS per (group, list) and merges `merge_batch` tile
+             lists of `merge_width` keys at a time in `merge_smem` bytes of
+             dynamic shared memory.
+
+    Raises ValueError for a topk row wider than MERGE_MAX_WIDTH (the
+    merge holds a list in a warp's registers)."""
+    if mode == "score":
+        stripe = SCORE_THREADS * SCORE_NODES
+        stripes = -(-Np // stripe)
+        gb = max(1, min(SCORE_MAX_GB, -(-stripes * Gp // (2 * N_SMS)), Gp))
+        return {"mode": mode, "threads": SCORE_THREADS, "stripe": stripe,
+                "groups_per_block": gb, "grid": (stripes, -(-Gp // gb)),
+                "smem": 0}
+    if mode != "topk":
+        raise ValueError(f"fused_wave: unknown mode {mode!r}")
+    NE = NE or TK
+    T = TOPK_TILE
+    n_tiles = -(-Np // T)
+    lens = [min(T, Np - t * T) for t in range(n_tiles)]
+    TKt = min(NE, T)
+    Vs = tables_v
+    TKv = -(-TK // (Vs + 1)) if Vs else 0
+    TKvt = min(TKv, T)
+    # the merge's list width: the widest output, rounded up to a power of
+    # two and at least a warp (one key a lane and register)
+    Kw = max(32, 1 << (max(NE, TKv) - 1).bit_length())
+    if Kw > MERGE_MAX_WIDTH:
+        raise ValueError(f"fused_wave: the topk merge takes at most "
+                         f"{MERGE_MAX_WIDTH} entries a row, not {NE}")
+    batch = max(1, min(n_tiles, _MERGE_SMEM_BUDGET // (16 * Kw) - 1))
+    # two buffers of batch + 1 lists of 8-byte keys, and their lengths
+    smem = (batch + 1) * (16 * Kw + 8)
+    return {"mode": mode, "threads": T, "tile": T, "n_tiles": n_tiles,
+            "grid": (n_tiles, Gp), "smem": 0, "NE": NE, "TKt": TKt,
+            "Vs": Vs, "TKv": TKv, "TKvt": TKvt,
+            "partial_widths": [min(TKt, n) for n in lens],
+            "table_partial_widths": [min(TKvt, n) for n in lens]
+            if Vs else [],
+            "merge_grid": (Gp, Vs + 2 if Vs else 1),
+            "merge_threads": MERGE_THREADS, "merge_batch": batch,
+            "merge_width": Kw, "merge_smem": smem}
 
 
 def resolve_mode(Np: int, Gp: int, TK: int, V: int, has_spread: bool,
@@ -122,17 +194,21 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile csrc/wave_kernel.cu into the build directory (no-op when
     the library for this source and these flags exists).  Raises on a
-    compiler error."""
+    compiler error.  ptxas's report of each kernel's registers, shared
+    memory and spills (`-Xptxas -v`, which changes no code) is kept
+    beside the library as `<library>.ptxas.txt`."""
     out = library_path()
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(_CSRC)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    Path(str(out) + ".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 
@@ -144,7 +220,7 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             fn = lib.nomad_wave_launch
             P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = ([I] + [P] * 23 + [I] * 7 + [P] * 6 + [I] * 4
+            fn.argtypes = ([I] + [P] * 23 + [I] * 7 + [P] * 9 + [I] * 10
                            + [P])
             fn.restype = I
             _lib = lib
@@ -341,9 +417,10 @@ def fused_wave(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
     return _launch(**kw)
 
 
-#: kernel launches, in all and per mode (CPU calls are not counted)
+#: wrapper calls that launched, in all and per mode, and launches of the
+#: topk merge kernel (one with every topk call; CPU calls are not counted)
 fused_wave.launches = 0
-fused_wave.mode_launches = {"score": 0, "topk": 0}
+fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
 
 
 def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
@@ -385,7 +462,9 @@ def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
         _check("sp_vnode", sp_vnode, torch.int16, (S, Gp, Np), device)
         _check("sp_des", sp_des, f32, (S, Gp, Np), device)
         _check("sp_used", sp_used, f32, (Gp, S, V), device)
-        sp_targeted = sp_targeted.to(torch.int8).contiguous()
+        if sp_targeted.dtype == torch.bool:
+            # the same bytes, no copy: the launch reads the caller's tensor
+            sp_targeted = sp_targeted.view(torch.int8)
         for name, t, dt in (("sp_weight", sp_weight, f32),
                             ("sp_targeted", sp_targeted, torch.int8),
                             ("sp_has", sp_has, torch.int8),
@@ -397,27 +476,36 @@ def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
     want_tables = mode == "topk" and tables_v > 0
     if want_tables and S == 0:
         raise ValueError("fused_wave: tables_v needs the spread planes")
+    if want_tables and tables_v > _V_MAX:
+        raise ValueError(f"fused_wave: tables_v={tables_v} above "
+                         f"{_V_MAX}")
 
-    NE = n_extract or TK
-    T = min(_CUDA_TILE, Np)
-    n_tiles = -(-Np // T)
-    TKt = min(NE, T)
-    Vs = tables_v if want_tables else 0
-    TKv = -(-TK // (Vs + 1)) if want_tables else 0
-    TKvt = min(TKv, T) if want_tables else 0
-
-    cnt = torch.zeros((Gp, _CNT_HEAD + R), dtype=i32, device=device)
-    score = part_s = part_i = vpart_s = vpart_i = None
+    plan = launch_plan(mode, Gp, Np, NE=n_extract or TK, TK=TK,
+                       tables_v=tables_v if want_tables else 0)
+    # the launch writes every counter (score mode zeroes them first)
+    cnt = torch.empty((Gp, _CNT_HEAD + R), dtype=i32, device=device)
+    score = part = vpart = tcnt = top_s = top_i = tab_s = tab_i = None
+    T = GB = NE = TKt = Vs = TKv = TKvt = batch = width = merge_smem = 0
     if mode == "score":
+        GB = plan["groups_per_block"]
         score = torch.empty((Gp, Np), dtype=f32, device=device)
     else:
-        part_s = torch.empty((Gp, n_tiles * TKt), dtype=f32, device=device)
-        part_i = torch.empty((Gp, n_tiles * TKt), dtype=i32, device=device)
+        T, NE, TKt = plan["tile"], plan["NE"], plan["TKt"]
+        Vs, TKv, TKvt = plan["Vs"], plan["TKv"], plan["TKvt"]
+        batch, merge_smem = plan["merge_batch"], plan["merge_smem"]
+        width = plan["merge_width"]
+        n_tiles = plan["n_tiles"]
+        part = torch.empty((Gp, n_tiles, TKt), dtype=torch.int64,
+                           device=device)
+        tcnt = torch.empty((Gp, n_tiles, _CNT_HEAD + R), dtype=i32,
+                           device=device)
+        top_s = torch.empty((Gp, NE), dtype=f32, device=device)
+        top_i = torch.empty((Gp, NE), dtype=i32, device=device)
         if want_tables:
-            vpart_s = torch.empty((Vs + 1, Gp, n_tiles * TKvt), dtype=f32,
-                                  device=device)
-            vpart_i = torch.empty((Vs + 1, Gp, n_tiles * TKvt), dtype=i32,
-                                  device=device)
+            vpart = torch.empty((Vs + 1, Gp, n_tiles, TKvt),
+                                dtype=torch.int64, device=device)
+            tab_s = torch.empty((Gp, Vs + 1, TKv), dtype=f32, device=device)
+            tab_i = torch.empty((Gp, Vs + 1, TKv), dtype=i32, device=device)
 
     def ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()
@@ -432,21 +520,20 @@ def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
             ptr(ask_desired), *[ptr(t) for t in dev_ptrs],
             *[ptr(t) for t in sp_ptrs],
             Gp, Np, R, D, S, V, int(seed), ptr(cnt), ptr(score),
-            ptr(part_s), ptr(part_i), ptr(vpart_s), ptr(vpart_i),
-            T, TKt, Vs, TKvt, stream)
+            ptr(part), ptr(vpart), ptr(tcnt), ptr(top_s), ptr(top_i),
+            ptr(tab_s), ptr(tab_i), T, GB, NE, TKt, Vs, TKv, TKvt, batch,
+            width, merge_smem, stream)
     if rc != 0:
         raise RuntimeError(f"fused_wave: kernel launch failed with CUDA "
                            f"error {rc}")
     fused_wave.launches += 1
     fused_wave.mode_launches[mode] += 1
-
     res = _counters(cnt, R)
     if mode == "score":
         res["score"] = score
         return res
-    res["top_score"], res["top_idx"] = _lex_topk_rows(part_s, part_i, NE,
-                                                      Np)
+    fused_wave.mode_launches["merge"] += 1
+    res["top_score"], res["top_idx"] = top_s, top_i
     if want_tables:
-        res["tab_s"], res["tab_i"] = _lex_topk_rows(
-            vpart_s.transpose(0, 1), vpart_i.transpose(0, 1), TKv, Np)
+        res["tab_s"], res["tab_i"] = tab_s, tab_i
     return res

@@ -15,8 +15,53 @@ import torch
 from nomad_tpu_torch.solver import wave_kernel as wk
 
 
-def make_inputs(seed, Gp, Np, S=1, V=4, D=0, blocked=False, wave_seed=3):
-    """Numpy inputs for one wave at realistic magnitudes."""
+def make_inputs(seed, Gp, Np, S=1, V=4, D=0, blocked=False, wave_seed=3,
+                R=4, ties=False, dead=None, rare=False):
+    """Numpy inputs for one wave at realistic magnitudes.  The edge
+    switches (their draws come after the default ones, so the default
+    cases keep their inputs):
+
+      R     resource dimensions, 2..8 (the first four are cpu, memory,
+            disk and a 1000-wide one; more are narrow and often full);
+      ties  every node has the same capacity and usage, and no affinity,
+            collocation or reservation: with wave_seed=0 most scores tie
+            and the column order decides;
+      dead  (lo, hi): no node in columns lo..hi-1 is feasible;
+      rare  spread value 0 never occurs and value 1 on three nodes of a
+            row, so one class table has no entry and one fewer than its
+            width."""
+    x = _make_inputs(seed, Gp, Np, S, V, D, blocked, wave_seed)
+    rng = np.random.default_rng(seed + 1000)
+    f32 = np.float32
+    if R != 4:
+        extra = max(0, R - 4)
+        x["used"] = np.concatenate(
+            [x["used"][:, :R], rng.integers(0, 6, (Np, extra)) * f32(10)],
+            1).astype(f32)
+        x["avail"] = np.concatenate(
+            [x["avail"][:, :R], np.full((Np, extra), 45, f32)], 1)
+        x["reserved"] = np.concatenate(
+            [x["reserved"][:, :R], np.zeros((Np, extra), f32)], 1)
+        x["ask_res"] = np.concatenate(
+            [x["ask_res"][:, :R], rng.integers(0, 2, (Gp, extra)) * f32(5)],
+            1).astype(f32)
+    if ties:
+        for k in ("used", "reserved"):
+            x[k] = np.zeros_like(x[k])
+        x["avail"] = np.broadcast_to(x["avail"][:1], x["avail"].shape).copy()
+        for k in ("aff", "coll"):
+            x[k] = np.zeros_like(x[k])
+    if dead is not None:
+        x["feas"][:, dead[0]:dead[1]] = False
+    if rare:
+        vnode = x["spread"][0]
+        vnode[...] = rng.choice(np.array([2, 3, -1], np.int16), vnode.shape)
+        for row in vnode.reshape(-1, Np):
+            row[rng.choice(Np, 3, replace=False)] = 1
+    return x
+
+
+def _make_inputs(seed, Gp, Np, S, V, D, blocked, wave_seed):
     rng = np.random.default_rng(seed)
     f32 = np.float32
     cap = np.stack([4000 + (np.arange(Np) % 8) * 1000,
@@ -110,6 +155,27 @@ CASES = [
      dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
     ("topk-tables-unseeded", dict(Gp=4, Np=128, V=8, wave_seed=0),
      dict(mode="topk", TK=36, tables_v=8)),
+    # edges of the rank selection and the merge
+    ("topk-mass-ties", dict(Gp=4, Np=1024, wave_seed=0, ties=True),
+     dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
+    ("topk-dead-tile", dict(Gp=4, Np=1024, dead=(256, 512)),
+     dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
+    ("topk-ties-dead-tile",
+     dict(Gp=2, Np=768, wave_seed=0, ties=True, dead=(0, 256)),
+     dict(mode="topk", TK=36, n_extract=300, tables_v=4)),
+    ("topk-rare-classes", dict(Gp=4, Np=1024, rare=True),
+     dict(mode="topk", TK=60, n_extract=64, tables_v=4)),
+    ("topk-extract-wider-than-tile", dict(Gp=2, Np=1024, D=1),
+     dict(mode="topk", TK=36, n_extract=384)),
+    ("topk-np64", dict(Gp=3, Np=64),
+     dict(mode="topk", TK=36, n_extract=128, tables_v=4)),
+    ("topk-np96-ragged", dict(Gp=3, Np=96, blocked=True),
+     dict(mode="topk", TK=36, n_extract=64, tables_v=4)),
+    ("score-np96-ragged", dict(Gp=5, Np=96, D=1, blocked=True),
+     dict(mode="score", TK=36)),
+    ("score-r2", dict(Gp=16, Np=1024, R=2), dict(mode="score", TK=36)),
+    ("score-r8", dict(Gp=16, Np=1024, R=8, D=1),
+     dict(mode="score", TK=36)),
 ]
 
 
