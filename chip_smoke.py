@@ -36,10 +36,28 @@ Phases, one JSON line each; any failed phase exits nonzero:
                reference's cross-backend criteria
                (tests/test_host_solver.py assert_same), and no node may
                end oversubscribed.
+  5. schedule — the scheduler path, the main path: a StateStore holding
+               the same cluster with the 100,000 resident allocs upserted
+               as running allocs of a resident job, and `Harness(store)`
+               with one shared `Solver(device="cuda")`.  16 config-3
+               service evals (fused topk mode), then one batch fan-out
+               eval, count 1,024 in 4 groups (fused score mode), each
+               upserted with its job and run by `h.process`.  Per eval:
+               wall, and its split into scheduler host time before the
+               solve (snapshot, reconcile, allocs by node, asks), pack,
+               launch-to-fetch, host fixup, plan apply into the store and
+               the rest (alloc emission, status).  Checks: every eval
+               complete, the store holds exactly each job's placed allocs
+               by name, no node's live allocs exceed it, topk and merge
+               launches in the service evals and score launches in the
+               batch eval, and the last service eval's and the batch
+               eval's packed batches re-solved with the kernel and with
+               the plain wave agree under assert_same.  Launch counts are
+               zeroed just before the evals and read just after.
 
 The line before the last lists every kernel with its launches on the main
-path, error against the plain version, times (`ms` is the kernel-only
-cold time) and bound; the last line is
+path (phase 5), error against the plain version, times (`ms` is the
+kernel-only cold time) and bound; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -72,6 +90,9 @@ RESIDENT = 100_000
 R_VEC = (200, 256, 300)          # resident alloc cpu, memory, disk
 N_EVALS = 32
 COUNT = 64
+#: phase 5: config-3 service evals, then one batch fan-out eval
+N_SERVICE_EVALS = 16
+BATCH_COUNT = 1024
 
 
 def emit(obj) -> None:
@@ -615,6 +636,13 @@ def plain_wave(wk):
         wk.fused_wave = real
 
 
+def launch_to_fetch(trace):
+    """The wave loop on the card and its host driving: the launch wall
+    after the pack (`dispatch_wall_s`) plus the wall blocked on the
+    fetch (`fetch_wall_s`)."""
+    return trace["dispatch_wall_s"] + trace["fetch_wall_s"]
+
+
 def pct(xs, p):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p * (len(xs) - 1))))]
@@ -668,9 +696,7 @@ def phase_solve(torch, wk, n_nodes, resident, n_evals):
         out = solver.solve(nodes, asks, by_node)
         walls.append(time.perf_counter() - t1)
         packs.append(out.trace["pack_wall_s"])
-        # launch-to-fetch: the wave loop on the card and its host driving
-        devs.append(out.trace["dispatch_wall_s"] - out.trace["pack_wall_s"]
-                    + out.trace["fetch_wall_s"])
+        devs.append(launch_to_fetch(out.trace))
         waves.append(out.trace["waves"])
         resc.append(out.trace["rescore_waves"])
         n = charge(mock, by_node, job, asks, out)
@@ -728,10 +754,248 @@ def phase_solve(torch, wk, n_nodes, resident, n_evals):
                       "rescore_waves": m_out.trace["rescore_waves"],
                       "wall_s": merged_s,
                       "pack_s": m_out.trace["pack_wall_s"],
-                      "device_solve_s": m_out.trace["dispatch_wall_s"]
-                      - m_out.trace["pack_wall_s"]
-                      + m_out.trace["fetch_wall_s"],
+                      "device_solve_s": launch_to_fetch(m_out.trace),
                       "placements_per_s": m_placed / merged_s},
+           "launches": counts}
+    emit(row)
+    return counts
+
+
+# ------------------------------------------------------------ phase 5
+class EvalClock:
+    """Times the parts of each `Harness.process` call from outside: the
+    store's `snapshot` (the scheduler's first step), the shared solver's
+    `solve_async` (its PendingSolve carries pack, launch, fetch and fixup
+    walls), the harness's `submit_plan` (plan apply into the store), and
+    the garbage collector's pauses (which overlap the other parts).  It
+    also keeps the last batch the solver's tensorizer packed."""
+
+    def __init__(self, h):
+        import gc
+        self.solves, self.applies, self.snaps = [], [], []
+        self.gc_s, self._gc_t, self.last_pb = 0.0, 0.0, None
+        solver, tz, store = h.solver, h.solver._tensorizer, h.store
+        real_solve, real_submit, real_pack, real_snap = (
+            solver.solve_async, h.submit_plan, tz.pack, store.snapshot)
+
+        def solve_async(*a, **kw):
+            t = time.perf_counter()
+            pending = real_solve(*a, **kw)
+            self.solves.append((t, pending))
+            return pending
+
+        def submit_plan(plan):
+            t = time.perf_counter()
+            out = real_submit(plan)
+            self.applies.append(time.perf_counter() - t)
+            return out
+
+        def pack(*a, **kw):
+            self.last_pb = real_pack(*a, **kw)
+            return self.last_pb
+
+        def snapshot():
+            t = time.perf_counter()
+            out = real_snap()
+            self.snaps.append(time.perf_counter() - t)
+            return out
+
+        def on_gc(phase, _info):
+            if phase == "start":
+                self._gc_t = time.perf_counter()
+            else:
+                self.gc_s += time.perf_counter() - self._gc_t
+
+        solver.solve_async, h.submit_plan, tz.pack, store.snapshot = (
+            solve_async, submit_plan, pack, snapshot)
+        gc.callbacks.append(on_gc)
+        self.close = lambda: gc.callbacks.remove(on_gc)
+
+    def process(self, h, sched, ev):
+        """One eval through the harness; returns its wall and split (s):
+        the store snapshot, the rest of the scheduler's host work before
+        the solve (reconcile, allocs by node, asks), pack,
+        launch-to-fetch, host fixup, plan apply, and the rest after the
+        solve (alloc emission, status); `gc` overlaps them."""
+        self.solves, self.applies, self.snaps = [], [], []
+        self.gc_s = 0.0
+        t0 = time.perf_counter()
+        h.process(sched, ev)
+        wall = time.perf_counter() - t0
+        check(len(self.solves) == 1, f"eval {ev.job_id}: "
+              f"{len(self.solves)} solves, expected one")
+        t_solve, p = self.solves[0]
+        split = {"snapshot": sum(self.snaps),
+                 "reconcile_prepare": t_solve - t0 - sum(self.snaps),
+                 "pack": p.pack_wall_s,
+                 "launch_to_fetch": p.dispatch_wall_s + p.fetch_wall_s,
+                 "fixup": p.finish_wall_s, "plan_apply": sum(self.applies)}
+        split["after_solve"] = wall - sum(split.values())
+        split["gc"] = self.gc_s
+        return wall, split, p.wait()
+
+
+def schedule_store(mock, structs, n_nodes, resident):
+    """A StateStore holding bench.py's config-3 cluster, upserted in
+    order, and `resident` running allocs of one resident job (R_VEC
+    each, round-robin over the nodes)."""
+    from nomad_tpu_torch.state.store import StateStore
+    store = StateStore()
+    nodes = make_nodes(mock, n_nodes)
+    for i, n in enumerate(nodes):
+        store.upsert_node(1 + i, n)
+    by_node = resident_allocs(mock, nodes, resident)
+    res_job = next(iter(by_node.values()))[0].job
+    store.upsert_job(n_nodes + 1, res_job)
+    allocs = [a for lst in by_node.values() for a in lst]
+    for a in allocs:
+        a.client_status = structs.ALLOC_CLIENT_RUNNING
+    store.upsert_allocs(n_nodes + 2, allocs)
+    return store, nodes
+
+
+def batch_job(mock, structs, count):
+    """config-3's job shape as a batch fan-out job: the same constraints,
+    affinity and spread, `count` placements in 4 groups."""
+    job = make_job(mock, structs, "batch", count)
+    job.id = job.name = "batch-fanout"
+    job.type = structs.JOB_TYPE_BATCH
+    for tg in job.task_groups:
+        tg.reschedule_policy = structs.ReschedulePolicy.default_batch()
+    return job
+
+
+def check_store(structs, store, jobs, nodes):
+    """The store holds exactly each job's placed allocs (by name, as the
+    plans placed them), and no node's non-terminal allocs exceed it."""
+    for job, placed_names in jobs:
+        names = sorted(a.name for a in store.allocs_by_job(job.namespace,
+                                                           job.id))
+        check(names == sorted(placed_names),
+              f"{job.id}: the store holds {len(names)} allocs, the plans "
+              f"placed {len(placed_names)}")
+        check(len(set(names)) == len(names), f"{job.id}: duplicate names")
+    for n in nodes:
+        live = store.allocs_by_node_terminal(n.id, False)
+        fit, dim, _used = structs.allocs_fit(n, live)
+        check(fit, f"node {n.name} oversubscribed ({dim})")
+
+
+def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
+    """The scheduler path end to end: evals through Harness.process ->
+    GenericScheduler -> reconciler -> Solver on the card -> plan applied
+    into the StateStore."""
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.solver.solve import Solver, _run_kernel, _to_host
+    t0 = time.perf_counter()
+    store, nodes = schedule_store(mock, structs, n_nodes, resident)
+    setup_s = time.perf_counter() - t0
+    h = Harness(store)
+    h.solver = Solver(device=DEVICE)
+    clock = EvalClock(h)
+    service = [make_job(mock, structs, e, COUNT) for e in range(n_evals)]
+    bjob = batch_job(mock, structs, batch_count)
+
+    def submit(job):
+        store.upsert_job(h.next_index(), job)
+        ev = mock.eval_(job_id=job.id, type=job.type,
+                        priority=job.priority)
+        store.upsert_evals(h.next_index(), [ev])
+        return ev
+
+    def run(sched, job):
+        ev = submit(job)
+        n_plans = len(h.plans)
+        wall, split, out = clock.process(h, sched, ev)
+        final = h.evals[-1]
+        check(final.id == ev.id and final.status
+              == structs.EVAL_STATUS_COMPLETE,
+              f"{job.id}: eval ended {final.status!r} "
+              f"({final.status_description})")
+        names = [a.name for p in h.plans[n_plans:]
+                 for lst in p.node_allocation.values() for a in lst
+                 if a.job_id == job.id]
+        failed = sum(final.queued_allocations.values())
+        check(len(names) + failed == sum(tg.count
+                                         for tg in job.task_groups),
+              f"{job.id}: {len(names)} placed + {failed} queued")
+        for p in out.placements:
+            check(p.node is None or np.isfinite(p.score),
+                  f"{job.id}: non-finite score")
+        reasons = collections.Counter(p.failed_reason
+                                      for p in out.placements
+                                      if p.node is None)
+        return {"wall": wall, "split": split, "placed": len(names),
+                "failed": failed, "reasons": reasons,
+                "waves": out.trace["waves"],
+                "rescore_waves": out.trace["rescore_waves"],
+                "names": names, "pb": clock.last_pb}
+
+    # ---- the main path, launch counts zeroed just before ----
+    wk.fused_wave.launches = 0
+    wk.fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
+    torch.cuda.synchronize()
+    svc = [run("service", job) for job in service]
+    torch.cuda.synchronize()
+    svc_counts = dict(wk.fused_wave.mode_launches)
+    bat = run("batch", bjob)
+    torch.cuda.synchronize()
+    clock.close()
+    counts = dict(wk.fused_wave.mode_launches)
+    bat_counts = {k: counts[k] - svc_counts[k] for k in counts}
+    check(svc_counts["topk"] > 0, "service evals launched no topk kernel")
+    check(svc_counts["merge"] == svc_counts["topk"],
+          "a topk launch ran without its merge kernel")
+    check(svc_counts["score"] == 0, "a service eval ran score mode")
+    check(bat_counts["score"] > 0, "the batch eval launched no score kernel")
+    check(bat_counts["topk"] == 0, "the batch eval ran topk mode")
+
+    # ---- checks (launches here are not counted) ----
+    check_store(structs, store, [(j, r["names"]) for j, r in
+                                 zip(service + [bjob], svc + [bat])],
+                nodes)
+    for what, pb in (("last service eval", svc[-1]["pb"]),
+                     ("batch eval", bat["pb"])):
+        res_k = _to_host(_run_kernel(pb, DEVICE))
+        with plain_wave(wk):
+            res_p = _to_host(_run_kernel(pb, DEVICE))
+        assert_same(res_k, res_p, f"{what}: kernel vs plain")
+        real = pb.n_real
+        check(bool(np.all(res_k.used_final[:real] <= pb.avail[:real])),
+              f"{what}: a node is oversubscribed")
+
+    def split_ms(rows, p):
+        return {k: 1e3 * pct([r["split"][k] for r in rows], p)
+                for k in rows[0]["split"]}
+
+    walls = [r["wall"] for r in svc]
+    row = {"phase": "schedule", "nodes": n_nodes,
+           "resident_allocs": resident, "resident_cut": RESIDENT - resident,
+           "setup_s": setup_s,
+           "service": {"evals": n_evals, "count": COUNT,
+                       "p50_ms": 1e3 * pct(walls, 0.5),
+                       "p99_ms": 1e3 * pct(walls, 0.99),
+                       "split_p50_ms": split_ms(svc, 0.5),
+                       "split_p99_ms": split_ms(svc, 0.99),
+                       "walls_ms": [1e3 * w for w in walls],
+                       "gc_ms": [1e3 * r["split"]["gc"] for r in svc],
+                       "placed": sum(r["placed"] for r in svc),
+                       "failed": sum(r["failed"] for r in svc),
+                       "failed_reasons": dict(sum(
+                           (r["reasons"] for r in svc),
+                           collections.Counter())),
+                       "waves": [r["waves"] for r in svc],
+                       "launches": svc_counts},
+           "batch": {"count": batch_count, "groups": len(bjob.task_groups),
+                     "wall_ms": 1e3 * bat["wall"],
+                     "split_ms": {k: 1e3 * v
+                                  for k, v in bat["split"].items()},
+                     "placed": bat["placed"], "failed": bat["failed"],
+                     "failed_reasons": dict(bat["reasons"]),
+                     "waves": bat["waves"],
+                     "rescore_waves": bat["rescore_waves"],
+                     "launches": bat_counts},
            "launches": counts}
     emit(row)
     return counts
@@ -756,7 +1020,9 @@ def main() -> int:
     phase_build(wk)
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
-    counts = phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
+    phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
+    counts = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
+                            BATCH_COUNT)
     src = "nomad_tpu_torch/solver/csrc/wave_kernel.cu"
     kernels = []
     # fused_wave[topk] is the whole topk launch (tile kernel + merge);

@@ -1,6 +1,6 @@
-"""Canonical fixtures (reference: nomad/mock/mock.go): the node, job and
-alloc builders of `nomad_tpu.mock`, for the port's tests and
-chip_smoke.py."""
+"""Canonical fixtures (reference: nomad/mock/mock.go): the node, job,
+system job, batch job, eval and alloc factories of `nomad_tpu.mock`, for
+the port's tests and chip_smoke.py."""
 from __future__ import annotations
 
 import itertools
@@ -8,8 +8,8 @@ import time
 
 from . import structs
 from .structs import (AllocatedResources, AllocatedSharedResources,
-                      AllocatedTaskResources, Allocation, Constraint, Job,
-                      NetworkResource, Node, NodeReservedResources,
+                      AllocatedTaskResources, Allocation, Constraint,
+                      Evaluation, Job, NetworkResource, Node, NodeReservedResources,
                       NodeResources, Port, ReschedulePolicy, Resources,
                       RestartPolicy, Task, TaskGroup)
 from .utils.ids import generate_uuid
@@ -91,6 +91,59 @@ def job(**kw) -> Job:
         setattr(j, k, v)
     j.canonicalize()
     return j
+
+
+def system_job(**kw) -> Job:
+    j = Job(
+        id=f"mock-system-{generate_uuid()}",
+        name="my-job",
+        type=structs.JOB_TYPE_SYSTEM,
+        priority=100,
+        datacenters=["dc1"],
+        constraints=[Constraint(ltarget="${attr.kernel.name}",
+                                rtarget="linux", operand="=")],
+        task_groups=[TaskGroup(
+            name="web", count=1,
+            restart_policy=RestartPolicy(attempts=3, interval_s=600,
+                                         delay_s=60, mode="delay"),
+            ephemeral_disk=structs.EphemeralDisk(size_mb=150),
+            tasks=[Task(name="web", driver="exec",
+                        config={"command": "/bin/date"},
+                        resources=Resources(cpu=500, memory_mb=256))],
+        )],
+        meta={"owner": "armon"},
+        status=structs.JOB_STATUS_PENDING,
+        create_index=42, modify_index=99, job_modify_index=99,
+    )
+    for k, v in kw.items():
+        setattr(j, k, v)
+    j.canonicalize()
+    return j
+
+
+def batch_job(**kw) -> Job:
+    j = job(**kw)
+    j.type = structs.JOB_TYPE_BATCH
+    j.id = f"mock-batch-{generate_uuid()}"
+    for tg in j.task_groups:
+        tg.reschedule_policy = ReschedulePolicy.default_batch()
+    for k, v in kw.items():
+        setattr(j, k, v)
+    return j
+
+
+def eval_(**kw) -> Evaluation:
+    e = Evaluation(
+        namespace=structs.DEFAULT_NAMESPACE,
+        type=structs.JOB_TYPE_SERVICE,
+        job_id=generate_uuid(),
+        priority=50,
+        triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+        status=structs.EVAL_STATUS_PENDING,
+    )
+    for k, v in kw.items():
+        setattr(e, k, v)
+    return e
 
 
 def alloc(**kw) -> Allocation:

@@ -1,0 +1,9 @@
+"""Scheduling layer: reconciler, the generic (service and batch)
+scheduler, harness.
+
+Reference analog: scheduler/ package (SURVEY §2.1). The placement solve
+itself lives in nomad_tpu_torch.solver (on the card); this package is
+the host-side behavior around it.  The system scheduler and the fleet
+path are not ported yet.
+"""
+from .base import new_scheduler  # noqa: F401

@@ -1,14 +1,17 @@
 """Host-side (scalar) feasibility semantics — the checks the tensorizer
-evaluates per node where a constraint does not reduce to a rank compare.
+evaluates per node where a constraint does not reduce to a rank compare,
+and `group_feasible`, the whole check for one (node, group) that the
+scheduler's single-node paths use (sticky placements, in-place updates,
+host-side preemption).
 
 Reference: scheduler/feasible.go — constraint operand zoo `checkConstraint`
 :671, version parsing :694-706, DriverChecker :319, HostVolumeChecker :117,
-FeasibilityWrapper computed-class memoization :915.
+DeviceChecker :1059, FeasibilityWrapper computed-class memoization :915.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..structs import (CONSTRAINT_ATTR_IS_NOT_SET, CONSTRAINT_ATTR_IS_SET,
                        CONSTRAINT_DISTINCT_HOSTS, CONSTRAINT_DISTINCT_PROPERTY,
@@ -284,3 +287,43 @@ def host_volumes_feasible(node: Node, tg: TaskGroup) -> bool:
         if not vol.read_only and cfg.read_only:
             return False
     return True
+
+
+def devices_feasible(node: Node, tg: TaskGroup) -> Tuple[bool, str]:
+    """Count-only device feasibility (reference: DeviceChecker
+    feasible.go:1059). Per-instance selection happens at rank time."""
+    asks: Dict[Tuple[str, str, str], int] = {}
+    for t in tg.tasks:
+        for d in t.resources.devices:
+            asks[d.id_tuple()] = asks.get(d.id_tuple(), 0) + d.count
+    if not asks:
+        return True, ""
+    from ..structs.resources import device_pattern_matches
+    for key, want in asks.items():
+        have = 0
+        for dev in node.node_resources.devices:
+            if device_pattern_matches(key, dev.id_tuple()):
+                have += sum(1 for i in dev.instances if i.healthy)
+        if have < want:
+            v, ty, m = key
+            return False, f"missing devices: {v}/{ty}/{m}"
+    return True, ""
+
+
+def group_feasible(node: Node, job, tg: TaskGroup) -> Tuple[bool, str]:
+    """Full scalar feasibility for one (node, group): datacenter,
+    constraints, drivers, host volumes, devices. Returns (ok, reason)."""
+    if node.datacenter not in job.datacenters and "*" not in job.datacenters:
+        return False, "datacenter not eligible"
+    for c in merged_constraints(job, tg):
+        if not node_meets_constraint(node, c):
+            return False, str(c)
+    for drv in group_drivers(tg):
+        if not driver_feasible(node, drv):
+            return False, "missing drivers"
+    if not host_volumes_feasible(node, tg):
+        return False, "missing compatible host volumes"
+    ok, why = devices_feasible(node, tg)
+    if not ok:
+        return False, why
+    return True, ""

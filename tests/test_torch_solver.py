@@ -243,12 +243,15 @@ def test_no_silent_cpu(monkeypatch):
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port's entry points loads neither jax nor any
-    module of the JAX package."""
+    """Importing the port's entry points (the solver and the scheduler
+    path's harness and state store) loads neither jax nor any module of
+    the JAX package."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
         "import nomad_tpu_torch.solver.solve, nomad_tpu_torch.mock\n"
+        "import nomad_tpu_torch.scheduler.harness\n"
+        "import nomad_tpu_torch.state.store\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nomad_tpu'))\n"
