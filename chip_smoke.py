@@ -11,11 +11,12 @@ Phases, one JSON line each; any failed phase exits nonzero:
                a `ptxas` line gives each kernel's registers, static
                shared memory and spills.
   3. kernel  — the kernels against their plain torch version on the card
-               at the main path's widths: score mode (Gp=128, Np=10,240,
-               one spread over V=4, and once with device and blocked
-               planes) and topk mode with per-value tables (Gp=4,
-               Np=10,240, 128 extracted, TK=36), and the topk merge kernel
-               alone.  Counters equal, scores within 4 ulp, indices equal
+               on random inputs: score mode at phase 4's merged-batch
+               widths (Gp=128, Np=10,240, one spread over V=4, and once
+               with device and blocked planes) and topk mode with
+               per-value tables (Gp=4, Np=10,240, 128 extracted, TK=36,
+               one device plane), and the topk merge kernel alone.
+               Counters equal, scores within 4 ulp, indices equal
                wherever the plain scores are separated by more than that.
                Times: kernel-only (the recorded C launch repeated, no
                wrapper around it) warm over 50 back-to-back launches and
@@ -53,11 +54,18 @@ Phases, one JSON line each; any failed phase exits nonzero:
                batch eval, and the last service eval's and the batch
                eval's packed batches re-solved with the kernel and with
                the plain wave agree under assert_same.  Launch counts are
-               zeroed just before the evals and read just after.
+               zeroed just before the evals and read just after (a full
+               garbage collection runs before that, so the evals pay
+               only for the garbage they make).  The arguments of the
+               first score launch of the batch eval and of the first topk
+               launch of the last service eval are kept from the
+               re-solves, and each kernel is then checked and timed on
+               them as in phase 3: the main path's own shapes and data.
 
 The line before the last lists every kernel with its launches on the main
-path (phase 5), error against the plain version, times (`ms` is the
-kernel-only cold time) and bound; the last line is
+path (phase 5), and its error against the plain version, times (`ms` is
+the kernel-only cold time) and bound on phase 5's own arguments; the last
+line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -308,13 +316,14 @@ def keys_to_pairs(torch, keys):
             (~keys & 0xFFFFFFFF).to(torch.int32))
 
 
-def merge_case(torch, wk, launch, shape, call):
+def merge_case(torch, wk, launch, name, shape):
     """The topk merge kernel alone (mode 2 of the C launch) on the
     partials `launch` left, against the plain version of that merge (the
     stable sort `_lex_topk_rows` over the same partials)."""
     Gp, Np = shape["Gp"], shape["Np"]
-    plan = wk.launch_plan("topk", Gp, Np, NE=call["n_extract"],
-                          TK=call["TK"], tables_v=call["tables_v"])
+    plan = wk.launch_plan("topk", Gp, Np,
+                          NE=shape["n_extract"] or shape["TK"],
+                          TK=shape["TK"], tables_v=shape["tables_v"])
     launch()
     torch.cuda.synchronize()
     part, vpart = [t for t in launch.kept if t.dtype == torch.int64]
@@ -340,7 +349,7 @@ def merge_case(torch, wk, launch, shape, call):
     nbytes = (8 * (part.numel() + vpart.numel()) + 4 * tcnt.numel()
               + 8 * (top_s.numel() + tab_s.numel()) + 4 * cnt.numel())
     bound = nbytes / HBM_BYTES_S * 1e3
-    row = {"phase": "kernel", "case": "topk merge", "max_abs_err": 0.0,
+    row = {"phase": "kernel", "case": name, "max_abs_err": 0.0,
            "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
            "wrapper_ms": None, "plain_ms": time_ms(torch, plain),
            "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
@@ -486,46 +495,74 @@ def phase_kernel(torch, wk, base_wk=None):
     for i, (name, shape, call) in enumerate(KERNEL_CASES):
         kw = wave_inputs(torch, seed=100 + i, device=dev, **shape)
         kw.update(call, seed=1 + i)
-        res_k = wk.fused_wave(**kw)
-        res_p = wk.fused_wave_plain(**kw)
+        out.update(kernel_case(torch, wk, name, kw, base_wk))
+    return out
+
+
+def wave_shape(kw):
+    """The launch-shape figures of a fused-wave call's arguments."""
+    dev, spread = kw.get("dev"), kw.get("spread")
+    return {"Gp": kw["feas"].shape[0], "Np": kw["used"].shape[0],
+            "R": kw["used"].shape[1],
+            "S": spread[0].shape[0] if spread is not None else 0,
+            "V": spread[2].shape[2] if spread is not None else 0,
+            "D": dev[0].shape[1] if dev is not None else 0,
+            "with_blocked": kw.get("blocked") is not None,
+            "TK": kw.get("TK", 4), "n_extract": kw.get("n_extract", 0),
+            "tables_v": kw.get("tables_v", 0)}
+
+
+def kernel_case(torch, wk, name, kw, base_wk=None):
+    """One fused-wave call `kw` through the kernel and the plain version,
+    held to each other, then timed: kernel-only cold and warm
+    (`kernel_ms`), the whole wrapper call and the plain version, with the
+    bound from the bytes the call moves and the operations it does.
+    With `base_wk` the other checkout's kernel is timed kernel-only in
+    turns.  A topk call also gives its merge kernel's row.  Returns the
+    rows by case name."""
+    out = {}
+    shape = wave_shape(kw)
+    res_k = wk.fused_wave(**kw)
+    res_p = wk.fused_wave_plain(**kw)
+    torch.cuda.synchronize()
+    err = compare_wave(torch, name, kw, res_k, res_p)
+    launch = raw_launch(torch, wk, kw)
+    cold, warm = kernel_ms(torch, launch)
+    wrapper_ms = time_ms(torch, lambda: wk.fused_wave(**kw))
+    plain_ms = time_ms(torch, lambda: wk.fused_wave_plain(**kw))
+    nbytes = wave_bytes(torch, kw, res_k)
+    ops = (shape["Gp"] * shape["Np"]
+           * ops_per_pair(shape["R"], shape["D"], shape["S"]))
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {"phase": "kernel", "case": name, "max_abs_err": err,
+           "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
+           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bytes": nbytes, "ops": ops, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_share_cold": bound / cold, **shape}
+    if base_wk is not None:
+        res_b = base_wk.fused_wave(**kw)
         torch.cuda.synchronize()
-        err = compare_wave(torch, name, kw, res_k, res_p)
-        launch = raw_launch(torch, wk, kw)
-        cold, warm = kernel_ms(torch, launch)
-        wrapper_ms = time_ms(torch, lambda: wk.fused_wave(**kw))
-        plain_ms = time_ms(torch, lambda: wk.fused_wave_plain(**kw))
-        nbytes = wave_bytes(torch, kw, res_k)
-        ops = (shape["Gp"] * shape["Np"]
-               * ops_per_pair(4, shape["D"], shape["S"]))
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = ops / F32_OPS_S * 1e3
-        bound = max(t_bytes, t_ops)
-        row = {"phase": "kernel", "case": name, "max_abs_err": err,
-               "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
-               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-               "bytes": nbytes, "ops": ops, "bound_ms": bound,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bound_share_cold": bound / cold,
-               **shape, **{k: v for k, v in call.items() if k != "mode"}}
-        if base_wk is not None:
-            res_b = base_wk.fused_wave(**kw)
-            torch.cuda.synchronize()
-            compare_wave(torch, name + " (baseline)", kw, res_b, res_p)
-            base = raw_launch(torch, base_wk, kw)
-            turns = [kernel_ms(torch, f) for f in (base, launch, launch,
-                                                   base)]
-            row["turns"] = {
-                "order": ["baseline", "this", "this", "baseline"],
-                "cold_ms": [t[0] for t in turns],
-                "warm_ms": [t[1] for t in turns],
-                "baseline_wrapper_ms": time_ms(
-                    torch, lambda: base_wk.fused_wave(**kw))}
-            del base
-        emit(row)
-        out[name] = row
-        if call["mode"] == "topk":
-            out["topk merge"] = merge_case(torch, wk, launch, shape, call)
-        del launch
+        compare_wave(torch, name + " (baseline)", kw, res_b, res_p)
+        base = raw_launch(torch, base_wk, kw)
+        turns = [kernel_ms(torch, f) for f in (base, launch, launch,
+                                               base)]
+        row["turns"] = {
+            "order": ["baseline", "this", "this", "baseline"],
+            "cold_ms": [t[0] for t in turns],
+            "warm_ms": [t[1] for t in turns],
+            "baseline_wrapper_ms": time_ms(
+                torch, lambda: base_wk.fused_wave(**kw))}
+        del base
+    emit(row)
+    out[name] = row
+    if kw["mode"] == "topk":
+        check(shape["tables_v"] > 0, f"{name}: the merge check needs tables")
+        name_m = name.replace("topk", "topk merge", 1)
+        out[name_m] = merge_case(torch, wk, launch, name_m, shape)
+    del launch
     return out
 
 
@@ -630,6 +667,31 @@ def plain_wave(wk):
     """Route solve_kernel's wave calls to the plain torch version."""
     real = wk.fused_wave
     wk.fused_wave = wk.fused_wave_plain
+    try:
+        yield
+    finally:
+        wk.fused_wave = real
+
+
+@contextlib.contextmanager
+def capture_wave(wk, mode, into):
+    """Keep a copy of the arguments of the first `mode` wave call made
+    inside the block in `into["kw"]`; every call goes on to the wrapper
+    as before."""
+    real = wk.fused_wave
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(y) for y in x)
+        return x.clone() if hasattr(x, "clone") else x
+
+    def wave(**kw):
+        if "kw" not in into and kw["mode"] == mode:
+            into["kw"] = {k: copy(v) for k, v in kw.items()}
+        return real(**kw)
+    # the wrapper counts its launches on the module's `fused_wave`
+    wave.launches, wave.mode_launches = real.launches, real.mode_launches
+    wk.fused_wave = wave
     try:
         yield
     finally:
@@ -884,7 +946,9 @@ def check_store(structs, store, jobs, nodes):
 def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
     """The scheduler path end to end: evals through Harness.process ->
     GenericScheduler -> reconciler -> Solver on the card -> plan applied
-    into the StateStore."""
+    into the StateStore.  Returns the main path's launch counts and the
+    arguments of its first score and topk wave calls, by mode."""
+    import gc
     from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.scheduler.harness import Harness
     from nomad_tpu_torch.solver.solve import Solver, _run_kernel, _to_host
@@ -933,6 +997,7 @@ def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
                 "names": names, "pb": clock.last_pb}
 
     # ---- the main path, launch counts zeroed just before ----
+    gc.collect()        # earlier phases' garbage is not this path's cost
     wk.fused_wave.launches = 0
     wk.fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
     torch.cuda.synchronize()
@@ -955,9 +1020,12 @@ def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
     check_store(structs, store, [(j, r["names"]) for j, r in
                                  zip(service + [bjob], svc + [bat])],
                 nodes)
-    for what, pb in (("last service eval", svc[-1]["pb"]),
-                     ("batch eval", bat["pb"])):
-        res_k = _to_host(_run_kernel(pb, DEVICE))
+    calls = {"topk": {}, "score": {}}
+    for what, pb, mode in (("last service eval", svc[-1]["pb"], "topk"),
+                           ("batch eval", bat["pb"], "score")):
+        with capture_wave(wk, mode, calls[mode]):
+            res_k = _to_host(_run_kernel(pb, DEVICE))
+        check("kw" in calls[mode], f"{what}: no {mode} wave call")
         with plain_wave(wk):
             res_p = _to_host(_run_kernel(pb, DEVICE))
         assert_same(res_k, res_p, f"{what}: kernel vs plain")
@@ -998,7 +1066,7 @@ def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
                      "launches": bat_counts},
            "launches": counts}
     emit(row)
-    return counts
+    return counts, {m: c["kw"] for m, c in calls.items()}
 
 
 def main() -> int:
@@ -1021,16 +1089,22 @@ def main() -> int:
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
-    counts = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
-                            BATCH_COUNT)
+    counts, calls = phase_schedule(torch, wk, N_NODES, RESIDENT,
+                                   N_SERVICE_EVALS, BATCH_COUNT)
+    # the kernels on the main path's own arguments (phase 5)
+    kern.update(kernel_case(torch, wk, "score (batch eval)",
+                            calls["score"], base_wk))
+    kern.update(kernel_case(torch, wk, "topk (service eval)",
+                            calls["topk"], base_wk))
     src = "nomad_tpu_torch/solver/csrc/wave_kernel.cu"
     kernels = []
     # fused_wave[topk] is the whole topk launch (tile kernel + merge);
     # fused_wave[topk merge] is the merge kernel alone
     for name, mode, case, line in (
-            ("fused_wave[score]", "score", "score", 317),
-            ("fused_wave[topk]", "topk", "topk+tables", 543),
-            ("fused_wave[topk merge]", "merge", "topk merge", 333)):
+            ("fused_wave[score]", "score", "score (batch eval)", 317),
+            ("fused_wave[topk]", "topk", "topk (service eval)", 543),
+            ("fused_wave[topk merge]", "merge",
+             "topk merge (service eval)", 333)):
         r = kern[case]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

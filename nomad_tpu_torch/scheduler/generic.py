@@ -10,7 +10,9 @@ The counterpart of `nomad_tpu.scheduler.generic` on its one-eval path
 (`process` -> `_begin` -> `_compute_placements` -> `_consume_solve` ->
 `_finalize`).  The fleet path that merges many evals into one solve
 (`scheduler/fleet.py`, which hands `_prepare_placements` a shared world)
-is not ported yet.
+is not ported yet, nor are the parts that serve only the solver's
+resident world and its in-kernel eviction pass (the lazy allocs-by-node
+view, sticky-probe tracking, committing kernel-selected evictions).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import copy
 import time as _time
 from typing import Dict, List, Optional, Tuple
 
-from ..solver.solve import LazyAllocsView, Solver
+from ..solver.solve import Solver
 from ..solver.tensorize import PlacementAsk
 from ..structs import (ALLOC_CLIENT_PENDING, ALLOC_DESIRED_RUN,
                        CONSTRAINT_DISTINCT_PROPERTY, EVAL_STATUS_BLOCKED,
@@ -158,7 +160,6 @@ class GenericScheduler:
         self.failed_tg_allocs = {}
         self.queued_allocs = {}
         self.followup_evals = []
-        self._sticky_probes = []
         self.plan = ev.make_plan(self.job)
 
         if not self.batch:
@@ -284,22 +285,10 @@ class GenericScheduler:
         if prep is None:
             return None
         nodes, by_dc, allocs_by_node, asks, ask_missing = prep
-        # proposed-state corrections for the solver's resident world:
-        # this plan's eager stops and the sticky probes are the ONLY
-        # places the proposed usage differs from the store-tracked one
-        stops = [a for lst in self.plan.node_update.values()
-                 for a in lst]
-        from .preemption import preemption_enabled
         from ..utils.tracing import global_tracer as _tr
-        preempt_ok = preemption_enabled(
-            snapshot.scheduler_config(),
-            "batch" if self.batch else "service")
         span = _tr.stage(self.eval.id, "solve",
                          job_id=self.eval.job_id, fused=False)
-        out = self.solver.solve(
-            nodes, asks, allocs_by_node, by_dc, snapshot=snapshot,
-            proposed_delta=(stops, list(self._sticky_probes)),
-            preempt=preempt_ok)
+        out = self.solver.solve(nodes, asks, allocs_by_node, by_dc)
         self._consume_solve(snapshot, out, nodes, allocs_by_node, missing,
                             ask_missing, span=span)
         return None
@@ -323,23 +312,16 @@ class GenericScheduler:
             if m.stop_previous and m.previous is not None:
                 self.plan.append_stopped_alloc(m.previous, m.stop_desc, "")
 
-        # proposed live allocs by node: state minus plan stops.  With a
-        # resident solver world the eager O(cluster) walk collapses to a
-        # lazy per-node view — the solve reads usage from the
-        # delta-maintained tensors, and the host fixups only ever touch
-        # the chosen candidates' nodes
+        # proposed live allocs by node: state minus plan stops
         stopped_ids = {a.id for allocs in self.plan.node_update.values()
                        for a in allocs}
-        if self.solver.resident_active(snapshot):
-            allocs_by_node = LazyAllocsView(snapshot, stopped_ids)
-        else:
-            allocs_by_node = {}
-            for n in nodes:
-                live = [a for a in snapshot.allocs_by_node(n.id)
-                        if not a.terminal_status()
-                        and a.id not in stopped_ids]
-                if live:
-                    allocs_by_node[n.id] = live
+        allocs_by_node = {}
+        for n in nodes:
+            live = [a for a in snapshot.allocs_by_node(n.id)
+                    if not a.terminal_status()
+                    and a.id not in stopped_ids]
+            if live:
+                allocs_by_node[n.id] = live
 
         # sticky-disk placements prefer their previous node (reference:
         # generic_sched.go:628 findPreferredNode)
@@ -367,8 +349,7 @@ class GenericScheduler:
 
         # this job's proposed live allocs by node — the only slice the
         # anti-affinity / distinct / spread seeds ever read
-        job_allocs = self._job_allocs_by_node(snapshot, allocs_by_node,
-                                              node_by_id)
+        job_allocs = self._job_allocs_by_node(allocs_by_node)
         proposed_by_job_tg: Dict[str, Dict[str, int]] = {}
         for nid, live in job_allocs.items():
             for a in live:
@@ -486,14 +467,6 @@ class GenericScheduler:
                     self._record_failure(m, placement)
                     failed.add(id(m))
                 continue
-            if placement.evicted:
-                # the in-kernel preemption pass already selected this
-                # placement's victim set (solver/kernel.py eviction
-                # waves) — commit the (place, evict) pair without the
-                # host-side walk
-                self._commit_kernel_eviction(placement, m,
-                                             allocs_by_node)
-                continue
             self._emit_alloc(m, placement.node, placement.resources,
                              placement.score, placement.metrics)
 
@@ -520,29 +493,6 @@ class GenericScheduler:
                 if not self.plan.node_update[m.previous.node_id]:
                     del self.plan.node_update[m.previous.node_id]
 
-    def _commit_kernel_eviction(self, placement, m: _Missing,
-                                allocs_by_node) -> None:
-        """Commit a (place, evict) pair the device eviction pass
-        selected: victims leave via plan.node_preemptions, the alloc
-        lands with preempted_allocations set, and the shared
-        allocs_by_node view advances so later placements (and the
-        host-side fallback walk) see both sides."""
-        from ..utils.metrics import global_metrics as _m
-        _m.incr_counter("scheduler.preempt.kernel")
-        node = placement.node
-        vset = set(placement.evicted)
-        proposed = list(allocs_by_node.get(node.id, ())) \
-            if allocs_by_node is not None else []
-        victims = [a for a in proposed if a.id in vset]
-        alloc = self._emit_alloc(m, node, placement.resources,
-                                 placement.score, placement.metrics)
-        alloc.preempted_allocations = sorted(vset)
-        if allocs_by_node is not None:
-            allocs_by_node[node.id] = [a for a in proposed
-                                       if a.id not in vset] + [alloc]
-        for v in victims:
-            self.plan.append_preempted_alloc(v, alloc.id)
-
     def _try_preemption(self, nodes, m: _Missing, allocs_by_node) -> bool:
         """Second pass for an exhausted placement: across ALL feasible
         nodes, find victim sets (task-group resources, then network and
@@ -551,8 +501,8 @@ class GenericScheduler:
         reference where preemption options feed the regular rank/max
         pipeline (preemption.go wired via rank.go BinPackIterator) —
         not the first node that works.  Counted as the host-side
-        FALLBACK — the steady state should select evictions
-        in-kernel instead (scheduler.preempt.kernel)."""
+        fallback (the reference's in-kernel eviction pass is not
+        ported)."""
         from ..structs.funcs import score_fit, allocs_fit
         from ..utils.metrics import global_metrics as _m
         from .preemption import find_preemption
@@ -624,29 +574,13 @@ class GenericScheduler:
         if not fit:
             return None
         allocs_by_node.setdefault(node.id, []).append(probe)
-        # tracked separately: the solver's resident world overlays probe
-        # usage onto its delta-maintained tensors instead of re-walking
-        # allocs_by_node
-        self._sticky_probes.append(probe)
         return resources
 
-    def _job_allocs_by_node(self, snapshot, allocs_by_node, node_by_id
+    def _job_allocs_by_node(self, allocs_by_node
                             ) -> Dict[str, List[Allocation]]:
-        """This job's proposed live allocs grouped by node — equal to
-        filtering allocs_by_node down to job_id, but O(job) via the job
-        index (plus the tracked sticky probes) when the view is lazy,
-        so the seed walks never materialize the cluster."""
+        """This job's proposed live allocs grouped by node: allocs_by_node
+        filtered down to job_id."""
         out: Dict[str, List[Allocation]] = {}
-        if isinstance(allocs_by_node, LazyAllocsView):
-            for a in snapshot.allocs_by_job(self.job.namespace,
-                                            self.job.id):
-                if (a.terminal_status() or a.id in allocs_by_node.excluded
-                        or a.node_id not in node_by_id):
-                    continue
-                out.setdefault(a.node_id, []).append(a)
-            for p in self._sticky_probes:
-                out.setdefault(p.node_id, []).append(p)
-            return out
         for nid, live in allocs_by_node.items():
             lst = [a for a in live if a.job_id == self.job.id]
             if lst:
@@ -823,8 +757,6 @@ def _placement_row(m: _Missing, placement) -> dict:
             "constraint_filtered": dict(metrics.constraint_filtered),
         } if metrics is not None else {},
     }
-    if placement.evicted:
-        row["evicted"] = list(placement.evicted)
     if placement.failed_reason:
         row["failed_reason"] = placement.failed_reason
     return row

@@ -46,9 +46,6 @@ class Harness:
             deployment_updates=plan.deployment_updates,
             alloc_index=index)
         self.store.upsert_plan_results(index, result, plan.job)
-        if self.solver is not None:
-            # mirror the worker's plan-apply feed into the resident world
-            self.solver.note_plan_result(plan, result)
         return result, None
 
     def update_eval(self, evaluation: Evaluation) -> None:

@@ -10,10 +10,11 @@ The solve runs on the solver's device, `cuda` unless the caller asks for
 the CPU; with no GPU present a default `Solver()` raises instead of
 carrying on quietly on the CPU.  The reference's host-twin routing
 (`prefer_host`), watchdog failover, resident world, chaos injection and
-plan views are not part of this package.  The scheduler's interface to
-the solver is the reference's own on its non-resident path: `solve()`
-takes `snapshot`, `proposed_delta` and `preempt`, `resident_active()` is
-False and `note_plan_result()` has no world to feed.
+plan views are not part of this package, nor is the scheduler-facing
+interface that serves only the resident world and its in-kernel eviction
+pass (`solve()`'s `snapshot` / `proposed_delta` / `preempt`,
+`resident_active()`, `note_plan_result()`, `Placement.evicted`,
+`LazyAllocsView`).
 """
 from __future__ import annotations
 
@@ -32,81 +33,6 @@ from .tensorize import (NUM_R, PackedBatch, PlacementAsk, Tensorizer,
                         R_CPU, R_DISK, R_MEM, R_NET)
 
 _DIM_NAMES = {R_CPU: "cpu", R_MEM: "memory", R_DISK: "disk", R_NET: "network"}
-
-
-class LazyAllocsView(dict):
-    """Proposed live allocs by node, filled lazily from the snapshot
-    (live minus `excluded` alloc ids).  The steady-state scheduler only
-    touches a handful of nodes per eval (chosen candidates' port/device
-    fixups, sticky preferences), so the O(cluster) walk the eager dict
-    pays per eval collapses to O(touched); anything that genuinely
-    needs the whole world (iterating items()) just materializes.  Once
-    a key is filled it is a plain dict entry, so in-place mutation
-    (sticky probes, preemption rewrites) behaves exactly like the eager
-    dict.  The scheduler takes this view only while the solver reports
-    a resident world (`Solver.resident_active`)."""
-
-    def __init__(self, snapshot, excluded=frozenset()):
-        super().__init__()
-        self._snap = snapshot
-        self.excluded = set(excluded)
-        self._filled = set()
-        self._all = False
-
-    def _fill(self, nid) -> None:
-        if self._all or nid in self._filled:
-            return
-        self._filled.add(nid)
-        live = [a for a in self._snap.allocs_by_node(nid)
-                if not a.terminal_status() and a.id not in self.excluded]
-        if live:                 # eager dict only has non-empty keys
-            dict.__setitem__(self, nid, live)
-
-    def materialize(self) -> "LazyAllocsView":
-        if not self._all:
-            pending: Dict[str, list] = {}
-            for a in self._snap.allocs():
-                if (a.terminal_status() or a.id in self.excluded
-                        or a.node_id in self._filled):
-                    continue
-                pending.setdefault(a.node_id, []).append(a)
-            for nid, lst in pending.items():
-                dict.__setitem__(self, nid, lst)
-            self._all = True
-        return self
-
-    def get(self, nid, default=None):
-        self._fill(nid)
-        return dict.get(self, nid, default)
-
-    def __getitem__(self, nid):
-        self._fill(nid)
-        return dict.__getitem__(self, nid)
-
-    def __contains__(self, nid):
-        self._fill(nid)
-        return dict.__contains__(self, nid)
-
-    def setdefault(self, nid, default=None):
-        self._fill(nid)
-        return dict.setdefault(self, nid, default)
-
-    def items(self):
-        return self.materialize() and dict.items(self)
-
-    def keys(self):
-        return self.materialize() and dict.keys(self)
-
-    def values(self):
-        return self.materialize() and dict.values(self)
-
-    def __iter__(self):
-        self.materialize()
-        return dict.__iter__(self)
-
-    def __len__(self):
-        self.materialize()
-        return dict.__len__(self)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,10 +54,6 @@ class Placement:
     metrics: AllocMetric
     resources: Optional[AllocatedResources] = None
     failed_reason: str = ""
-    #: alloc ids an in-kernel preemption pass selected as victims for
-    #: this placement; always empty here (that pass is not ported), the
-    #: scheduler reads it as the reference's does
-    evicted: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -219,41 +141,18 @@ class Solver:
     def device(self) -> torch.device:
         return self._device
 
-    def resident_active(self, snapshot=None) -> bool:
-        """Whether the next solve can take the resident-delta path: never
-        here (no resident world), so the scheduler builds the eager
-        allocs-by-node map."""
-        return False
-
-    def note_plan_result(self, plan, result) -> None:
-        """Feed an applied plan into the resident world: there is none,
-        so nothing to do (the reference's behaviour without a store)."""
-
     def solve(self, nodes: Sequence[Node], asks: Sequence[PlacementAsk],
               allocs_by_node: Optional[Dict[str, list]] = None,
-              by_dc: Optional[Dict[str, int]] = None, *,
-              snapshot=None, proposed_delta=None,
-              preempt: bool = False) -> SolveOutput:
-        return self.solve_async(
-            nodes, asks, allocs_by_node, by_dc, snapshot=snapshot,
-            proposed_delta=proposed_delta, preempt=preempt).wait()
+              by_dc: Optional[Dict[str, int]] = None) -> SolveOutput:
+        return self.solve_async(nodes, asks, allocs_by_node, by_dc).wait()
 
     def solve_async(self, nodes: Sequence[Node],
                     asks: Sequence[PlacementAsk],
                     allocs_by_node: Optional[Dict[str, list]] = None,
-                    by_dc: Optional[Dict[str, int]] = None, *,
-                    snapshot=None, proposed_delta=None,
-                    preempt: bool = False) -> PendingSolve:
+                    by_dc: Optional[Dict[str, int]] = None) -> PendingSolve:
         """Dispatch phase of `solve`: pack and launch the solve without
         fetching the result; `wait()` on the returned PendingSolve
-        fetches and runs the host fixup walk.
-
-        `snapshot` and `proposed_delta` (this plan's stops and sticky
-        probes) feed only a resident world, and `preempt` only the
-        in-kernel eviction pass over a resident world's evictable planes
-        (the reference's condition, `nomad_tpu/solver/solve.py:1067`);
-        without either, as here, the solve is the same whatever they
-        are."""
+        fetches and runs the host fixup walk."""
         t0 = time.perf_counter()
         if not asks:
             return PendingSolve(self, out=SolveOutput(placements=[]), t0=t0)

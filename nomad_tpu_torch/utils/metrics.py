@@ -4,54 +4,24 @@ command/agent/command.go:985-1060).
 The counterpart of `nomad_tpu.utils.metrics`, reduced to what the
 scheduler path calls: counters (`incr_counter`, e.g. the host-side
 preemption fallback), read back with `dump`.  Not here yet: gauges,
-timing samples, histograms and the Prometheus exposition, which serve
-the server plane and the HTTP API.
+timing samples, histograms, the Prometheus exposition and the
+per-namespace key cap (`NOMAD_TPU_METRICS_MAX_KEYS`), which serve the
+server plane and the HTTP API.
 """
 from __future__ import annotations
 
-import os
 import threading
-from typing import Dict, Optional
-
-#: per-namespace key-cardinality cap (namespace = the key's first
-#: dot-segment): past it new keys are dropped and `metrics.overflow`
-#: ticks.  NOMAD_TPU_METRICS_MAX_KEYS overrides.
-DEFAULT_MAX_KEYS_PER_NS = 512
-OVERFLOW_KEY = "metrics.overflow"
+from typing import Dict
 
 
 class MetricsRegistry:
-    def __init__(self, max_keys_per_ns: Optional[int] = None):
+    def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = {}
-        if max_keys_per_ns is None:
-            try:
-                max_keys_per_ns = int(os.environ.get(
-                    "NOMAD_TPU_METRICS_MAX_KEYS",
-                    str(DEFAULT_MAX_KEYS_PER_NS)))
-            except ValueError:
-                max_keys_per_ns = DEFAULT_MAX_KEYS_PER_NS
-        self.max_keys_per_ns = max(int(max_keys_per_ns), 1)
-        self._ns_keys: Dict[str, int] = {}   # namespace -> distinct keys
-
-    def _admit_locked(self, key: str) -> bool:
-        """True when `key` may be written: existing keys always, a new
-        key only while its namespace is under the cap."""
-        if key in self._counters:
-            return True
-        ns = key.split(".", 1)[0]
-        n = self._ns_keys.get(ns, 0)
-        if n >= self.max_keys_per_ns and key != OVERFLOW_KEY:
-            self._counters[OVERFLOW_KEY] = \
-                self._counters.get(OVERFLOW_KEY, 0.0) + 1.0
-            return False
-        self._ns_keys[ns] = n + 1
-        return True
 
     def incr_counter(self, key: str, value: float = 1.0) -> None:
         with self._lock:
-            if self._admit_locked(key):
-                self._counters[key] = self._counters.get(key, 0.0) + value
+            self._counters[key] = self._counters.get(key, 0.0) + value
 
     def dump(self) -> dict:
         with self._lock:
@@ -60,7 +30,6 @@ class MetricsRegistry:
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
-            self._ns_keys.clear()
 
 
 #: process-global registry (the go-metrics global sink analog)

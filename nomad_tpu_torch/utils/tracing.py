@@ -11,15 +11,12 @@ back with `get`.
 Not here yet (the reference's flight recorder beyond this): spans with
 an explicit parent, per-id sampling, the off-thread spill drainer, the
 JSONL sink, queries beyond `get`, the learned-scorer corpus export and
-the mesh event log.
-
-Knobs (env), as in the reference:
-  NOMAD_TPU_TRACE        "0" disables recording (default on)
-  NOMAD_TPU_TRACE_DEPTH  ring depth in traces (default 512)
+the mesh event log, and the reference's knobs (recording on/off and
+the ring depth from the environment): recording is always on here, at
+a fixed depth of `TRACE_DEPTH` traces.
 """
 from __future__ import annotations
 
-import os
 import threading
 import time as _time
 from collections import OrderedDict
@@ -27,14 +24,8 @@ from typing import Dict, List, Optional
 
 from .ids import generate_uuid
 
-DEFAULT_TRACE_DEPTH = 512
-
-
-def _env_on(name: str, default: bool = True) -> bool:
-    v = os.environ.get(name)
-    if v is None:
-        return default
-    return v.strip().lower() not in ("0", "false", "off", "no", "")
+#: ring depth in traces (the reference's default)
+TRACE_DEPTH = 512
 
 
 class Span:
@@ -70,8 +61,8 @@ class Span:
 
 
 class _NullSpan:
-    """The disabled-recorder span: every method a no-op, one shared
-    instance so the off path allocates nothing."""
+    """The span of an untraced call (no trace id): every method a no-op,
+    one shared instance so that path allocates nothing."""
 
     __slots__ = ()
     trace_id = span_id = parent_id = name = ""
@@ -89,27 +80,18 @@ NULL_SPAN = _NullSpan()
 
 class FlightRecorder:
     """Bounded in-memory trace store: trace id -> completed span rows in
-    completion order; at most `depth` traces, oldest evicted whole."""
+    completion order; at most `TRACE_DEPTH` traces, oldest evicted
+    whole."""
 
-    def __init__(self, depth: Optional[int] = None,
-                 enabled: Optional[bool] = None):
+    def __init__(self):
         self._lock = threading.Lock()
-        if depth is None:
-            try:
-                depth = int(os.environ.get("NOMAD_TPU_TRACE_DEPTH",
-                                           str(DEFAULT_TRACE_DEPTH)))
-            except ValueError:
-                depth = DEFAULT_TRACE_DEPTH
-        self.depth_limit = max(int(depth), 1)
-        self.enabled = (_env_on("NOMAD_TPU_TRACE") if enabled is None
-                        else bool(enabled))
         self._traces: "OrderedDict[str, List[dict]]" = OrderedDict()
         self._tail: Dict[str, str] = {}      # trace id -> last span id
 
     def stage(self, trace_id: str, name: str, **attrs):
         """Open a span parented on the trace's last completed span; the
         caller must end() it."""
-        if not self.enabled or not trace_id:
+        if not trace_id:
             return NULL_SPAN
         with self._lock:
             parent = self._tail.get(trace_id, "")
@@ -129,7 +111,7 @@ class FlightRecorder:
             self._tail[sp.trace_id] = sp.span_id
             spans = self._traces.get(sp.trace_id)
             if spans is None:
-                while len(self._traces) >= self.depth_limit:
+                while len(self._traces) >= TRACE_DEPTH:
                     old, _ = self._traces.popitem(last=False)
                     self._tail.pop(old, None)
                 spans = self._traces[sp.trace_id] = []
