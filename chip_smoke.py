@@ -37,35 +37,63 @@ Phases, one JSON line each; any failed phase exits nonzero:
                reference's cross-backend criteria
                (tests/test_host_solver.py assert_same), and no node may
                end oversubscribed.
-  5. schedule — the scheduler path, the main path: a StateStore holding
-               the same cluster with the 100,000 resident allocs upserted
-               as running allocs of a resident job, and `Harness(store)`
-               with one shared `Solver(device="cuda")`.  16 config-3
-               service evals (fused topk mode), then one batch fan-out
-               eval, count 1,024 in 4 groups (fused score mode), each
-               upserted with its job and run by `h.process`.  Per eval:
-               wall, and its split into scheduler host time before the
-               solve (snapshot, reconcile, allocs by node, asks), pack,
-               launch-to-fetch, host fixup, plan apply into the store and
-               the rest (alloc emission, status).  Checks: every eval
-               complete, the store holds exactly each job's placed allocs
-               by name, no node's live allocs exceed it, topk and merge
-               launches in the service evals and score launches in the
-               batch eval, and the last service eval's and the batch
-               eval's packed batches re-solved with the kernel and with
-               the plain wave agree under assert_same.  Launch counts are
-               zeroed just before the evals and read just after (a full
-               garbage collection runs before that, so the evals pay
-               only for the garbage they make).  The arguments of the
-               first score launch of the batch eval and of the first topk
-               launch of the last service eval are kept from the
-               re-solves, and each kernel is then checked and timed on
-               them as in phase 3: the main path's own shapes and data.
+  5. schedule — the scheduler path with a store-less solver (the full
+               pack on every eval): a StateStore holding the same cluster
+               with the 100,000 resident allocs upserted as running allocs
+               of a resident job, and `Harness(store)` with one shared
+               `Solver(device="cuda")`.  16 config-3 service evals (fused
+               topk mode), then one batch fan-out eval, count 1,024 in 4
+               groups (fused score mode), each upserted with its job and
+               run by `h.process`.  Per eval: wall, and its split into
+               scheduler host time before the solve (snapshot, reconcile,
+               allocs by node, asks), pack, launch-to-fetch, host fixup,
+               plan apply into the store and the rest (alloc emission,
+               status).  Checks: every eval complete, the store holds
+               exactly each job's placed allocs by name, no node's live
+               allocs exceed it, topk and merge launches in the service
+               evals and score launches in the batch eval, and the last
+               service eval's and the batch eval's packed batches
+               re-solved with the kernel and with the plain wave agree
+               under assert_same.  Launch counts are zeroed just before
+               the evals and read just after (a full garbage collection
+               runs before that, so the evals pay only for the garbage
+               they make).
+  6. worker  — the reference worker's path, the main path: the same store,
+               with a store-attached `Solver(device="cuda", store=store)`
+               as the worker builds it, so every eval takes the resident
+               cluster world (change-log sync, plan-apply feed, ask-only
+               repack, usage overlay) and the scheduler's lazy
+               allocs-by-node view.  One untimed warm-up service eval
+               builds the world (`world_build_ms`), a full collection
+               runs, then the launch counts are zeroed and the same 16
+               service evals and batch eval as phase 5 run, with store
+               traffic from other actors before each: 100 resident allocs
+               on distinct nodes complete (a client update), and before
+               every 4th eval one node turns ineligible and one config-3
+               node joins.  The split is phase 5's, with pack the resident
+               pack and its parts beside it (`pack_sync`, `pack_repack`,
+               `pack_overlay`), and the world's counters after each eval.
+               Checks: phase 5's, plus no world rebuild in the window,
+               at least 16 delta syncs and 17 plan feeds, every eval on
+               the resident path, and the last service eval and the batch
+               eval re-solved through a store-less Solver (the full pack
+               of the same snapshot) to the same node ids and scores to 9
+               decimals (tests/test_solver_resident_world.py:40-57).  The
+               wave loop (`_run_kernel` to the fetch) is then timed on the
+               last service eval's resident batch and on the full pack of
+               its snapshot, in turns (`wave_loop_turns_ms`), and one
+               more service eval runs under `torch.profiler` for the
+               card's busy share of an eval (`profiled_eval`).  The
+               arguments of the first score launch of the batch eval and
+               of the first topk launch of the last service eval are kept
+               from the kernel-vs-plain re-solves, and each kernel is then
+               checked and timed on them as in phase 3: the main path's
+               own shapes and data.
 
 The line before the last lists every kernel with its launches on the main
-path (phase 5), and its error against the plain version, times (`ms` is
-the kernel-only cold time) and bound on phase 5's own arguments; the last
-line is
+path (phase 6; phase 5's beside them as `launches_phase5`), and its error
+against the plain version, times (`ms` is the kernel-only cold time) and
+bound on phase 6's own arguments; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -101,6 +129,8 @@ COUNT = 64
 #: phase 5: config-3 service evals, then one batch fan-out eval
 N_SERVICE_EVALS = 16
 BATCH_COUNT = 1024
+#: phase 6: resident allocs a client completes before each eval
+TRAFFIC_ALLOCS = 100
 
 
 def emit(obj) -> None:
@@ -567,10 +597,11 @@ def kernel_case(torch, wk, name, kw, base_wk=None):
 
 
 # ------------------------------------------------------------ phase 4
-def make_nodes(mock, n_nodes):
-    """bench.py make_nodes (config 3 cluster, no devices, gen_seed 0)."""
+def make_nodes(mock, n_nodes, start=0):
+    """bench.py make_nodes (config 3 cluster, no devices, gen_seed 0);
+    `start` numbers the nodes from there (a later join)."""
     nodes = []
-    for i in range(n_nodes):
+    for i in range(start, start + n_nodes):
         n = mock.node(datacenter=f"dc{i % 4}")
         n.reserved_resources.cpu = 0
         n.reserved_resources.memory_mb = 0
@@ -828,33 +859,54 @@ class EvalClock:
     """Times the parts of each `Harness.process` call from outside: the
     store's `snapshot` (the scheduler's first step), the shared solver's
     `solve_async` (its PendingSolve carries pack, launch, fetch and fixup
-    walls), the harness's `submit_plan` (plan apply into the store), and
-    the garbage collector's pauses (which overlap the other parts).  It
-    also keeps the last batch the solver's tensorizer packed."""
+    walls, and the packed batch), the harness's `submit_plan` (plan apply
+    into the store), and the garbage collector's pauses (which overlap
+    the other parts).  With `resident` it also times the three parts of
+    the resident pack: the world's change-log sync, the ask repack and
+    the usage overlay."""
 
-    def __init__(self, h):
+    def __init__(self, h, resident=False):
         import gc
+        from nomad_tpu_torch.solver import solve as solve_mod
         self.solves, self.applies, self.snaps = [], [], []
-        self.gc_s, self._gc_t, self.last_pb = 0.0, 0.0, None
-        solver, tz, store = h.solver, h.solver._tensorizer, h.store
-        real_solve, real_submit, real_pack, real_snap = (
-            solver.solve_async, h.submit_plan, tz.pack, store.snapshot)
+        self.gc_s, self._gc_t = 0.0, 0.0
+        self.parts = collections.Counter()
+        solver, store = h.solver, h.store
+        real_solve, real_submit, real_snap = (
+            solver.solve_async, h.submit_plan, store.snapshot)
 
         def solve_async(*a, **kw):
             t = time.perf_counter()
             pending = real_solve(*a, **kw)
-            self.solves.append((t, pending))
+            self.solves.append((t, pending, a, kw))
             return pending
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.parts[key] += time.perf_counter() - t
+            return run
+
+        restore = []
+        if resident:
+            tz, world_cls = solver._tensorizer, solve_mod._ResidentWorld
+            restore = [(world_cls, "sync", world_cls.sync),
+                       (solve_mod, "_overlay_usage",
+                        solve_mod._overlay_usage),
+                       (tz, "repack_asks", tz.repack_asks)]
+            world_cls.sync = timed(world_cls.sync, "pack_sync")
+            solve_mod._overlay_usage = timed(solve_mod._overlay_usage,
+                                             "pack_overlay")
+            tz.repack_asks = timed(tz.repack_asks, "pack_repack")
 
         def submit_plan(plan):
             t = time.perf_counter()
             out = real_submit(plan)
             self.applies.append(time.perf_counter() - t)
             return out
-
-        def pack(*a, **kw):
-            self.last_pb = real_pack(*a, **kw)
-            return self.last_pb
 
         def snapshot():
             t = time.perf_counter()
@@ -868,25 +920,34 @@ class EvalClock:
             else:
                 self.gc_s += time.perf_counter() - self._gc_t
 
-        solver.solve_async, h.submit_plan, tz.pack, store.snapshot = (
-            solve_async, submit_plan, pack, snapshot)
+        solver.solve_async, h.submit_plan, store.snapshot = (
+            solve_async, submit_plan, snapshot)
         gc.callbacks.append(on_gc)
-        self.close = lambda: gc.callbacks.remove(on_gc)
+
+        def close():
+            gc.callbacks.remove(on_gc)
+            for obj, name, fn in restore:
+                setattr(obj, name, fn)
+        self.close = close
 
     def process(self, h, sched, ev):
         """One eval through the harness; returns its wall and split (s):
         the store snapshot, the rest of the scheduler's host work before
         the solve (reconcile, allocs by node, asks), pack,
         launch-to-fetch, host fixup, plan apply, and the rest after the
-        solve (alloc emission, status); `gc` overlaps them."""
+        solve (alloc emission, status); `gc` overlaps them, and the
+        resident pack's parts (`pack_sync`, `pack_repack`,
+        `pack_overlay`) are inside `pack`.  Also returns the solve's
+        output, its PendingSolve and its arguments."""
         self.solves, self.applies, self.snaps = [], [], []
         self.gc_s = 0.0
+        self.parts.clear()
         t0 = time.perf_counter()
         h.process(sched, ev)
         wall = time.perf_counter() - t0
         check(len(self.solves) == 1, f"eval {ev.job_id}: "
               f"{len(self.solves)} solves, expected one")
-        t_solve, p = self.solves[0]
+        t_solve, p, args, kwargs = self.solves[0]
         split = {"snapshot": sum(self.snaps),
                  "reconcile_prepare": t_solve - t0 - sum(self.snaps),
                  "pack": p.pack_wall_s,
@@ -894,13 +955,15 @@ class EvalClock:
                  "fixup": p.finish_wall_s, "plan_apply": sum(self.applies)}
         split["after_solve"] = wall - sum(split.values())
         split["gc"] = self.gc_s
-        return wall, split, p.wait()
+        split.update(self.parts)
+        return wall, split, p.wait(), p, (args, kwargs)
 
 
 def schedule_store(mock, structs, n_nodes, resident):
     """A StateStore holding bench.py's config-3 cluster, upserted in
     order, and `resident` running allocs of one resident job (R_VEC
-    each, round-robin over the nodes)."""
+    each, round-robin over the nodes).  Returns the store, the nodes and
+    the resident allocs in that round-robin order."""
     from nomad_tpu_torch.state.store import StateStore
     store = StateStore()
     nodes = make_nodes(mock, n_nodes)
@@ -909,11 +972,12 @@ def schedule_store(mock, structs, n_nodes, resident):
     by_node = resident_allocs(mock, nodes, resident)
     res_job = next(iter(by_node.values()))[0].job
     store.upsert_job(n_nodes + 1, res_job)
-    allocs = [a for lst in by_node.values() for a in lst]
+    allocs = [by_node[nodes[k % n_nodes].id][k // n_nodes]
+              for k in range(resident)]
     for a in allocs:
         a.client_status = structs.ALLOC_CLIENT_RUNNING
     store.upsert_allocs(n_nodes + 2, allocs)
-    return store, nodes
+    return store, nodes, allocs
 
 
 def batch_job(mock, structs, count):
@@ -943,35 +1007,22 @@ def check_store(structs, store, jobs, nodes):
         check(fit, f"node {n.name} oversubscribed ({dim})")
 
 
-def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
-    """The scheduler path end to end: evals through Harness.process ->
-    GenericScheduler -> reconciler -> Solver on the card -> plan applied
-    into the StateStore.  Returns the main path's launch counts and the
-    arguments of its first score and topk wave calls, by mode."""
-    import gc
-    from nomad_tpu_torch import mock, structs
-    from nomad_tpu_torch.scheduler.harness import Harness
-    from nomad_tpu_torch.solver.solve import Solver, _run_kernel, _to_host
-    t0 = time.perf_counter()
-    store, nodes = schedule_store(mock, structs, n_nodes, resident)
-    setup_s = time.perf_counter() - t0
-    h = Harness(store)
-    h.solver = Solver(device=DEVICE)
-    clock = EvalClock(h)
-    service = [make_job(mock, structs, e, COUNT) for e in range(n_evals)]
-    bjob = batch_job(mock, structs, batch_count)
+class EvalRunner:
+    """Registers a job with its eval, runs it through the harness under
+    an EvalClock and checks it ended complete with every placement
+    placed or queued."""
 
-    def submit(job):
-        store.upsert_job(h.next_index(), job)
-        ev = mock.eval_(job_id=job.id, type=job.type,
-                        priority=job.priority)
-        store.upsert_evals(h.next_index(), [ev])
-        return ev
+    def __init__(self, h, mock, structs, clock):
+        self.h, self.mock, self.structs, self.clock = h, mock, structs, clock
 
-    def run(sched, job):
-        ev = submit(job)
+    def __call__(self, sched, job):
+        h, structs = self.h, self.structs
+        h.store.upsert_job(h.next_index(), job)
+        ev = self.mock.eval_(job_id=job.id, type=job.type,
+                             priority=job.priority)
+        h.store.upsert_evals(h.next_index(), [ev])
         n_plans = len(h.plans)
-        wall, split, out = clock.process(h, sched, ev)
+        wall, split, out, pending, call = self.clock.process(h, sched, ev)
         final = h.evals[-1]
         check(final.id == ev.id and final.status
               == structs.EVAL_STATUS_COMPLETE,
@@ -994,13 +1045,101 @@ def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
                 "failed": failed, "reasons": reasons,
                 "waves": out.trace["waves"],
                 "rescore_waves": out.trace["rescore_waves"],
-                "names": names, "pb": clock.last_pb}
+                "names": names, "pb": pending.packed, "out": out,
+                "call": call}
 
-    # ---- the main path, launch counts zeroed just before ----
-    gc.collect()        # earlier phases' garbage is not this path's cost
+
+def zero_launches(torch, wk):
     wk.fused_wave.launches = 0
     wk.fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
     torch.cuda.synchronize()
+
+
+def check_launch_split(svc_counts, bat_counts):
+    check(svc_counts["topk"] > 0, "service evals launched no topk kernel")
+    check(svc_counts["merge"] == svc_counts["topk"],
+          "a topk launch ran without its merge kernel")
+    check(svc_counts["score"] == 0, "a service eval ran score mode")
+    check(bat_counts["score"] > 0, "the batch eval launched no score kernel")
+    check(bat_counts["topk"] == 0, "the batch eval ran topk mode")
+    check(bat_counts["merge"] == 0, "the batch eval ran the merge kernel")
+
+
+def kernel_vs_plain(wk, items):
+    """Each (what, packed batch, mode) re-solved with the kernel and with
+    the plain wave (launches here are not counted on the main path),
+    held to `assert_same`, no node oversubscribed.  Returns the arguments
+    of the first wave call of each mode, copied during the re-solves."""
+    from nomad_tpu_torch.solver.solve import _run_kernel, _to_host
+    calls = {}
+    for what, pb, mode in items:
+        into = calls.setdefault(mode, {})
+        with capture_wave(wk, mode, into):
+            res_k = _to_host(_run_kernel(pb, DEVICE))
+        check("kw" in into, f"{what}: no {mode} wave call")
+        with plain_wave(wk):
+            res_p = _to_host(_run_kernel(pb, DEVICE))
+        assert_same(res_k, res_p, f"{what}: kernel vs plain")
+        real = pb.n_real
+        check(bool(np.all(res_k.used_final[:real] <= pb.avail[:real])),
+              f"{what}: a node is oversubscribed")
+    return {m: c["kw"] for m, c in calls.items()}
+
+
+def split_ms(rows, p):
+    return {k: 1e3 * pct([r["split"].get(k, 0.0) for r in rows], p)
+            for k in rows[0]["split"]}
+
+
+def service_row(rows, svc_counts):
+    walls = [r["wall"] for r in rows]
+    return {"evals": len(rows), "count": COUNT,
+            "p50_ms": 1e3 * pct(walls, 0.5),
+            "p99_ms": 1e3 * pct(walls, 0.99),
+            "split_p50_ms": split_ms(rows, 0.5),
+            "split_p99_ms": split_ms(rows, 0.99),
+            "walls_ms": [1e3 * w for w in walls],
+            "gc_ms": [1e3 * r["split"]["gc"] for r in rows],
+            "placed": sum(r["placed"] for r in rows),
+            "failed": sum(r["failed"] for r in rows),
+            "failed_reasons": dict(sum((r["reasons"] for r in rows),
+                                       collections.Counter())),
+            "waves": [r["waves"] for r in rows],
+            "launches": svc_counts}
+
+
+def batch_row(bat, bjob, batch_count, bat_counts):
+    return {"count": batch_count, "groups": len(bjob.task_groups),
+            "wall_ms": 1e3 * bat["wall"],
+            "split_ms": {k: 1e3 * v for k, v in bat["split"].items()},
+            "placed": bat["placed"], "failed": bat["failed"],
+            "failed_reasons": dict(bat["reasons"]),
+            "waves": bat["waves"], "rescore_waves": bat["rescore_waves"],
+            "launches": bat_counts}
+
+
+def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
+    """The scheduler path end to end with a store-less solver (the full
+    pack on every eval): evals through Harness.process -> GenericScheduler
+    -> reconciler -> Solver on the card -> plan applied into the
+    StateStore.  Returns the launch counts of its evals."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.solver.solve import Solver
+    t0 = time.perf_counter()
+    store, nodes, _ = schedule_store(mock, structs, n_nodes, resident)
+    setup_s = time.perf_counter() - t0
+    h = Harness(store)
+    h.solver = Solver(device=DEVICE)
+    clock = EvalClock(h)
+    run = EvalRunner(h, mock, structs, clock)
+    service = [make_job(mock, structs, e, COUNT) for e in range(n_evals)]
+    bjob = batch_job(mock, structs, batch_count)
+
+    # ---- the path, launch counts zeroed just before ----
+    gc.collect()        # earlier phases' garbage is not this path's cost
+    zero_launches(torch, wk)
     svc = [run("service", job) for job in service]
     torch.cuda.synchronize()
     svc_counts = dict(wk.fused_wave.mode_launches)
@@ -1009,64 +1148,220 @@ def phase_schedule(torch, wk, n_nodes, resident, n_evals, batch_count):
     clock.close()
     counts = dict(wk.fused_wave.mode_launches)
     bat_counts = {k: counts[k] - svc_counts[k] for k in counts}
-    check(svc_counts["topk"] > 0, "service evals launched no topk kernel")
-    check(svc_counts["merge"] == svc_counts["topk"],
-          "a topk launch ran without its merge kernel")
-    check(svc_counts["score"] == 0, "a service eval ran score mode")
-    check(bat_counts["score"] > 0, "the batch eval launched no score kernel")
-    check(bat_counts["topk"] == 0, "the batch eval ran topk mode")
+    check_launch_split(svc_counts, bat_counts)
 
     # ---- checks (launches here are not counted) ----
     check_store(structs, store, [(j, r["names"]) for j, r in
                                  zip(service + [bjob], svc + [bat])],
                 nodes)
-    calls = {"topk": {}, "score": {}}
-    for what, pb, mode in (("last service eval", svc[-1]["pb"], "topk"),
-                           ("batch eval", bat["pb"], "score")):
-        with capture_wave(wk, mode, calls[mode]):
-            res_k = _to_host(_run_kernel(pb, DEVICE))
-        check("kw" in calls[mode], f"{what}: no {mode} wave call")
-        with plain_wave(wk):
-            res_p = _to_host(_run_kernel(pb, DEVICE))
-        assert_same(res_k, res_p, f"{what}: kernel vs plain")
-        real = pb.n_real
-        check(bool(np.all(res_k.used_final[:real] <= pb.avail[:real])),
-              f"{what}: a node is oversubscribed")
+    kernel_vs_plain(wk, (("last service eval", svc[-1]["pb"], "topk"),
+                         ("batch eval", bat["pb"], "score")))
+    emit({"phase": "schedule", "nodes": n_nodes,
+          "resident_allocs": resident, "resident_cut": RESIDENT - resident,
+          "setup_s": setup_s,
+          "service": service_row(svc, svc_counts),
+          "batch": batch_row(bat, bjob, batch_count, bat_counts),
+          "launches": counts})
+    return counts
 
-    def split_ms(rows, p):
-        return {k: 1e3 * pct([r["split"][k] for r in rows], p)
-                for k in rows[0]["split"]}
 
-    walls = [r["wall"] for r in svc]
-    row = {"phase": "schedule", "nodes": n_nodes,
-           "resident_allocs": resident, "resident_cut": RESIDENT - resident,
-           "setup_s": setup_s,
-           "service": {"evals": n_evals, "count": COUNT,
-                       "p50_ms": 1e3 * pct(walls, 0.5),
-                       "p99_ms": 1e3 * pct(walls, 0.99),
-                       "split_p50_ms": split_ms(svc, 0.5),
-                       "split_p99_ms": split_ms(svc, 0.99),
-                       "walls_ms": [1e3 * w for w in walls],
-                       "gc_ms": [1e3 * r["split"]["gc"] for r in svc],
-                       "placed": sum(r["placed"] for r in svc),
-                       "failed": sum(r["failed"] for r in svc),
-                       "failed_reasons": dict(sum(
-                           (r["reasons"] for r in svc),
-                           collections.Counter())),
-                       "waves": [r["waves"] for r in svc],
-                       "launches": svc_counts},
-           "batch": {"count": batch_count, "groups": len(bjob.task_groups),
-                     "wall_ms": 1e3 * bat["wall"],
-                     "split_ms": {k: 1e3 * v
-                                  for k, v in bat["split"].items()},
-                     "placed": bat["placed"], "failed": bat["failed"],
-                     "failed_reasons": dict(bat["reasons"]),
-                     "waves": bat["waves"],
-                     "rescore_waves": bat["rescore_waves"],
-                     "launches": bat_counts},
-           "launches": counts}
-    emit(row)
-    return counts, {m: c["kw"] for m, c in calls.items()}
+def placements(out):
+    return [(p.ask_index, p.node.id if p.node is not None else None,
+             round(p.score, 9)) for p in out.placements]
+
+
+def full_pack_resolve(structs, rec):
+    """The eval's solve re-run through a store-less Solver (the full
+    pack) on the same snapshot, nodes, asks and proposed allocs by node
+    (the snapshot's live allocs minus the plan's stops, plus its sticky
+    probes): the reference's resident-vs-full criterion
+    (tests/test_solver_resident_world.py:40-57)."""
+    from nomad_tpu_torch.solver.solve import Solver
+    (nodes, asks, _abn, by_dc), kw = rec["call"]
+    snap = kw["snapshot"]
+    stops, probes = kw["proposed_delta"]
+    stopped = {a.id for a in stops}
+    abn = {}
+    for n in nodes:
+        live = [a for a in snap.allocs_by_node(n.id)
+                if not a.terminal_status() and a.id not in stopped]
+        if live:
+            abn[n.id] = live
+    for a in probes:
+        abn.setdefault(a.node_id, []).append(a)
+    pending = Solver(device=DEVICE).solve_async(nodes, asks, abn, by_dc)
+    return pending.wait(), pending.packed
+
+
+def wave_loop_turns(torch, batches, reps=5):
+    """Launch-to-fetch of `_run_kernel` on each named packed batch, host
+    clock to a synchronize, in turns (a, b, b, a) of `reps` solves each;
+    ms per solve."""
+    from nomad_tpu_torch.solver.solve import _run_kernel, _to_host
+    out = {name: [] for name in batches}
+    names = list(batches)
+    for name in names + names[::-1]:
+        for _ in range(reps):
+            t = time.perf_counter()
+            _to_host(_run_kernel(batches[name], DEVICE))
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t))
+    return out
+
+
+def store_traffic(structs, h, allocs, nodes, e, stats):
+    """What other actors write between two evals of a live cluster, seen
+    only through the store's change log: 100 resident allocs on distinct
+    nodes complete (a client update); every 4th eval one node turns
+    ineligible and one config-3 node joins (its dc, rack and zone are in
+    the cluster's universe)."""
+    import copy
+    from nomad_tpu_torch import mock
+    upd = []
+    for a in allocs[e * TRAFFIC_ALLOCS:(e + 1) * TRAFFIC_ALLOCS]:
+        u = copy.copy(a)
+        u.client_status = structs.ALLOC_CLIENT_COMPLETE
+        upd.append(u)
+    check(len({a.node_id for a in upd}) == len(upd) == TRAFFIC_ALLOCS,
+          "client updates must land on distinct nodes")
+    h.store.update_allocs_from_client(h.next_index(), upd)
+    stats["completed"] += len(upd)
+    if e % 4 == 0:
+        victim = nodes[(37 * e + 5) % len(nodes)]
+        h.store.update_node_eligibility(h.next_index(), victim.id,
+                                        structs.NODE_SCHED_INELIGIBLE)
+        joined = make_nodes(mock, 1, start=len(nodes) + stats["joined"])[0]
+        h.store.upsert_node(h.next_index(), joined)
+        stats["ineligible"] += 1
+        stats["joined"] += 1
+
+
+def device_share(torch, run, job):
+    """One more service eval under `torch.profiler`: the card's busy time
+    (the summed durations of the kernels and copies it ran; one stream,
+    so no overlap) over the eval's wall, and the device time by kernel
+    name (cut to 100 characters).  `busy_share` is None where the
+    profiler recorded no device event (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rec = run("service", job)
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name[:100]] += ev.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    wall_ms = 1e3 * rec["wall"]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "split_ms": {k: 1e3 * v for k, v in rec["split"].items()},
+            "top_device_ms": dict(by_name.most_common(8))}
+
+
+def phase_worker(torch, wk, n_nodes, resident, n_evals, batch_count):
+    """The worker's path: the same store and evals as phase 5, through a
+    Harness whose solver is store-attached (`Solver(store=store)`, as
+    the reference worker builds it), so every eval takes the resident
+    cluster world (change-log sync, plan-apply feed, ask-only repack,
+    usage overlay) and the lazy allocs-by-node view.  Store traffic from
+    other actors lands between evals.  Returns the launch counts of its
+    evals and the arguments of their first score and topk wave calls."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.scheduler.harness import Harness
+    from nomad_tpu_torch.solver.solve import Solver
+    t0 = time.perf_counter()
+    store, nodes, allocs = schedule_store(mock, structs, n_nodes, resident)
+    setup_s = time.perf_counter() - t0
+    h = Harness(store)
+    h.solver = Solver(device=DEVICE, store=store)
+    clock = EvalClock(h, resident=True)
+    run = EvalRunner(h, mock, structs, clock)
+    warm = make_job(mock, structs, "warm", COUNT)
+    service = [make_job(mock, structs, e, COUNT) for e in range(n_evals)]
+    profiled = make_job(mock, structs, "profiled", COUNT)
+    bjob = batch_job(mock, structs, batch_count)
+
+    # ---- warm-up: the first eval builds the world, as a worker's would
+    first = run("service", warm)
+    check(first["out"].trace["resident"], "the first eval took no world")
+    world_build_ms = 1e3 * first["wall"]
+    gc.collect()
+
+    # ---- the path, launch counts zeroed just before ----
+    before = h.solver.resident_counters()
+    stats = collections.Counter()
+    world = []
+    zero_launches(torch, wk)
+    svc = []
+    for e, job in enumerate(service):
+        store_traffic(structs, h, allocs, nodes, e, stats)
+        svc.append(run("service", job))
+        world.append(h.solver.resident_counters())
+    torch.cuda.synchronize()
+    svc_counts = dict(wk.fused_wave.mode_launches)
+    store_traffic(structs, h, allocs, nodes, n_evals, stats)
+    bat = run("batch", bjob)
+    world.append(h.solver.resident_counters())
+    torch.cuda.synchronize()
+    clock.close()
+    counts = dict(wk.fused_wave.mode_launches)
+    bat_counts = {k: counts[k] - svc_counts[k] for k in counts}
+    check_launch_split(svc_counts, bat_counts)
+    after = world[-1]
+
+    # ---- checks (launches here are not counted) ----
+    for r in svc + [bat]:
+        check(r["out"].trace["resident"], "an eval left the resident path")
+    check(after["repack_fallbacks"] - before["repack_fallbacks"] == 0,
+          f"the world was rebuilt in the timed window: {after}")
+    check(after["delta_syncs"] - before["delta_syncs"] >= n_evals,
+          f"too few delta syncs in the timed window: {before} -> {after}")
+    check(after["plan_feeds"] - before["plan_feeds"] >= n_evals + 1,
+          f"too few plan feeds in the timed window: {before} -> {after}")
+    all_nodes = list(store.nodes())
+    check(len(all_nodes) == n_nodes + stats["joined"], "a join was lost")
+    check_store(structs, store, [(j, r["names"]) for j, r in
+                                 zip([warm] + service + [bjob],
+                                     [first] + svc + [bat])], all_nodes)
+    full_pbs = {}
+    for what, rec in (("last service eval", svc[-1]), ("batch eval", bat)):
+        full, full_pbs[what] = full_pack_resolve(structs, rec)
+        check(placements(full) == placements(rec["out"]),
+              f"{what}: the resident placements differ from the full "
+              "pack's")
+    # the wave loop on the last service eval's resident batch and on the
+    # full pack of the same snapshot (same shapes), in turns
+    turns = wave_loop_turns(torch, {
+        "full_pack": full_pbs["last service eval"],
+        "resident": svc[-1]["pb"]})
+    calls = kernel_vs_plain(wk, (("last service eval", svc[-1]["pb"],
+                                  "topk"),
+                                 ("batch eval", bat["pb"], "score")))
+    # the card's busy share of one more service eval (after the checks:
+    # the profiled eval is not part of the measured window)
+    clock = EvalClock(h, resident=True)
+    share = device_share(torch, EvalRunner(h, mock, structs, clock),
+                         profiled)
+    clock.close()
+    emit({"phase": "worker", "nodes": n_nodes,
+          "resident_allocs": resident, "resident_cut": RESIDENT - resident,
+          "setup_s": setup_s, "world_build_ms": world_build_ms,
+          "world_build_split_ms": {k: 1e3 * v
+                                   for k, v in first["split"].items()},
+          "traffic": dict(stats),
+          "service": service_row(svc, svc_counts),
+          "batch": batch_row(bat, bjob, batch_count, bat_counts),
+          "world_before": before, "world_after": after,
+          "world_per_eval": world,
+          "wave_loop_turns_ms": turns,
+          "profiled_eval": share,
+          "checks": {"resident_vs_full_pack": "passed",
+                     "kernel_vs_plain": "passed"},
+          "launches": counts})
+    return counts, calls
 
 
 def main() -> int:
@@ -1089,9 +1384,11 @@ def main() -> int:
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
-    counts, calls = phase_schedule(torch, wk, N_NODES, RESIDENT,
-                                   N_SERVICE_EVALS, BATCH_COUNT)
-    # the kernels on the main path's own arguments (phase 5)
+    counts5 = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
+                             BATCH_COUNT)
+    counts, calls = phase_worker(torch, wk, N_NODES, RESIDENT,
+                                 N_SERVICE_EVALS, BATCH_COUNT)
+    # the kernels on the main path's own arguments (phase 6)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
                             calls["score"], base_wk))
     kern.update(kernel_case(torch, wk, "topk (service eval)",
@@ -1109,7 +1406,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"nomad_tpu/solver/pallas_kernel.py:{line}",
-            "launches": counts[mode], "max_abs_err": r["max_abs_err"],
+            "launches": counts[mode], "launches_phase5": counts5[mode],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "kernel_ms_cold": r["kernel_ms_cold"],

@@ -8,11 +8,13 @@ becomes a SINGLE batched Solver.solve() over all of the eval's placements
 
 The counterpart of `nomad_tpu.scheduler.generic` on its one-eval path
 (`process` -> `_begin` -> `_compute_placements` -> `_consume_solve` ->
-`_finalize`).  The fleet path that merges many evals into one solve
-(`scheduler/fleet.py`, which hands `_prepare_placements` a shared world)
-is not ported yet, nor are the parts that serve only the solver's
-resident world and its in-kernel eviction pass (the lazy allocs-by-node
-view, sticky-probe tracking, committing kernel-selected evictions).
+`_finalize`).  With a store-attached solver whose resident world is
+active, the proposed allocs by node are a lazy per-node view of the
+snapshot, and the solve gets the snapshot and the plan's proposed stops
+and sticky probes to overlay on the world's carried usage.  The fleet
+path that merges many evals into one solve (`scheduler/fleet.py`, which
+hands `_prepare_placements` a shared world) is not ported yet, nor is
+committing kernel-selected evictions (the in-kernel eviction pass).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import copy
 import time as _time
 from typing import Dict, List, Optional, Tuple
 
-from ..solver.solve import Solver
+from ..solver.solve import LazyAllocsView, Solver
 from ..solver.tensorize import PlacementAsk
 from ..structs import (ALLOC_CLIENT_PENDING, ALLOC_DESIRED_RUN,
                        CONSTRAINT_DISTINCT_PROPERTY, EVAL_STATUS_BLOCKED,
@@ -160,6 +162,7 @@ class GenericScheduler:
         self.failed_tg_allocs = {}
         self.queued_allocs = {}
         self.followup_evals = []
+        self._sticky_probes = []
         self.plan = ev.make_plan(self.job)
 
         if not self.batch:
@@ -288,7 +291,14 @@ class GenericScheduler:
         from ..utils.tracing import global_tracer as _tr
         span = _tr.stage(self.eval.id, "solve",
                          job_id=self.eval.job_id, fused=False)
-        out = self.solver.solve(nodes, asks, allocs_by_node, by_dc)
+        # proposed-state corrections for the solver's resident world:
+        # this plan's eager stops and the sticky probes are the ONLY
+        # places the proposed usage differs from the store-tracked one
+        stops = [a for lst in self.plan.node_update.values()
+                 for a in lst]
+        out = self.solver.solve(
+            nodes, asks, allocs_by_node, by_dc, snapshot=snapshot,
+            proposed_delta=(stops, list(self._sticky_probes)))
         self._consume_solve(snapshot, out, nodes, allocs_by_node, missing,
                             ask_missing, span=span)
         return None
@@ -312,16 +322,23 @@ class GenericScheduler:
             if m.stop_previous and m.previous is not None:
                 self.plan.append_stopped_alloc(m.previous, m.stop_desc, "")
 
-        # proposed live allocs by node: state minus plan stops
+        # proposed live allocs by node: state minus plan stops.  With a
+        # resident solver world the eager O(cluster) walk collapses to a
+        # lazy per-node view — the solve reads usage from the
+        # delta-maintained tensors, and the host fixups only ever touch
+        # the chosen candidates' nodes
         stopped_ids = {a.id for allocs in self.plan.node_update.values()
                        for a in allocs}
-        allocs_by_node = {}
-        for n in nodes:
-            live = [a for a in snapshot.allocs_by_node(n.id)
-                    if not a.terminal_status()
-                    and a.id not in stopped_ids]
-            if live:
-                allocs_by_node[n.id] = live
+        if self.solver.resident_active(snapshot):
+            allocs_by_node = LazyAllocsView(snapshot, stopped_ids)
+        else:
+            allocs_by_node = {}
+            for n in nodes:
+                live = [a for a in snapshot.allocs_by_node(n.id)
+                        if not a.terminal_status()
+                        and a.id not in stopped_ids]
+                if live:
+                    allocs_by_node[n.id] = live
 
         # sticky-disk placements prefer their previous node (reference:
         # generic_sched.go:628 findPreferredNode)
@@ -349,7 +366,8 @@ class GenericScheduler:
 
         # this job's proposed live allocs by node — the only slice the
         # anti-affinity / distinct / spread seeds ever read
-        job_allocs = self._job_allocs_by_node(allocs_by_node)
+        job_allocs = self._job_allocs_by_node(snapshot, allocs_by_node,
+                                              node_by_id)
         proposed_by_job_tg: Dict[str, Dict[str, int]] = {}
         for nid, live in job_allocs.items():
             for a in live:
@@ -574,13 +592,29 @@ class GenericScheduler:
         if not fit:
             return None
         allocs_by_node.setdefault(node.id, []).append(probe)
+        # tracked separately: the solver's resident world overlays probe
+        # usage onto its delta-maintained tensors instead of re-walking
+        # allocs_by_node
+        self._sticky_probes.append(probe)
         return resources
 
-    def _job_allocs_by_node(self, allocs_by_node
+    def _job_allocs_by_node(self, snapshot, allocs_by_node, node_by_id
                             ) -> Dict[str, List[Allocation]]:
-        """This job's proposed live allocs grouped by node: allocs_by_node
-        filtered down to job_id."""
+        """This job's proposed live allocs grouped by node — equal to
+        filtering allocs_by_node down to job_id, but O(job) via the job
+        index (plus the tracked sticky probes) when the view is lazy,
+        so the seed walks never materialize the cluster."""
         out: Dict[str, List[Allocation]] = {}
+        if isinstance(allocs_by_node, LazyAllocsView):
+            for a in snapshot.allocs_by_job(self.job.namespace,
+                                            self.job.id):
+                if (a.terminal_status() or a.id in allocs_by_node.excluded
+                        or a.node_id not in node_by_id):
+                    continue
+                out.setdefault(a.node_id, []).append(a)
+            for p in self._sticky_probes:
+                out.setdefault(p.node_id, []).append(p)
+            return out
         for nid, live in allocs_by_node.items():
             lst = [a for a in live if a.job_id == self.job.id]
             if lst:

@@ -1,23 +1,33 @@
 """Solver orchestration: pack -> device solve -> unpack into placements.
 
-The counterpart of `nomad_tpu.solver.solve` on its one-shot pack path.
-The discrete leftovers the tensor solve can't express (exact port
-picking, device instance IDs — SURVEY §7.3) are fixed up host-side here,
-walking the kernel's top-K candidates per placement so a port/instance
-conflict falls through to the next-best node instead of failing the eval.
+The counterpart of `nomad_tpu.solver.solve`.  The discrete leftovers the
+tensor solve can't express (exact port picking, device instance IDs —
+SURVEY §7.3) are fixed up host-side here, walking the kernel's top-K
+candidates per placement so a port/instance conflict falls through to
+the next-best node instead of failing the eval.
+
+A Solver built with a state store (`Solver(store=store)`, as the
+worker builds its own) keeps a resident cluster world once the cluster
+has `resident_min_nodes` nodes: the node side is packed once and then
+advanced by changesets — the plan results the scheduler's planner feeds
+back (`note_plan_result`) and the store's change log — and each solve
+repacks only its asks (`Tensorizer.repack_asks`) and overlays the plan's
+proposed stops and sticky probes onto a copy of the carried usage.  The
+scheduler then reads allocs by node through `LazyAllocsView` instead of
+walking the cluster.
 
 The solve runs on the solver's device, `cuda` unless the caller asks for
 the CPU; with no GPU present a default `Solver()` raises instead of
 carrying on quietly on the CPU.  The reference's host-twin routing
-(`prefer_host`), watchdog failover, resident world, chaos injection and
-plan views are not part of this package, nor is the scheduler-facing
-interface that serves only the resident world and its in-kernel eviction
-pass (`solve()`'s `snapshot` / `proposed_delta` / `preempt`,
-`resident_active()`, `note_plan_result()`, `Placement.evicted`,
-`LazyAllocsView`).
+(`prefer_host`), watchdog failover, brownout budget, chaos injection,
+in-kernel eviction pass (`solve(preempt=)`, `Placement.evicted`), health
+sampling and what-if plan view (`PlanSolverView`) are not part of this
+package.
 """
 from __future__ import annotations
 
+import copy
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -28,11 +38,20 @@ import torch
 from ..structs import (AllocatedDeviceResource, AllocatedResources,
                        AllocatedSharedResources, AllocatedTaskResources,
                        AllocMetric, DeviceAccounter, NetworkIndex, Node)
+from ..utils.metrics import global_metrics
 from .kernel import TOP_K, solve_kernel
-from .tensorize import (NUM_R, PackedBatch, PlacementAsk, Tensorizer,
-                        R_CPU, R_DISK, R_MEM, R_NET)
+from .tensorize import (NUM_R, ClusterDelta, PackedBatch, PlacementAsk,
+                        Tensorizer, alloc_device_usage, alloc_usage_vector,
+                        apply_node_delta_host, R_CPU, R_DISK, R_MEM, R_NET)
 
 _DIM_NAMES = {R_CPU: "cpu", R_MEM: "memory", R_DISK: "disk", R_NET: "network"}
+
+#: clusters below this size full-pack per eval (the walk is cheap); at or
+#: above it a store-attached Solver keeps a delta-updated resident world
+RESIDENT_MIN_NODES = 512
+#: a change-log sync whose delta touches more than this share of the
+#: nodes rebuilds the resident world instead of applying the delta
+DELTA_THRESHOLD = 0.25
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,6 +63,245 @@ def resolve_device(device=None) -> torch.device:
             "nomad_tpu_torch: no CUDA device is available; the solver "
             "runs on the GPU unless constructed with device='cpu'")
     return dev
+
+
+class LazyAllocsView(dict):
+    """Proposed live allocs by node, filled lazily from the snapshot
+    (live minus `excluded` alloc ids).  The steady-state scheduler only
+    touches a handful of nodes per eval (chosen candidates' port/device
+    fixups, sticky preferences), so the O(cluster) walk the eager dict
+    pays per eval collapses to O(touched); anything that genuinely
+    needs the whole world (full-pack fallback iterating items()) just
+    materializes.  Once a key is filled it is a plain dict entry, so
+    in-place mutation (sticky probes, preemption rewrites) behaves
+    exactly like the eager dict."""
+
+    def __init__(self, snapshot, excluded=frozenset()):
+        super().__init__()
+        self._snap = snapshot
+        self.excluded = set(excluded)
+        self._filled = set()
+        self._all = False
+
+    def _fill(self, nid) -> None:
+        if self._all or nid in self._filled:
+            return
+        self._filled.add(nid)
+        live = [a for a in self._snap.allocs_by_node(nid)
+                if not a.terminal_status() and a.id not in self.excluded]
+        if live:                 # eager dict only has non-empty keys
+            dict.__setitem__(self, nid, live)
+
+    def materialize(self) -> "LazyAllocsView":
+        if not self._all:
+            pending: Dict[str, list] = {}
+            for a in self._snap.allocs():
+                if (a.terminal_status() or a.id in self.excluded
+                        or a.node_id in self._filled):
+                    continue
+                pending.setdefault(a.node_id, []).append(a)
+            for nid, lst in pending.items():
+                dict.__setitem__(self, nid, lst)
+            self._all = True
+        return self
+
+    def get(self, nid, default=None):
+        self._fill(nid)
+        return dict.get(self, nid, default)
+
+    def __getitem__(self, nid):
+        self._fill(nid)
+        return dict.__getitem__(self, nid)
+
+    def __contains__(self, nid):
+        self._fill(nid)
+        return dict.__contains__(self, nid)
+
+    def setdefault(self, nid, default=None):
+        self._fill(nid)
+        return dict.setdefault(self, nid, default)
+
+    def items(self):
+        return self.materialize() and dict.items(self)
+
+    def keys(self):
+        return self.materialize() and dict.keys(self)
+
+    def values(self):
+        return self.materialize() and dict.values(self)
+
+    def __iter__(self):
+        self.materialize()
+        return dict.__iter__(self)
+
+    def __len__(self):
+        self.materialize()
+        return dict.__len__(self)
+
+
+class _ResidentWorld:
+    """Delta-updated packed cluster state for a Solver: the node tensors
+    are packed ONCE from a snapshot and then advanced by exact
+    changesets — plan-apply results fed eagerly (note_plan_result) plus
+    the state store's change log for everything written by other actors
+    (client status updates, node joins/drains) — so steady-state
+    scheduling never re-walks or re-tensorizes the world.  Falls back to
+    a full rebuild when the change log was truncated, the delta escapes
+    the interned universe, or it touches more than `DELTA_THRESHOLD` of
+    the nodes."""
+
+    def __init__(self, tz: Tensorizer, store, snapshot,
+                 probe_asks: Sequence[PlacementAsk]):
+        self._tz = tz
+        self.store = store
+        # probe asks define the ask universe; grown (dedup by spec
+        # signature, capped) when an ask escapes it
+        self._probe_sigs: Dict = {}
+        self.probe_asks: List[PlacementAsk] = []
+        self.add_probes(probe_asks)
+        self.counters = {"delta_syncs": 0, "repack_fallbacks": 0,
+                         "plan_feeds": 0, "last_delta_ratio": 0.0}
+        self.drv_cache: Dict[str, np.ndarray] = {}
+        self.row_cache: Dict = {}
+        self.rebuild(snapshot)
+        self.counters["repack_fallbacks"] = 0   # initial build is free
+
+    def add_probes(self, asks: Sequence[PlacementAsk]) -> bool:
+        added = False
+        signer = self._tz.ask_signer()
+        for a in asks:
+            sig = signer(a)
+            if sig not in self._probe_sigs and len(self.probe_asks) < 64:
+                self._probe_sigs[sig] = True
+                self.probe_asks.append(a)
+                added = True
+        return added
+
+    def rebuild(self, snapshot) -> None:
+        global_metrics.incr_counter("solver.resident.rebuild")
+        self.nodes = list(snapshot.nodes())          # join order
+        by_node: Dict[str, list] = {}
+        self.live: Dict[str, tuple] = {}             # id -> (nid, alloc)
+        for a in snapshot.allocs():
+            if not a.terminal_status():
+                by_node.setdefault(a.node_id, []).append(a)
+                self.live[a.id] = (a.node_id, a)
+        self.template = self._tz.pack(self.nodes, self.probe_asks, by_node)
+        # the template packs EVERY node; readiness (status, drain,
+        # eligibility) lives in the valid mask instead of list filtering
+        for i, n in enumerate(self.nodes):
+            self.template.valid[i] = n.ready()
+        self.node_index = {n.id: i for i, n in enumerate(self.nodes)}
+        self.last_index = snapshot.index
+        self.drv_cache.clear()
+        self.row_cache.clear()
+        self.counters["repack_fallbacks"] += 1
+
+    def feed(self, delta: ClusterDelta) -> bool:
+        """Apply an eagerly-fed changeset (plan-apply results).  The
+        live map was already updated by the caller; only the tensors
+        move here.  Returns False if the delta was inexpressible (the
+        caller drops the world; the next solve rebuilds)."""
+        nd = self._tz.delta_pack(self.template, self.node_index, delta)
+        if nd is None:
+            return False
+        apply_node_delta_host(self.template, nd, self.nodes,
+                              self.node_index)
+        if nd.touches_nodes():
+            self.drv_cache.clear()
+            self.row_cache.clear()
+        return True
+
+    def sync(self, snapshot) -> None:
+        """Advance the world to `snapshot.index` via the store change
+        log, building an exact ClusterDelta from the changed entities
+        only."""
+        if snapshot.index == self.last_index:
+            return
+        if snapshot.index < self.last_index:
+            self.rebuild(snapshot)       # state moved backwards: a new
+            return                       # snapshot from another store
+        entries = self.store.changes_since(self.last_index,
+                                           snapshot.index)
+        if entries is None:              # ring truncated past us
+            self.rebuild(snapshot)
+            return
+        delta = ClusterDelta()
+        seen: set = set()
+        for _ix, kind, key in reversed(entries):
+            if (kind, key) in seen:      # newest entry per key wins
+                continue
+            seen.add((kind, key))
+            if kind == "node":
+                n = snapshot.node_by_id(key)
+                if n is None:
+                    if key in self.node_index:
+                        delta.remove_node_ids.append(key)
+                else:
+                    delta.upsert_nodes.append(n)
+            else:
+                a = snapshot.alloc_by_id(key)
+                live_now = a is not None and not a.terminal_status()
+                tracked = self.live.get(key)
+                if live_now and tracked is None:
+                    delta.place.append((a.node_id, a))
+                    self.live[key] = (a.node_id, a)
+                elif tracked is not None and not live_now:
+                    delta.stop.append(tracked)
+                    del self.live[key]
+                elif tracked is not None and live_now:
+                    old_nid, old = tracked
+                    if (old_nid != a.node_id
+                            or not np.array_equal(
+                                alloc_usage_vector(old),
+                                alloc_usage_vector(a))):
+                        delta.stop.append(tracked)
+                        delta.place.append((a.node_id, a))
+                    self.live[key] = (a.node_id, a)
+        self.counters["delta_syncs"] += 1
+        global_metrics.incr_counter("solver.resident.delta_sync")
+        if delta.empty():
+            self.last_index = snapshot.index
+            return
+        nd = self._tz.delta_pack(self.template, self.node_index, delta)
+        if nd is not None:
+            ratio = nd.ratio(self.template.n_real)
+            self.counters["last_delta_ratio"] = round(ratio, 6)
+            if nd.touches_nodes() and ratio > DELTA_THRESHOLD:
+                nd = None
+        if nd is None:
+            self.rebuild(snapshot)
+            return
+        apply_node_delta_host(self.template, nd, self.nodes,
+                              self.node_index)
+        if nd.touches_nodes():
+            self.drv_cache.clear()
+            self.row_cache.clear()
+        self.last_index = snapshot.index
+
+
+def _overlay_usage(world: _ResidentWorld, pb: PackedBatch,
+                   proposed_delta) -> PackedBatch:
+    """Copy-on-read overlay: apply this plan's proposed stops/probes to
+    COPIES of the resident template's carried usage, leaving `world`
+    bit-identical."""
+    pb = copy.copy(pb)
+    t = world.template
+    used0 = t.used0.copy()
+    dev_used0 = t.dev_used0.copy()
+    stops, probes = proposed_delta or ((), ())
+    D = dev_used0.shape[1]
+    for sign, group in ((-1.0, stops), (1.0, probes)):
+        for a in group:
+            i = world.node_index.get(a.node_id)
+            if i is None:
+                continue
+            used0[i] += sign * alloc_usage_vector(a)
+            drow = alloc_device_usage(t.dev_pattern_ids, D, a)
+            if drow is not None:
+                dev_used0[i] += sign * drow
+    pb.used0, pb.dev_used0 = used0, dev_used0
+    return pb
 
 
 @dataclass
@@ -77,19 +335,24 @@ class PendingSolve:
       finish_wall_s    host fixup walk wall
     """
 
-    __slots__ = ("_solver", "_pb", "_nodes", "_asks", "_allocs_by_node",
-                 "_by_dc", "_res", "_t0", "_out", "pack_wall_s",
-                 "dispatch_wall_s", "fetch_wall_s", "finish_wall_s")
+    __slots__ = ("_solver", "packed", "_nodes", "_asks", "_allocs_by_node",
+                 "_by_dc", "_used_resident", "_res", "_t0", "_out",
+                 "pack_wall_s", "dispatch_wall_s",
+                 "fetch_wall_s", "finish_wall_s")
 
     def __init__(self, solver, pb=None, nodes=None, asks=None,
-                 allocs_by_node=None, by_dc=None, res=None, t0: float = 0.0,
+                 allocs_by_node=None, by_dc=None,
+                 used_resident: bool = False, res=None, t0: float = 0.0,
                  out: Optional[SolveOutput] = None):
         self._solver = solver
-        self._pb = pb
+        #: the batch this solve packed (resident or full); kept after
+        #: wait() so a caller can re-solve exactly what was solved
+        self.packed = pb
         self._nodes = nodes
         self._asks = asks
         self._allocs_by_node = allocs_by_node
         self._by_dc = by_dc
+        self._used_resident = used_resident
         self._res = res
         self._t0 = t0
         self._out = out
@@ -108,15 +371,16 @@ class PendingSolve:
         res = _to_host(self._res)
         t1 = time.perf_counter()
         self.fetch_wall_s = t1 - t0
-        out = self._solver._finish_solve(self._pb, self._nodes, self._asks,
-                                         res, self._allocs_by_node,
+        out = self._solver._finish_solve(self.packed, self._nodes, self._asks,
+                                         res, self._used_resident,
+                                         self._allocs_by_node,
                                          self._by_dc, self._t0)
         self.finish_wall_s = time.perf_counter() - t1
         out.trace["pack_wall_s"] = round(self.pack_wall_s, 6)
         out.trace["dispatch_wall_s"] = round(self.dispatch_wall_s, 6)
         out.trace["fetch_wall_s"] = round(self.fetch_wall_s, 6)
         self._out = out
-        self._res = self._pb = self._nodes = self._asks = None
+        self._res = self._nodes = self._asks = None
         self._allocs_by_node = self._by_dc = None
         return out
 
@@ -131,44 +395,168 @@ def _to_host(res):
 class Solver:
     """Stateful wrapper owning tensorizer memoization. One per scheduler
     worker (reference analog: the Stack owned by each scheduler).
-    `device` is where the solve runs: `cuda` when None."""
+    `device` is where the solve runs: `cuda` when None.
 
-    def __init__(self, device=None) -> None:
+    With a `store` attached, solves that pass their `snapshot` take the
+    resident-world path once the cluster has `resident_min_nodes` nodes
+    (`RESIDENT_MIN_NODES` by default): the world is built on the first
+    such solve and advanced by `note_plan_result` and the store's change
+    log; a sync whose delta touches more than `DELTA_THRESHOLD` of the
+    nodes rebuilds it instead.  A store-less Solver always full-packs."""
+
+    def __init__(self, device=None, store=None,
+                 resident_min_nodes: Optional[int] = None) -> None:
         self._device = resolve_device(device)
         self._tensorizer = Tensorizer()
+        self._store = store
+        self._resident_min_nodes = (RESIDENT_MIN_NODES
+                                    if resident_min_nodes is None
+                                    else resident_min_nodes)
+        self._world: Optional[_ResidentWorld] = None
+        #: serializes resident-world access between the thread that
+        #: solves and the one that feeds plan results
+        self._world_lock = threading.Lock()
 
     @property
     def device(self) -> torch.device:
         return self._device
 
+    # ------------------------------------------------- resident world
+    def resident_active(self, snapshot=None) -> bool:
+        """Whether the next solve against `snapshot` can take the
+        resident-delta path (callers use this to pick the lazy allocs
+        view over the eager world walk)."""
+        if self._store is None:
+            return False
+        if self._world is not None:
+            return True
+        if snapshot is None:
+            return False
+        return len(snapshot.nodes()) >= self._resident_min_nodes
+
+    def note_plan_result(self, plan, result) -> None:
+        """Feed an applied plan's outcome into the resident world — the
+        planner calls this right after applying a plan, so the next
+        eval's solve starts from already-advanced tensors and the
+        change-log sync degenerates to a no-op dedup."""
+        with self._world_lock:
+            world = self._world
+            if world is None or result is None:
+                return
+            delta = ClusterDelta()
+            for allocs in (result.node_update or {}).values():
+                for a in allocs:
+                    tracked = world.live.pop(a.id, None)
+                    if tracked is not None:
+                        delta.stop.append(tracked)
+            for allocs in (result.node_preemptions or {}).values():
+                for a in allocs:
+                    tracked = world.live.pop(a.id, None)
+                    if tracked is not None:
+                        delta.stop.append(tracked)
+            for nid, allocs in (result.node_allocation or {}).items():
+                for a in allocs:
+                    if a.id not in world.live \
+                            and not a.terminal_status():
+                        delta.place.append((nid, a))
+                        world.live[a.id] = (nid, a)
+            if delta.empty():
+                return
+            world.counters["plan_feeds"] += 1
+            if not world.feed(delta):
+                # inexpressible eagerly (e.g. alloc on an unknown
+                # node): drop the world; the next solve rebuilds from
+                # its snapshot
+                self._world = None
+
+    def resident_counters(self) -> Optional[Dict]:
+        with self._world_lock:
+            world = self._world
+            return dict(world.counters) if world else None
+
+    def _resident_pack(self, snapshot, asks, proposed_delta):
+        """The steady-state pack: sync the world to the snapshot via
+        the change log, repack ONLY the ask side against the resident
+        template, and overlay this plan's proposed stops/probes onto a
+        copy of the maintained usage.  None -> caller full-packs.
+        Returns (pb, nodes) so callers never re-read self._world."""
+        if any(a.property_limits for a in asks):
+            return None          # host-side walk the resident path skips
+        with self._world_lock:
+            if self._world is None:
+                if len(snapshot.nodes()) < self._resident_min_nodes:
+                    return None
+                self._world = _ResidentWorld(
+                    self._tensorizer, self._store, snapshot, asks)
+            world = self._world
+            world.sync(snapshot)
+            gp = max(self._pad(len(asks)), 1)
+            kp = max(self._pad(sum(max(a.count, 1) for a in asks)), 1)
+            pb = self._tensorizer.repack_asks(
+                world.nodes, asks, world.template, gp=gp, kp=kp,
+                drv_cache=world.drv_cache, row_cache=world.row_cache)
+            if pb is None:
+                # ask universe escape: grow the probes and rebuild once
+                if not world.add_probes(asks):
+                    return None
+                world.rebuild(snapshot)
+                pb = self._tensorizer.repack_asks(
+                    world.nodes, asks, world.template, gp=gp, kp=kp,
+                    drv_cache=world.drv_cache, row_cache=world.row_cache)
+                if pb is None:
+                    return None
+            return (_overlay_usage(world, pb, proposed_delta),
+                    world.nodes)
+
+    @staticmethod
+    def _pad(n: int) -> int:
+        return 1 << max(0, (n - 1).bit_length())
+
     def solve(self, nodes: Sequence[Node], asks: Sequence[PlacementAsk],
               allocs_by_node: Optional[Dict[str, list]] = None,
-              by_dc: Optional[Dict[str, int]] = None) -> SolveOutput:
-        return self.solve_async(nodes, asks, allocs_by_node, by_dc).wait()
+              by_dc: Optional[Dict[str, int]] = None, *,
+              snapshot=None, proposed_delta=None) -> SolveOutput:
+        """`snapshot` (the state the scheduler read) lets a
+        store-attached solver take the resident path; `proposed_delta`
+        is (stopped allocs, sticky probes) of the plan being built: the
+        only places the proposed usage differs from the store's."""
+        return self.solve_async(nodes, asks, allocs_by_node, by_dc,
+                                snapshot=snapshot,
+                                proposed_delta=proposed_delta).wait()
 
     def solve_async(self, nodes: Sequence[Node],
                     asks: Sequence[PlacementAsk],
                     allocs_by_node: Optional[Dict[str, list]] = None,
-                    by_dc: Optional[Dict[str, int]] = None) -> PendingSolve:
+                    by_dc: Optional[Dict[str, int]] = None, *,
+                    snapshot=None, proposed_delta=None) -> PendingSolve:
         """Dispatch phase of `solve`: pack and launch the solve without
         fetching the result; `wait()` on the returned PendingSolve
         fetches and runs the host fixup walk."""
         t0 = time.perf_counter()
         if not asks:
             return PendingSolve(self, out=SolveOutput(placements=[]), t0=t0)
-        pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
+        pb = None
+        sol_nodes = nodes
+        if snapshot is not None and self.resident_active(snapshot):
+            packed = self._resident_pack(snapshot, asks, proposed_delta)
+            if packed is not None:
+                pb, sol_nodes = packed
+        used_resident = pb is not None
+        if pb is None:
+            pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
         t_pack = time.perf_counter()
         res = _run_kernel(pb, self._device)
-        pending = PendingSolve(self, pb=pb, nodes=nodes, asks=list(asks),
+        pending = PendingSolve(self, pb=pb, nodes=sol_nodes,
+                               asks=list(asks),
                                allocs_by_node=allocs_by_node, by_dc=by_dc,
-                               res=res, t0=t0)
+                               used_resident=used_resident, res=res, t0=t0)
         pending.pack_wall_s = t_pack - t0
         pending.dispatch_wall_s = time.perf_counter() - t_pack
         return pending
 
     def _finish_solve(self, pb: PackedBatch, sol_nodes, asks, res,
-                      allocs_by_node, by_dc, _solve_t0: float
-                      ) -> SolveOutput:
+                      used_resident: bool, allocs_by_node, by_dc,
+                      _solve_t0: float) -> SolveOutput:
         """Fetch-side half of `solve`: walks the host fixup over the
         fetched (numpy) result and builds the SolveOutput."""
         trace_attrs = {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
@@ -180,7 +568,12 @@ class Solver:
                        - int(res.n_rescore),
                        "unfinished": int(res.unfinished.sum()),
                        "kernel_wall_s": round(
-                           time.perf_counter() - _solve_t0, 6)}
+                           time.perf_counter() - _solve_t0, 6),
+                       "resident": used_resident}
+        if used_resident:
+            world = self._world
+            if world is not None:
+                trace_attrs["world"] = dict(world.counters)
         choice, choice_ok, score = res.choice, res.choice_ok, res.score
         n_feasible, n_exhausted = res.n_feasible, res.n_exhausted
         dim_exhausted, feas = res.dim_exhausted, res.feas
@@ -297,17 +690,19 @@ class Solver:
         only promoted into the cache on success (all-or-nothing).
         Returns None if the discrete assignment fails on this node.
         """
+        # `is not None`, not truthiness: bool() of a LazyAllocsView
+        # takes its length, which materializes the whole cluster
         idx = net_cache.get(node_ix)
         if idx is None:
             idx = NetworkIndex()
             idx.set_node(node)
-            if allocs_by_node:
+            if allocs_by_node is not None:
                 idx.add_allocs(allocs_by_node.get(node.id, ()))
             net_cache[node_ix] = idx
         acct = dev_cache.get(node_ix)
         if acct is None:
             acct = DeviceAccounter(node)
-            if allocs_by_node:
+            if allocs_by_node is not None:
                 acct.add_allocs(allocs_by_node.get(node.id, ()))
             dev_cache[node_ix] = acct
 

@@ -1,8 +1,7 @@
 """Pack a (nodes, asks) scheduling problem into dense tensors.
 
-The counterpart of `nomad_tpu.solver.tensorize`, reduced to the one-shot
-pack: node fingerprints and task-group asks become `nodes[N,R]` resource
-arrays, rank-interned attribute columns, and per-ask constraint programs.
+The counterpart of `nomad_tpu.solver.tensorize`: node fingerprints and
+task-group asks become `nodes[N,R]` resource arrays, rank-interned attribute columns, and per-ask constraint programs.
 Non-vectorizable checks (regex, version, semver, set_contains, host
 volumes, driver health) are evaluated host-side — memoized by computed
 class exactly like the reference's FeasibilityWrapper
@@ -12,6 +11,14 @@ mask.
 `Tensorizer.pack` returns numpy arrays, plane for plane what the JAX
 package's packer returns; `packed_from_numpy` moves a batch (from either
 packer) onto a torch device for the solve.
+
+The incremental side serves the solver's resident cluster world
+(`solve._ResidentWorld`): `delta_pack` turns a `ClusterDelta` (nodes
+joined, changed or removed; allocs placed or stopped) into a `NodeDelta`
+of scatter rows, `apply_node_delta_host` applies it to the numpy template
+in place, and `repack_asks` rebuilds only the ask side of a batch against
+that template.  The template carries no eviction planes (the in-kernel
+preemption pass is not ported), so none of these maintain any.
 
 Resource dims (R=4): cpu MHz, memory MB, disk MB, network mbits.
 """
@@ -253,6 +260,79 @@ def packed_from_numpy(arrays: dict, device) -> PackedBatch:
         elif f.name == "node_ids":
             kw[f.name] = [""] * int(arrays["n_real"])
     return PackedBatch(**kw)
+
+
+@dataclass
+class ClusterDelta:
+    """Changeset between two cluster states (the plan-apply feedback
+    unit): nodes joined/updated, nodes drained/removed, allocs placed,
+    allocs stopped.  `Tensorizer.delta_pack` turns one of these into
+    small scatter arrays instead of a full [N, R] re-tensorization."""
+    upsert_nodes: List = field(default_factory=list)   # joined or changed
+    remove_node_ids: List[str] = field(default_factory=list)
+    place: List[Tuple[str, object]] = field(default_factory=list)
+    # ^ (node_id, alloc) usage adds
+    stop: List[Tuple[str, object]] = field(default_factory=list)
+    # ^ (node_id, alloc) usage subtracts
+
+    def empty(self) -> bool:
+        return not (self.upsert_nodes or self.remove_node_ids
+                    or self.place or self.stop)
+
+
+@dataclass
+class NodeDelta:
+    """Scatter-update arrays produced by Tensorizer.delta_pack: the
+    node-side rows a ClusterDelta touches, ready for an in-place numpy
+    apply (apply_node_delta_host)."""
+    idx: np.ndarray          # [M] i32 touched node slots (upsert+remove)
+    avail: np.ndarray        # [M, R]
+    reserved: np.ndarray     # [M, R]
+    valid: np.ndarray        # [M] bool
+    node_class: np.ndarray   # [M] i32
+    node_dc: np.ndarray      # [M] i32
+    attr_rank: np.ndarray    # [M, A] template dtype
+    dev_cap: np.ndarray      # [M, D]
+    u_idx: np.ndarray        # [Mu] i32 usage-touched slots (deduped)
+    u_res: np.ndarray        # [Mu, R] signed usage adds
+    u_dev: np.ndarray        # [Mu, D] signed device-usage adds
+    new_nodes: List = field(default_factory=list)  # joins, slot order
+    n_real_new: int = 0
+
+    def touches_nodes(self) -> bool:
+        return self.idx.size > 0
+
+    def ratio(self, n_real: int) -> float:
+        """Fraction of real node slots this delta touches — the
+        repack-fallback threshold input."""
+        touched = len(set(self.idx.tolist()) | set(self.u_idx.tolist()))
+        return touched / max(n_real, 1)
+
+
+def apply_node_delta_host(template: PackedBatch, nd: NodeDelta,
+                          nodes: List[Node],
+                          node_index: Dict[str, int]) -> None:
+    """Apply a NodeDelta to the numpy template in place, growing
+    nodes/node_ids/n_real for joins.  Removed nodes stay as valid=False
+    tombstones so every surviving slot keeps its index (and therefore
+    its tie-break order and its carried usage row)."""
+    for n in nd.new_nodes:
+        node_index[n.id] = len(nodes)
+        nodes.append(n)
+        template.node_ids.append(n.id)
+    template.n_real = nd.n_real_new
+    if nd.idx.size:
+        template.avail[nd.idx] = nd.avail
+        template.reserved[nd.idx] = nd.reserved
+        template.valid[nd.idx] = nd.valid
+        template.node_class[nd.idx] = nd.node_class
+        template.node_dc[nd.idx] = nd.node_dc
+        template.attr_rank[nd.idx] = nd.attr_rank
+        template.dev_cap[nd.idx] = nd.dev_cap
+    if nd.u_idx.size:
+        # u_idx rows are pre-aggregated per slot (no duplicate indices)
+        template.used0[nd.u_idx] += nd.u_res
+        template.dev_used0[nd.u_idx] += nd.u_dev
 
 
 class Tensorizer:
@@ -599,6 +679,579 @@ class Tensorizer:
             class_ids=dict(class_interner.items()),
             dc_ids=dict(dc_interner.items()),
             dev_pattern_ids=dict(dev_pattern_ix),
+        )
+
+    def delta_pack(self, template: PackedBatch,
+                   node_index: Dict[str, int],
+                   delta: ClusterDelta) -> Optional[NodeDelta]:
+        """Incremental tensorize: turn a ClusterDelta into scatter-update
+        arrays against `template` instead of a full re-pack.
+
+        Returns None whenever the delta cannot be expressed inside the
+        template's interned universe — a joined/changed node carrying an
+        attribute value or datacenter the rank tables have never seen,
+        an alloc on an unknown node, or more joins than the padded node
+        axis holds — in which case the caller must fall back to a full
+        repack.  Computed classes are the one table that CAN grow in
+        place: class ids live in an unbounded int column, not a sized
+        axis.
+
+        u_idx/u_res/u_dev are pre-aggregated per node slot so the numpy
+        `+=` apply sees each slot once.
+        """
+        R = template.avail.shape[1]
+        A = template.attr_rank.shape[1]
+        D = template.dev_cap.shape[1]
+        Np = template.avail.shape[0]
+        idt = template.attr_rank.dtype
+        n_real = template.n_real
+
+        new_nodes: List[Node] = []
+        slot_of: Dict[str, int] = {}
+
+        def slot_for(nid: str) -> Optional[int]:
+            s = node_index.get(nid)
+            if s is not None:
+                return s
+            return slot_of.get(nid)
+
+        # ---- node upserts (joins get tail slots in the padding) ----
+        rows: List[Tuple[int, Node]] = []
+        for n in delta.upsert_nodes:
+            s = slot_for(n.id)
+            if s is None:
+                s = n_real + len(new_nodes)
+                if s >= Np:
+                    return None                 # node axis overflow
+                slot_of[n.id] = s
+                new_nodes.append(n)
+            rows.append((s, n))
+
+        M = len(rows) + len(delta.remove_node_ids)
+        idx = np.zeros(M, np.int32)
+        avail = np.zeros((M, R), np.float32)
+        reserved = np.zeros((M, R), np.float32)
+        valid = np.zeros(M, bool)
+        node_class = np.zeros(M, np.int32)
+        node_dc = np.zeros(M, np.int32)
+        attr_rank = np.full((M, A), -1, idt)
+        dev_cap = np.zeros((M, D), np.float32)
+
+        for m, (s, n) in enumerate(rows):
+            cap, res = node_capacity_vectors(n)
+            idx[m] = s
+            avail[m] = cap - res
+            reserved[m] = res
+            valid[m] = n.ready()
+            did = template.dc_ids.get(n.datacenter)
+            if did is None:
+                return None                     # dc axis is sized
+            node_dc[m] = did
+            cls = n.computed_class or n.compute_class()
+            cid = template.class_ids.get(cls)
+            if cid is None:                     # class ids are unbounded
+                cid = (max(template.class_ids.values()) + 1
+                       if template.class_ids else 0)
+                template.class_ids[cls] = cid
+            node_class[m] = cid
+            for col, t in enumerate(template.attr_targets):
+                v, ok = resolve_node_target(n, t)
+                if not ok:
+                    continue
+                r = template.rank_columns[col].rank(str(v))
+                if r < 0:
+                    return None                 # unseen attr value
+                attr_rank[m, col] = r
+            if template.dev_pattern_ids:
+                from ..structs.resources import device_pattern_matches
+                for dev in n.node_resources.devices:
+                    healthy = sum(1 for i in dev.instances if i.healthy)
+                    for key, dix in template.dev_pattern_ids.items():
+                        if device_pattern_matches(key, dev.id_tuple()):
+                            dev_cap[m, dix] += healthy
+
+        # ---- removes: valid=False tombstones keeping current rows ----
+        for k, nid in enumerate(delta.remove_node_ids):
+            s = slot_for(nid)
+            if s is None:
+                return None                     # unknown node id
+            m = len(rows) + k
+            idx[m] = s
+            avail[m] = template.avail[s]
+            reserved[m] = template.reserved[s]
+            valid[m] = False
+            node_class[m] = template.node_class[s]
+            node_dc[m] = template.node_dc[s]
+            attr_rank[m] = template.attr_rank[s]
+            dev_cap[m] = template.dev_cap[s]
+
+        # ---- usage deltas (allocs placed / stopped), per-slot sums ----
+        u_res_by: Dict[int, np.ndarray] = {}
+        u_dev_by: Dict[int, np.ndarray] = {}
+
+        def charge(nid: str, alloc, sign: float) -> bool:
+            s = slot_for(nid)
+            if s is None:
+                return False
+            vec = u_res_by.get(s)
+            if vec is None:
+                vec = u_res_by[s] = np.zeros(R, np.float32)
+            vec += sign * alloc_usage_vector(alloc)
+            drow = alloc_device_usage(template.dev_pattern_ids, D, alloc)
+            if drow is not None:
+                dv = u_dev_by.get(s)
+                if dv is None:
+                    dv = u_dev_by[s] = np.zeros(D, np.float32)
+                dv += sign * drow
+            return True
+
+        for nid, alloc in delta.place:
+            if not charge(nid, alloc, 1.0):
+                return None
+        for nid, alloc in delta.stop:
+            if not charge(nid, alloc, -1.0):
+                return None
+
+        slots = sorted(set(u_res_by) | set(u_dev_by))
+        u_idx = np.asarray(slots, np.int32)
+        u_res = np.zeros((len(slots), R), np.float32)
+        u_dev = np.zeros((len(slots), D), np.float32)
+        for i, s in enumerate(slots):
+            if s in u_res_by:
+                u_res[i] = u_res_by[s]
+            if s in u_dev_by:
+                u_dev[i] = u_dev_by[s]
+
+        return NodeDelta(
+            idx=idx, avail=avail, reserved=reserved, valid=valid,
+            node_class=node_class, node_dc=node_dc, attr_rank=attr_rank,
+            dev_cap=dev_cap, u_idx=u_idx, u_res=u_res, u_dev=u_dev,
+            new_nodes=new_nodes, n_real_new=n_real + len(new_nodes))
+
+    @staticmethod
+    def ask_signature(ask: PlacementAsk):
+        """Hashable semantic signature of an ask's CACHEABLE row - the
+        spec-derived program pieces (constraints, affinities, spreads,
+        resources, drivers, volumes, datacenters).  Excludes per-eval
+        state (existing allocs, penalties, blocked hosts, spread seeds),
+        which is pasted onto the cached row per ask, and excludes
+        ask.count, which only sizes the placement vector."""
+        return (Tensorizer.job_signature(ask.job),
+                Tensorizer.tg_signature(ask.tg))
+
+    @staticmethod
+    def ask_signer():
+        """Per-call signature helper that memoizes the job-level half
+        by object identity — a batch's asks usually share few jobs, and
+        the job half is ~half the hashing cost.  Scope the returned
+        closure to ONE pack call (identity memoization is only sound
+        while the caller holds the job objects)."""
+        jmemo: dict = {}
+
+        def sig(a):
+            js = jmemo.get(id(a.job))
+            if js is None:
+                js = Tensorizer.job_signature(a.job)
+                jmemo[id(a.job)] = js
+            return (js, Tensorizer.tg_signature(a.tg))
+        return sig
+
+    @staticmethod
+    def job_signature(job):
+        """Job-level half of ask_signature."""
+        sig: list = []
+        add = sig.append
+        add("c")
+        for c in job.constraints:
+            add(c.ltarget); add(c.rtarget); add(c.operand)
+        add("a")
+        for a in job.affinities:
+            add(a.ltarget); add(a.rtarget); add(a.operand); add(a.weight)
+        add("s")
+        for sp in job.spreads:
+            # per-spread marker: targets are variable-arity, and two
+            # adjacent spreads must not flatten ambiguously
+            add("sp"); add(sp.attribute); add(sp.weight)
+            for t in (sp.spread_targets or ()):
+                add(t.value); add(t.percent)
+        add("d"); sig.extend(job.datacenters)
+        return tuple(sig)
+
+    @staticmethod
+    def tg_signature(tg):
+        """Task-group half of ask_signature (flat append-driven build:
+        this runs once per ask on the pack critical path)."""
+        sig: list = []
+        add = sig.append
+        add("c")
+        for c in tg.constraints:
+            add(c.ltarget); add(c.rtarget); add(c.operand)
+        add("a")
+        for a in tg.affinities:
+            add(a.ltarget); add(a.rtarget); add(a.operand); add(a.weight)
+        add("s")
+        for sp in tg.spreads:
+            add("sp"); add(sp.attribute); add(sp.weight)
+            for t in (sp.spread_targets or ()):
+                add(t.value); add(t.percent)
+        add(tg.count); add(tg.ephemeral_disk.size_mb)
+        add(tg.ephemeral_disk.sticky)
+        if tg.volumes:
+            add("v")
+            sig.extend(sorted(
+                (k, v.type, v.source, v.read_only)
+                for k, v in tg.volumes.items()))
+        add("n")
+        for n in tg.networks:
+            add(n.mbits)
+        for t in tg.tasks:
+            add("t"); add(t.driver)
+            r = t.resources
+            add(r.cpu); add(r.memory_mb); add(r.disk_mb)
+            for c in t.constraints:
+                add(c.ltarget); add(c.rtarget); add(c.operand)
+            add("ta")
+            for a in t.affinities:
+                add(a.ltarget); add(a.rtarget); add(a.operand)
+                add(a.weight)
+            add("td")
+            for d in r.devices:
+                add(d.name); add(d.count); add(str(d.constraints))
+            add("tn")
+            for n in r.networks:
+                add(n.mbits)
+        return tuple(sig)
+
+    def repack_asks(self, nodes: Sequence[Node], asks: Sequence[PlacementAsk],
+                    template: PackedBatch,
+                    gp: Optional[int] = None, kp: Optional[int] = None,
+                    drv_cache: Optional[Dict[str, np.ndarray]] = None,
+                    row_cache: Optional[Dict] = None
+                    ) -> Optional[PackedBatch]:
+        """Rebuild ONLY the ask-side tensors of `template`, reusing its
+        node-side arrays and rank universes untouched: no O(N) node walk
+        per batch.  Returns None when an ask steps outside the template's
+        universe (unknown attr column, too many constraint slots, unknown
+        device pattern, distinct_property limits), in which case the
+        caller falls back to a full `pack`.
+
+        Ordered comparisons against operands the universe has never seen
+        stay exact via RankColumn.insertion (a `<` against an unseen
+        operand becomes `<` against its insertion rank, etc. — lexical
+        order is preserved by construction).  `drv_cache` memoizes the
+        per-driver node masks and `row_cache` the spec-derived row of
+        each ask signature, across calls, for as long as the caller
+        keeps the template's node side unchanged.
+        """
+        N = len(nodes)
+        Np = template.avail.shape[0]
+        if N != template.n_real:
+            return None
+        G = len(asks)
+        gp = gp or template.ask_res.shape[0]
+        C = template.c_op.shape[1]
+        CA = template.a_op.shape[1]
+        S = template.sp_col.shape[1]
+        V = template.sp_desired.shape[2]
+        D = template.dev_cap.shape[1]
+        NDC = template.dc_ok.shape[1]
+        if G > gp:
+            return None
+        # asks with distinct_property limits take the full pack, as in
+        # the reference
+        if any(ask.property_limits for ask in asks):
+            return None
+        rank_columns = template.rank_columns
+        attr_ix = {t: i for i, t in enumerate(template.attr_targets)}
+
+        def ranked(col: int, operand: str, op: int
+                   ) -> Optional[Tuple[int, int]]:
+            """(op, rank) for an operand vs a fixed universe; exact for
+            every op. None = inexpressible."""
+            rc = rank_columns[col]
+            r = rc.rank(operand)
+            if r >= 0:
+                return op, r
+            if op in (OP_EQ, OP_NE, OP_IS_SET, OP_NOT_SET):
+                return op, -2          # never equals a real rank
+            ins = rc.insertion(operand)
+            if op in (OP_LT, OP_LE):   # value < unseen  ==  value <= pred
+                return OP_LT, ins
+            if op in (OP_GT, OP_GE):
+                return OP_GE, ins
+            return None
+
+        node_index = {n.id: i for i, n in enumerate(nodes)}
+        if drv_cache is None:
+            drv_cache = {}
+        FALLBACK = "fallback"
+
+        def build_row(ask):
+            """Spec-derived row pieces for one ask (no per-eval state).
+            Returns FALLBACK when the ask is inexpressible in this
+            universe (caller returns None -> full pack path)."""
+            row = {
+                "c_op": np.zeros(C, np.int32),
+                "c_col": np.zeros(C, np.int32),
+                "c_rank": np.zeros(C, np.int32),
+                "a_op": np.zeros(CA, np.int32),
+                "a_col": np.zeros(CA, np.int32),
+                "a_rank": np.zeros(CA, np.int32),
+                "a_weight": np.zeros(CA, np.float32),
+                "a_host": np.zeros(N, np.float32),
+                "dc_ok": np.zeros(NDC, bool),
+                "sp_col": np.full(S, -1, np.int32),
+                "sp_weight": np.zeros(S, np.float32),
+                "sp_targeted": np.zeros(S, bool),
+                "sp_desired": np.full((S, V), -1.0, np.float32),
+                "sp_implicit": np.full(S, -1.0, np.float32),
+                "dev_ask": np.zeros(D, np.float32),
+            }
+            vec, labels, host = [], [], []
+            for c in hostfeas.merged_constraints(ask.job, ask.tg):
+                if c.operand in (CONSTRAINT_DISTINCT_HOSTS,
+                                 CONSTRAINT_DISTINCT_PROPERTY):
+                    continue
+                op = _VECTOR_OPS.get(c.operand)
+                if (op is not None and c.ltarget.startswith("${")
+                        and not c.rtarget.startswith("${")):
+                    col = attr_ix.get(c.ltarget)
+                    if col is None:
+                        return FALLBACK
+                    orank = ranked(col, c.rtarget, op)
+                    if orank is None:
+                        return FALLBACK
+                    vec.append((orank[0], col, orank[1]))
+                    labels.append(str(c))
+                else:
+                    host.append(c)
+            if len(vec) > C:
+                return FALLBACK
+            for k, (op, col, r) in enumerate(vec):
+                row["c_op"][k] = op
+                row["c_col"][k] = col
+                row["c_rank"][k] = r
+            row["labels"] = labels
+
+            mask = np.ones(N, bool)
+            for c in host:
+                mask &= self._class_masked(nodes, c)
+            for drv in hostfeas.group_drivers(ask.tg):
+                dmask = drv_cache.get(drv)
+                if dmask is None:
+                    dmask = np.fromiter(
+                        (hostfeas.driver_feasible(n, drv) for n in nodes),
+                        bool, N)
+                    drv_cache[drv] = dmask
+                mask &= dmask
+            if any(v.type in ("", "host") for v in ask.tg.volumes.values()):
+                mask &= np.fromiter(
+                    (hostfeas.host_volumes_feasible(n, ask.tg)
+                     for n in nodes), bool, N)
+            row["host_ok"] = mask
+
+            affs, haffs = [], []
+            merged_affs = list(ask.job.affinities) + list(ask.tg.affinities)
+            for t in ask.tg.tasks:
+                merged_affs.extend(t.affinities)
+            for a in merged_affs:
+                op = _VECTOR_OPS.get(a.operand)
+                if (op is not None and a.ltarget.startswith("${")
+                        and not a.rtarget.startswith("${")):
+                    col = attr_ix.get(a.ltarget)
+                    if col is None:
+                        return FALLBACK
+                    affs.append((col, a.rtarget, op, float(a.weight)))
+                else:
+                    haffs.append(a)
+            if len(affs) > CA:
+                return FALLBACK
+            total = (sum(abs(w) for _, _, _, w in affs)
+                     + sum(abs(a.weight) for a in haffs))
+            for k, (col, operand, op, w) in enumerate(affs):
+                orank = ranked(col, operand, op)
+                if orank is None:
+                    return FALLBACK
+                row["a_op"][k] = orank[0]
+                row["a_col"][k] = col
+                row["a_rank"][k] = orank[1]
+                row["a_weight"][k] = w / total if total else 0.0
+            for aff in haffs:
+                c = Constraint(aff.ltarget, aff.rtarget, aff.operand)
+                match = self._class_masked(nodes, c)
+                row["a_host"] += match * (aff.weight / total if total
+                                          else 0.0)
+
+            dcs = set(ask.job.datacenters)
+            for dc, did in template.dc_ids.items():
+                if dc in dcs or "*" in dcs:
+                    row["dc_ok"][did] = True
+
+            row["ask_res"] = group_resource_vector(ask.tg)
+            row["ask_desired"] = float(max(ask.tg.count, 1))
+            if any(c.operand == CONSTRAINT_DISTINCT_HOSTS
+                   for c in ask.job.constraints):
+                row["distinct_kind"] = "job"
+            elif any(c.operand == CONSTRAINT_DISTINCT_HOSTS
+                     for c in hostfeas.merged_constraints(ask.job, ask.tg)):
+                row["distinct_kind"] = "tg"
+            else:
+                row["distinct_kind"] = None
+
+            sps = list(ask.job.spreads) + list(ask.tg.spreads)
+            if len(sps) > S:
+                return FALLBACK
+            sum_w = sum(sp.weight for sp in sps)
+            total_count = max(ask.tg.count, 1)
+            for si, sp in enumerate(sps):
+                col = attr_ix.get(sp.attribute)
+                if col is None:
+                    return FALLBACK
+                rc = rank_columns[col]
+                if rc.n_values > V:
+                    return FALLBACK
+                row["sp_col"][si] = col
+                row["sp_weight"][si] = sp.weight / sum_w if sum_w else 0.0
+                if sp.spread_targets:
+                    row["sp_targeted"][si] = True
+                    sum_desired = 0.0
+                    for st in sp.spread_targets:
+                        d = (st.percent / 100.0) * total_count
+                        r = rc.rank(st.value)
+                        if r >= 0:
+                            row["sp_desired"][si, r] = d
+                        sum_desired += d
+                    if 0 < sum_desired < total_count:
+                        row["sp_implicit"][si] = total_count - sum_desired
+
+            for t in ask.tg.tasks:
+                for d in t.resources.devices:
+                    dix = template.dev_pattern_ids.get(d.id_tuple())
+                    if dix is None:
+                        return FALLBACK
+                    row["dev_ask"][dix] += d.count
+            return row
+
+        # one cached spec row per distinct ask shape; per-eval state is
+        # pasted over the copy in the assembly loop below, so cached
+        # rows are never mutated
+        rows = []
+        signer = self.ask_signer()
+        for ask in asks:
+            sig = signer(ask) if row_cache is not None else None
+            row = row_cache.get(sig) if sig is not None else None
+            if row is None:
+                row = build_row(ask)
+                if row is FALLBACK:
+                    return None
+                if sig is not None:
+                    row_cache[sig] = row
+            rows.append(row)
+
+        # program rows reuse the TEMPLATE's (possibly int16-minimized)
+        # dtypes, as the full pack would give them
+        idt = template.attr_rank.dtype
+        c_op = np.zeros((gp, C), idt)
+        c_col = np.zeros((gp, C), idt)
+        c_rank = np.zeros((gp, C), idt)
+        a_op = np.zeros((gp, CA), idt)
+        a_col = np.zeros((gp, CA), idt)
+        a_rank = np.zeros((gp, CA), idt)
+        a_weight = np.zeros((gp, CA), np.float32)
+        a_host = np.zeros((gp, Np), np.float32)
+        host_ok = np.zeros((gp, Np), bool)
+        host_ok[:, :N] = True      # padding rows keep the universe
+        dc_ok = np.zeros((gp, NDC), bool)
+        ask_res = np.zeros((gp, NUM_R), np.float32)
+        ask_desired = np.ones(gp, np.float32)
+        distinct = np.full(gp, -1, np.int32)
+        distinct_interner = Interner()
+        coll0 = np.zeros((gp, Np), np.float32)
+        penalty = np.zeros((gp, Np), bool)
+        sp_col = np.full((gp, S), -1, idt)
+        sp_weight = np.zeros((gp, S), np.float32)
+        sp_targeted = np.zeros((gp, S), bool)
+        sp_desired = np.full((gp, S, V), -1.0, np.float32)
+        sp_implicit = np.full((gp, S), -1.0, np.float32)
+        sp_used0 = np.zeros((gp, S, V), np.float32)
+        dev_ask = np.zeros((gp, D), np.float32)
+        constraint_labels: List[List[str]] = []
+        p_ask_list: List[int] = []
+
+        for g, (ask, row) in enumerate(zip(asks, rows)):
+            c_op[g], c_col[g], c_rank[g] = \
+                row["c_op"], row["c_col"], row["c_rank"]
+            constraint_labels.append(row["labels"])
+            host_ok[g, :N] = row["host_ok"]
+            for nid in ask.distinct_hosts_blocked:
+                i = node_index.get(nid)
+                if i is not None:
+                    host_ok[g, i] = False
+            a_op[g], a_col[g], a_rank[g] = \
+                row["a_op"], row["a_col"], row["a_rank"]
+            a_weight[g] = row["a_weight"]
+            a_host[g, :N] = row["a_host"]
+            dc_ok[g] = row["dc_ok"]
+            ask_res[g] = row["ask_res"]
+            ask_desired[g] = row["ask_desired"]
+            if row["distinct_kind"] == "job":
+                distinct[g] = distinct_interner.intern("job:" + ask.job.id)
+            elif row["distinct_kind"] == "tg":
+                distinct[g] = distinct_interner.intern(
+                    f"tg:{ask.job.id}:{ask.tg.name}")
+            for nid, cnt in ask.existing_by_node.items():
+                i = node_index.get(nid)
+                if i is not None:
+                    coll0[g, i] = cnt
+            for nid in ask.penalty_nodes:
+                i = node_index.get(nid)
+                if i is not None:
+                    penalty[g, i] = True
+            sp_col[g], sp_weight[g] = row["sp_col"], row["sp_weight"]
+            sp_targeted[g] = row["sp_targeted"]
+            sp_desired[g] = row["sp_desired"]
+            sp_implicit[g] = row["sp_implicit"]
+            if ask.spread_seed:
+                for si, sp in enumerate(list(ask.job.spreads)
+                                        + list(ask.tg.spreads)):
+                    seed = ask.spread_seed.get(sp.attribute, {})
+                    if seed:
+                        rc = rank_columns[sp_col[g, si]]
+                        for val, cnt in seed.items():
+                            r = rc.rank(val)
+                            if r >= 0:
+                                sp_used0[g, si, r] = cnt
+            dev_ask[g] = row["dev_ask"]
+            p_ask_list.extend([g] * ask.count)
+
+        kp = kp or _pad_pow2(max(len(p_ask_list), 1), floor=1)
+        if len(p_ask_list) > kp:
+            return None
+        p_ask = np.zeros(kp, np.int32)
+        p_ask[:len(p_ask_list)] = p_ask_list
+
+        return PackedBatch(
+            node_ids=template.node_ids, n_real=template.n_real,
+            avail=template.avail, reserved=template.reserved,
+            used0=template.used0, valid=template.valid,
+            node_class=template.node_class, node_dc=template.node_dc,
+            attr_rank=template.attr_rank,
+            n_asks=G, ask_res=ask_res, ask_desired=ask_desired,
+            distinct=distinct, dc_ok=dc_ok, host_ok=host_ok,
+            coll0=coll0, penalty=penalty,
+            c_op=c_op, c_col=c_col, c_rank=c_rank,
+            a_op=a_op, a_col=a_col, a_rank=a_rank, a_weight=a_weight,
+            a_host=a_host,
+            sp_col=sp_col, sp_weight=sp_weight, sp_targeted=sp_targeted,
+            sp_desired=sp_desired, sp_implicit=sp_implicit,
+            sp_used0=sp_used0,
+            dev_cap=template.dev_cap, dev_used0=template.dev_used0,
+            dev_ask=dev_ask,
+            p_ask=p_ask, n_place=len(p_ask_list),
+            rank_columns=rank_columns, attr_targets=template.attr_targets,
+            constraint_labels=constraint_labels,
+            class_ids=template.class_ids, dc_ids=template.dc_ids,
+            dev_pattern_ids=template.dev_pattern_ids,
         )
 
     def _class_masked(self, nodes: Sequence[Node], c: Constraint) -> np.ndarray:

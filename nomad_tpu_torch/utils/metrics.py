@@ -2,8 +2,11 @@
 command/agent/command.go:985-1060).
 
 The counterpart of `nomad_tpu.utils.metrics`, reduced to what the
-scheduler path calls: counters (`incr_counter`, e.g. the host-side
-preemption fallback), read back with `dump`.  Not here yet: gauges,
+scheduler path calls: counters (`incr_counter`), read back with `dump`.
+The counters in use: `scheduler.preempt.host_fallback` (the host-side
+preemption pass) and the solver's resident world,
+`solver.resident.rebuild` (a full repack of the world) and
+`solver.resident.delta_sync` (a change-log sync).  Not here yet: gauges,
 timing samples, histograms, the Prometheus exposition and the
 per-namespace key cap (`NOMAD_TPU_METRICS_MAX_KEYS`), which serve the
 server plane and the HTTP API.

@@ -12,10 +12,16 @@ index in insertion order.  The port solves with `Solver(device="cpu")`;
 the reference with its default `Solver()`, which routes these small
 batches to its numpy twin (placement-identical to its jit kernel,
 tests/test_host_solver.py), and with `Solver(host="never")` in one case.
+Every scenario runs again with a store-attached solver in both packages
+(`Solver(store=h.store, resident_min_nodes=1)`: the resident cluster
+world, the plan-apply feed and the lazy allocs-by-node view), the
+reference with `NOMAD_TPU_EVICT_E=0`, so its world carries no eviction
+planes and preemption takes the host-side pass as in the port.
 Everything the scheduler wrote must be equal: the allocs in the store,
 the evals (status, queued allocations, failure metrics), the plans, the
-blocked and follow-up evals and the `scheduler.*` counters, and the
-scores within the reference's cross-backend rel=2e-5."""
+blocked and follow-up evals, the `scheduler.*` and `solver.resident.*`
+counters, and the scores within the reference's cross-backend
+rel=2e-5."""
 import copy
 import re
 import time
@@ -41,8 +47,9 @@ from nomad_tpu_torch.utils.metrics import global_metrics as port_metrics
 class Pkg:
     """One package's factories, and the solver its harness shares."""
 
-    def __init__(self, name, host="auto"):
+    def __init__(self, name, host="auto", resident=False):
         self.name = name
+        self.resident = resident
         if name == "ref":
             self.mock, self.st, self.store, self.Harness = (
                 ref_mock, ref_structs, ref_store, RefHarness)
@@ -54,7 +61,13 @@ class Pkg:
 
     def harness(self):
         h = self.Harness()
-        h.solver = self.solver
+        if not self.resident:
+            h.solver = self.solver
+        elif self.name == "ref":
+            h.solver = RefSolver(store=h.store, resident_min_nodes=1)
+        else:
+            h.solver = PortSolver(device="cpu", store=h.store,
+                                  resident_min_nodes=1)
         return h
 
     def node(self, i, **kw):
@@ -454,11 +467,12 @@ def observe(h, nodes, job_ids):
 
 
 def scheduler_counters(metrics, scenario, P):
-    """The scenario's observation and the `scheduler.*` counters it
-    moved in the package's metrics registry."""
+    """The scenario's observation and the `scheduler.*` and
+    `solver.resident.*` counters it moved in the package's metrics
+    registry."""
     def counters():
         return {k: v for k, v in metrics.dump()["counters"].items()
-                if k.startswith("scheduler.")}
+                if k.startswith(("scheduler.", "solver.resident."))}
     before = counters()
     out = observe(*scenario(P))
     after = counters()
@@ -466,11 +480,11 @@ def scheduler_counters(metrics, scenario, P):
                  if v != before.get(k, 0.0)}
 
 
-def assert_same_schedule(scenario, ref_host="auto"):
+def assert_same_schedule(scenario, ref_host="auto", resident=False):
     (r, r_scores), r_moved = scheduler_counters(
-        ref_metrics, scenario, Pkg("ref", host=ref_host))
+        ref_metrics, scenario, Pkg("ref", host=ref_host, resident=resident))
     (p, p_scores), p_moved = scheduler_counters(
-        port_metrics, scenario, Pkg("port"))
+        port_metrics, scenario, Pkg("port", resident=resident))
     p["counters"], r["counters"] = p_moved, r_moved
     for key in r:
         assert p[key] == r[key], key
@@ -487,6 +501,21 @@ def test_scenario_matches_reference(name):
     assert got["evals"], "the scheduler wrote no eval"
     if name == "preemption":
         assert got["counters"] == {"scheduler.preempt.host_fallback": 2.0}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_scenario_matches_reference_resident(name, monkeypatch):
+    """The same comparison with a store-attached solver in both
+    packages: the world is built on the first solve and every later eval
+    of the scenario takes the resident path."""
+    monkeypatch.setenv("NOMAD_TPU_EVICT_E", "0")
+    got = assert_same_schedule(SCENARIOS[name], resident=True)
+    assert got["evals"], "the scheduler wrote no eval"
+    counters = got["counters"]
+    if name != "no_nodes_blocks":
+        assert counters.get("solver.resident.rebuild") == 1.0, counters
+    if name == "preemption":
+        assert counters["scheduler.preempt.host_fallback"] == 2.0
 
 
 def test_scenario_matches_reference_jit_kernel():
