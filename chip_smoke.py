@@ -89,13 +89,48 @@ Phases, one JSON line each; any failed phase exits nonzero:
                from the kernel-vs-plain re-solves, and each kernel is then
                checked and timed on them as in phase 3: the main path's
                own shapes and data.
+  7. server  — the system's entry point: a port `Server(device="cuda")`
+               with the reference's default serving tier (2 workers,
+               solve coordinator and pipeline on, adaptive batching,
+               group commit 8, 1 broker shard).  Before `start()` the
+               same cluster is entered through the server: each node by
+               `register_node`, the resident job and its 100,000 running
+               allocs as raft entries (FSM -> store).  One untimed
+               warm-up job per worker builds that worker's resident world
+               (`world_build_ms`, the other worker paused).  Leg A: 16
+               config-3 service jobs, each registered after the previous
+               eval completed, wall from `register_job` to the eval's
+               completion, split from the eval's trace spans (queue,
+               `worker.wait_index`, solve with pack / launch-to-fetch /
+               fixup, `plan.submit`, rest) with the FSM's apply of each
+               plan beside it.  Leg B: 64 service jobs back to back, then
+               the 1,024-placement batch job: wall to the last eval's
+               completion, evals/s and placements/s, every fused round
+               (evals, asks, Gp, K, wave modes, stages), the broker's
+               dequeue sizes, the BatchController's chosen sizes and what
+               its model was fed, group commits.  Checks: every eval
+               complete, no `worker.batch_error` or
+               `telemetry.tick_error` from `start()` on (warm-up
+               included), nothing on the broker's failed queue or
+               unacked, the store holds exactly each job's placed allocs
+               (by name) and any placement not placed is left to a
+               blocked eval of its job, no node oversubscribed or down,
+               no world rebuilt in the legs (each worker ends them on the
+               world object it began with, its delta syncs and plan feeds
+               only grew and no repack fell back), a
+               fused round of two or more evals, topk and merge launches
+               in leg A and score launches in leg B, and the first fused
+               score round's packed batch re-solved with the kernel and
+               with the plain wave agrees under assert_same.
 
-The line before the last lists every kernel with its launches on the main
-path (phase 6; phase 5's beside them as `launches_phase5`), and its error
-against the plain version, times (`ms` is the kernel-only cold time) and
-bound on phase 6's own arguments; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits
-nonzero before printing any result.
+The line before the last lists every kernel with its launches on the
+worker's path (phase 6; phase 5's as `launches_phase5` and phase 7's as
+`launches_phase7` beside them), and its error against the plain version,
+times (`ms` is the kernel-only cold time) and bound on phase 6's own
+arguments; the score kernel also on the first fused score round's
+arguments (`fused_round`).  The last line is {"ok": true, "device":
+{...}}.  Without a CUDA device the script exits nonzero before printing
+any result.
 """
 from __future__ import annotations
 
@@ -1346,22 +1381,507 @@ def phase_worker(torch, wk, n_nodes, resident, n_evals, batch_count):
     share = device_share(torch, EvalRunner(h, mock, structs, clock),
                          profiled)
     clock.close()
-    emit({"phase": "worker", "nodes": n_nodes,
-          "resident_allocs": resident, "resident_cut": RESIDENT - resident,
-          "setup_s": setup_s, "world_build_ms": world_build_ms,
-          "world_build_split_ms": {k: 1e3 * v
-                                   for k, v in first["split"].items()},
-          "traffic": dict(stats),
-          "service": service_row(svc, svc_counts),
-          "batch": batch_row(bat, bjob, batch_count, bat_counts),
-          "world_before": before, "world_after": after,
-          "world_per_eval": world,
-          "wave_loop_turns_ms": turns,
-          "profiled_eval": share,
-          "checks": {"resident_vs_full_pack": "passed",
-                     "kernel_vs_plain": "passed"},
-          "launches": counts})
-    return counts, calls
+    row = {"phase": "worker", "nodes": n_nodes,
+           "resident_allocs": resident, "resident_cut": RESIDENT - resident,
+           "setup_s": setup_s, "world_build_ms": world_build_ms,
+           "world_build_split_ms": {k: 1e3 * v
+                                    for k, v in first["split"].items()},
+           "traffic": dict(stats),
+           "service": service_row(svc, svc_counts),
+           "batch": batch_row(bat, bjob, batch_count, bat_counts),
+           "world_before": before, "world_after": after,
+           "world_per_eval": world,
+           "wave_loop_turns_ms": turns,
+           "profiled_eval": share,
+           "checks": {"resident_vs_full_pack": "passed",
+                      "kernel_vs_plain": "passed"},
+           "launches": counts}
+    emit(row)
+    return counts, calls, row
+
+
+# ------------------------------------------------------------ phase 7
+#: leg B: config-3 service jobs registered back to back
+N_BURST_JOBS = 64
+#: resident allocs per raft entry while the cluster is entered
+RESIDENT_CHUNK = 10_000
+
+
+def server_cluster(srv, mock, structs, n_nodes, resident):
+    """Enter bench.py's config-3 cluster into a Server that has not
+    started: each node through `register_node`, then the resident job
+    and its running allocs through raft entries (`_propose` -> FSM ->
+    store; the job without an eval, the allocs as plan results of
+    RESIDENT_CHUNK allocs).  Returns the nodes and the seconds each part
+    took."""
+    from nomad_tpu_torch.utils.codec import to_wire
+    t0 = time.perf_counter()
+    nodes = make_nodes(mock, n_nodes)
+    for n in nodes:
+        srv.register_node(n)
+    t1 = time.perf_counter()
+    by_node = resident_allocs(mock, nodes, resident)
+    res_job = next(iter(by_node.values()))[0].job
+    srv._propose("job_upsert", {"job": to_wire(res_job)})
+    allocs = [by_node[nodes[k % n_nodes].id][k // n_nodes]
+              for k in range(resident)]
+    for a in allocs:
+        a.client_status = structs.ALLOC_CLIENT_RUNNING
+        a.job = None                  # the entry carries the job once
+    for c in range(0, resident, RESIDENT_CHUNK):
+        result = structs.PlanResult()
+        for a in allocs[c:c + RESIDENT_CHUNK]:
+            result.node_allocation.setdefault(a.node_id, []).append(a)
+        srv._propose("plan_result", {"result": to_wire(result),
+                                     "job": to_wire(res_job)})
+    return nodes, {"nodes_s": t1 - t0,
+                   "resident_allocs_s": time.perf_counter() - t1}
+
+
+class ServerProbe:
+    """Watches a Server from outside while it runs: the FSM's apply of
+    every plan entry (seconds, and the allocs it placed by job), each
+    fused round the coordinator runs (its evals, asks, packed batch,
+    wave modes and stages), the broker's dequeue batch sizes, the
+    BatchController's chosen sizes and what its model was fed.  The wave
+    modes of a round come from a per-thread count of the wrapper's
+    launches: the port's `solve_async` runs the whole wave loop inside
+    `fleet_dispatch`, on the drain leader's thread."""
+
+    PLAN_ENTRIES = ("plan_result", "plan_results_batch")
+
+    def __init__(self, srv, wk):
+        import threading
+        from nomad_tpu_torch.scheduler import fleet
+        self.applies, self.rounds = [], []
+        self.dequeues, self.targets, self.model_feed = [], [], []
+        self.placed = collections.defaultdict(list)
+        local = threading.local()
+        restore = []
+
+        def patch(obj, name, fn):
+            restore.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+
+        real_apply = srv.fsm.apply
+
+        def apply(index, etype, p):
+            t = time.perf_counter()
+            real_apply(index, etype, p)
+            if etype not in self.PLAN_ENTRIES:
+                return
+            items = p["items"] if etype == "plan_results_batch" else [p]
+            evals = set()
+            for it in items:
+                for lst in it["result"]["node_allocation"].values():
+                    for a in lst:
+                        self.placed[a["job_id"]].append(a["name"])
+                        evals.add(a["eval_id"])
+            self.applies.append({"s": time.perf_counter() - t,
+                                 "plans": len(items), "evals": evals})
+        patch(srv.fsm, "apply", apply)
+
+        real_wave = wk.fused_wave
+
+        def wave(**kw):
+            modes = getattr(local, "modes", None)
+            if modes is not None:
+                modes[kw["mode"]] += 1
+            return real_wave(**kw)
+        wave.launches = real_wave.launches
+        wave.mode_launches = real_wave.mode_launches
+        patch(wk, "fused_wave", wave)
+
+        real_dispatch, real_finish = fleet.fleet_dispatch, fleet.fleet_finish
+
+        def fleet_dispatch(server, worker, rnd):
+            local.modes = collections.Counter()
+            try:
+                real_dispatch(server, worker, rnd)
+            finally:
+                modes, local.modes = local.modes, None
+            pb = rnd.pending.packed if rnd.pending is not None else None
+            keep = modes["score"] and not any(r["pb"] is not None
+                                              for r in self.rounds)
+            self.rounds.append({
+                "rnd": rnd, "evals": len(rnd.fused),
+                "solvable": len(rnd.solvable), "asks": len(rnd.all_asks),
+                "Gp": int(pb.ask_res.shape[0]) if pb is not None else 0,
+                "K": int(pb.n_place) if pb is not None else 0,
+                "modes": dict(modes),
+                # only the first score round's batch is re-solved below
+                "pb": pb if keep else None})
+
+        def fleet_finish(server, worker, rnd, prev_fetch_done=0.0):
+            real_finish(server, worker, rnd, prev_fetch_done)
+            for r in self.rounds:
+                if r["rnd"] is rnd:
+                    r["stages_ms"] = {k: 1e3 * v
+                                      for k, v in rnd.stages.items()}
+                    r["rnd"] = None
+        patch(fleet, "fleet_dispatch", fleet_dispatch)
+        patch(fleet, "fleet_finish", fleet_finish)
+
+        broker, serving = srv.broker, srv.serving
+        real_dequeue = broker.dequeue_batch
+
+        def dequeue_batch(*a, **kw):
+            out = real_dequeue(*a, **kw)
+            if out:
+                self.dequeues.append(len(out))
+            return out
+        patch(broker, "dequeue_batch", dequeue_batch)
+        real_target = serving.batch_controller.target_batch
+
+        def target_batch(ready, oldest_age_s):
+            n = real_target(ready, oldest_age_s)
+            if ready > 0:
+                self.targets.append({"ready": ready, "age_ms":
+                                     1e3 * oldest_age_s, "target": n})
+            return n
+        patch(serving.batch_controller, "target_batch", target_batch)
+        real_observe = serving.solve_model.observe
+
+        def observe(n_evals, wall_s):
+            self.model_feed.append({"evals": n_evals, "ms": 1e3 * wall_s})
+            return real_observe(n_evals, wall_s)
+        patch(serving.solve_model, "observe", observe)
+
+        def close():
+            for obj, name, fn in reversed(restore):
+                setattr(obj, name, fn)
+            wk.fused_wave.launches = wave.launches
+            wk.fused_wave.mode_launches = wave.mode_launches
+        self.close = close
+
+    def mark(self):
+        """Positions to slice every record from, for one leg."""
+        return {k: len(getattr(self, k)) for k in
+                ("applies", "rounds", "dequeues", "targets",
+                 "model_feed")}
+
+    def since(self, m):
+        return {k: getattr(self, k)[v:] for k, v in m.items()}
+
+
+def wait_evals(srv, ids, timeout):
+    """Block until every eval id is terminal in the store (waking on
+    store writes, not polling); returns the seconds waited."""
+    from nomad_tpu_torch.structs import EVAL_STATUS_PENDING
+    t0 = time.perf_counter()
+    deadline = t0 + timeout
+    pending = set(ids)
+    while True:
+        head = srv.store.latest_index()
+        for eid in list(pending):
+            ev = srv.store.eval_by_id(eid)
+            if ev is not None and ev.status != EVAL_STATUS_PENDING:
+                pending.discard(eid)
+        if not pending:
+            return time.perf_counter() - t0
+        remain = deadline - time.perf_counter()
+        check(remain > 0, f"{len(pending)} eval(s) still pending after "
+              f"{timeout} s")
+        srv.store.wait_for_change(head, min(remain, 1.0))
+
+
+def eval_split(tracer, ev_id):
+    """One eval's wall split from its trace spans (ms): queue (create to
+    dequeue), `worker.wait_index`, `pre_solve` (the scheduler's store
+    snapshot, reconcile and asks, up to the solve span), the solve span
+    (the solver call and the placements turned into the plan) with its
+    pack, launch-to-fetch and the rest after the fetch (`fixup`: the
+    host fixup walk and the plan build), and `plan.submit` (plan queue,
+    the applier's snapshot and evaluation, raft apply and the solver's
+    plan feed)."""
+    spans = {s["name"]: s for s in tracer.get(ev_id) or ()}
+    check("solve" in spans and "plan.submit" in spans,
+          f"eval {ev_id}: trace lacks solve / plan.submit "
+          f"({sorted(spans)})")
+    solve, attrs = spans["solve"], spans["solve"]["attrs"]
+    wait = spans["worker.wait_index"]
+    out = {"queue": spans["broker.dequeue"]["t_start"]
+           - spans["create"]["t_start"],
+           "wait_index": wait["dur_s"],
+           "pre_solve": solve["t_start"] - wait["t_end"],
+           "solve": solve["dur_s"],
+           "pack": attrs["pack_wall_s"],
+           "launch_to_fetch": launch_to_fetch(attrs),
+           "fixup": solve["dur_s"] - attrs["kernel_wall_s"],
+           "plan_submit": spans["plan.submit"]["dur_s"]}
+    return {k: 1e3 * v for k, v in out.items()}, attrs
+
+
+def world_counters(srv):
+    return [w._solver.resident_counters() if w._solver is not None
+            else None for w in srv.workers]
+
+
+def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
+                 batch_count, phase6=None):
+    """The server plane: a port `Server(device=DEVICE)` with the
+    reference's default serving tier, register -> raft -> FSM -> store
+    -> broker -> workers (single lane, or fused rounds on the solve
+    coordinator) -> scheduler -> store-attached solver -> kernels -> plan
+    queue -> applier (group commit) -> raft -> store.  Returns the
+    launch counts of its legs and the first fused score round's packed
+    batch."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.server.eval_broker import FAILED_QUEUE
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.server.worker import DEQUEUE_TIMEOUT_S
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    wk._load()          # the kernels are built and bound by this thread
+    srv = Server(device=DEVICE)
+    tier = {"workers": len(srv.workers),
+            "coordinator": srv.solve_coordinator is not None,
+            "pipeline": srv.serving.pipeline,
+            "adaptive": srv.serving.adaptive,
+            "group_commit": srv.serving.group_commit,
+            "broker_shards": srv.serving.broker_shards,
+            "max_batch": srv.serving.max_batch}
+    check(tier == {"workers": 2, "coordinator": True, "pipeline": True,
+                   "adaptive": True, "group_commit": 8,
+                   "broker_shards": 1, "max_batch": 64},
+          f"not the default serving tier: {tier}")
+    nodes, setup = server_cluster(srv, mock, structs, n_nodes, resident)
+    probe = ServerProbe(srv, wk)
+    registered = []
+    # the fault counters are read over the whole phase, warm-up included:
+    # the warm-up is where each worker first builds its world and first
+    # launches the kernels from its own thread
+    m_start = global_metrics.dump()
+    try:
+        srv.start()
+        # ---- warm-up: one untimed job per worker builds its world (the
+        # other worker paused: a paused worker stays idle while the
+        # queue holds no more than a batch)
+        world_build_ms = []
+        for i, w in enumerate(srv.workers):
+            for o in srv.workers:
+                if o is not w:
+                    o.paused.set()
+            # a dequeue already waiting when the pause was set returns
+            # within its timeout; the worker then sees the pause
+            time.sleep(2 * DEQUEUE_TIMEOUT_S)
+            t = time.perf_counter()
+            ev = srv.register_job(make_job(mock, structs, f"warm{i}",
+                                           COUNT))
+            registered.append(ev.id)
+            wait_evals(srv, [ev.id], 300)
+            world_build_ms.append(1e3 * (time.perf_counter() - t))
+            for o in srv.workers:
+                o.paused.clear()
+        worlds0 = world_counters(srv)
+        check(all(c is not None for c in worlds0),
+              f"a worker built no resident world: {worlds0}")
+        # a world dropped and built anew (a failed plan feed sets it to
+        # None) restarts its counters, so the legs must end on the same
+        # world objects
+        world_objs0 = [w._solver._world for w in srv.workers]
+        m0 = global_metrics.dump()
+
+        # ---- leg A: serial, each job after the previous eval completes
+        gc.collect()
+        zero_launches(torch, wk)
+        mark = probe.mark()
+        walls, splits, evals_a = [], [], []
+        for e in range(n_serial):
+            t = time.perf_counter()
+            ev = srv.register_job(make_job(mock, structs, f"a{e}", COUNT))
+            t_reg = time.perf_counter()
+            registered.append(ev.id)
+            wait_evals(srv, [ev.id], 120)
+            walls.append(time.perf_counter() - t)
+            split, attrs = eval_split(global_tracer, ev.id)
+            split["register"] = 1e3 * (t_reg - t)
+            # rest: the eval's status write and what the spans miss
+            split["rest"] = 1e3 * walls[-1] - sum(
+                split[k] for k in ("register", "queue", "wait_index",
+                                   "pre_solve", "solve", "plan_submit"))
+            splits.append(split)
+            evals_a.append(ev.id)
+            check(attrs.get("resident"), f"leg A eval {e} left the "
+                  "resident path")
+        torch.cuda.synchronize()
+        counts_a = dict(wk.fused_wave.mode_launches)
+        rec_a = probe.since(mark)
+        applies_a = [1e3 * r["s"] for r in rec_a["applies"]
+                     if set(evals_a) & r["evals"]]
+
+        # ---- leg B: a burst of service jobs, then the batch fan-out job
+        gc.collect()
+        zero_launches(torch, wk)
+        mark = probe.mark()
+        jobs_b = [make_job(mock, structs, f"b{e}", COUNT)
+                  for e in range(n_burst)]
+        bjob = batch_job(mock, structs, batch_count)
+        t = time.perf_counter()
+        evals_b = [srv.register_job(j).id for j in jobs_b + [bjob]]
+        register_s = time.perf_counter() - t
+        registered += evals_b
+        wait_evals(srv, evals_b, 600)
+        wall_b = time.perf_counter() - t
+        # a fused round acks its members together after the last one's
+        # plan: wait for the acks too (not part of the wall)
+        deadline = time.perf_counter() + 60
+        while srv.broker.stats()["total_unacked"] \
+                and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        acked_b = time.perf_counter() - t
+        torch.cuda.synchronize()
+        counts_b = dict(wk.fused_wave.mode_launches)
+        rec_b = probe.since(mark)
+        worlds1 = world_counters(srv)
+        world_objs1 = [w._solver._world for w in srv.workers]
+        m1 = global_metrics.dump()
+        down = [n.id for n in srv.store.nodes()
+                if n.status == structs.NODE_STATUS_DOWN]
+        broker = srv.broker.stats()
+        blocked = srv.blocked_evals.stats()
+    finally:
+        probe.close()
+        srv.stop()
+
+    # ---- the record, then the checks (launches here are not counted)
+    finals = [srv.store.eval_by_id(eid) for eid in registered]
+    blocked_jobs = {e.job_id for e in srv.store.evals()
+                    if e.status == structs.EVAL_STATUS_BLOCKED}
+    names, unplaced = {}, {}
+    for ev in finals:
+        names[ev.job_id] = sorted(a.name for a in srv.store.allocs_by_job(
+            structs.DEFAULT_NAMESPACE, ev.job_id))
+        want = batch_count if ev.job_id == bjob.id else COUNT
+        unplaced[ev.job_id] = want - len(names[ev.job_id])
+    rounds_b = rec_b["rounds"]
+    fused_score = [r for r in rounds_b if r["modes"].get("score")]
+
+    def hist_delta(key):
+        h1 = m1["histograms"].get(key, {"sum": 0.0, "count": 0})
+        h0 = m0["histograms"].get(key, {"sum": 0.0, "count": 0})
+        return {"sum_ms": 1e3 * (h1["sum"] - h0["sum"]),
+                "count": h1["count"] - h0["count"]}
+
+    def counter_delta(key, since=None):
+        since = m0 if since is None else since
+        return (m1["counters"].get(key, 0.0)
+                - since["counters"].get(key, 0.0))
+
+    jobs_a = [srv.store.eval_by_id(x).job_id for x in evals_a]
+    ids_b = [j.id for j in jobs_b + [bjob]]
+    placed_b = sum(len(names[j]) for j in ids_b)
+    svc_walls = [1e3 * w for w in walls]
+    counts = {"leg_a": counts_a, "leg_b": counts_b}
+    row = {
+        "phase": "server", "nodes": n_nodes, "resident_allocs": resident,
+        "resident_cut": RESIDENT - resident, "serving_tier": tier,
+        "setup_s": setup, "world_build_ms": world_build_ms,
+        "worlds_before_legs": worlds0, "worlds_after_legs": worlds1,
+        "leg_a": {
+            "evals": n_serial, "count": COUNT,
+            "p50_ms": pct(svc_walls, 0.5), "p99_ms": pct(svc_walls, 0.99),
+            "walls_ms": svc_walls,
+            "split_p50_ms": {k: pct([s[k] for s in splits], 0.5)
+                             for k in splits[0]},
+            "split_p99_ms": {k: pct([s[k] for s in splits], 0.99)
+                             for k in splits[0]},
+            "raft_fsm_plan_apply_ms": {
+                "p50": pct(applies_a, 0.5) if applies_a else None,
+                "p99": pct(applies_a, 0.99) if applies_a else None},
+            "phase6_p50_ms": phase6 and phase6["p50_ms"],
+            "phase6_p99_ms": phase6 and phase6["p99_ms"],
+            "dequeue_sizes": rec_a["dequeues"],
+            "rounds": len(rec_a["rounds"]),
+            "placed": sum(len(names[j]) for j in jobs_a),
+            "unplaced": sum(unplaced[j] for j in jobs_a),
+            "launches": counts_a},
+        "leg_b": {
+            "service_jobs": n_burst, "batch_count": batch_count,
+            "register_s": register_s, "wall_s": wall_b,
+            "acked_s": acked_b,
+            "evals_per_s": len(evals_b) / wall_b,
+            "placed": placed_b,
+            "unplaced": sum(unplaced[j] for j in ids_b),
+            "unplaced_batch_job": unplaced[bjob.id],
+            "placements_per_s": placed_b / wall_b,
+            "rounds": [{k: r.get(k) for k in ("evals", "solvable", "asks",
+                                              "Gp", "K", "modes",
+                                              "stages_ms")}
+                       for r in rounds_b],
+            "stage_totals_ms": {
+                s: hist_delta(f"coordinator.stage.{s}_s")
+                for s in ("reconcile", "pack", "dispatch", "device",
+                          "fetch", "plan_build", "apply")},
+            "group_commits": counter_delta("plan.group_commits"),
+            "raft_applies": counter_delta("plan.raft_applies"),
+            "cross_worker_rounds":
+                counter_delta("coordinator.cross_worker_rounds"),
+            "dequeue_sizes": rec_b["dequeues"],
+            "batch_targets": [t["target"] for t in rec_b["targets"]],
+            "model_feed": rec_b["model_feed"],
+            "raft_fsm_plan_apply_ms": [1e3 * r["s"]
+                                       for r in rec_b["applies"]],
+            "launches": counts_b},
+        "blocked_evals": blocked, "broker": broker,
+        "first_fused_score_round": (
+            {k: fused_score[0][k] for k in ("evals", "asks", "Gp", "K",
+                                            "modes")}
+            if fused_score else None),
+        "launches": counts}
+    try:
+        bad = [(e.job_id, e.status, e.status_description) for e in finals
+               if e.status != structs.EVAL_STATUS_COMPLETE]
+        check(not bad, f"evals not complete: {bad[:5]}")
+        for key in ("worker.batch_error", "telemetry.tick_error"):
+            errors = counter_delta(key, since=m_start)
+            check(errors == 0, f"{errors} {key} in the phase")
+        check(broker["by_scheduler"].get(FAILED_QUEUE, 0) == 0,
+              "evals parked on the broker's failed queue")
+        check(broker["total_unacked"] == 0, f"unacked evals: {broker}")
+        check(not down, f"{len(down)} node(s) went down")
+        check(all(a is b for a, b in zip(world_objs0, world_objs1)),
+              "a worker's world was dropped and built anew in the legs")
+        for w0, w1 in zip(worlds0, worlds1):
+            check(w1["repack_fallbacks"] == w0["repack_fallbacks"]
+                  and w1["delta_syncs"] >= w0["delta_syncs"]
+                  and w1["plan_feeds"] >= w0["plan_feeds"],
+                  f"a worker's world was rebuilt in the legs: {w0} -> {w1}")
+        check(counts_a["topk"] > 0
+              and counts_a["merge"] == counts_a["topk"],
+              f"leg A launches {counts_a}")
+        check(counts_b["score"] > 0,
+              f"leg B launched no score kernel: {counts_b}")
+        # placements the wave budget left undecided go to a blocked eval
+        # of their job (the eval's own queued_allocations is not read:
+        # the server path never decrements it, in the reference too)
+        for job_id, got in names.items():
+            check(got == sorted(probe.placed[job_id]),
+                  f"{job_id}: the store holds {len(got)} allocs, the "
+                  f"plans placed {len(probe.placed[job_id])}")
+            check(len(set(got)) == len(got), f"{job_id}: duplicate names")
+            check(unplaced[job_id] == 0 or job_id in blocked_jobs,
+                  f"{job_id}: {unplaced[job_id]} placements neither "
+                  "placed nor left to a blocked eval")
+        for n in srv.store.nodes():
+            live = srv.store.allocs_by_node_terminal(n.id, False)
+            fit, dim, _used = structs.allocs_fit(n, live)
+            check(fit, f"node {n.name} oversubscribed ({dim})")
+        check(any(r["evals"] >= 2 for r in rounds_b),
+              f"leg B fused no round of two or more evals: "
+              f"{[r['evals'] for r in rounds_b]}")
+        check(fused_score, "no fused round ran the score kernel")
+        calls = kernel_vs_plain(wk, (("first fused score round",
+                                      fused_score[0]["pb"], "score"),))
+    except PhaseError as e:
+        row["failed"] = str(e)
+        emit(row)
+        raise
+    row["checks"] = {"kernel_vs_plain": "passed"}
+    emit(row)
+    total = {m: counts_a[m] + counts_b[m] for m in counts_a}
+    return total, calls, row
 
 
 def main() -> int:
@@ -1386,13 +1906,19 @@ def main() -> int:
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
     counts5 = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
                              BATCH_COUNT)
-    counts, calls = phase_worker(torch, wk, N_NODES, RESIDENT,
-                                 N_SERVICE_EVALS, BATCH_COUNT)
-    # the kernels on the main path's own arguments (phase 6)
+    counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
+                                       N_SERVICE_EVALS, BATCH_COUNT)
+    counts7, calls7, _row7 = phase_server(
+        torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
+        BATCH_COUNT, phase6=row6["service"])
+    # the kernels on the main path's own arguments (phase 6), and the
+    # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
                             calls["score"], base_wk))
     kern.update(kernel_case(torch, wk, "topk (service eval)",
                             calls["topk"], base_wk))
+    kern.update(kernel_case(torch, wk, "score (fused round)",
+                            calls7["score"], base_wk))
     src = "nomad_tpu_torch/solver/csrc/wave_kernel.cu"
     kernels = []
     # fused_wave[topk] is the whole topk launch (tile kernel + merge);
@@ -1407,12 +1933,20 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": f"nomad_tpu/solver/pallas_kernel.py:{line}",
             "launches": counts[mode], "launches_phase5": counts5[mode],
+            "launches_phase7": counts7[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "kernel_ms_cold": r["kernel_ms_cold"],
             "kernel_ms_warm": r["kernel_ms_warm"],
             "wrapper_ms": r["wrapper_ms"]})
+        if mode == "score":
+            f = kern["score (fused round)"]
+            kernels[-1]["fused_round"] = {
+                k: f[k] for k in ("Gp", "Np", "TK", "n_extract", "ms",
+                                  "kernel_ms_warm", "wrapper_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "max_abs_err")}
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,706 @@
+"""Raft node: leader election, log replication, commit + apply.
+
+Reference contract: hashicorp/raft as wired in nomad/server.go:1157
+(setupRaft) and driven by nomad/leader.go (leadership loop). This is a
+compact but real implementation: randomized election timeouts, terms and
+votes persisted alongside the log, AppendEntries with the prev-entry
+consistency check and conflict truncation, majority commit (only for
+entries of the current term), snapshot install for lagging followers,
+and log compaction.
+
+Transports are pluggable: InProcTransport carries clusters inside one
+process (the reference tests raft fully in-process too —
+nomad/testing.go:42).  The counterpart of `nomad_tpu.raft.node`; the TCP
+transport of the reference's `rpc` package is not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from .fsm import NOOP, StateFSM
+from .log import LogEntry, RaftLog
+
+# membership-change entry, applied by the raft layer itself (not the
+# state FSM): payload = the full new peer list (one-at-a-time changes,
+# raft §6 single-server membership change)
+CONFIG = "::config"
+
+ROLE_FOLLOWER = "follower"
+ROLE_CANDIDATE = "candidate"
+ROLE_LEADER = "leader"
+
+
+class NotLeaderError(Exception):
+    def __init__(self, leader_id: Optional[str]):
+        super().__init__(f"not the leader (leader={leader_id})")
+        self.leader_id = leader_id
+
+
+@dataclass
+class RaftConfig:
+    node_id: str = "node-1"
+    peers: List[str] = field(default_factory=list)   # includes self
+    data_dir: Optional[str] = None
+    election_timeout_s: Tuple[float, float] = (0.15, 0.30)
+    heartbeat_interval_s: float = 0.05
+    snapshot_threshold: int = 8192      # log entries before compaction
+    # Durable by default: committed entries must survive power loss
+    # (reference: raft-boltdb fsyncs every append).  Tests and
+    # benchmarks that churn thousands of throwaway entries may opt out.
+    fsync: bool = True
+    # an empty-log member waits this long for an existing leader to
+    # contact it before campaigning: a freshly ADDED server would
+    # otherwise inflate its term pre-join and depose a healthy leader
+    # on first contact (fresh full-cluster bootstraps just wait it out)
+    join_grace_s: float = 1.0
+
+
+class InProcTransport:
+    """Direct-call transport: a registry of live nodes. Closed nodes are
+    unreachable (simulates a crashed server)."""
+
+    def __init__(self):
+        self._nodes: Dict[str, "RaftNode"] = {}
+        self._lock = threading.Lock()
+
+    def register(self, node: "RaftNode") -> None:
+        with self._lock:
+            self._nodes[node.id] = node
+
+    def unregister(self, node_id: str) -> None:
+        with self._lock:
+            self._nodes.pop(node_id, None)
+
+    def call(self, target: str, method: str, *args):
+        with self._lock:
+            node = self._nodes.get(target)
+        if node is None or not node.running:
+            raise ConnectionError(f"peer {target} unreachable")
+        return getattr(node, method)(*args)
+
+
+class RaftNode:
+    def __init__(self, config: RaftConfig, fsm: StateFSM,
+                 transport: InProcTransport,
+                 on_leader: Optional[Callable[[], None]] = None,
+                 on_follower: Optional[Callable[[], None]] = None):
+        self.cfg = config
+        self.id = config.node_id
+        self.fsm = fsm
+        self.transport = transport
+        self.on_leader = on_leader          # called OUTSIDE the lock
+        self.on_follower = on_follower
+        self.log = RaftLog(config.data_dir, fsync=config.fsync)
+
+        self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
+        self.term = 0
+        self.voted_for: Optional[str] = None
+        self.role = ROLE_FOLLOWER
+        self.leader_id: Optional[str] = None
+        self.commit_index = 0
+        self.last_applied = 0
+        self.snapshot_index = 0
+        self.snapshot_term = 0
+        self._events_lock = threading.Lock()
+        self._next: Dict[str, int] = {}
+        self._match: Dict[str, int] = {}
+        # learners: replicated to, never counted toward quorum — the
+        # catch-up phase before a membership add (raft §6 non-voters)
+        self._staging: List[str] = []
+        self.running = False
+        self._closed = False
+        self._threads: List[threading.Thread] = []
+        self._deadline = 0.0
+        self._meta_saved_commit = 0
+        self._last_leader_contact = 0.0
+        self._role_events: List[str] = []    # deferred callbacks
+
+        self._meta_path = (os.path.join(config.data_dir, "raft.meta")
+                           if config.data_dir else None)
+        self._snap_path = (os.path.join(config.data_dir, "raft.snap")
+                           if config.data_dir else None)
+        self._restore_from_disk()
+        transport.register(self)
+
+    # ------------------------------------------------------- persistence
+    def _save_meta_locked(self) -> None:
+        self._meta_saved_commit = self.commit_index
+        if not self._meta_path:
+            return
+        tmp = self._meta_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"term": self.term, "voted_for": self.voted_for,
+                       "commit_index": self.commit_index,
+                       "snapshot_index": self.snapshot_index,
+                       "snapshot_term": self.snapshot_term,
+                       "peers": list(self.cfg.peers)}, f)
+        os.replace(tmp, self._meta_path)
+
+    def _restore_from_disk(self) -> None:
+        if self._meta_path and os.path.exists(self._meta_path):
+            with open(self._meta_path, encoding="utf-8") as f:
+                meta = json.load(f)
+            self.term = meta.get("term", 0)
+            self.voted_for = meta.get("voted_for")
+            self.commit_index = meta.get("commit_index", 0)
+            self.snapshot_index = meta.get("snapshot_index", 0)
+            self.snapshot_term = meta.get("snapshot_term", 0)
+            # membership survives log compaction through the metadata
+            # (a config entry behind the snapshot point is gone)
+            if meta.get("peers"):
+                self.cfg.peers = list(meta["peers"])
+        if self._snap_path and os.path.exists(self._snap_path):
+            with open(self._snap_path, "rb") as f:
+                self.fsm.restore(f.read())
+            self.last_applied = self.snapshot_index
+        # Single-voter clusters replay the whole log: every appended
+        # entry was self-accepted, so none can conflict, and this
+        # recovers commits made after the last meta write. Multi-node
+        # members replay only the committed prefix (the uncommitted
+        # tail is resolved by the leader's consistency check).
+        single = len(self.cfg.peers) <= 1
+        replay_to = self.log.last_index() if single else self.commit_index
+        for e in self.log.slice_from(self.last_applied + 1,
+                                     limit=1 << 30):
+            if e.index > replay_to:
+                break
+            if e.etype == CONFIG:
+                self.cfg.peers = list(e.payload)
+            else:
+                self.fsm.apply(e.index, e.etype, e.payload)
+            self.last_applied = e.index
+        if single:
+            self.commit_index = max(self.commit_index, self.last_applied)
+
+    # ------------------------------------------------------------ control
+    def start(self) -> None:
+        with self._lock:
+            if self.running:
+                return
+            self.running = True
+            self._reset_election_deadline_locked()
+            if self.log.last_index() == 0 and self.term == 0:
+                self._deadline += self.cfg.join_grace_s
+            # thread handle guarded by _lock (the loop's first action
+            # is to take it, so starting here just briefly blocks it)
+            t = threading.Thread(target=self._run, daemon=True,
+                                 name=f"raft-{self.id}")
+            t.start()
+            self._threads = [t]
+
+    def stop(self) -> None:
+        with self._lock:
+            self.running = False
+            self._closed = True
+            self._save_meta_locked()
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self.transport.unregister(self.id)
+        self.log.close()
+
+    def is_leader(self) -> bool:
+        with self._lock:
+            return self.role == ROLE_LEADER
+
+    def bootstrap_single(self, defer_events: bool = False) -> None:
+        """Degenerate cluster of one: become leader immediately (used by
+        the default single-server deployment). With defer_events the
+        on_leader callback stays queued until fire_pending_role_events()
+        — the Server constructor uses this so writes work immediately
+        while leader services wait for start()."""
+        with self._lock:
+            if self.role == ROLE_LEADER:
+                return
+            self.term += 1
+            self.voted_for = self.id
+            self._become_leader_locked()
+            self._save_meta_locked()
+        if not defer_events:
+            self._fire_role_events()
+
+    def fire_pending_role_events(self) -> None:
+        self._fire_role_events()
+
+    # -------------------------------------------------------------- loop
+    def _run(self) -> None:
+        hb = self.cfg.heartbeat_interval_s
+        while True:
+            with self._lock:
+                if not self.running:
+                    return
+                role = self.role
+                now = time.monotonic()
+                timed_out = now >= self._deadline
+            if role == ROLE_LEADER:
+                self._replicate_all()
+                time.sleep(hb)
+            elif timed_out:
+                self._start_election()
+            else:
+                time.sleep(0.01)
+            self._fire_role_events()
+
+    def _reset_election_deadline_locked(self) -> None:
+        lo, hi = self.cfg.election_timeout_s
+        self._deadline = time.monotonic() + random.uniform(lo, hi)
+
+    # ---------------------------------------------------------- election
+    def _start_election(self) -> None:
+        with self._lock:
+            if not self.running:
+                return
+            self.role = ROLE_CANDIDATE
+            self.term += 1
+            self.voted_for = self.id
+            self.leader_id = None
+            term = self.term
+            last_i = self.log.last_index()
+            last_t = (self.log.term_at(last_i)
+                      if last_i > self.snapshot_index
+                      else self._snap_term())
+            self._save_meta_locked()
+            self._reset_election_deadline_locked()
+        votes = 1
+        for peer in self.cfg.peers:
+            if peer == self.id:
+                continue
+            try:
+                pterm, granted = self.transport.call(
+                    peer, "rpc_request_vote", term, self.id, last_i, last_t)
+            except ConnectionError:
+                continue
+            with self._lock:
+                if pterm > self.term:
+                    self._step_down_locked(pterm)
+                    return
+            if granted:
+                votes += 1
+        with self._lock:
+            if (self.role == ROLE_CANDIDATE and self.term == term
+                    and votes * 2 > len(self.cfg.peers or [self.id])):
+                self._become_leader_locked()
+
+    def _become_leader_locked(self) -> None:
+        self.role = ROLE_LEADER
+        self.leader_id = self.id
+        last = self.log.last_index()
+        for p in self.cfg.peers:
+            self._next[p] = last + 1
+            self._match[p] = 0
+        self._match[self.id] = last
+        # commit a noop barrier so the new term can commit prior-term
+        # entries (raft's no-op-on-election rule)
+        self._append_locked(NOOP, None)
+        self._role_events.append("leader")
+
+    def step_down(self) -> bool:
+        """Voluntary leader step-down (the chaos plane's
+        leader-failure hook, analog of raft leadership transfer):
+        bump the term and drop to follower so the election timer
+        picks a fresh leader.  No-op on non-leaders."""
+        with self._lock:
+            if self.role != ROLE_LEADER:
+                return False
+            self._step_down_locked(self.term + 1)
+        self._fire_role_events()
+        return True
+
+    def _step_down_locked(self, term: int) -> None:
+        was_leader = self.role == ROLE_LEADER
+        self.term = term
+        self.role = ROLE_FOLLOWER
+        self.voted_for = None
+        self._save_meta_locked()
+        self._reset_election_deadline_locked()
+        if was_leader:
+            self._role_events.append("follower")
+
+    def _fire_role_events(self) -> None:
+        # _events_lock serializes callback execution across the _run loop
+        # and peer RPC threads, so leader/follower transitions fire in
+        # queue order — otherwise a flap could leave leader services
+        # disabled on the actual leader
+        with self._events_lock:
+            while True:
+                with self._lock:
+                    if not self._role_events:
+                        return
+                    ev = self._role_events.pop(0)
+                if ev == "leader" and self.on_leader:
+                    self.on_leader()
+                elif ev == "follower" and self.on_follower:
+                    self.on_follower()
+
+    def _snap_term(self) -> int:
+        with self._lock:    # re-entrant; callers already hold it
+            return self.snapshot_term
+
+    # -------------------------------------------------------- replication
+    def _append_locked(self, etype: str, payload: Any) -> int:
+        index = self.log.last_index() + 1
+        self.log.append([LogEntry(index, self.term, etype, payload)])
+        self._match[self.id] = index
+        return index
+
+    def propose(self, etype: str, payload: Any,
+                timeout: float = 10.0) -> int:
+        """Append + replicate + wait for local apply. Raises
+        NotLeaderError from followers (callers forward to the leader)."""
+        with self._lock:
+            if self._closed:
+                raise NotLeaderError(None)
+            if self.role != ROLE_LEADER:
+                raise NotLeaderError(self.leader_id)
+            index = self._append_locked(etype, payload)
+            term = self.term
+        return self._wait_applied(index, term, timeout)
+
+    def propose_async(self, etype: str, payload: Any):
+        """Append + kick replication WITHOUT waiting; returns
+        (index, wait_fn) where wait_fn(timeout) blocks until the entry
+        is applied locally.  The pipelined plan applier overlaps the
+        consensus round trip of plan N with evaluating plan N+1
+        (reference: plan_apply.go:71-178 applyPlan's async raft future
+        + asyncPlanWait)."""
+        with self._lock:
+            if self._closed:
+                raise NotLeaderError(None)
+            if self.role != ROLE_LEADER:
+                raise NotLeaderError(self.leader_id)
+            index = self._append_locked(etype, payload)
+            term = self.term
+        single = len([p for p in self.cfg.peers or [self.id]]) <= 1
+        if single:
+            with self._lock:
+                self._advance_commit_locked()
+                self._apply_committed_locked()
+            return index, (lambda timeout=10.0: index)
+        kick = threading.Thread(target=self._replicate_all, daemon=True)
+        kick.start()
+        return index, (lambda timeout=10.0:
+                       self._await_applied(index, term, timeout))
+
+    def _wait_applied(self, index: int, term: int,
+                      timeout: float) -> int:
+        single = len([p for p in self.cfg.peers or [self.id]]) <= 1
+        if single:
+            with self._lock:
+                self._advance_commit_locked()
+                self._apply_committed_locked()
+                return index
+        self._replicate_all()
+        return self._await_applied(index, term, timeout)
+
+    def _await_applied(self, index: int, term: int,
+                       timeout: float) -> int:
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            while self.last_applied < index:
+                if self.role != ROLE_LEADER or self.term != term:
+                    raise NotLeaderError(self.leader_id)
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    raise TimeoutError("proposal not committed in time")
+                self._cv.wait(remain)
+            return index
+
+    def _replicate_all(self) -> None:
+        with self._lock:
+            targets = [p for p in list(self.cfg.peers)
+                       + list(self._staging) if p != self.id]
+        for peer in targets:
+            self._replicate_one(peer)
+        with self._lock:
+            if self.role == ROLE_LEADER:
+                self._advance_commit_locked()
+                self._apply_committed_locked()
+
+    def _replicate_one(self, peer: str) -> None:
+        with self._lock:
+            if self.role != ROLE_LEADER:
+                return
+            nxt = self._next.get(peer, self.log.last_index() + 1)
+            if nxt <= self.snapshot_index:
+                snap = self._read_snapshot()
+                term = self.term
+                snap_index = self.snapshot_index
+                snap_term = self.snapshot_term
+            else:
+                snap = None
+                prev = nxt - 1
+                prev_term = (self.log.term_at(prev)
+                             if prev > self.snapshot_index else 0)
+                entries = self.log.slice_from(nxt)
+                wire = [(e.index, e.term, e.etype, e.payload)
+                        for e in entries]
+                term = self.term
+                commit = self.commit_index
+        try:
+            if snap is not None:
+                pterm = self.transport.call(peer, "rpc_install_snapshot",
+                                            term, self.id, snap_index,
+                                            snap_term, snap)
+                with self._lock:
+                    if pterm > self.term:
+                        self._step_down_locked(pterm)
+                        return
+                    self._next[peer] = snap_index + 1
+                    self._match[peer] = snap_index
+                return
+            pterm, ok, match = self.transport.call(
+                peer, "rpc_append_entries", term, self.id, nxt - 1,
+                prev_term, wire, commit)
+        except ConnectionError:
+            return
+        with self._lock:
+            if pterm > self.term:
+                self._step_down_locked(pterm)
+                return
+            if self.role != ROLE_LEADER:
+                return
+            if ok:
+                self._match[peer] = match
+                self._next[peer] = match + 1
+            else:
+                self._next[peer] = max(1, min(nxt - 1, match + 1))
+
+    def _advance_commit_locked(self) -> None:
+        peers = self.cfg.peers or [self.id]
+        matches = sorted((self._match.get(p, 0) for p in peers),
+                        reverse=True)
+        majority = matches[len(peers) // 2]
+        # only commit entries from the CURRENT term by counting
+        # (raft §5.4.2); prior-term entries commit transitively
+        if majority > self.commit_index and \
+                self.log.term_at(majority) == self.term:
+            self.commit_index = majority
+            # commit_index persistence is an optimization (bounds replay
+            # on restart), not a safety requirement — batch it off the
+            # hot path; stop()/compaction write the exact value
+            if self.commit_index - self._meta_saved_commit >= 64:
+                self._save_meta_locked()
+            self._cv.notify_all()
+
+    def _apply_committed_locked(self) -> None:
+        while self.last_applied < self.commit_index:
+            e = self.log.get(self.last_applied + 1)
+            if e is None:
+                break
+            if e.etype == CONFIG:
+                self._adopt_config_locked(list(e.payload))
+            else:
+                self.fsm.apply(e.index, e.etype, e.payload)
+            self.last_applied = e.index
+        self._cv.notify_all()
+        if (self.log.last_index() - self.log.offset
+                > self.cfg.snapshot_threshold):
+            self._compact_locked()
+
+    def _adopt_config_locked(self, peers: List[str]) -> None:
+        """Adopt a committed membership change. Additions start
+        replication from the leader's snapshot/backlog; removals stop
+        counting toward quorum immediately (a removed self keeps
+        applying until stopped — it simply never wins elections under
+        the stickiness guard)."""
+        old = set(self.cfg.peers)
+        self.cfg.peers = list(peers)
+        self._save_meta_locked()
+        if self.role == ROLE_LEADER:
+            if self.id not in peers:
+                # a leader that committed its own removal steps down
+                # (raft §6) — staying leader would let the stickiness
+                # guard pin the cluster to a non-member forever
+                self.role = ROLE_FOLLOWER
+                self._reset_election_deadline_locked()
+                self._role_events.append("follower")
+                return
+            for p in peers:
+                if p not in old and p != self.id:
+                    self._next[p] = self.log.last_index() + 1
+                    self._match[p] = 0
+            for p in old - set(peers):
+                self._next.pop(p, None)
+                self._match.pop(p, None)
+
+    def add_learner(self, peer: str) -> None:
+        """Start replicating to a NON-VOTING peer (it never counts
+        toward quorum — _advance_commit iterates cfg.peers only)."""
+        with self._lock:
+            if peer not in self._staging and peer not in self.cfg.peers:
+                self._staging.append(peer)
+                self._next[peer] = self.log.last_index() + 1
+                self._match[peer] = 0
+
+    def learner_caught_up(self, peer: str) -> bool:
+        with self._lock:
+            # require real replicated progress: the peer must have acked
+            # appends up to the current commit AND near the log head —
+            # a freshly restored commit_index of 0 must not vacuously
+            # pass a peer that holds nothing
+            match = self._match.get(peer, 0)
+            target = max(self.commit_index, self.log.last_index() - 1)
+            return target > 0 and match >= target
+
+    def remove_learner(self, peer: str) -> None:
+        with self._lock:
+            if peer in self._staging:
+                self._staging.remove(peer)
+            if peer not in self.cfg.peers:
+                self._next.pop(peer, None)
+                self._match.pop(peer, None)
+
+    def propose_config(self, peers: List[str],
+                       timeout: float = 10.0) -> int:
+        """Propose a new peer set. One-at-a-time changes only (so old
+        and new quorums always overlap, raft §6): the set may differ
+        from the current config by a single server, and a previous
+        membership change must be COMMITTED before the next — both
+        checked under the same lock as the append, so concurrent
+        callers cannot interleave conflicting configs into the log."""
+        with self._lock:
+            if self._closed:
+                raise NotLeaderError(None)
+            if self.role != ROLE_LEADER:
+                raise NotLeaderError(self.leader_id)
+            for e in self.log.slice_from(self.commit_index + 1):
+                if e.etype == CONFIG:
+                    raise ValueError(
+                        "a membership change is already in flight")
+            cur = set(self.cfg.peers)
+            if len(cur.symmetric_difference(peers)) > 1:
+                raise ValueError(
+                    "membership changes must add or remove one server")
+            index = self._append_locked(CONFIG, list(peers))
+            term = self.term
+        return self._wait_applied(index, term, timeout)
+
+    # --------------------------------------------------------- snapshots
+    def _compact_locked(self) -> None:
+        data = self.fsm.snapshot()
+        self.snapshot_term = self.log.term_at(self.last_applied)
+        self.snapshot_index = self.last_applied
+        if self._snap_path:
+            tmp = self._snap_path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, self._snap_path)
+        self.log.compact_to(self.snapshot_index)
+        self._save_meta_locked()
+
+    def _read_snapshot(self) -> bytes:
+        if self._snap_path and os.path.exists(self._snap_path):
+            with open(self._snap_path, "rb") as f:
+                return f.read()
+        return self.fsm.snapshot()
+
+    # ------------------------------------------------------ RPC handlers
+    def rpc_request_vote(self, term: int, candidate: str,
+                         last_log_index: int, last_log_term: int):
+        with self._lock:
+            if term < self.term:
+                return self.term, False
+            # leader stickiness (raft §6 disruptive-server guard, the
+            # reference's CheckQuorum/pre-vote analog): while appends
+            # from a live leader are arriving, refuse votes — a removed
+            # server with a stale config cannot depose the leader
+            lo, _hi = self.cfg.election_timeout_s
+            if (self.role == ROLE_FOLLOWER
+                    and time.monotonic() - self._last_leader_contact < lo
+                    and candidate != self.voted_for):
+                return self.term, False
+            if term > self.term:
+                self._step_down_locked(term)
+            my_last = self.log.last_index()
+            my_term = (self.log.term_at(my_last)
+                       if my_last > self.snapshot_index
+                       else self.snapshot_term)
+            up_to_date = (last_log_term > my_term
+                          or (last_log_term == my_term
+                              and last_log_index >= my_last))
+            if (self.voted_for in (None, candidate)) and up_to_date:
+                self.voted_for = candidate
+                self._save_meta_locked()
+                self._reset_election_deadline_locked()
+                return self.term, True
+            return self.term, False
+
+    def rpc_append_entries(self, term: int, leader: str, prev_index: int,
+                           prev_term: int, entries, leader_commit: int):
+        events = False
+        with self._lock:
+            if term < self.term:
+                return self.term, False, 0
+            if term > self.term or self.role != ROLE_FOLLOWER:
+                was_leader = self.role == ROLE_LEADER
+                self.term = term
+                self.role = ROLE_FOLLOWER
+                self.voted_for = None
+                self._save_meta_locked()
+                if was_leader:
+                    self._role_events.append("follower")
+                    events = True
+            self.leader_id = leader
+            self._last_leader_contact = time.monotonic()
+            self._reset_election_deadline_locked()
+            # consistency check
+            if prev_index > self.snapshot_index:
+                if (prev_index > self.log.last_index()
+                        or self.log.term_at(prev_index) != prev_term):
+                    return self.term, False, min(self.log.last_index(),
+                                                 prev_index - 1)
+            new = []
+            for (i, t, y, p) in entries:
+                existing_term = self.log.term_at(i)
+                if i <= self.log.last_index():
+                    if existing_term != t:
+                        self.log.truncate_from(i)
+                        new.append(LogEntry(i, t, y, p))
+                else:
+                    new.append(LogEntry(i, t, y, p))
+            if new:
+                self.log.append(new)
+            match = prev_index + len(entries)
+            if leader_commit > self.commit_index:
+                self.commit_index = min(leader_commit,
+                                        self.log.last_index())
+                self._save_meta_locked()
+            self._apply_committed_locked()
+            out = self.term, True, match
+        if events:
+            self._fire_role_events()
+        return out
+
+    def rpc_install_snapshot(self, term: int, leader: str,
+                             snap_index: int, snap_term: int, data: bytes):
+        with self._lock:
+            if term < self.term:
+                return self.term
+            self.term = term
+            self.role = ROLE_FOLLOWER
+            self.leader_id = leader
+            self._last_leader_contact = time.monotonic()
+            self._reset_election_deadline_locked()
+            if snap_index <= self.last_applied:
+                return self.term
+            self.fsm.restore(data)
+            self.snapshot_index = snap_index
+            self.snapshot_term = snap_term
+            self.last_applied = snap_index
+            self.commit_index = max(self.commit_index, snap_index)
+            self.log.compact_to(snap_index)
+            if self._snap_path:
+                tmp = self._snap_path + ".tmp"
+                with open(tmp, "wb") as f:
+                    f.write(data if isinstance(data, bytes)
+                            else bytes(data))
+                os.replace(tmp, self._snap_path)
+            self._save_meta_locked()
+            return self.term

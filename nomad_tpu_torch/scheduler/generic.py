@@ -8,13 +8,14 @@ becomes a SINGLE batched Solver.solve() over all of the eval's placements
 
 The counterpart of `nomad_tpu.scheduler.generic` on its one-eval path
 (`process` -> `_begin` -> `_compute_placements` -> `_consume_solve` ->
-`_finalize`).  With a store-attached solver whose resident world is
+`_finalize`), and the hooks the fleet path (`scheduler/fleet.py`)
+drives to merge many evals into one solve: `_prepare_placements` then
+takes the round's shared world (nodes, dc counts, allocs by node and the
+node-id map).  With a store-attached solver whose resident world is
 active, the proposed allocs by node are a lazy per-node view of the
 snapshot, and the solve gets the snapshot and the plan's proposed stops
-and sticky probes to overlay on the world's carried usage.  The fleet
-path that merges many evals into one solve (`scheduler/fleet.py`, which
-hands `_prepare_placements` a shared world) is not ported yet, nor is
-committing kernel-selected evictions (the in-kernel eviction pass).
+and sticky probes to overlay on the world's carried usage.  Committing
+kernel-selected evictions (the in-kernel eviction pass) is not ported.
 """
 from __future__ import annotations
 
@@ -303,13 +304,19 @@ class GenericScheduler:
                             ask_missing, span=span)
         return None
 
-    def _prepare_placements(self, snapshot, missing: List[_Missing]):
+    def _prepare_placements(self, snapshot, missing: List[_Missing],
+                            nodes=None, by_dc=None, allocs_by_node=None,
+                            node_by_id=None):
         """Pre-solve work: eager destructive stops, sticky placements and
         per-tg ask assembly. Returns (nodes, by_dc, allocs_by_node, asks,
-        ask_missing), or None when nothing remains for the solver."""
+        ask_missing), or None when nothing remains for the solver.
+        The fleet path passes shared nodes/allocs_by_node/node_by_id so
+        evals in one batch see the same world (and skip rebuilding the
+        O(cluster) id map once per member)."""
         if self.job is None:
             return None
-        nodes, by_dc = snapshot.ready_nodes_in_dcs(self.job.datacenters)
+        if nodes is None:
+            nodes, by_dc = snapshot.ready_nodes_in_dcs(self.job.datacenters)
         if not nodes:
             for m in missing:
                 self._record_failure(m, None)
@@ -327,22 +334,24 @@ class GenericScheduler:
         # lazy per-node view — the solve reads usage from the
         # delta-maintained tensors, and the host fixups only ever touch
         # the chosen candidates' nodes
-        stopped_ids = {a.id for allocs in self.plan.node_update.values()
-                       for a in allocs}
-        if self.solver.resident_active(snapshot):
-            allocs_by_node = LazyAllocsView(snapshot, stopped_ids)
-        else:
-            allocs_by_node = {}
-            for n in nodes:
-                live = [a for a in snapshot.allocs_by_node(n.id)
-                        if not a.terminal_status()
-                        and a.id not in stopped_ids]
-                if live:
-                    allocs_by_node[n.id] = live
+        if allocs_by_node is None:
+            stopped_ids = {a.id for allocs in self.plan.node_update.values()
+                           for a in allocs}
+            if self.solver.resident_active(snapshot):
+                allocs_by_node = LazyAllocsView(snapshot, stopped_ids)
+            else:
+                allocs_by_node = {}
+                for n in nodes:
+                    live = [a for a in snapshot.allocs_by_node(n.id)
+                            if not a.terminal_status()
+                            and a.id not in stopped_ids]
+                    if live:
+                        allocs_by_node[n.id] = live
 
         # sticky-disk placements prefer their previous node (reference:
         # generic_sched.go:628 findPreferredNode)
-        node_by_id = {n.id: n for n in nodes}
+        if node_by_id is None:
+            node_by_id = {n.id: n for n in nodes}
         batch_missing: List[_Missing] = []
         sticky_done: List[Tuple[_Missing, object, object]] = []
         for m in missing:

@@ -18,11 +18,13 @@ walking the cluster.
 
 The solve runs on the solver's device, `cuda` unless the caller asks for
 the CPU; with no GPU present a default `Solver()` raises instead of
-carrying on quietly on the CPU.  The reference's host-twin routing
-(`prefer_host`), watchdog failover, brownout budget, chaos injection,
-in-kernel eviction pass (`solve(preempt=)`, `Placement.evicted`), health
-sampling and what-if plan view (`PlanSolverView`) are not part of this
-package.
+carrying on quietly on the CPU.  Under the serving tier's brownout
+(`set_degraded`) solves run with the reduced `BROWNOUT_MAX_WAVES`
+budget, and `health_counters` samples the resident world for the
+server's telemetry beat.  The reference's host-twin routing
+(`prefer_host`), watchdog failover, chaos injection, in-kernel eviction
+pass (`solve(preempt=)`, `Placement.evicted`) and what-if plan view
+(`PlanSolverView`) are not part of this package.
 """
 from __future__ import annotations
 
@@ -52,6 +54,12 @@ RESIDENT_MIN_NODES = 512
 #: a change-log sync whose delta touches more than this share of the
 #: nodes rebuilds the resident world instead of applying the delta
 DELTA_THRESHOLD = 0.25
+#: brownout wave budget: under sustained overload the serving tier's
+#: admission controller flips workers into degraded mode and solves run
+#: with this reduced budget — undecided placements come back retryable
+#: and follow the normal blocked/requeue path, trading per-eval
+#: completeness for queue drain
+BROWNOUT_MAX_WAVES = 6
 
 
 def resolve_device(device=None) -> torch.device:
@@ -331,13 +339,14 @@ class PendingSolve:
       pack_wall_s      host pack (tensorize) wall
       dispatch_wall_s  launch wall after the pack (host-side cost of
                        driving the wave loop up to its last launch)
+      t_dispatched     perf_counter stamp when the launch returned
       fetch_wall_s     wall blocked inside wait() on the device result
       finish_wall_s    host fixup walk wall
     """
 
     __slots__ = ("_solver", "packed", "_nodes", "_asks", "_allocs_by_node",
                  "_by_dc", "_used_resident", "_res", "_t0", "_out",
-                 "pack_wall_s", "dispatch_wall_s",
+                 "pack_wall_s", "dispatch_wall_s", "t_dispatched",
                  "fetch_wall_s", "finish_wall_s")
 
     def __init__(self, solver, pb=None, nodes=None, asks=None,
@@ -358,6 +367,7 @@ class PendingSolve:
         self._out = out
         self.pack_wall_s = 0.0
         self.dispatch_wall_s = 0.0
+        self.t_dispatched = t0
         self.fetch_wall_s = 0.0
         self.finish_wall_s = 0.0
 
@@ -413,13 +423,28 @@ class Solver:
                                     if resident_min_nodes is None
                                     else resident_min_nodes)
         self._world: Optional[_ResidentWorld] = None
+        self._degraded = False
         #: serializes resident-world access between the thread that
-        #: solves and the one that feeds plan results
+        #: solves, the one that feeds plan results and the telemetry
+        #: beat's health sample
         self._world_lock = threading.Lock()
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    # ---------------------------------------------------------- brownout
+    def set_degraded(self, degraded: bool) -> None:
+        """Serving-tier brownout: solve with the reduced
+        BROWNOUT_MAX_WAVES budget while set (leftovers stay
+        retryable)."""
+        with self._world_lock:
+            self._degraded = bool(degraded)
+
+    @property
+    def degraded(self) -> bool:
+        with self._world_lock:
+            return self._degraded
 
     # ------------------------------------------------- resident world
     def resident_active(self, snapshot=None) -> bool:
@@ -473,6 +498,19 @@ class Solver:
         with self._world_lock:
             world = self._world
             return dict(world.counters) if world else None
+
+    def health_counters(self):
+        """Fleet health sample over the resident world's delta-
+        maintained host template (the server's telemetry beat), by the
+        numpy reduction `health_host`, so the beat never touches the
+        device.  None while no resident world is active."""
+        with self._world_lock:
+            world = self._world
+            if world is None:
+                return None
+            from ..telemetry.health import health_host
+            t = world.template
+            return health_host(t, t.used0, t.dev_used0)
 
     def _resident_pack(self, snapshot, asks, proposed_delta):
         """The steady-state pack: sync the world to the snapshot via
@@ -545,13 +583,16 @@ class Solver:
         if pb is None:
             pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
         t_pack = time.perf_counter()
-        res = _run_kernel(pb, self._device)
+        res = _run_kernel(pb, self._device,
+                          max_waves=BROWNOUT_MAX_WAVES
+                          if self._degraded else 0)
         pending = PendingSolve(self, pb=pb, nodes=sol_nodes,
                                asks=list(asks),
                                allocs_by_node=allocs_by_node, by_dc=by_dc,
                                used_resident=used_resident, res=res, t0=t0)
+        pending.t_dispatched = time.perf_counter()
         pending.pack_wall_s = t_pack - t0
-        pending.dispatch_wall_s = time.perf_counter() - t_pack
+        pending.dispatch_wall_s = pending.t_dispatched - t_pack
         return pending
 
     def _finish_solve(self, pb: PackedBatch, sol_nodes, asks, res,

@@ -1,31 +1,34 @@
-"""Eval tracing: the span layer the scheduler writes its stages into.
+"""Eval tracing: the span layer the server plane and the scheduler write
+their stages into, and the event log of notable transitions.
 
-The counterpart of `nomad_tpu.utils.tracing`, reduced to what the
-scheduler path calls: `global_tracer.stage` / `.event`, a span's `set` /
-`end`, and `NULL_SPAN`.  One trace id (the eval id) collects its
-completed spans in order; `stage()` parents a span on the trace's last
-completed one, as the reference does.  Completed spans are kept in a
-bounded in-memory ring of traces (oldest trace evicted whole) and read
-back with `get`.
+The counterpart of `nomad_tpu.utils.tracing`.  One trace id (the eval
+id) collects its completed spans; `stage()` parents a span on the
+trace's last completed one, `span()` takes an explicit parent.
+Completed spans are kept in a bounded in-memory ring of traces (oldest
+trace evicted whole) and read back with `get`.  `MeshEventLog` is the
+bounded, sequence-numbered event log (the serving tier's SLO burn
+alerts land there; the server's telemetry beat reads its rate).
 
-Not here yet (the reference's flight recorder beyond this): spans with
-an explicit parent, per-id sampling, the off-thread spill drainer, the
-JSONL sink, queries beyond `get`, the learned-scorer corpus export and
-the mesh event log, and the reference's knobs (recording on/off and
-the ring depth from the environment): recording is always on here, at
-a fixed depth of `TRACE_DEPTH` traces.
+Not here yet (ROADMAP.md Queue 1, item 5): per-id sampling, the
+off-thread spill drainer, the JSONL sinks, queries beyond `get`, the
+learned-scorer corpus export, the event log's region table, and the
+reference's knobs (recording on/off and the ring depth from the
+environment): recording is always on here, at a fixed depth of
+`TRACE_DEPTH` traces.
 """
 from __future__ import annotations
 
 import threading
 import time as _time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional
 
 from .ids import generate_uuid
 
 #: ring depth in traces (the reference's default)
 TRACE_DEPTH = 512
+#: event-log ring depth (the reference's default)
+MESH_EVENTS_DEPTH = 4096
 
 
 class Span:
@@ -59,6 +62,14 @@ class Span:
         rec, self._rec = self._rec, None     # record exactly once
         rec._record(self)
 
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc is not None:
+            self.attrs.setdefault("error", repr(exc))
+        self.end()
+
 
 class _NullSpan:
     """The span of an untraced call (no trace id): every method a no-op,
@@ -72,6 +83,12 @@ class _NullSpan:
         return self
 
     def end(self, **attrs) -> None:
+        return None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a) -> None:
         return None
 
 
@@ -88,6 +105,14 @@ class FlightRecorder:
         self._traces: "OrderedDict[str, List[dict]]" = OrderedDict()
         self._tail: Dict[str, str] = {}      # trace id -> last span id
 
+    def span(self, trace_id: str, name: str,
+             parent: Optional[str] = None, **attrs):
+        """Open a span under an explicit parent; the caller must end()
+        it (or use `with`)."""
+        if not trace_id:
+            return NULL_SPAN
+        return Span(self, trace_id, name, parent or "", attrs)
+
     def stage(self, trace_id: str, name: str, **attrs):
         """Open a span parented on the trace's last completed span; the
         caller must end() it."""
@@ -97,9 +122,14 @@ class FlightRecorder:
             parent = self._tail.get(trace_id, "")
         return Span(self, trace_id, name, parent, attrs)
 
-    def event(self, trace_id: str, name: str, **attrs) -> None:
-        """Record a zero-duration stage, chained like `stage`."""
-        self.stage(trace_id, name, **attrs).end()
+    def event(self, trace_id: str, name: str,
+              parent: Optional[str] = None, **attrs) -> None:
+        """Record a zero-duration stage (chained like `stage` unless an
+        explicit parent is given)."""
+        sp = (self.span(trace_id, name, parent=parent, **attrs)
+              if parent is not None else self.stage(trace_id, name,
+                                                    **attrs))
+        sp.end()
 
     def _record(self, sp: Span) -> None:
         row = {"trace_id": sp.trace_id, "span_id": sp.span_id,
@@ -127,5 +157,53 @@ class FlightRecorder:
                           key=lambda s: s["t_start"])
 
 
-#: process-global recorder (the scheduler's trace sink)
+class MeshEventLog:
+    """Bounded, sequence-numbered log of notable transitions (the
+    reference's /v1/agent/events surface): the serving tier's `slo.burn`
+    trips and clears land here."""
+
+    def __init__(self, depth: int = MESH_EVENTS_DEPTH):
+        self._lock = threading.Lock()
+        self._events: deque = deque(maxlen=max(int(depth), 1))
+        self._seq = 0
+
+    def record(self, kind: str, **attrs) -> dict:
+        ev = {"seq": 0, "kind": kind, "t_wall": round(_time.time(), 6),
+              "t_mono": _time.monotonic(), **attrs}
+        with self._lock:
+            self._seq += 1
+            ev["seq"] = self._seq
+            self._events.append(ev)
+        return ev
+
+    def events(self, limit: int = 256, kind: Optional[str] = None,
+               since_seq: int = 0) -> List[dict]:
+        """Newest-last events with seq strictly above `since_seq`."""
+        with self._lock:
+            evs = list(self._events)
+        if since_seq:
+            evs = [e for e in evs if e["seq"] > since_seq]
+        if kind:
+            evs = [e for e in evs if e["kind"] == kind]
+        return evs[-max(int(limit), 1):]
+
+    @property
+    def last_seq(self) -> int:
+        """The newest assigned cursor (0 = nothing recorded yet)."""
+        with self._lock:
+            return self._seq
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def __bool__(self) -> bool:
+        # __len__ alone would make an EMPTY log falsy, so an
+        # `if event_log:` presence check would skip a fresh log
+        return True
+
+
+#: process-global recorder and event log (the scheduler's and the
+#: server plane's trace sinks)
 global_tracer = FlightRecorder()
+global_mesh_events = MeshEventLog()

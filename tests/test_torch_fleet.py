@@ -1,0 +1,143 @@
+"""The port's fused fleet round (`nomad_tpu_torch.scheduler.fleet`)
+against the JAX package's, on the CPU, through each package's own
+`Server`.
+
+Each scenario builds the same cluster and jobs (fixed node and job ids)
+in `Server(num_workers=0)` — the port's with `device="cpu"` — starts
+it, dequeues one batch from the broker and runs `process_fleet` with a
+`Worker` as the planner: the scenarios of tests/test_fleet.py (many jobs
+in one solve; two jobs racing for one node's capacity), and a 600-node
+race where the workers' store-attached solvers keep the resident world
+in both packages (600 nodes is above `RESIDENT_MIN_NODES`).  The
+placements of each job (alloc name -> node index), every eval's status,
+the blocked-eval stats and the broker's unacked count must be equal.
+A fused round whose evals all have preemption on raises in the port (the
+in-kernel eviction pass is not ported) and places nothing."""
+import pytest
+
+from nomad_tpu import mock as ref_mock
+from nomad_tpu import structs as ref_structs
+from nomad_tpu.scheduler.fleet import process_fleet as ref_process_fleet
+from nomad_tpu.server.server import Server as RefServer
+from nomad_tpu.server.worker import Worker as RefWorker
+from nomad_tpu_torch import mock as port_mock
+from nomad_tpu_torch import structs as port_structs
+from nomad_tpu_torch.scheduler.fleet import process_fleet
+from nomad_tpu_torch.server.server import Server
+from nomad_tpu_torch.server.worker import Worker
+
+PKGS = {"ref": (ref_mock, ref_structs, RefServer, RefWorker,
+                ref_process_fleet),
+        "port": (port_mock, port_structs, Server, Worker, process_fleet)}
+
+
+class Fleet:
+    """One package's server, with a fixed-identity builder."""
+
+    def __init__(self, pkg):
+        self.pkg = pkg
+        (self.mock, self.st, ServerCls, self.Worker,
+         self.process_fleet) = PKGS[pkg]
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        self.server = ServerCls(num_workers=0, **kw)
+
+    def node(self, i, cpu=None, mem=None):
+        n = self.mock.node(id=f"node-{i:04d}", name=f"node-{i}")
+        n.node_resources.networks[0].ip = f"10.0.{i // 250}.{i % 250 + 1}"
+        if cpu is not None:
+            n.node_resources.cpu = cpu
+            n.node_resources.memory_mb = mem
+            n.reserved_resources.cpu = 100
+            n.reserved_resources.memory_mb = 0
+        n.compute_class()
+        return n
+
+    def job(self, i, count, cpu=None):
+        j = self.mock.job(id=f"job-{i}")
+        tg = j.task_groups[0]
+        tg.count = count
+        if cpu is not None:
+            tg.tasks[0].resources.cpu = cpu
+            tg.tasks[0].resources.networks = []
+        return j
+
+    def run(self, nodes, jobs, preempt=False):
+        s = self.server
+        node_ids = [n.id for n in nodes]
+        for n in nodes:
+            s.register_node(n)
+        if preempt:
+            s._propose("scheduler_config", {"config": {
+                "preemption_service_enabled": True}})
+        s.start()
+        evals = [s.register_job(j) for j in jobs]
+        batch = s.broker.dequeue_batch(["service"], 64, 1.0)
+        assert len(batch) == len(jobs)
+        worker = self.Worker(s, ["service"])
+        self.process_fleet(s, worker, batch)
+        placements = {
+            j.id: sorted((a.name, node_ids.index(a.node_id))
+                         for a in s.store.allocs_by_job("default", j.id))
+            for j in jobs}
+        statuses = [s.store.eval_by_id(e.id).status for e in evals]
+        blocked = s.blocked_evals.stats()
+        return {"placements": placements, "statuses": statuses,
+                "blocked": (blocked["total_blocked"],
+                            blocked["total_escaped"]),
+                "unacked": s.broker.stats()["total_unacked"]}, worker
+
+
+def sc_many_jobs_one_solve(F):
+    nodes = [F.node(i) for i in range(6)]
+    return F.run(nodes, [F.job(i, 3) for i in range(5)])
+
+
+def sc_capacity_race(F):
+    """tests/test_fleet.py:39: two jobs racing for one node's capacity
+    in the same fused solve; only one fits, the other blocks."""
+    nodes = [F.node(0, cpu=1300, mem=1024)]
+    return F.run(nodes, [F.job(i, 1, cpu=700) for i in range(2)])
+
+
+def sc_resident_capacity_race(F):
+    """600 small nodes (1,200 usable cpu each) and three jobs of 250
+    placements at 700 cpu: 750 asks for 600 slots in one fused solve on
+    the resident world."""
+    nodes = [F.node(i, cpu=1300, mem=4096) for i in range(600)]
+    return F.run(nodes, [F.job(i, 250, cpu=700) for i in range(3)])
+
+
+SCENARIOS = {"many_jobs_one_solve": sc_many_jobs_one_solve,
+             "capacity_race": sc_capacity_race,
+             "resident_capacity_race": sc_resident_capacity_race}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_fleet_round_matches_reference(name):
+    out = {}
+    for pkg in ("ref", "port"):
+        F = Fleet(pkg)
+        try:
+            out[pkg], worker = SCENARIOS[name](F)
+            resident = worker._solver.resident_counters()
+        finally:
+            F.server.stop()
+        assert out[pkg]["unacked"] == 0
+        assert (resident is not None) == name.startswith("resident"), pkg
+    assert out["port"] == out["ref"]
+    placed = sum(len(v) for v in out["port"]["placements"].values())
+    if name == "capacity_race":
+        assert placed == 1 and sum(out["port"]["blocked"]) == 1
+    if name == "resident_capacity_race":
+        assert placed == 600 and sum(out["port"]["blocked"]) >= 1
+
+
+def test_fused_round_with_preemption_raises():
+    F = Fleet("port")
+    try:
+        nodes = [F.node(i) for i in range(4)]
+        with pytest.raises(NotImplementedError, match="preemption"):
+            F.run(nodes, [F.job(i, 2) for i in range(3)], preempt=True)
+        assert not list(F.server.store.allocs())
+    finally:
+        F.server.stop()

@@ -1,0 +1,230 @@
+"""The port's wire codec, raft FSM and single-node server write path
+(`nomad_tpu_torch.utils.codec`, `.raft`, `.server.server`) against the
+JAX package's, on the CPU.
+
+One builder makes the same objects (fixed ids, names, addresses and
+times) with each package's own mock and structs; `to_wire` of each must
+be the same JSON, and each package's decoder must read either payload
+back to the same JSON as the other's decoder.  The same sequence of writes through each
+package's single-node `Server` (every write a raft proposal applied by
+the FSM) must leave identical store tables and indexes; ids the server
+mints itself (eval ids) are renamed by first appearance and wall-clock
+stamps zeroed before the comparison.  A three-server cluster of the port
+on the in-process transport elects one leader and replicates to every
+follower."""
+import json
+import re
+
+import pytest
+
+from nomad_tpu import mock as ref_mock
+from nomad_tpu import structs as ref_structs
+from nomad_tpu.acl import ACLPolicy as RefACLPolicy
+from nomad_tpu.acl import ACLToken as RefACLToken
+from nomad_tpu.acl import NamespaceRule as RefNamespaceRule
+from nomad_tpu.client.sim import wait_until
+from nomad_tpu.server.server import Server as RefServer
+from nomad_tpu.utils import codec as ref_codec
+from nomad_tpu_torch import mock as port_mock
+from nomad_tpu_torch import structs as port_structs
+from nomad_tpu_torch.acl import ACLPolicy as PortACLPolicy
+from nomad_tpu_torch.acl import ACLToken as PortACLToken
+from nomad_tpu_torch.acl import NamespaceRule as PortNamespaceRule
+from nomad_tpu_torch.raft import (InProcTransport, NotLeaderError,
+                                  RaftConfig)
+from nomad_tpu_torch.server.server import Server as PortServer
+from nomad_tpu_torch.utils import codec as port_codec
+from test_torch_state_store import dump
+
+PKGS = {
+    "ref": (ref_mock, ref_structs, ref_codec, RefServer,
+            (RefACLPolicy, RefACLToken, RefNamespaceRule)),
+    "port": (port_mock, port_structs, port_codec, PortServer,
+             (PortACLPolicy, PortACLToken, PortNamespaceRule)),
+}
+
+
+class Build:
+    """Objects with fixed identities for one package."""
+
+    def __init__(self, pkg):
+        self.mock, self.st, self.codec, self.Server, self.acl = PKGS[pkg]
+
+    def node(self, i):
+        n = self.mock.node(id=f"node-{i:03d}", name=f"node-{i}",
+                           datacenter=f"dc{i % 2}")
+        n.secret_id = f"secret-{i}"
+        n.node_resources.networks[0].ip = f"10.0.0.{i + 1}"
+        n.compute_class()
+        return n
+
+    def job(self, name="job-a"):
+        j = self.mock.job(id=name)
+        j.task_groups[0].count = 2
+        j.submit_time = 1000.0
+        return j
+
+    def alloc(self, job, k, node_id):
+        a = self.mock.alloc(job=job, node_id=node_id)
+        a.id = f"alloc-{job.id}-{k}"
+        a.eval_id = "eval-fixed"
+        a.name = self.st.alloc_name(job.id, "web", k)
+        a.create_time = a.modify_time = 1000.0 + k
+        for tr in a.allocated_resources.tasks.values():
+            tr.networks = []
+        return a
+
+    def eval(self, job):
+        e = self.mock.eval_(job_id=job.id)
+        e.id = f"eval-{job.id}"
+        e.create_time = e.modify_time = 2000.0
+        return e
+
+    def plan(self, job, allocs, stops=()):
+        p = self.st.Plan(eval_id="eval-fixed", job=job, priority=50)
+        for a in allocs:
+            p.append_alloc(a)
+        result = self.st.PlanResult(
+            node_allocation={a.node_id: [a] for a in allocs})
+        for a in stops:
+            result.node_update.setdefault(a.node_id, []).append(a)
+        return p, result
+
+
+def wire_objects(pkg):
+    b = Build(pkg)
+    node = b.node(1)
+    job = b.job()
+    alloc = b.alloc(job, 0, node.id)
+    _plan, result = b.plan(job, [alloc], stops=[b.alloc(job, 1, node.id)])
+    return {"node": node, "job": job, "alloc": alloc,
+            "eval": b.eval(job), "plan_result": result}
+
+
+def as_json(x):
+    return json.dumps(x, sort_keys=True)
+
+
+@pytest.mark.parametrize("kind", ["node", "job", "alloc", "eval",
+                                  "plan_result"])
+def test_to_wire_is_json_equal(kind):
+    ref = wire_objects("ref")[kind]
+    port = wire_objects("port")[kind]
+    ref_wire = ref_codec.to_wire(ref)
+    port_wire = port_codec.to_wire(port)
+    assert as_json(port_wire) == as_json(ref_wire)
+    # each decoder reads a payload back as the other package's does
+    # (decoding widens JSON ints to float-typed fields in both)
+    for wire in (ref_wire, port_wire):
+        assert as_json(port_codec.to_wire(port_codec.from_wire(
+            type(port), wire))) == as_json(ref_codec.to_wire(
+                ref_codec.from_wire(type(ref), wire)))
+
+
+_UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
+                   r"[0-9a-f]{12}")
+
+
+def canon(x, ids):
+    """`x` with every uuid renamed by first appearance (the server mints
+    eval ids) and wall-clock stamps (`*_time`) zeroed."""
+    if isinstance(x, str):
+        return _UUID.sub(lambda m: ids.setdefault(m.group(0),
+                                                  f"<id{len(ids)}>"), x)
+    if isinstance(x, dict):
+        return {canon(k, ids): (0 if isinstance(k, str)
+                                and k.endswith("_time") else canon(v, ids))
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [canon(v, ids) for v in x]
+    return x
+
+
+def server_writes(pkg):
+    """One sequence of writes through a single-node server (not started:
+    a bootstrapped single node takes writes at once)."""
+    b = Build(pkg)
+    s = b.Server(num_workers=0, **({"device": "cpu"} if pkg == "port"
+                                   else {}))
+    try:
+        nodes = [b.node(i) for i in range(6)]
+        for n in nodes:
+            s.register_node(n)
+        job = b.job()
+        s.register_job(job)
+        other = b.job("job-b")
+        s.register_job(other)
+        stored = s.store.job_by_id(job.namespace, job.id)
+        allocs = [b.alloc(stored, k, nodes[k].id) for k in range(2)]
+        plan, result = b.plan(stored, allocs)
+        s._apply_plan(plan, result)
+        stored_b = s.store.job_by_id(other.namespace, other.id)
+        allocs_b = [b.alloc(stored_b, k, nodes[2 + k].id) for k in range(2)]
+        plan_b, result_b = b.plan(stored_b, allocs_b)
+        index, finish = s._apply_plan_batch_async([(plan_b, result_b)])
+        assert finish() == index
+        upd = []
+        for a in allocs:
+            u = s.store.alloc_by_id(a.id)
+            u = type(u)(**{**vars(u)})
+            u.client_status = b.st.ALLOC_CLIENT_RUNNING
+            upd.append(u)
+        s.update_allocs_from_client(upd)
+        s.update_node_status(nodes[5].id, b.st.NODE_STATUS_DOWN)
+        s.update_node_eligibility(nodes[4].id, b.st.NODE_SCHED_INELIGIBLE)
+        s.upsert_secret("default", "app/db", {"password": "hunter2"})
+        ACLPolicy, ACLToken, NamespaceRule = b.acl
+        s.upsert_acl_policy(ACLPolicy(
+            name="readers", namespaces=[NamespaceRule(name="default",
+                                                      policy="read")]))
+        s.upsert_acl_token(ACLToken(accessor_id="acc-1", secret_id="sec-1",
+                                    name="reader", policies=["readers"]))
+        s.deregister_job(other.namespace, other.id)
+        return canon(dump(s.store), {})
+    finally:
+        s.stop()
+
+
+def test_server_writes_leave_identical_store():
+    ref = server_writes("ref")
+    port = server_writes("port")
+    assert port["index"] == ref["index"]
+    assert port["indexes"] == ref["indexes"]
+    assert set(port["tables"]) == set(ref["tables"])
+    for name in ref["tables"]:
+        assert port["tables"][name] == ref["tables"][name], name
+
+
+def test_three_server_cluster_elects_and_replicates():
+    transport = InProcTransport()
+    peers = [f"s{i}" for i in range(3)]
+    servers = [PortServer(num_workers=0, device="cpu",
+                          raft_config=RaftConfig(
+                              node_id=p, peers=peers,
+                              election_timeout_s=(0.10, 0.25),
+                              heartbeat_interval_s=0.03),
+                          raft_transport=transport) for p in peers]
+    try:
+        for s in servers:
+            s.start()
+        assert wait_until(lambda: sum(s.is_leader() for s in servers) == 1,
+                          timeout=15)
+        leader = next(s for s in servers if s.is_leader())
+        followers = [s for s in servers if s is not leader]
+        b = Build("port")
+        leader.register_node(b.node(0))
+        job = b.job()
+        leader.register_job(job)
+        assert wait_until(lambda: all(
+            f.store.job_by_id(job.namespace, job.id) is not None
+            and f.store.latest_index() == leader.store.latest_index()
+            for f in followers), timeout=15)
+        want = canon(dump(leader.store), {})
+        for f in followers:
+            assert canon(dump(f.store), {}) == want
+        with pytest.raises(NotLeaderError) as e:
+            followers[0].register_job(b.job("job-b"))
+        assert e.value.leader_id == leader.raft.id
+    finally:
+        for s in servers:
+            s.stop()
