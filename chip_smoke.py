@@ -121,16 +121,56 @@ Phases, one JSON line each; any failed phase exits nonzero:
                fused round of two or more evals, topk and merge launches
                in leg A and score launches in leg B, and the first fused
                score round's packed batch re-solved with the kernel and
-               with the plain wave agrees under assert_same.
+               with the plain wave agrees under assert_same.  Leg C, on
+               the same server after the legs' checks are read: a system
+               job (one group of cpu 100, memory 64 MB, disk 10 MB, all
+               four dcs, rack != r63), one more config-3 node joining
+               (its node-update eval), then the job deregistered; each
+               eval's wall and split (snapshot and diff, the full pack,
+               the feasibility pass `static_feasibility` from launch to
+               unpacked mask, the host walk, `plan.submit` with the
+               FSM's apply).  Checks: every eval complete, one live
+               alloc of the job on each eligible node and none on r63,
+               `failed_tg_allocs` counting the filtered nodes, the
+               joined node's alloc from its own eval, no node
+               oversubscribed, none left after the deregistration, and
+               the card's feasibility words equal, bit for bit, to the
+               same `_feas_kernel` run on the CPU on the eval's batch.
+  8. preempt — service preemption on the server: phase 7's serving tier
+               with `preemption_service_enabled`, the config-3 nodes each
+               filled with low-priority running allocs (sizes and
+               priorities of bench.py's overcommit fill, drawn from a
+               seeded generator) until no config-3 ask fits without an
+               eviction, entered as raft entries of five fill jobs.  One
+               warm-up per worker builds its world with the eviction
+               planes.  Priority-70 config-3 jobs of 64 placements, each
+               pinned to one zone: leg P1, 16 in turn (the single lane:
+               topk plus the eviction pass), leg P2, 16 registered while
+               the workers are paused and released together (a fused
+               round: score plus the eviction pass).  Per leg: walls and
+               splits, waves against the doubled budget, evictions,
+               `scheduler.preempt.kernel` / `host_fallback`, launches,
+               the eviction pass's calls, placed and left to blocked
+               evals, the card's peak memory.  Checks: every eval
+               complete, no batch error, none on the broker's failed
+               queue, the kernel committed evictions in both legs,
+               every preempting alloc's victims are exactly the allocs
+               the store marks evicted by it and each is at least 10
+               below in priority,
+               no node oversubscribed, no world rebuilt in the legs, and
+               one leg-P1 batch and the fused round's batch re-solved
+               with the kernel and with the plain wave agree under
+               assert_same with equal victim sets and commit waves; the
+               eviction pass is then timed on both batches.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phase 5's as `launches_phase5` and phase 7's as
-`launches_phase7` beside them), and its error against the plain version,
-times (`ms` is the kernel-only cold time) and bound on phase 6's own
-arguments; the score kernel also on the first fused score round's
-arguments (`fused_round`).  The last line is {"ok": true, "device":
-{...}}.  Without a CUDA device the script exits nonzero before printing
-any result.
+worker's path (phase 6; phases 5, 7 and 8 as `launches_phase5`,
+`launches_phase7` and `launches_phase8` beside them), and its error
+against the plain version, times (`ms` is the kernel-only cold time) and
+bound on phase 6's own arguments; the score kernel also on the first
+fused score round's arguments (`fused_round`).  The last line is
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits
+nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -1101,20 +1141,29 @@ def check_launch_split(svc_counts, bat_counts):
 
 
 def kernel_vs_plain(wk, items):
-    """Each (what, packed batch, mode) re-solved with the kernel and with
-    the plain wave (launches here are not counted on the main path),
-    held to `assert_same`, no node oversubscribed.  Returns the arguments
-    of the first wave call of each mode, copied during the re-solves."""
+    """Each (what, packed batch, mode[, preempt]) re-solved with the
+    kernel and with the plain wave (launches here are not counted on the
+    main path), held to `assert_same`, no node oversubscribed.  With
+    `preempt` the solve runs the eviction pass, and the victim sets and
+    commit waves must be equal too.  Returns the arguments of the first
+    wave call of each mode, copied during the re-solves."""
     from nomad_tpu_torch.solver.solve import _run_kernel, _to_host
     calls = {}
-    for what, pb, mode in items:
+    for what, pb, mode, *rest in items:
+        preempt = bool(rest and rest[0])
         into = calls.setdefault(mode, {})
         with capture_wave(wk, mode, into):
-            res_k = _to_host(_run_kernel(pb, DEVICE))
+            res_k = _to_host(_run_kernel(pb, DEVICE, preempt=preempt))
         check("kw" in into, f"{what}: no {mode} wave call")
         with plain_wave(wk):
-            res_p = _to_host(_run_kernel(pb, DEVICE))
+            res_p = _to_host(_run_kernel(pb, DEVICE, preempt=preempt))
         assert_same(res_k, res_p, f"{what}: kernel vs plain")
+        if preempt:
+            check(res_k.evict is not None and res_k.evict.any(),
+                  f"{what}: the re-solve committed no eviction")
+            check(np.array_equal(res_k.evict, res_p.evict)
+                  and np.array_equal(res_k.commit_wave, res_p.commit_wave),
+                  f"{what}: victim sets or commit waves differ")
         real = pb.n_real
         check(bool(np.all(res_k.used_final[:real] <= pb.avail[:real])),
               f"{what}: a node is oversubscribed")
@@ -1450,7 +1499,10 @@ class ServerProbe:
 
     PLAN_ENTRIES = ("plan_result", "plan_results_batch")
 
-    def __init__(self, srv, wk):
+    def __init__(self, srv, wk, min_kept_evals=0):
+        """`min_kept_evals`: keep the packed batch of every score round
+        of at least that many evals; 0 keeps only the first score
+        round's."""
         import threading
         from nomad_tpu_torch.scheduler import fleet
         self.applies, self.rounds = [], []
@@ -1477,7 +1529,8 @@ class ServerProbe:
                     for a in lst:
                         self.placed[a["job_id"]].append(a["name"])
                         evals.add(a["eval_id"])
-            self.applies.append({"s": time.perf_counter() - t,
+            t1 = time.perf_counter()
+            self.applies.append({"s": t1 - t, "t1": t1,
                                  "plans": len(items), "evals": evals})
         patch(srv.fsm, "apply", apply)
 
@@ -1501,23 +1554,31 @@ class ServerProbe:
             finally:
                 modes, local.modes = local.modes, None
             pb = rnd.pending.packed if rnd.pending is not None else None
-            keep = modes["score"] and not any(r["pb"] is not None
-                                              for r in self.rounds)
+            if min_kept_evals:
+                keep = modes["score"] and len(rnd.fused) >= min_kept_evals
+            else:
+                keep = modes["score"] and not any(r["pb"] is not None
+                                                  for r in self.rounds)
             self.rounds.append({
                 "rnd": rnd, "evals": len(rnd.fused),
                 "solvable": len(rnd.solvable), "asks": len(rnd.all_asks),
                 "Gp": int(pb.ask_res.shape[0]) if pb is not None else 0,
                 "K": int(pb.n_place) if pb is not None else 0,
                 "modes": dict(modes),
-                # only the first score round's batch is re-solved below
-                "pb": pb if keep else None})
+                # the batches re-solved after the phase
+                "pb": snapshot_pb(pb) if keep else None})
 
         def fleet_finish(server, worker, rnd, prev_fetch_done=0.0):
             real_finish(server, worker, rnd, prev_fetch_done)
+            # wait() again returns the fetched output it cached
+            trace = (rnd.pending.wait().trace if rnd.pending is not None
+                     else {})
             for r in self.rounds:
                 if r["rnd"] is rnd:
                     r["stages_ms"] = {k: 1e3 * v
                                       for k, v in rnd.stages.items()}
+                    r["waves"] = trace.get("waves")
+                    r["evict_commits"] = trace.get("evict_commits")
                     r["rnd"] = None
         patch(fleet, "fleet_dispatch", fleet_dispatch)
         patch(fleet, "fleet_finish", fleet_finish)
@@ -1562,6 +1623,19 @@ class ServerProbe:
 
     def since(self, m):
         return {k: getattr(self, k)[v:] for k, v in m.items()}
+
+
+def snapshot_pb(pb):
+    """A copy of a packed batch that later plan feeds cannot change: a
+    resident batch shares the world template's eviction planes, which
+    the feeds edit in place."""
+    import copy
+    pb = copy.copy(pb)
+    pb.used0, pb.dev_used0 = pb.used0.copy(), pb.dev_used0.copy()
+    if pb.ev_prio is not None:
+        pb.ev_prio, pb.ev_res = pb.ev_prio.copy(), pb.ev_res.copy()
+        pb.ev_ids = list(pb.ev_ids)
+    return pb
 
 
 def wait_evals(srv, ids, timeout):
@@ -1612,9 +1686,256 @@ def eval_split(tracer, ev_id):
     return {k: 1e3 * v for k, v in out.items()}, attrs
 
 
+def warm_worlds(srv, make, registered):
+    """One untimed job per worker (`make(i)`) builds that worker's
+    resident world, the other worker paused (a paused worker stays idle
+    while the queue holds no more than a batch).  Appends the evals to
+    `registered`; returns each build's wall (ms)."""
+    from nomad_tpu_torch.server.worker import DEQUEUE_TIMEOUT_S
+    build_ms = []
+    for i, w in enumerate(srv.workers):
+        for o in srv.workers:
+            if o is not w:
+                o.paused.set()
+        # a dequeue already waiting when the pause was set returns
+        # within its timeout; the worker then sees the pause
+        time.sleep(2 * DEQUEUE_TIMEOUT_S)
+        t = time.perf_counter()
+        ev = srv.register_job(make(i))
+        registered.append(ev.id)
+        wait_evals(srv, [ev.id], 300)
+        build_ms.append(1e3 * (time.perf_counter() - t))
+        for o in srv.workers:
+            o.paused.clear()
+    check(all(c is not None for c in world_counters(srv)),
+          f"a worker built no resident world: {world_counters(srv)}")
+    return build_ms
+
+
 def world_counters(srv):
     return [w._solver.resident_counters() if w._solver is not None
             else None for w in srv.workers]
+
+
+# ------------------------------------------------------ phase 7, leg C
+#: the system job's rack filter: 156 of the 10,000 config-3 nodes
+SYSTEM_FILTER_RACK = "r63"
+
+
+def system_job(mock, structs):
+    """A daemon on every node outside rack r63: one group of cpu 100,
+    memory 64 MB, disk 10 MB, no network, all four datacenters."""
+    job = mock.system_job(id="system-3")
+    job.name = job.id
+    job.datacenters = [f"dc{d}" for d in range(4)]
+    job.constraints = [structs.Constraint("${attr.rack}",
+                                          SYSTEM_FILTER_RACK, "!=")]
+    tg = job.task_groups[0]
+    t = tg.tasks[0]
+    t.resources.cpu, t.resources.memory_mb = 100, 64
+    t.resources.networks = []
+    tg.networks = []
+    tg.ephemeral_disk.size_mb = 10
+    return job
+
+
+class SystemProbe:
+    """Times the parts of each system eval from outside, by eval id:
+    `process` (the scheduler's attempt: snapshot, diff, placements, plan
+    submit), `placements`, within it the full `pack` and the
+    feasibility pass `feas` (`static_feasibility`: planes to the card,
+    `_feas_kernel`, the words back and unpacked), and `plan_submit` with
+    its windows (the FSM's applies inside them are the eval's).  Keeps
+    each packed batch the pass saw."""
+
+    def __init__(self):
+        import threading
+        from nomad_tpu_torch.scheduler import system
+        from nomad_tpu_torch.server.worker import Worker
+        from nomad_tpu_torch.solver import masks
+        from nomad_tpu_torch.solver.tensorize import Tensorizer
+        self.evals, self.batches = {}, []
+        local = threading.local()
+        restore = []
+
+        def patch(obj, name, fn):
+            restore.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+
+        def timed(real, key, keep=None):
+            def fn(*a, **kw):
+                rec = getattr(local, "rec", None)
+                t = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    if rec is not None:
+                        t1 = time.perf_counter()
+                        rec[key] += t1 - t
+                        if key == "plan_submit":
+                            rec["windows"].append((t, t1))
+                        if keep is not None:
+                            keep(a)
+            return fn
+
+        real_process = system.SystemScheduler._process
+
+        def _process(sched):
+            rec = self.evals.setdefault(sched.eval.id, {
+                "process": 0.0, "placements": 0.0, "pack": 0.0,
+                "feas": 0.0, "plan_submit": 0.0, "attempts": 0,
+                "windows": []})
+            local.rec = rec
+            try:
+                return timed(real_process, "process")(sched)
+            finally:
+                rec["attempts"] += 1
+                local.rec = None
+        patch(system.SystemScheduler, "_process", _process)
+        patch(system.SystemScheduler, "_compute_placements",
+              timed(system.SystemScheduler._compute_placements,
+                    "placements"))
+        patch(Tensorizer, "pack", timed(Tensorizer.pack, "pack"))
+        patch(masks, "static_feasibility",
+              timed(masks.static_feasibility, "feas",
+                    keep=lambda a: self.batches.append(a[0])))
+        patch(Worker, "submit_plan", timed(Worker.submit_plan,
+                                           "plan_submit"))
+
+        def close():
+            for obj, name, fn in reversed(restore):
+                setattr(obj, name, fn)
+        self.close = close
+
+    def split(self, eval_id, wall_s, applies):
+        """The eval's wall split (ms): snapshot and diff (the attempt
+        before and around its placements, plan submit apart), full pack,
+        feasibility pass, host walk, plan submit with the FSM's apply
+        inside it, and the rest (queue, status write)."""
+        r = self.evals[eval_id]
+        fsm = sum(a["s"] for a in applies
+                  if any(t0 <= a["t1"] <= t1 for t0, t1 in r["windows"]))
+        out = {"snapshot_diff": r["process"] - r["placements"]
+               - r["plan_submit"],
+               "pack": r["pack"], "feas": r["feas"],
+               "host_walk": r["placements"] - r["pack"] - r["feas"],
+               "plan_submit": r["plan_submit"], "fsm_apply": fsm,
+               "rest": wall_s - r["process"]}
+        return {k: 1e3 * v for k, v in out.items()}, r["attempts"]
+
+
+def feas_kernel_ms(torch, args, reps=20):
+    """`_feas_kernel` alone on the card, inputs resident: the median of
+    `reps` runs between CUDA events."""
+    from nomad_tpu_torch.solver.masks import _feas_kernel
+    _feas_kernel(*args)
+    ts = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _feas_kernel(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return statistics.median(ts)
+
+
+def leg_system(torch, srv, probe, mock, structs, nodes):
+    """Phase 7, leg C, on the running server: a system job on the
+    config-3 cluster (one alloc per node outside rack r63), one new
+    config-3 node whose node-update eval places there, then the job
+    deregistered.  Each eval's wall (from the call to its completion)
+    and split, and the checks; raises PhaseError on a failed one."""
+    job = system_job(mock, structs)
+    sp = SystemProbe()
+    walls, evals = {}, {}
+    try:
+        for step in ("register", "node_join", "deregister"):
+            t = time.perf_counter()
+            if step == "register":
+                ev_id = srv.register_job(job).id
+            elif step == "node_join":
+                new = make_nodes(mock, 1, start=len(nodes))[0]
+                srv.register_node(new)
+                ev_id = next(e.id for e in srv.store.evals()
+                             if e.job_id == job.id and e.triggered_by
+                             == structs.EVAL_TRIGGER_NODE_UPDATE)
+            else:
+                ev_id = srv.deregister_job(structs.DEFAULT_NAMESPACE,
+                                           job.id).id
+            wait_evals(srv, [ev_id], 300)
+            walls[step], evals[step] = time.perf_counter() - t, ev_id
+            if step == "node_join":
+                live = {}
+                for a in srv.store.allocs_by_job(structs.DEFAULT_NAMESPACE,
+                                                 job.id):
+                    if not a.terminal_status():
+                        live.setdefault(a.node_id, []).append(a)
+                over = []
+                for n in srv.store.nodes():
+                    fit, dim, _ = structs.allocs_fit(
+                        n, srv.store.allocs_by_node_terminal(n.id, False))
+                    if not fit:
+                        over.append((n.name, dim))
+    finally:
+        sp.close()
+    all_nodes = nodes + [new]
+    finals = {k: srv.store.eval_by_id(v) for k, v in evals.items()}
+    after = [a for a in srv.store.allocs_by_job(structs.DEFAULT_NAMESPACE,
+                                                job.id)
+             if not a.terminal_status()]
+    eligible = {n.id for n in all_nodes
+                if n.attributes["rack"] != SYSTEM_FILTER_RACK}
+    filtered = len(all_nodes) - len(eligible)
+    applies = probe.applies
+    row = {"evals": {}, "placed": sum(len(v) for v in live.values()),
+           "eligible_nodes": len(eligible), "filtered_nodes": filtered}
+    for step, ev_id in evals.items():
+        split, attempts = sp.split(ev_id, walls[step], applies)
+        row["evals"][step] = {"wall_ms": 1e3 * walls[step],
+                              "split_ms": split, "attempts": attempts}
+    bad = [(k, e.status, e.status_description) for k, e in finals.items()
+           if e.status != structs.EVAL_STATUS_COMPLETE]
+    check(not bad, f"leg C evals not complete: {bad}")
+    check(sp.batches, "leg C: no feasibility pass ran")
+    check(set(live) == eligible
+          and all(len(v) == 1 for v in live.values()),
+          f"leg C: {len(live)} nodes hold the system job, "
+          f"{len(eligible)} are eligible "
+          f"({sum(len(v) > 1 for v in live.values())} hold more than one)")
+    check(len(live.get(new.id, ())) == 1,
+          "leg C: the joined node holds no system alloc")
+    joined = [a for a in live.get(new.id, ())
+              if a.eval_id == evals["node_join"]]
+    check(len(joined) == 1, "leg C: the node-update eval placed "
+          f"{len(joined)} allocs on the joined node")
+    # the eval's metric comes back from raft in its wire form
+    m = finals["register"].failed_tg_allocs.get(job.task_groups[0].name)
+    failures = (None if m is None else 1 + (
+        m["coalesced_failures"] if isinstance(m, dict)
+        else m.coalesced_failures))
+    row["failed_tg_allocs"] = failures
+    check(failures == filtered, f"leg C: failed_tg_allocs counts "
+          f"{failures} filtered nodes, want {filtered}")
+    check(not over, f"leg C: oversubscribed nodes {over[:5]}")
+    check(not after, f"leg C: {len(after)} allocs of the deregistered "
+          "job still live")
+    return row, sp.batches[0]
+
+
+def feas_words(torch, pb):
+    """The register eval's feasibility words: the card's against the
+    plain version's (the same torch program on the CPU), and the pass
+    alone on the card, timed once the server has stopped."""
+    from nomad_tpu_torch.solver.masks import _feas_kernel, feas_planes
+    words = _feas_kernel(*feas_planes(pb, DEVICE)).cpu().numpy()
+    plain = _feas_kernel(*feas_planes(pb, "cpu")).numpy()
+    out = {"shape": list(words.shape),
+           "equal": bool(np.array_equal(words, plain))}
+    if DEVICE == "cuda":
+        out["feas_kernel_ms"] = feas_kernel_ms(torch,
+                                               feas_planes(pb, DEVICE))
+    return out
 
 
 def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
@@ -1630,7 +1951,6 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.server.eval_broker import FAILED_QUEUE
     from nomad_tpu_torch.server.server import Server
-    from nomad_tpu_torch.server.worker import DEQUEUE_TIMEOUT_S
     from nomad_tpu_torch.utils.metrics import global_metrics
     from nomad_tpu_torch.utils.tracing import global_tracer
     wk._load()          # the kernels are built and bound by this thread
@@ -1655,28 +1975,10 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     m_start = global_metrics.dump()
     try:
         srv.start()
-        # ---- warm-up: one untimed job per worker builds its world (the
-        # other worker paused: a paused worker stays idle while the
-        # queue holds no more than a batch)
-        world_build_ms = []
-        for i, w in enumerate(srv.workers):
-            for o in srv.workers:
-                if o is not w:
-                    o.paused.set()
-            # a dequeue already waiting when the pause was set returns
-            # within its timeout; the worker then sees the pause
-            time.sleep(2 * DEQUEUE_TIMEOUT_S)
-            t = time.perf_counter()
-            ev = srv.register_job(make_job(mock, structs, f"warm{i}",
-                                           COUNT))
-            registered.append(ev.id)
-            wait_evals(srv, [ev.id], 300)
-            world_build_ms.append(1e3 * (time.perf_counter() - t))
-            for o in srv.workers:
-                o.paused.clear()
+        world_build_ms = warm_worlds(
+            srv, lambda i: make_job(mock, structs, f"warm{i}", COUNT),
+            registered)
         worlds0 = world_counters(srv)
-        check(all(c is not None for c in worlds0),
-              f"a worker built no resident world: {worlds0}")
         # a world dropped and built anew (a failed plan feed sets it to
         # None) restarts its counters, so the legs must end on the same
         # world objects
@@ -1741,20 +2043,33 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
                 if n.status == structs.NODE_STATUS_DOWN]
         broker = srv.broker.stats()
         blocked = srv.blocked_evals.stats()
+        # the legs' allocs and blocked evals, read before leg C's node
+        # join unblocks evals of theirs
+        finals = [srv.store.eval_by_id(eid) for eid in registered]
+        blocked_jobs = {e.job_id for e in srv.store.evals()
+                        if e.status == structs.EVAL_STATUS_BLOCKED}
+        names = {ev.job_id: sorted(a.name for a in srv.store.allocs_by_job(
+            structs.DEFAULT_NAMESPACE, ev.job_id)) for ev in finals}
+        plans_placed = {j: sorted(v) for j, v in probe.placed.items()}
+
+        # ---- leg C: a system job, a node join, the job deregistered
+        gc.collect()
+        leg_c_pb = None
+        try:
+            leg_c, leg_c_pb = leg_system(torch, srv, probe, mock, structs,
+                                         nodes)
+        except PhaseError as e:
+            leg_c = {"failed": str(e)}
+        m_end = global_metrics.dump()
     finally:
         probe.close()
         srv.stop()
 
     # ---- the record, then the checks (launches here are not counted)
-    finals = [srv.store.eval_by_id(eid) for eid in registered]
-    blocked_jobs = {e.job_id for e in srv.store.evals()
-                    if e.status == structs.EVAL_STATUS_BLOCKED}
-    names, unplaced = {}, {}
-    for ev in finals:
-        names[ev.job_id] = sorted(a.name for a in srv.store.allocs_by_job(
-            structs.DEFAULT_NAMESPACE, ev.job_id))
-        want = batch_count if ev.job_id == bjob.id else COUNT
-        unplaced[ev.job_id] = want - len(names[ev.job_id])
+    if leg_c_pb is not None:
+        leg_c["feas_words"] = feas_words(torch, leg_c_pb)
+    unplaced = {ev.job_id: (batch_count if ev.job_id == bjob.id else COUNT)
+                - len(names[ev.job_id]) for ev in finals}
     rounds_b = rec_b["rounds"]
     fused_score = [r for r in rounds_b if r["modes"].get("score")]
 
@@ -1764,10 +2079,9 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
         return {"sum_ms": 1e3 * (h1["sum"] - h0["sum"]),
                 "count": h1["count"] - h0["count"]}
 
-    def counter_delta(key, since=None):
-        since = m0 if since is None else since
+    def counter_delta(key):
         return (m1["counters"].get(key, 0.0)
-                - since["counters"].get(key, 0.0))
+                - m0["counters"].get(key, 0.0))
 
     jobs_a = [srv.store.eval_by_id(x).job_id for x in evals_a]
     ids_b = [j.id for j in jobs_b + [bjob]]
@@ -1824,6 +2138,7 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
             "raft_fsm_plan_apply_ms": [1e3 * r["s"]
                                        for r in rec_b["applies"]],
             "launches": counts_b},
+        "leg_c": leg_c,
         "blocked_evals": blocked, "broker": broker,
         "first_fused_score_round": (
             {k: fused_score[0][k] for k in ("evals", "asks", "Gp", "K",
@@ -1834,8 +2149,12 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
         bad = [(e.job_id, e.status, e.status_description) for e in finals
                if e.status != structs.EVAL_STATUS_COMPLETE]
         check(not bad, f"evals not complete: {bad[:5]}")
+        check("failed" not in leg_c, f"leg C: {leg_c.get('failed')}")
+        check(leg_c["feas_words"]["equal"], "leg C: the card's "
+              "feasibility words differ from the plain version's")
         for key in ("worker.batch_error", "telemetry.tick_error"):
-            errors = counter_delta(key, since=m_start)
+            errors = (m_end["counters"].get(key, 0.0)
+                      - m_start["counters"].get(key, 0.0))
             check(errors == 0, f"{errors} {key} in the phase")
         check(broker["by_scheduler"].get(FAILED_QUEUE, 0) == 0,
               "evals parked on the broker's failed queue")
@@ -1857,9 +2176,9 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
         # of their job (the eval's own queued_allocations is not read:
         # the server path never decrements it, in the reference too)
         for job_id, got in names.items():
-            check(got == sorted(probe.placed[job_id]),
+            check(got == plans_placed.get(job_id, []),
                   f"{job_id}: the store holds {len(got)} allocs, the "
-                  f"plans placed {len(probe.placed[job_id])}")
+                  f"plans placed {len(plans_placed.get(job_id, []))}")
             check(len(set(got)) == len(got), f"{job_id}: duplicate names")
             check(unplaced[job_id] == 0 or job_id in blocked_jobs,
                   f"{job_id}: {unplaced[job_id]} placements neither "
@@ -1882,6 +2201,423 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     emit(row)
     total = {m: counts_a[m] + counts_b[m] for m in counts_a}
     return total, calls, row
+
+
+# ------------------------------------------------------------ phase 8
+#: the fill tier (bench.py _oc_fill_job): alloc cpu in MHz (memory the
+#: same figure in MB, disk FILL_DISK MB) and job priorities
+FILL_CPU = (400, 700, 900, 1200)
+FILL_PRIOS = (5, 10, 20, 30, 45)
+FILL_DISK = 100
+#: the smallest config-3 group ask (cpu MHz, memory MB)
+MIN_ASK = (400, 256)
+#: priority of the jobs that preempt the fill
+PREEMPT_PRIORITY = 70
+N_PREEMPT_JOBS = 16
+
+
+def fill_cluster(srv, mock, structs, nodes, seed=0):
+    """Fill every node with low-priority running allocs until no config-3
+    group ask fits on it without an eviction, each alloc's size and
+    priority drawn from a seeded generator, and enter them into a Server
+    that has not started: five fill jobs, one per priority, then their
+    allocs as plan results of RESIDENT_CHUNK allocs.  The fill jobs name
+    a datacenter no node is in: the follow-up eval the plan applier
+    makes for a job whose allocs were preempted then finds no node and
+    leaves a blocked eval, instead of replacing the evicted allocs by
+    preempting other fill allocs.  Returns the alloc count and seconds."""
+    from nomad_tpu_torch.structs import (AllocatedResources,
+                                         AllocatedSharedResources,
+                                         AllocatedTaskResources)
+    from nomad_tpu_torch.utils.codec import to_wire
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    jobs, by_job = {}, {p: [] for p in FILL_PRIOS}
+    for p in FILL_PRIOS:
+        job = mock.job(priority=p)
+        job.id = job.name = f"fill-p{p}"
+        job.datacenters = ["dc-fill"]
+        job.constraints = []
+        tg = job.task_groups[0]
+        tg.constraints, tg.networks = [], []
+        t = tg.tasks[0]
+        t.resources.networks = []
+        t.resources.cpu = t.resources.memory_mb = FILL_CPU[0]
+        tg.ephemeral_disk.size_mb = FILL_DISK
+        jobs[p] = job
+    for n in nodes:
+        free_cpu = n.node_resources.cpu - n.reserved_resources.cpu
+        free_mem = n.node_resources.memory_mb - n.reserved_resources.memory_mb
+        while free_cpu >= MIN_ASK[0] and free_mem >= MIN_ASK[1]:
+            sizes = [c for c in FILL_CPU if c <= min(free_cpu, free_mem)]
+            check(sizes, f"node {n.name}: no fill size fits the room a "
+                  "config-3 ask still has")
+            cpu, p = int(rng.choice(sizes)), int(rng.choice(FILL_PRIOS))
+            job = jobs[p]
+            a = mock.alloc(job=job, node_id=n.id,
+                           name=f"{job.id}.web[{len(by_job[p])}]")
+            a.allocated_resources = AllocatedResources(
+                tasks={"web": AllocatedTaskResources(cpu=cpu,
+                                                     memory_mb=cpu)},
+                shared=AllocatedSharedResources(disk_mb=FILL_DISK))
+            a.client_status = structs.ALLOC_CLIENT_RUNNING
+            a.job = None              # the entry carries the job once
+            by_job[p].append(a)
+            free_cpu -= cpu
+            free_mem -= cpu
+    for p, job in jobs.items():
+        job.task_groups[0].count = len(by_job[p])
+        srv._propose("job_upsert", {"job": to_wire(job)})
+        allocs = by_job[p]
+        for c in range(0, len(allocs), RESIDENT_CHUNK):
+            result = structs.PlanResult()
+            for a in allocs[c:c + RESIDENT_CHUNK]:
+                result.node_allocation.setdefault(a.node_id, []).append(a)
+            srv._propose("plan_result", {"result": to_wire(result),
+                                         "job": to_wire(job)})
+    return sum(len(v) for v in by_job.values()), time.perf_counter() - t0
+
+
+def preempt_job(mock, structs, name, zone=None):
+    """A priority-70 config-3 job; with `zone` its zone constraint pins
+    it to that one zone (leg P2)."""
+    job = make_job(mock, structs, name, COUNT)
+    job.priority = PREEMPT_PRIORITY
+    if zone is not None:
+        job.constraints[1] = structs.Constraint("${attr.zone}", f"z{zone}",
+                                                "=")
+    return job
+
+
+def drain_broker(srv, timeout=300):
+    """Wait until the broker holds no ready or unacked eval (the
+    follow-up evals of preempted jobs); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        b = srv.broker.stats()
+        if not (b["total_ready"] or b["total_unacked"]):
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout,
+              f"the broker did not drain in {timeout} s: {b}")
+        time.sleep(0.01)
+
+
+def evict_pass_ms(torch, pb):
+    """The eviction pass on the card, on one re-solve of `pb` with the
+    kernel: each call between CUDA events (the pass reads the wanting
+    groups back to the host, so a call's time includes that wait)."""
+    from nomad_tpu_torch.solver import kernel as kmod
+    from nomad_tpu_torch.solver.solve import _run_kernel, _to_host
+    real, marks = kmod.evict_pass, []
+
+    def timed(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+    kmod.evict_pass = timed
+    try:
+        t = time.perf_counter()
+        _to_host(_run_kernel(pb, DEVICE, preempt=True))
+        solve_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        kmod.evict_pass = real
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in marks]
+    return {"calls": len(ms), "total_ms": sum(ms),
+            "per_call_p50_ms": pct(ms, 0.5) if ms else None,
+            "per_call_max_ms": max(ms) if ms else None,
+            "solve_ms": solve_ms}
+
+
+def victims_ok(store, structs, allocs):
+    """Every preempting alloc's `preempted_allocations` equals the set
+    of allocs the store marks evicted by it, and each victim's priority
+    is at least the gate below the preemptor's.  Returns the faults."""
+    from nomad_tpu_torch.scheduler.preemption import PRIORITY_DELTA
+    by = collections.defaultdict(set)
+    victim = {}
+    for a in store.allocs():
+        if a.preempted_by_allocation:
+            by[a.preempted_by_allocation].add(a.id)
+            victim[a.id] = a
+    bad = []
+    for a in allocs:
+        if not a.preempted_allocations:
+            continue
+        if set(a.preempted_allocations) != by.get(a.id, set()):
+            bad.append((a.name, "victim set"))
+        for v in (victim.get(x) for x in a.preempted_allocations):
+            if v is None or v.desired_status != structs.ALLOC_DESIRED_EVICT:
+                bad.append((a.name, "victim not evicted"))
+                continue
+            prio = store.job_by_id(v.namespace, v.job_id).priority
+            if PREEMPT_PRIORITY - prio < PRIORITY_DELTA:
+                bad.append((a.name, f"victim priority {prio}"))
+    return bad
+
+
+def phase_preempt(torch, wk, n_nodes, n_serial, n_burst):
+    """Service preemption on the server: a port `Server(device=DEVICE)`
+    with phase 7's serving tier and `preemption_service_enabled`, the
+    config-3 nodes each filled by `fill_cluster`, then priority-70
+    config-3 jobs that place only by evicting: leg P1 one at a time (the
+    single lane: topk wave plus the eviction pass), leg P2 a burst
+    registered while the workers are paused and released together (a
+    fused round: score wave plus the eviction pass).  Returns the launch
+    counts of the legs."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.server.eval_broker import FAILED_QUEUE
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.server.worker import DEQUEUE_TIMEOUT_S
+    from nomad_tpu_torch.solver import kernel as kmod
+    from nomad_tpu_torch.solver.kernel import MAX_WAVES
+    from nomad_tpu_torch.solver.solve import Solver, _run_kernel, _to_host
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    on_card = DEVICE == "cuda"
+    wk._load()
+    srv = Server(device=DEVICE)
+    check(srv.serving.evict_e == 8 and len(srv.workers) == 2
+          and srv.solve_coordinator is not None,
+          "not phase 7's serving tier with eviction planes of width 8")
+    t0 = time.perf_counter()
+    nodes = make_nodes(mock, n_nodes)
+    for n in nodes:
+        srv.register_node(n)
+    nodes_s = time.perf_counter() - t0
+    srv._propose("scheduler_config", {"config": {
+        "preemption_service_enabled": True}})
+    n_fill, fill_s = fill_cluster(srv, mock, structs, nodes)
+    # leg P2's round fuses its jobs; the follow-up rounds of the
+    # preempted fill jobs fuse at most five evals
+    probe = ServerProbe(srv, wk, min_kept_evals=8)
+    # the eviction pass's calls (one per wave it runs in), and the first
+    # single-lane batches of leg P1 as they were solved
+    real_pass, real_async = kmod.evict_pass, Solver.solve_async
+    pass_calls = collections.Counter()
+    capture = {"on": False, "batches": []}
+
+    def counted_pass(*a, **kw):
+        pass_calls["n"] += 1
+        return real_pass(*a, **kw)
+
+    def solve_async(solver, *a, **kw):
+        pending = real_async(solver, *a, **kw)
+        if capture["on"] and kw.get("preempt") \
+                and len(capture["batches"]) < n_serial:
+            capture["batches"].append(snapshot_pb(pending.packed))
+        return pending
+    kmod.evict_pass, Solver.solve_async = counted_pass, solve_async
+    registered, legs = [], {}
+    m_start = global_metrics.dump()
+    try:
+        srv.start()
+        world_build_ms = warm_worlds(
+            srv, lambda i: preempt_job(mock, structs, f"pwarm{i}"),
+            registered)
+        worlds0 = world_counters(srv)
+        world_objs0 = [w._solver._world for w in srv.workers]
+
+        for leg in ("p1", "p2"):
+            gc.collect()
+            zero_launches(torch, wk)
+            pass_calls.clear()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            mark, m0 = probe.mark(), global_metrics.dump()
+            rec = {"evals": [], "walls": [], "splits": [], "attrs": []}
+            if leg == "p1":
+                capture["on"] = True
+                rec["drain_s"] = []
+                for e in range(n_serial):
+                    # the previous plan's follow-up evals first, so this
+                    # eval rides the single lane alone
+                    rec["drain_s"].append(drain_broker(srv))
+                    t = time.perf_counter()
+                    ev = srv.register_job(preempt_job(
+                        mock, structs, f"p1-{e}", zone=e % 16))
+                    registered.append(ev.id)
+                    wait_evals(srv, [ev.id], 120)
+                    rec["walls"].append(time.perf_counter() - t)
+                    split, attrs = eval_split(global_tracer, ev.id)
+                    rec["splits"].append(split)
+                    rec["attrs"].append(attrs)
+                    rec["evals"].append(ev.id)
+                capture["on"] = False
+            else:
+                rec["drain_s"] = [drain_broker(srv)]
+                for w in srv.workers:
+                    w.paused.set()
+                time.sleep(2 * DEQUEUE_TIMEOUT_S)
+                t = time.perf_counter()
+                rec["evals"] = [srv.register_job(preempt_job(
+                    mock, structs, f"p2-{e}", zone=e % 16)).id
+                    for e in range(n_burst)]
+                rec["register_s"] = time.perf_counter() - t
+                registered += rec["evals"]
+                t = time.perf_counter()
+                for w in srv.workers:
+                    w.paused.clear()
+                wait_evals(srv, rec["evals"], 600)
+                rec["wall_s"] = time.perf_counter() - t
+                deadline = time.perf_counter() + 60
+                while srv.broker.stats()["total_unacked"] \
+                        and time.perf_counter() < deadline:
+                    time.sleep(0.001)
+            torch.cuda.synchronize()
+            rec["launches"] = dict(wk.fused_wave.mode_launches)
+            rec["evict_pass_calls"] = pass_calls["n"]
+            rec["peak_mem_mb"] = (torch.cuda.max_memory_allocated() / 2**20
+                                  if on_card else None)
+            rec["m0"], rec["m1"] = m0, global_metrics.dump()
+            rec["probe"] = probe.since(mark)
+            legs[leg] = rec
+        worlds1 = world_counters(srv)
+        world_objs1 = [w._solver._world for w in srv.workers]
+        m_end = global_metrics.dump()
+        broker = srv.broker.stats()
+        blocked = srv.blocked_evals.stats()
+    finally:
+        kmod.evict_pass, Solver.solve_async = real_pass, real_async
+        probe.close()
+        srv.stop()
+
+    # ---- the record, then the checks (launches here are not counted)
+    finals = {eid: srv.store.eval_by_id(eid) for eid in registered}
+    blocked_jobs = {e.job_id for e in srv.store.evals()
+                    if e.status == structs.EVAL_STATUS_BLOCKED}
+    rows, counts = {}, {}
+    for leg, rec in legs.items():
+        jobs = [finals[x].job_id for x in rec["evals"]]
+        allocs = [a for j in jobs for a in srv.store.allocs_by_job(
+            structs.DEFAULT_NAMESPACE, j)]
+        names = {j: sorted(a.name for a in allocs if a.job_id == j)
+                 for j in jobs}
+        evictions = sum(len(a.preempted_allocations) for a in allocs)
+
+        def moved(key, rec=rec):
+            return (rec["m1"]["counters"].get(key, 0.0)
+                    - rec["m0"]["counters"].get(key, 0.0))
+        wall_s = (sum(rec["walls"]) if leg == "p1" else rec["wall_s"])
+        row = {"evals": len(rec["evals"]), "count": COUNT,
+               "placed": len(allocs),
+               "unplaced": COUNT * len(jobs) - len(allocs),
+               "evictions": evictions,
+               "evictions_per_s": evictions / wall_s,
+               "preempting_allocs": sum(bool(a.preempted_allocations)
+                                        for a in allocs),
+               "scheduler.preempt.kernel": moved("scheduler.preempt.kernel"),
+               "scheduler.preempt.host_fallback":
+                   moved("scheduler.preempt.host_fallback"),
+               "wave_budget": 2 * MAX_WAVES,
+               "evict_pass_calls": rec["evict_pass_calls"],
+               "launches": rec["launches"],
+               "peak_mem_mb": rec["peak_mem_mb"],
+               "dequeue_sizes": rec["probe"]["dequeues"],
+               "follow_up_drain_s": rec["drain_s"]}
+        if leg == "p1":
+            walls = [1e3 * w for w in rec["walls"]]
+            row.update({
+                "p50_ms": pct(walls, 0.5), "p99_ms": pct(walls, 0.99),
+                "walls_ms": walls,
+                "split_p50_ms": {k: pct([x[k] for x in rec["splits"]], 0.5)
+                                 for k in rec["splits"][0]},
+                "split_p99_ms": {k: pct([x[k] for x in rec["splits"]], 0.99)
+                                 for k in rec["splits"][0]},
+                "waves": [a["waves"] for a in rec["attrs"]],
+                "evict_commits": [a.get("evict_commits")
+                                  for a in rec["attrs"]]})
+        else:
+            row.update({
+                "register_s": rec["register_s"], "wall_s": rec["wall_s"],
+                "evals_per_s": len(rec["evals"]) / rec["wall_s"],
+                "rounds": [{k: r.get(k) for k in (
+                    "evals", "solvable", "asks", "Gp", "K", "modes",
+                    "waves", "evict_commits", "stages_ms")}
+                    for r in rec["probe"]["rounds"]]})
+        rows[leg] = (row, names, allocs)
+        counts[leg] = rec["launches"]
+    fused_score = sorted((r for r in legs["p2"]["probe"]["rounds"]
+                          if r["pb"] is not None),
+                         key=lambda r: -r["evals"])
+    out = {"phase": "preempt", "nodes": n_nodes, "fill_allocs": n_fill,
+           "setup_s": {"nodes_s": nodes_s, "fill_s": fill_s},
+           "world_build_ms": world_build_ms,
+           "worlds_before_legs": worlds0, "worlds_after_legs": worlds1,
+           "leg_p1": rows["p1"][0], "leg_p2": rows["p2"][0],
+           "follow_up_evals": sum(1 for e in srv.store.evals()
+                                  if e.triggered_by
+                                  == structs.EVAL_TRIGGER_PREEMPTION),
+           "blocked_evals": blocked, "broker": broker,
+           "launches": counts}
+    try:
+        bad = [(e.job_id, e.status, e.status_description)
+               for e in finals.values()
+               if e.status != structs.EVAL_STATUS_COMPLETE]
+        check(not bad, f"evals not complete: {bad[:5]}")
+        for key in ("worker.batch_error", "telemetry.tick_error"):
+            errors = (m_end["counters"].get(key, 0.0)
+                      - m_start["counters"].get(key, 0.0))
+            check(errors == 0, f"{errors} {key} in the phase")
+        # follow-up evals of the last plans may still be in flight
+        check(broker["by_scheduler"].get(FAILED_QUEUE, 0) == 0,
+              "evals parked on the broker's failed queue")
+        check(all(a is b for a, b in zip(world_objs0, world_objs1)),
+              "a worker's world was dropped and built anew in the legs")
+        for w0, w1 in zip(worlds0, worlds1):
+            check(w1["repack_fallbacks"] == w0["repack_fallbacks"],
+                  f"a worker's world was rebuilt in the legs: {w0} -> {w1}")
+        for leg, (row, names, allocs) in rows.items():
+            check(row["scheduler.preempt.kernel"] > 0,
+                  f"leg {leg}: the kernel's eviction pass committed nothing")
+            bad = victims_ok(srv.store, structs, allocs)
+            check(not bad, f"leg {leg}: victims {bad[:5]}")
+            for job_id, got in names.items():
+                check(got == sorted(probe.placed[job_id]),
+                      f"{job_id}: the store holds {len(got)} allocs, the "
+                      f"plans placed {len(probe.placed[job_id])}")
+                check(len(got) == COUNT or job_id in blocked_jobs,
+                      f"{job_id}: {COUNT - len(got)} placements neither "
+                      "placed nor left to a blocked eval")
+        check(counts["p1"]["topk"] > 0
+              and counts["p1"]["merge"] == counts["p1"]["topk"],
+              f"leg P1 launches {counts['p1']}")
+        check(counts["p2"]["score"] > 0,
+              f"leg P2 launched no score kernel: {counts['p2']}")
+        check(fused_score, "leg P2 fused no score round of eight or more "
+              f"evals: {[r['evals'] for r in legs['p2']['probe']['rounds']]}")
+        for n in srv.store.nodes():
+            live = srv.store.allocs_by_node_terminal(n.id, False)
+            fit, dim, _used = structs.allocs_fit(n, live)
+            check(fit, f"node {n.name} oversubscribed ({dim})")
+        # one leg-P1 batch that evicts, and the first fused score round's
+        p1_pb = None
+        for pb in capture["batches"]:
+            if _to_host(_run_kernel(pb, DEVICE, preempt=True)).evict.any():
+                p1_pb = pb
+                break
+        check(p1_pb is not None, "no leg-P1 batch evicts when re-solved")
+        kernel_vs_plain(wk, (
+            ("leg P1 batch", p1_pb, "topk", True),
+            ("leg P2 fused round", fused_score[0]["pb"], "score", True)))
+    except PhaseError as e:
+        out["failed"] = str(e)
+        emit(out)
+        raise
+    if on_card:
+        out["evict_pass"] = {
+            "leg_p1_batch": evict_pass_ms(torch, p1_pb),
+            "leg_p2_fused_round": evict_pass_ms(torch,
+                                                fused_score[0]["pb"])}
+    out["resolved_round"] = {k: fused_score[0][k] for k in (
+        "evals", "asks", "Gp", "K", "modes", "waves", "evict_commits")}
+    out["checks"] = {"kernel_vs_plain": "passed"}
+    emit(out)
+    return {m: counts["p1"][m] + counts["p2"][m] for m in counts["p1"]}
 
 
 def main() -> int:
@@ -1911,6 +2647,8 @@ def main() -> int:
     counts7, calls7, _row7 = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
         BATCH_COUNT, phase6=row6["service"])
+    counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
+                            N_PREEMPT_JOBS)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -1934,6 +2672,7 @@ def main() -> int:
             "replaces": f"nomad_tpu/solver/pallas_kernel.py:{line}",
             "launches": counts[mode], "launches_phase5": counts5[mode],
             "launches_phase7": counts7[mode],
+            "launches_phase8": counts8[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

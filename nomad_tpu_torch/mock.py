@@ -1,6 +1,6 @@
-"""Canonical fixtures (reference: nomad/mock/mock.go): the node, job,
-system job, batch job, eval and alloc factories of `nomad_tpu.mock`, for
-the port's tests and chip_smoke.py."""
+"""Canonical fixtures (reference: nomad/mock/mock.go): the node, GPU
+node, job, system job, batch job, eval and alloc factories of
+`nomad_tpu.mock`, for the port's tests and chip_smoke.py."""
 from __future__ import annotations
 
 import itertools
@@ -9,7 +9,8 @@ import time
 from . import structs
 from .structs import (AllocatedResources, AllocatedSharedResources,
                       AllocatedTaskResources, Allocation, Constraint,
-                      Evaluation, Job, NetworkResource, Node, NodeReservedResources,
+                      Evaluation, Job, NetworkResource, Node, NodeDevice,
+                      NodeDeviceResource, NodeReservedResources,
                       NodeResources, Port, ReschedulePolicy, Resources,
                       RestartPolicy, Task, TaskGroup)
 from .utils.ids import generate_uuid
@@ -45,6 +46,17 @@ def node(**kw) -> Node:
     )
     for k, v in kw.items():
         setattr(n, k, v)
+    n.compute_class()
+    return n
+
+
+def gpu_node(n_gpus: int = 4, **kw) -> Node:
+    n = node(**kw)
+    n.node_resources.devices = [NodeDeviceResource(
+        vendor="nvidia", type="gpu", name="1080ti",
+        instances=[NodeDevice(id=generate_uuid(), healthy=True)
+                   for _ in range(n_gpus)],
+        attributes={"memory_mib": 11264, "cuda_cores": 3584})]
     n.compute_class()
     return n
 

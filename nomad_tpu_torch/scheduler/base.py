@@ -10,6 +10,7 @@ def new_scheduler(sched_type: str, state, planner, solver=None):
     None builds a default `Solver()`, which runs on `cuda` and raises
     where no GPU is present."""
     from .generic import GenericScheduler
+    from .system import SystemScheduler
     if sched_type == JOB_TYPE_SERVICE:
         return GenericScheduler(state, planner, batch=False,
                                 solver=solver)
@@ -17,8 +18,5 @@ def new_scheduler(sched_type: str, state, planner, solver=None):
         return GenericScheduler(state, planner, batch=True,
                                 solver=solver)
     if sched_type == JOB_TYPE_SYSTEM:
-        raise NotImplementedError(
-            "nomad_tpu_torch: the system scheduler is not ported yet; it "
-            "needs the static feasibility kernel (ROADMAP.md Queue 1, "
-            "'the system scheduler with _feas_kernel')")
+        return SystemScheduler(state, planner, solver=solver)
     raise ValueError(f"unknown scheduler type {sched_type!r}")

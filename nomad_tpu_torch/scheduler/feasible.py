@@ -226,6 +226,11 @@ def check_constraint(operand: str, lval, rval, lfound: bool,
     return False
 
 
+def check_affinity(operand: str, lval, rval, lfound: bool,
+                   rfound: bool) -> bool:
+    return check_constraint(operand, lval, rval, lfound, rfound)
+
+
 def node_meets_constraint(node: Node, c: Constraint) -> bool:
     lval, lok = _resolve(node, c.ltarget)
     rval, rok = _resolve(node, c.rtarget)

@@ -14,12 +14,9 @@ capacity freed by an eval's own stops becomes visible only after its plan
 commits. An eval that fails a placement or partially commits falls back
 to the single-eval path, which sees its stops.
 
-The counterpart of `nomad_tpu.scheduler.fleet`.  In-kernel preemption
-is not ported (ROADMAP.md Queue 1, item 7): a fused round whose evals
-all have preemption on raises `NotImplementedError` instead of solving
-without it.  The lane-parallel solve that `form_lanes` and
-`LaneWidthController` feed is item 8b; the server builds its
-coordinator without a lane former.
+The counterpart of `nomad_tpu.scheduler.fleet`.  The lane-parallel solve
+that `form_lanes` and `LaneWidthController` feed is ROADMAP.md Queue 1
+item 8b; the server builds its coordinator without a lane former.
 """
 from __future__ import annotations
 
@@ -305,13 +302,10 @@ def fleet_dispatch(server, worker, rnd: _FleetRound) -> None:
     # priority delta); mixed configs keep the host-side fallback
     from .preemption import preemption_enabled
     cfg = snapshot.scheduler_config()
-    if all(preemption_enabled(cfg, "batch" if e.sched.batch
-                              else "service")
-           for e in solvable):
-        raise NotImplementedError(
-            "nomad_tpu_torch: a fused round with preemption on needs the "
-            "in-kernel eviction pass, which is not ported yet (ROADMAP.md "
-            "Queue 1, 'in-kernel preemption')")
+    preempt_ok = all(
+        preemption_enabled(cfg, "batch" if e.sched.batch
+                           else "service")
+        for e in solvable)
     # one fused device solve, one solve span PER member trace: each
     # eval's timeline stays self-contained, the shared counters
     # (and fused_batch size) tie the members back together
@@ -322,7 +316,8 @@ def fleet_dispatch(server, worker, rnd: _FleetRound) -> None:
             fused_batch=len(solvable))
     rnd.pending = worker.fleet_solver().solve_async(
         rnd.nodes, rnd.all_asks, rnd.allocs_by_node, rnd.by_dc,
-        snapshot=snapshot, proposed_delta=([], probes))
+        snapshot=snapshot, proposed_delta=([], probes),
+        preempt=preempt_ok)
     rnd.t_dispatched = rnd.pending.t_dispatched
     rnd.stages["pack"] = rnd.pending.pack_wall_s
     rnd.stages["dispatch"] = rnd.pending.dispatch_wall_s

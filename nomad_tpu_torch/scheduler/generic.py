@@ -14,8 +14,10 @@ takes the round's shared world (nodes, dc counts, allocs by node and the
 node-id map).  With a store-attached solver whose resident world is
 active, the proposed allocs by node are a lazy per-node view of the
 snapshot, and the solve gets the snapshot and the plan's proposed stops
-and sticky probes to overlay on the world's carried usage.  Committing
-kernel-selected evictions (the in-kernel eviction pass) is not ported.
+and sticky probes to overlay on the world's carried usage.  With
+preemption enabled the solve may commit (place, evict) pairs in the
+kernel's eviction pass; `_commit_kernel_eviction` turns them into the
+plan's preemptions, and the host preemption walk stays the fallback.
 """
 from __future__ import annotations
 
@@ -289,7 +291,11 @@ class GenericScheduler:
         if prep is None:
             return None
         nodes, by_dc, allocs_by_node, asks, ask_missing = prep
+        from .preemption import preemption_enabled
         from ..utils.tracing import global_tracer as _tr
+        preempt_ok = preemption_enabled(
+            snapshot.scheduler_config(),
+            "batch" if self.batch else "service")
         span = _tr.stage(self.eval.id, "solve",
                          job_id=self.eval.job_id, fused=False)
         # proposed-state corrections for the solver's resident world:
@@ -299,7 +305,8 @@ class GenericScheduler:
                  for a in lst]
         out = self.solver.solve(
             nodes, asks, allocs_by_node, by_dc, snapshot=snapshot,
-            proposed_delta=(stops, list(self._sticky_probes)))
+            proposed_delta=(stops, list(self._sticky_probes)),
+            preempt=preempt_ok)
         self._consume_solve(snapshot, out, nodes, allocs_by_node, missing,
                             ask_missing, span=span)
         return None
@@ -494,6 +501,12 @@ class GenericScheduler:
                     self._record_failure(m, placement)
                     failed.add(id(m))
                 continue
+            if placement.evicted:
+                # the kernel's eviction pass already chose this
+                # placement's victims: commit the pair without the host
+                # walk
+                self._commit_kernel_eviction(placement, m, allocs_by_node)
+                continue
             self._emit_alloc(m, placement.node, placement.resources,
                              placement.score, placement.metrics)
 
@@ -520,6 +533,29 @@ class GenericScheduler:
                 if not self.plan.node_update[m.previous.node_id]:
                     del self.plan.node_update[m.previous.node_id]
 
+    def _commit_kernel_eviction(self, placement, m: _Missing,
+                                allocs_by_node) -> None:
+        """Commit a (place, evict) pair the kernel's eviction pass
+        chose: the victims leave through plan.node_preemptions, the
+        alloc lands with preempted_allocations set, and the shared
+        allocs_by_node view advances so later placements (and the host
+        fallback walk) see both."""
+        from ..utils.metrics import global_metrics as _m
+        _m.incr_counter("scheduler.preempt.kernel")
+        node = placement.node
+        vset = set(placement.evicted)
+        proposed = list(allocs_by_node.get(node.id, ())) \
+            if allocs_by_node is not None else []
+        victims = [a for a in proposed if a.id in vset]
+        alloc = self._emit_alloc(m, node, placement.resources,
+                                 placement.score, placement.metrics)
+        alloc.preempted_allocations = sorted(vset)
+        if allocs_by_node is not None:
+            allocs_by_node[node.id] = [a for a in proposed
+                                       if a.id not in vset] + [alloc]
+        for v in victims:
+            self.plan.append_preempted_alloc(v, alloc.id)
+
     def _try_preemption(self, nodes, m: _Missing, allocs_by_node) -> bool:
         """Second pass for an exhausted placement: across ALL feasible
         nodes, find victim sets (task-group resources, then network and
@@ -528,8 +564,8 @@ class GenericScheduler:
         reference where preemption options feed the regular rank/max
         pipeline (preemption.go wired via rank.go BinPackIterator) —
         not the first node that works.  Counted as the host-side
-        fallback (the reference's in-kernel eviction pass is not
-        ported)."""
+        fallback: the kernel's eviction pass should select evictions
+        instead (scheduler.preempt.kernel)."""
         from ..structs.funcs import score_fit, allocs_fit
         from ..utils.metrics import global_metrics as _m
         from .preemption import find_preemption
@@ -546,11 +582,12 @@ class GenericScheduler:
                 continue
             victim_ids = {v.id for v in victims}
             remaining = [a for a in proposed if a.id not in victim_ids]
-            trial = dict(allocs_by_node)
-            trial[node.id] = remaining
+            # _host_commit reads only this node's allocs: a one-node
+            # view, not a copy of the whole (lazy) allocs-by-node view
+            # per candidate node
             resources = self.solver._host_commit(
                 node, 0, PlacementAsk(job=self.job, tg=m.tg, count=1),
-                {}, {}, trial)
+                {}, {}, {node.id: remaining})
             if resources is None:
                 continue
             probe = Allocation(id="probe", task_group=m.tg.name,
@@ -802,6 +839,8 @@ def _placement_row(m: _Missing, placement) -> dict:
     }
     if placement.failed_reason:
         row["failed_reason"] = placement.failed_reason
+    if placement.evicted:
+        row["evicted"] = list(placement.evicted)
     return row
 
 

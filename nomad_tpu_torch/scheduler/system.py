@@ -1,0 +1,371 @@
+"""SystemScheduler: one alloc per eligible node (daemonset-style).
+
+Reference: scheduler/system_sched.go (Process :54, computeJobAllocs :183,
+computePlacements :268) and the per-node diff in scheduler/util.go:70
+(diffSystemAllocsForNode). The accelerator recast computes the
+feasibility mask for all (group, node) pairs in one device pass
+(`masks._feas_kernel` on the solver's device), then walks the per-node
+placements host-side with running resource accounting.
+
+The counterpart of `nomad_tpu.scheduler.system`, whole: the full pack
+per eval, the host walk with `_host_commit`, `allocs_fit` / `score_fit`,
+and the host-side `find_preemption` (system preemption is on by
+default).
+"""
+from __future__ import annotations
+
+import copy
+import time as _time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..solver.solve import Solver
+from ..solver.tensorize import PlacementAsk
+from ..structs import (ALLOC_CLIENT_PENDING, ALLOC_DESIRED_RUN, ALLOC_LOST,
+                       ALLOC_CLIENT_LOST, ALLOC_NODE_TAINTED,
+                       ALLOC_NOT_NEEDED, ALLOC_UPDATING,
+                       EVAL_STATUS_COMPLETE, EVAL_STATUS_FAILED,
+                       EVAL_TRIGGER_JOB_REGISTER, EVAL_TRIGGER_JOB_DEREGISTER,
+                       EVAL_TRIGGER_NODE_DRAIN, EVAL_TRIGGER_NODE_UPDATE,
+                       EVAL_TRIGGER_ALLOC_STOP,
+                       EVAL_TRIGGER_ROLLING_UPDATE, EVAL_TRIGGER_QUEUED_ALLOCS,
+                       AllocMetric, Allocation, Evaluation, Job, Node, Plan,
+                       TaskGroup)
+from ..structs.funcs import allocs_fit, score_fit
+from ..utils.ids import generate_uuid
+from .util import (tainted_nodes, tasks_updated,
+                   update_non_terminal_allocs_to_lost)
+
+MAX_SYSTEM_ATTEMPTS = 5
+
+_VALID_TRIGGERS = {
+    EVAL_TRIGGER_JOB_REGISTER, EVAL_TRIGGER_JOB_DEREGISTER,
+    EVAL_TRIGGER_NODE_DRAIN, EVAL_TRIGGER_NODE_UPDATE,
+    EVAL_TRIGGER_ALLOC_STOP, EVAL_TRIGGER_ROLLING_UPDATE,
+    EVAL_TRIGGER_QUEUED_ALLOCS,
+}
+
+
+@dataclass
+class _SystemDiff:
+    # (node, task group, alloc name, previous alloc being replaced or None)
+    place: List[Tuple[Node, TaskGroup, str, Optional[Allocation]]] = field(
+        default_factory=list)
+    update: List[Tuple[Allocation, TaskGroup]] = field(default_factory=list)
+    stop: List[Allocation] = field(default_factory=list)
+    lost: List[Allocation] = field(default_factory=list)
+    ignore: List[Allocation] = field(default_factory=list)
+
+
+def diff_system_allocs(job: Optional[Job], ready_nodes: List[Node],
+                       tainted: Dict[str, Optional[Node]],
+                       allocs: List[Allocation]) -> _SystemDiff:
+    """Per-node diff: each ready node should run exactly one alloc per task
+    group (reference: util.go:70/:201)."""
+    diff = _SystemDiff()
+    required = {tg.name: tg for tg in job.task_groups} if job else {}
+    eligible = {n.id: n for n in ready_nodes}
+
+    by_node: Dict[str, List[Allocation]] = {}
+    for a in allocs:
+        by_node.setdefault(a.node_id, []).append(a)
+
+    for nid, node_allocs in by_node.items():
+        for a in node_allocs:
+            tg = required.get(a.task_group)
+            if tg is None or job is None or job.stopped():
+                if not a.terminal_status():
+                    diff.stop.append(a)
+                continue
+            if nid in tainted:
+                node = tainted[nid]
+                if a.terminal_status():
+                    diff.ignore.append(a)
+                elif node is None or node.terminal_status():
+                    # node down/gone wins over a drainer mark: the alloc
+                    # is lost, not politely stopped
+                    diff.lost.append(a)
+                elif a.desired_transition.should_migrate():
+                    # drainer-marked on a live draining node: stop it
+                    diff.stop.append(a)
+                else:
+                    # draining but not yet marked by the drainer: left
+                    # alone — system allocs drain LAST
+                    # (reference: util.go:96-127 goto IGNORE)
+                    diff.ignore.append(a)
+                continue
+            # drainer-marked allocs elsewhere migrate (stop + replace)
+            if (not a.terminal_status()
+                    and a.desired_transition.should_migrate()):
+                diff.stop.append(a)
+                continue
+            if nid not in eligible:
+                # ineligible (but live) node: existing allocs are left
+                # alone (reference: util.go:131-135 goto IGNORE)
+                diff.ignore.append(a)
+                continue
+            if a.terminal_status():
+                # terminal alloc on an eligible node: replaced below via
+                # place (name reuse) unless the job version matches and it
+                # ran to completion
+                diff.ignore.append(a)
+                continue
+            if a.job is not None and a.job.job_modify_index != \
+                    job.job_modify_index:
+                if tasks_updated(a.job, job, tg.name):
+                    diff.update.append((a, tg))
+                else:
+                    diff.ignore.append(a)
+            else:
+                diff.ignore.append(a)
+
+    # placements: every eligible node lacking a live alloc per group
+    live_by_node_tg = set()
+    for a in allocs:
+        if not a.terminal_status() or (a.job is not None
+                                       and a.job.version == (job.version
+                                                             if job else -1)
+                                       and a.ran_successfully()):
+            live_by_node_tg.add((a.node_id, a.task_group))
+    if job is not None and not job.stopped():
+        for n in ready_nodes:
+            for name, tg in required.items():
+                if (n.id, name) not in live_by_node_tg:
+                    diff.place.append((n, tg, f"{job.id}.{name}[0]", None))
+    return diff
+
+
+class SystemScheduler:
+    """Reference: system_sched.go:22."""
+
+    def __init__(self, state, planner, solver: Optional[Solver] = None):
+        self.state = state
+        self.planner = planner
+        self.solver = solver or Solver()
+        self.eval: Optional[Evaluation] = None
+        self.job: Optional[Job] = None
+        self.plan: Optional[Plan] = None
+        self.failed_tg_allocs: Dict[str, AllocMetric] = {}
+        self.queued_allocs: Dict[str, int] = {}
+
+    def process(self, evaluation: Evaluation) -> Optional[str]:
+        self.eval = evaluation
+        if evaluation.triggered_by not in _VALID_TRIGGERS:
+            self._set_status(EVAL_STATUS_FAILED,
+                             f"scheduler cannot handle "
+                             f"'{evaluation.triggered_by}'")
+            return None
+        attempts = 0
+        err: Optional[str] = None
+        done = False
+        while attempts < MAX_SYSTEM_ATTEMPTS and not done:
+            done, err = self._process()
+            if err is not None:
+                break
+            attempts += 1
+        if err is not None:
+            self._set_status(EVAL_STATUS_FAILED, str(err))
+            return err
+        if not done:
+            self._set_status(EVAL_STATUS_FAILED, "maximum attempts reached")
+            return None
+        self._set_status(EVAL_STATUS_COMPLETE, "")
+        return None
+
+    def _process(self) -> Tuple[bool, Optional[str]]:
+        snapshot = (self.state.snapshot()
+                    if hasattr(self.state, "snapshot") else self.state)
+        ev = self.eval
+        self.job = snapshot.job_by_id(ev.namespace, ev.job_id)
+        self.failed_tg_allocs = {}
+        self.queued_allocs = {tg.name: 0 for tg in
+                              (self.job.task_groups if self.job else [])}
+        self.plan = ev.make_plan(self.job)
+
+        if self.job is not None and self.job.datacenters:
+            nodes, by_dc = snapshot.ready_nodes_in_dcs(self.job.datacenters)
+        else:
+            nodes = [n for n in snapshot.nodes() if n.ready()]
+            by_dc = {}
+            for n in nodes:
+                by_dc[n.datacenter] = by_dc.get(n.datacenter, 0) + 1
+
+        allocs = snapshot.allocs_by_job(ev.namespace, ev.job_id)
+        tainted = tainted_nodes(snapshot, allocs)
+        update_non_terminal_allocs_to_lost(self.plan, tainted, allocs)
+
+        diff = diff_system_allocs(self.job, nodes, tainted, allocs)
+
+        for a in diff.stop:
+            desc = (ALLOC_NODE_TAINTED if a.node_id in tainted
+                    else ALLOC_NOT_NEEDED)
+            self.plan.append_stopped_alloc(a, desc, "")
+        for a in diff.lost:
+            self.plan.append_stopped_alloc(a, ALLOC_LOST, ALLOC_CLIENT_LOST)
+        # updates are destructive for system jobs: stop + replace in place
+        for a, tg in diff.update:
+            self.plan.append_stopped_alloc(a, ALLOC_UPDATING, "")
+            node = snapshot.node_by_id(a.node_id)
+            if node is not None and node.ready():
+                diff.place.append((node, tg, a.name, a))
+
+        for _n, tg, _name, _prev in diff.place:
+            self.queued_allocs[tg.name] = self.queued_allocs.get(tg.name,
+                                                                 0) + 1
+
+        if diff.place:
+            err = self._compute_placements(snapshot, nodes, by_dc, diff.place)
+            if err is not None:
+                return False, err
+
+        if self.plan.is_no_op():
+            return True, None
+        result, new_state = self.planner.submit_plan(self.plan)
+        if result is None:
+            return False, "plan submission failed"
+        if new_state is not None:
+            self.state = new_state
+            return False, None
+        full, _e, _a = result.full_commit(self.plan)
+        if not full:
+            return False, None
+        for allocs_ in result.node_allocation.values():
+            for a in allocs_:
+                if a.task_group in self.queued_allocs:
+                    self.queued_allocs[a.task_group] = max(
+                        0, self.queued_allocs[a.task_group] - 1)
+        return True, None
+
+    def _compute_placements(
+            self, snapshot, nodes: List[Node], by_dc,
+            place: List[Tuple[Node, TaskGroup, str, Optional[Allocation]]]
+    ) -> Optional[str]:
+        # one device feasibility pass over all (group, node) pairs
+        groups = {tg.name: tg for _n, tg, _nm, _prev in place}
+        asks = [PlacementAsk(job=self.job, tg=tg, count=0)
+                for tg in groups.values()]
+        ask_ix = {tg_name: g for g, tg_name in enumerate(groups)}
+        pb = self.solver._tensorizer.pack(nodes, asks, None)
+        from ..solver.masks import static_feasibility
+        feas = static_feasibility(pb, self.solver.device)
+        node_ix = {n.id: i for i, n in enumerate(nodes)}
+
+        stopped = {a.id for allocs in self.plan.node_update.values()
+                   for a in allocs}
+        usage: Dict[str, List[Allocation]] = {}
+        for n in nodes:
+            usage[n.id] = [a for a in snapshot.allocs_by_node(n.id)
+                           if not a.terminal_status()
+                           and a.id not in stopped]
+
+        from .preemption import find_preemption, preemption_enabled
+        preempt_ok = preemption_enabled(snapshot.scheduler_config(), "system")
+
+        now = _time.time()
+        for node, tg, name, prev in place:
+            g = ask_ix[tg.name]
+            i = node_ix[node.id]
+            metric = AllocMetric()
+            metric.nodes_evaluated = 1
+            metric.nodes_available = dict(by_dc)
+            if not bool(feas[g, i]):
+                metric.filter_node(node.computed_class, "feasibility")
+                self._record_failure(tg, metric)
+                self._retract_stop(prev)
+                continue
+            resources = self.solver._host_commit(
+                node, i, PlacementAsk(job=self.job, tg=tg, count=1),
+                {}, {}, usage)
+            victims = None
+            if resources is None and preempt_ok:
+                # ports / bandwidth / device instances exhausted: try
+                # evicting lower-priority holders and re-commit
+                victims = find_preemption(node, usage[node.id],
+                                          self.job, tg)
+                if victims:
+                    victim_ids = {v.id for v in victims}
+                    trial_usage = dict(usage)
+                    trial_usage[node.id] = [a for a in usage[node.id]
+                                            if a.id not in victim_ids]
+                    resources = self.solver._host_commit(
+                        node, i, PlacementAsk(job=self.job, tg=tg,
+                                              count=1),
+                        {}, {}, trial_usage)
+                    if resources is not None:
+                        usage[node.id] = trial_usage[node.id]
+                    else:
+                        victims = None
+            if resources is None:
+                metric.exhausted_node(node.id, node.computed_class, "network")
+                self._record_failure(tg, metric)
+                self._retract_stop(prev)
+                continue
+            probe = Allocation(id="probe", task_group=tg.name,
+                               allocated_resources=resources)
+            fit, dim, used = allocs_fit(node, usage[node.id] + [probe])
+            if not fit and preempt_ok and victims is None:
+                victims = find_preemption(node, usage[node.id],
+                                          self.job, tg)
+                if victims:
+                    victim_ids = {v.id for v in victims}
+                    trial = [a for a in usage[node.id]
+                             if a.id not in victim_ids]
+                    refit, rdim, rused = allocs_fit(node, trial + [probe])
+                    if refit:
+                        usage[node.id] = trial
+                        fit, dim, used = refit, rdim, rused
+                    else:
+                        # evictions wouldn't help: keep usage untouched
+                        victims = None
+            if not fit:
+                metric.exhausted_node(node.id, node.computed_class,
+                                      dim or "resources")
+                self._record_failure(tg, metric)
+                self._retract_stop(prev)
+                continue
+            score = score_fit(node, used)
+            metric.scores = {node.id: score}
+            alloc = Allocation(
+                id=generate_uuid(), namespace=self.eval.namespace,
+                eval_id=self.eval.id, name=name, job_id=self.job.id,
+                job=self.job, task_group=tg.name, node_id=node.id,
+                node_name=node.name, allocated_resources=resources,
+                metrics=metric, desired_status=ALLOC_DESIRED_RUN,
+                client_status=ALLOC_CLIENT_PENDING,
+                create_time=now, modify_time=now)
+            if victims:
+                alloc.preempted_allocations = sorted(v.id for v in victims)
+                for v in victims:
+                    self.plan.append_preempted_alloc(v, alloc.id)
+            usage[node.id].append(alloc)
+            self.plan.append_alloc(alloc)
+        return None
+
+    def _retract_stop(self, prev: Optional[Allocation]) -> None:
+        """An update whose replacement failed keeps its old alloc running
+        (reference: system_sched.go Plan.PopUpdate on placement failure)."""
+        if prev is None:
+            return
+        lst = self.plan.node_update.get(prev.node_id, [])
+        lst = [a for a in lst if a.id != prev.id]
+        if lst:
+            self.plan.node_update[prev.node_id] = lst
+        else:
+            self.plan.node_update.pop(prev.node_id, None)
+
+    def _record_failure(self, tg: TaskGroup, metric: AllocMetric) -> None:
+        existing = self.failed_tg_allocs.get(tg.name)
+        if existing is not None:
+            existing.coalesced_failures += 1
+        else:
+            self.failed_tg_allocs[tg.name] = metric
+
+    def _set_status(self, status: str, description: str) -> None:
+        ev = copy.copy(self.eval)
+        ev.status = status
+        ev.status_description = description
+        ev.failed_tg_allocs = dict(self.failed_tg_allocs)
+        ev.queued_allocations = dict(self.queued_allocs)
+        self.planner.update_eval(ev)

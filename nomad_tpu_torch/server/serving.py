@@ -245,6 +245,11 @@ class AdmissionController:
         self._brownouts = 0
 
     # ------------------------------------------------------------ ingress
+    def offer(self, ev: Evaluation, ready_count: int) -> bool:
+        """True = admit (the caller enqueues), False = shed (the caller
+        parks the eval in BlockedEvals.shed)."""
+        return self.offer_ex(ev, ready_count)[0]
+
     def offer_ex(self, ev: Evaluation, ready_count: int
                  ) -> "Tuple[bool, str]":
         """Admit (the caller enqueues) or shed (the caller parks the
@@ -366,6 +371,10 @@ class ServingTier:
         # broker is sharded — pausing dequeue parallelism defeats shard
         # homing — else the reference's 3/4)
         "worker_pause_fraction": -1.0,
+        # eviction-plane width of every worker's resident world (slots
+        # per node for the in-kernel preemption pass; 0 = none, and
+        # preemption takes the scheduler's host walk)
+        "evict_e": 8,
     }
 
     def __init__(self, adaptive: bool = True,
@@ -383,6 +392,7 @@ class ServingTier:
         self.coordinator = bool(k["coordinator"])
         self.pipeline = bool(k["pipeline"])
         self.worker_pause_fraction = k["worker_pause_fraction"]
+        self.evict_e = max(0, k["evict_e"])
         self.solve_model = EwmaSolveModel()
         self.batch_controller = BatchController(
             self.solve_model, slo_budget_s=k["slo_budget_s"],

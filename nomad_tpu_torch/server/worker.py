@@ -44,14 +44,17 @@ class Worker(threading.Thread):
         computed-class memo is shared across the fused batch, and its
         resident cluster world advances by changesets (plan-apply feed
         below + the store change log) instead of re-packing the world
-        per eval.  It solves on the server's device.  Locked: the
+        per eval.  It solves on the server's device, with the serving
+        tier's eviction-plane width (`evict_e`).  Locked: the
         coordinator's drain leader reaches in from another worker's
         thread."""
         with self._solver_lock:
             if self._solver is None:
                 from ..solver.solve import Solver
+                serving = getattr(self.server, "serving", None)
+                kw = {} if serving is None else {"evict_e": serving.evict_e}
                 self._solver = Solver(device=self.server.device,
-                                      store=self.server.store)
+                                      store=self.server.store, **kw)
             return self._solver
 
     def shutdown(self) -> None:

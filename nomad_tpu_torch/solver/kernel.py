@@ -23,9 +23,15 @@ with nothing left to decide; `n_waves` counts executed wave bodies), a
 written-out group dimension where it has `vmap`, stable sorts where it
 relies on `lax.top_k` / `lax.sort` tie order, and accumulating
 `index_put` where it scatters with `.at[].add`.  The reference's
-`approx_max_k` (approximate only on a TPU) is an exact top-k here.  The
-mesh tiers, in-kernel preemption, the learned / region planes, the lane
-axis and the while-loop wave mode are not part of this package.
+`approx_max_k` (approximate only on a TPU) is an exact top-k here.
+
+With `has_preempt` each wave ends with the reference's eviction pass:
+groups with nothing placeable pick, per feasible node, a min-cost set of
+lower-priority victims from the node's eviction planes, rank nodes by
+the post-eviction bin-pack score and commit (place, evict) pairs through
+the same conflict checks.  The mesh tiers, the learned / region planes,
+the lane axis and the while-loop wave mode are not part of this
+package.
 """
 from __future__ import annotations
 
@@ -43,6 +49,10 @@ TOP_K = 4
 WAVE_K = 32       # min per-group wave width; scales up with batch size
 MAX_WAVES = 12    # wave budget per solve
 NEG_INF = _score_spec.NEG_INF
+# victim eligibility gate: the ask's priority must exceed the victim's by
+# at least this (scheduler/preemption.PRIORITY_DELTA, kept here so the
+# device module imports nothing of the scheduler; pinned equal by a test)
+EV_PRIORITY_DELTA = 10
 # test hook: force the sort-based conflict path at small K
 _FORCE_SORT_CONFLICTS = False
 # value-vocabulary size up to which spread lookups are select-sums
@@ -95,6 +105,11 @@ class SolveResult(NamedTuple):
     n_waves: int                # wave bodies executed
     unfinished: torch.Tensor    # [K] active but undecided after the budget
     n_rescore: int = 0          # waves that ran the full-N pass
+    evict: torch.Tensor = None  # [K, E] victim slots of placements the
+    #  eviction pass committed (None without has_preempt)
+    commit_wave: torch.Tensor = None  # [K] wave each placement committed
+    #  on, -1 = none (None without has_preempt): evictions make usage
+    #  non-monotone, so the host fixup replays commits in wave order
 
 
 class _SLState(NamedTuple):
@@ -195,6 +210,116 @@ def _top_rows(score: torch.Tensor, k: int):
     return torch.gather(score, -1, o), torch.gather(cols, -1, o)
 
 
+def static_feas(valid, node_dc, attr_rank, dc_ok, host_ok, c_op, c_col,
+                c_rank):
+    """Static feasibility of every (ask, node) pair: valid node, allowed
+    datacenter, host-evaluated ops and every vectorized constraint.
+    Returns (feas [Gp, Np] bool, cons_filtered [Gp, C] i32: nodes each
+    constraint slot filtered, credited to the first slot that fails).
+    Shared by `solve_kernel` and the system scheduler's `_feas_kernel`
+    (`masks.py`)."""
+    i32, i64 = torch.int32, torch.int64
+    Gp, Np = host_ok.shape
+    vals = attr_rank.to(i64)[:, c_col.to(i64)].permute(1, 0, 2)  # [Gp, Np, C]
+    ok = _op_eval(vals, c_op, c_rank)
+    base = valid[None, :] & dc_ok[:, node_dc.to(i64)] & host_ok
+    passed_prev = torch.cumprod(torch.cat(
+        [torch.ones((Gp, Np, 1), dtype=i32, device=valid.device),
+         ok[:, :, :-1].to(i32)], dim=2), dim=2).bool()
+    first_fail = base[:, :, None] & passed_prev & ~ok
+    return base & ok.all(dim=2), first_fail.sum(dim=1).to(i32)
+
+
+def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
+               ev_slot_ok, ev_res, ev_prio, dev=None):
+    """The eviction pass of one wave, against post-commit usage `used`
+    [Np, R], for the groups in `want_g` [Gp] (the rest keep no option):
+    per (group, node) a greedy min-cost victim set over the node's free
+    eviction slots (`ev_slot_ok` [Gp, Np, E] and not yet taken in `evt`
+    [Np, E]; the float-order twin of scheduler/preemption.
+    victim_distance), the redundancy prune (prune_superset order), then
+    each group's best node by post-eviction bin-pack score, ties to the
+    lower id.  `dev` = (dev_used, dev_cap, dev_ask): device instances
+    are never evicted, so the node must fit the device ask as it is.
+    Returns per group (score [Gp], node [Gp], freed [Gp, R], victim
+    mask [Gp, E]); a group without an option scores NEG_INF."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    device = used.device
+    Gp, (Np, R), EV = want_g.shape[0], used.shape, ev_prio.shape[1]
+    nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
+    nv_i = torch.zeros(Gp, dtype=i64, device=device)
+    sel_freed = torch.zeros((Gp, R), dtype=f32, device=device)
+    sel_mask = torch.zeros((Gp, EV), dtype=torch.bool, device=device)
+    wg = torch.nonzero(want_g).flatten()                   # groups to solve
+    Gw = wg.shape[0]
+    es = torch.arange(EV, device=device)
+    rows = torch.arange(Np, device=device)[None, :]
+    ask_w = ask_res[wg]
+    # shortfall base: usage + ask - capacity, per (g, n)
+    base_short = (used[None, :, :] + ask_w[:, None, :]
+                  - avail[None, :, :])                     # [Gw, Np, R]
+    slot_free = ev_slot_ok[wg] & ~evt[None, :, :]         # [Gw, Np, E]
+    freed = torch.zeros((Gw, Np, R), dtype=f32, device=device)
+    picked = torch.zeros((Gw, Np, EV), dtype=torch.bool, device=device)
+    prank = torch.full((Gw, Np, EV), EV, dtype=i32, device=device)
+    for t in range(EV):
+        s = torch.clamp(base_short - freed, min=0.0)
+        covered = (s <= 0.0).all(dim=-1)
+        norm = torch.clamp(s, min=1.0)
+        # the distance one dimension at a time (one [Gw, Np, E] plane
+        # live per term, not a [Gw, Np, E, R] one), summed in the
+        # reference's explicit order (part of the float contract)
+        d2 = []
+        for r in range(R):
+            d = (s[:, :, None, r] - ev_res[None, :, :, r]) \
+                / norm[:, :, None, r]
+            d2.append(d * d)
+        dist = torch.sqrt(((d2[0] + d2[1]) + d2[2]) + d2[3])
+        del d2
+        cand_e = slot_free & ~picked
+        dist = torch.where(cand_e, dist, 1e30)
+        e_star = torch.argmin(dist, dim=-1)                # first min wins
+        take = cand_e.any(dim=-1) & ~covered
+        oh = (es == e_star[..., None]) & take[..., None]
+        picked = picked | oh
+        prank = torch.where(oh, t, prank)
+        freed = freed + torch.where(take[..., None],
+                                    ev_res[rows, e_star], 0.0)
+    # redundancy prune: highest-priority victims first, pick order on
+    # ties
+    key = torch.where(picked,
+                      (32768 - ev_prio[None, :, :]) * (EV + 1) + prank,
+                      2 ** 30)
+    seq = torch.argsort(key, dim=-1, stable=True)
+    for t in range(EV):
+        e_t = seq[..., t]
+        oh = es == e_t[..., None]
+        is_p = (picked & oh).any(dim=-1)
+        trial = freed - ev_res[rows, e_t]
+        still = ((base_short - trial) <= 0.0).all(dim=-1)
+        drop = is_p & still
+        picked = picked & ~(oh & drop[..., None])
+        freed = torch.where(drop[..., None], trial, freed)
+    covered_f = ((base_short - freed) <= 0.0).all(dim=-1)
+    ok_node = covered_f & picked.any(dim=-1) & feas[wg]
+    if dev is not None:
+        dev_used, dev_cap, dev_ask = dev
+        ok_node = ok_node & (dev_used[None, :, :] + dev_ask[wg][:, None, :]
+                             <= dev_cap[None, :, :]).all(dim=-1)
+    after = used[None, :, :] + ask_w[:, None, :] - freed
+    binpack = _score_spec.rescore_binpack(_TORCH_OPS, after, avail,
+                                          reserved)
+    ev_score = torch.where(ok_node, binpack, NEG_INF)
+    b_s, b_i = _top_rows(ev_score, 1)
+    best = b_i[:, 0].to(i64)
+    gw = torch.arange(Gw, device=device)
+    nv_s[wg] = b_s[:, 0]
+    nv_i[wg] = best
+    sel_freed[wg] = freed[gw, best]
+    sel_mask[wg] = picked[gw, best]
+    return nv_s, nv_i, sel_freed, sel_mask
+
+
 def _exact_matmul_on(device: torch.device) -> None:
     # the same-wave conflict check sums integer resource asks with an
     # f32 [K, K] @ [K, R] product; TF32 would round those sums, so the
@@ -212,15 +337,17 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                  seed=0, *, has_spread=True, max_waves=0, wave_mode="scan",
                  has_distinct=True, has_devices=True, stack_commit=False, pallas_mode="off",
                  shortlist_c=0, mesh_axis=None, has_preempt=False,
+                 ev_res=None, ev_prio=None, ask_prio=None,
                  learned=None, region_bias=None,
                  lane_axis=None) -> SolveResult:
     """The one-device wave solve over tensors on one device (arguments
     as `solve._kernel_args` lays them out).  `pallas_mode` picks the
     wave scorer: "off" (the spec-driven torch scorer), "score" / "topk"
     (the fused wave kernel's modes) or "auto" (`wave_kernel.resolve_mode`
-    on CUDA, "off" on the CPU)."""
+    on CUDA, "off" on the CPU).  `has_preempt` runs the eviction pass
+    over the planes `ev_res` [Np, E, R], `ev_prio` [Np, E] and
+    `ask_prio` [Gp]."""
     for name, val, default in (("mesh_axis", mesh_axis, None),
-                               ("has_preempt", has_preempt, False),
                                ("learned", learned, None),
                                ("region_bias", region_bias, None),
                                ("lane_axis", lane_axis, None)):
@@ -255,17 +382,29 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
     g_idx = p_ask.to(i64)
     attr_rank_l = attr_rank.to(i64)
 
+    # ---------- in-kernel preemption planes ----------
+    if has_preempt:
+        if has_distinct:
+            raise ValueError(
+                "has_preempt does not compose with distinct_hosts batches "
+                "(cross-group blocking is invisible to the eviction "
+                "pass); callers keep the host preemption walk")
+        if ev_res is None or ev_prio is None or ask_prio is None:
+            raise ValueError("has_preempt needs ev_res/ev_prio/ask_prio")
+        if R != 4:
+            raise ValueError(f"the eviction pass expects R = 4, got {R}")
+        EV = ev_prio.shape[1]
+        ev_prio_i = ev_prio.to(i32)
+        ev_res_f = ev_res.to(f32)
+        # wave-invariant slot eligibility: a real slot whose priority is
+        # at least EV_PRIORITY_DELTA below the ask's
+        ev_slot_ok = ((ev_prio_i[None, :, :] >= 0)
+                      & (ask_prio.to(i32)[:, None, None]
+                         - ev_prio_i[None, :, :] >= EV_PRIORITY_DELTA))
+
     # ---------- static feasibility [Gp, Np] ----------
-    vals = attr_rank_l[:, c_col.to(i64)].permute(1, 0, 2)   # [Gp, Np, C]
-    ok = _op_eval(vals, c_op, c_rank)
-    base = valid[None, :] & dc_ok[:, node_dc.to(i64)] & host_ok
-    # per-constraint filtered counts with sequential (first-fail) credit
-    passed_prev = torch.cumprod(torch.cat(
-        [torch.ones((Gp, Np, 1), dtype=i32, device=device),
-         ok[:, :, :-1].to(i32)], dim=2), dim=2).bool()
-    first_fail = base[:, :, None] & passed_prev & ~ok
-    cons_filtered = first_fail.sum(dim=1).to(i32)          # [Gp, C]
-    feas = base & ok.all(dim=2)
+    feas, cons_filtered = static_feas(valid, node_dc, attr_rank, dc_ok,
+                                      host_ok, c_op, c_col, c_rank)
 
     # affinity matches are placement-invariant: [Gp, Np]
     vals = attr_rank_l[:, a_col.to(i64)].permute(1, 0, 2)   # [Gp, Np, CA]
@@ -612,6 +751,10 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
     out_nexh = torch.zeros(K, dtype=i32, device=device)
     out_dimexh = torch.zeros((K, R), dtype=i32, device=device)
     in_batch = ks < n_place
+    if has_preempt:
+        EVT = torch.zeros((Np, EV), dtype=torch.bool, device=device)
+        out_evict = torch.zeros((K, EV), dtype=torch.bool, device=device)
+        out_wave = torch.full((K,), -1, dtype=i32, device=device)
     wave = 0
     n_resc = 0
     offs_k = torch.arange(TOP_K, device=device)
@@ -686,11 +829,16 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
             def prior_sum_node(vals):
                 return same_f @ vals
 
-            def prior_rank(key, member):
-                m = member & cand_ok
+            def prior_rank_any(key, m):
+                # exclusive count of earlier members with an equal key
+                # under any membership mask (the eviction pass ranks
+                # placements whose cand_ok is False)
                 same = ((key[None, :] == key[:, None]) & m[None, :]
                         & m[:, None] & earlier)
                 return same.sum(dim=1)
+
+            def prior_rank(key, member):
+                return prior_rank_any(key, member & cand_ok)
         else:
             def _seg(key, ok):
                 """Stable sort of `ok` members by key: per-element
@@ -715,6 +863,10 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                 return rank_s, summer
 
             _, prior_sum_node = _seg(cand, cand_ok)
+
+            def prior_rank_any(key, m):
+                rank_s, _ = _seg(key, m)
+                return torch.where(m, rank_s, 0)
 
             def prior_rank(key, member):
                 keyc = torch.where(member, key, 0x3FFFFFF0)
@@ -792,17 +944,81 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                 (g_idx[:, None], torch.arange(S, device=device)[None, :],
                  svals.clamp(0, V - 1)), okslot.to(f32), accumulate=True)
 
+        # -- eviction pass: after the normal commits, against post-commit
+        # usage, for placements whose group has nothing placeable --
+        if has_preempt:
+            want = active & ~commit & ~grp_any[g_idx]
+            want_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
+                0, g_idx, want.to(i32)) > 0
+            if bool(want.any()):
+                nv_s, nv_i, sel_freed, sel_mask = evict_pass(
+                    used, EVT, want_g, ask_res=ask_res, avail=avail,
+                    reserved=reserved, feas=feas, ev_slot_ok=ev_slot_ok,
+                    ev_res=ev_res_f, ev_prio=ev_prio_i,
+                    dev=(dev_used, dev_cap, dev_ask) if has_devices
+                    else None)
+            else:
+                nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
+                nv_i = torch.zeros(Gp, dtype=i64, device=device)
+                sel_freed = torch.zeros((Gp, R), dtype=f32, device=device)
+                sel_mask = torch.zeros((Gp, EV), dtype=torch.bool,
+                                       device=device)
+            ev_any_g = nv_s > NEG_INF / 2
+            e_cand = nv_i[g_idx]                           # [K]
+            p_ok = want & ev_any_g[g_idx]
+            # one eviction commit per node per wave, across groups: two
+            # victim sets chosen apart must never both apply to one node
+            ev_commit = p_ok & (prior_rank_any(e_cand, p_ok) == 0)
+            ecm = ev_commit[:, None]
+            # victims leave and the placement lands in one add
+            used = used.index_put(
+                (e_cand,), (ask_res[g_idx] - sel_freed[g_idx]) * ecm,
+                accumulate=True)
+            if has_devices:
+                dev_used = dev_used.index_put(
+                    (e_cand,), dev_ask[g_idx] * ecm, accumulate=True)
+            em = sel_mask[g_idx] & ecm                     # [K, EV]
+            EVT = EVT | (torch.zeros((Np, EV), dtype=i32, device=device)
+                         .index_put((e_cand,), em.to(i32), accumulate=True)
+                         > 0)
+            if has_spread:
+                scol = sp_col[g_idx].to(i64)
+                evals_ = attr_rank_l[e_cand[:, None], scol.clamp(min=0)]
+                ok_es = (scol >= 0) & (evals_ >= 0) & ecm
+                sp_used = sp_used.index_put(
+                    (g_idx[:, None], torch.arange(S, device=device)[None, :],
+                     evals_.clamp(0, V - 1)), ok_es.to(f32),
+                    accumulate=True)
+            # a group with no placeable node and no eviction option
+            # fails; one with an option keeps retrying
+            fail_now = fail_now & ~ev_any_g[g_idx]
+        else:
+            ev_commit = torch.zeros(K, dtype=torch.bool, device=device)
+
         # -- record results: a committed placement's fall-through top-K
         # is its group's candidate list starting at its own rank --
         offs = cr[:, None] + offs_k[None, :]               # < TK
         pk_idx = top_idx[g_idx[:, None], offs]
         pk_score = top_score[g_idx[:, None], offs]
         ok_row = (pk_score > NEG_INF / 2) & cm
-        newly = commit | fail_now
+        if has_preempt:
+            # an eviction commit records its one node in slot 0 (the
+            # victim set is node-specific: no fall-through) with the
+            # post-eviction bin-pack score
+            ecol = (offs_k == 0)[None, :]
+            pk_idx = torch.where(ecm, torch.where(
+                ecol, e_cand[:, None].to(i32), 0), pk_idx)
+            pk_score = torch.where(ecm, torch.where(
+                ecol, nv_s[g_idx][:, None], NEG_INF), pk_score)
+            ok_row = torch.where(ecm, ecol, ok_row)
+        newly = commit | ev_commit | fail_now
         upd = newly[:, None]
         out_idx = torch.where(upd, pk_idx, out_idx)
         out_score = torch.where(upd, pk_score, out_score)
         out_ok = torch.where(upd, ok_row, out_ok)
+        if has_preempt:
+            out_evict = torch.where(upd, em, out_evict)
+            out_wave = torch.where(commit | ev_commit, wave, out_wave)
         out_nfeas = torch.where(newly, n_feas_g[g_idx], out_nfeas)
         out_nexh = torch.where(newly, n_exh_g[g_idx], out_nexh)
         out_dimexh = torch.where(upd, dim_exh_g[g_idx], out_dimexh)
@@ -835,6 +1051,11 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                 sp_gate = sp_gate | (sp_col[:, 0] >= 0)
             ok_pre_g = SL.comp | (tr1_g & ~sp_gate)
             pre_ok = any_next and bool((ok_pre_g | ~act_next_g).all())
+            if has_preempt and pre_ok:
+                # an eviction lowers usage, which voids the monotone-
+                # usage argument behind the carried window: any eviction
+                # commit sends the next wave to a full rescore
+                pre_ok = not bool(ev_commit.any())
 
             # own-group commit counts fold into the carried coll; window
             # entries outside the shortlist land in a dropped column
@@ -879,4 +1100,6 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                        cons_filtered=cons_filtered, used_final=used,
                        dev_used_final=dev_used, n_waves=wave,
                        unfinished=unfinished,
-                       n_rescore=n_resc if use_sl else wave)
+                       n_rescore=n_resc if use_sl else wave,
+                       evict=out_evict if has_preempt else None,
+                       commit_wave=out_wave if has_preempt else None)

@@ -16,15 +16,20 @@ proposed stops and sticky probes onto a copy of the carried usage.  The
 scheduler then reads allocs by node through `LazyAllocsView` instead of
 walking the cluster.
 
+The resident world also carries the in-kernel preemption planes
+(`Solver(evict_e=)`, `EVICT_E` = 8 slots per node by default, 0 for
+none).  A solve with `preempt=True` on such a world runs the kernel's
+eviction pass, with a doubled wave budget, and a placement it commits
+that way comes back with the victims' alloc ids in `Placement.evicted`.
+
 The solve runs on the solver's device, `cuda` unless the caller asks for
 the CPU; with no GPU present a default `Solver()` raises instead of
 carrying on quietly on the CPU.  Under the serving tier's brownout
 (`set_degraded`) solves run with the reduced `BROWNOUT_MAX_WAVES`
 budget, and `health_counters` samples the resident world for the
 server's telemetry beat.  The reference's host-twin routing
-(`prefer_host`), watchdog failover, chaos injection, in-kernel eviction
-pass (`solve(preempt=)`, `Placement.evicted`) and what-if plan view
-(`PlanSolverView`) are not part of this package.
+(`prefer_host`), watchdog failover, chaos injection and what-if plan
+view (`PlanSolverView`) are not part of this package.
 """
 from __future__ import annotations
 
@@ -41,9 +46,10 @@ from ..structs import (AllocatedDeviceResource, AllocatedResources,
                        AllocatedSharedResources, AllocatedTaskResources,
                        AllocMetric, DeviceAccounter, NetworkIndex, Node)
 from ..utils.metrics import global_metrics
-from .kernel import TOP_K, solve_kernel
-from .tensorize import (NUM_R, ClusterDelta, PackedBatch, PlacementAsk,
-                        Tensorizer, alloc_device_usage, alloc_usage_vector,
+from .kernel import MAX_WAVES, TOP_K, solve_kernel
+from .tensorize import (EVICT_E, NUM_R, ClusterDelta, PackedBatch,
+                        PlacementAsk, Tensorizer, _evict_row,
+                        alloc_device_usage, alloc_usage_vector,
                         apply_node_delta_host, R_CPU, R_DISK, R_MEM, R_NET)
 
 _DIM_NAMES = {R_CPU: "cpu", R_MEM: "memory", R_DISK: "disk", R_NET: "network"}
@@ -159,9 +165,10 @@ class _ResidentWorld:
     the nodes."""
 
     def __init__(self, tz: Tensorizer, store, snapshot,
-                 probe_asks: Sequence[PlacementAsk]):
+                 probe_asks: Sequence[PlacementAsk], evict_e: int = EVICT_E):
         self._tz = tz
         self.store = store
+        self.evict_e = evict_e
         # probe asks define the ask universe; grown (dedup by spec
         # signature, capped) when an ask escapes it
         self._probe_sigs: Dict = {}
@@ -194,7 +201,10 @@ class _ResidentWorld:
             if not a.terminal_status():
                 by_node.setdefault(a.node_id, []).append(a)
                 self.live[a.id] = (a.node_id, a)
-        self.template = self._tz.pack(self.nodes, self.probe_asks, by_node)
+        # the eviction planes ride on the template and are delta-
+        # maintained with every other node plane
+        self.template = self._tz.pack(self.nodes, self.probe_asks, by_node,
+                                      evict_e=self.evict_e)
         # the template packs EVERY node; readiness (status, drain,
         # eligibility) lives in the valid mask instead of list filtering
         for i, n in enumerate(self.nodes):
@@ -291,14 +301,15 @@ class _ResidentWorld:
 def _overlay_usage(world: _ResidentWorld, pb: PackedBatch,
                    proposed_delta) -> PackedBatch:
     """Copy-on-read overlay: apply this plan's proposed stops/probes to
-    COPIES of the resident template's carried usage, leaving `world`
-    bit-identical."""
+    COPIES of the resident template's carried usage (and, for stops, its
+    eviction candidate rows), leaving `world` bit-identical."""
     pb = copy.copy(pb)
     t = world.template
     used0 = t.used0.copy()
     dev_used0 = t.dev_used0.copy()
     stops, probes = proposed_delta or ((), ())
     D = dev_used0.shape[1]
+    ev_gone: Dict[int, set] = {}
     for sign, group in ((-1.0, stops), (1.0, probes)):
         for a in group:
             i = world.node_index.get(a.node_id)
@@ -308,7 +319,22 @@ def _overlay_usage(world: _ResidentWorld, pb: PackedBatch,
             drow = alloc_device_usage(t.dev_pattern_ids, D, a)
             if drow is not None:
                 dev_used0[i] += sign * drow
+            if sign < 0 and t.ev_lists is not None:
+                ev_gone.setdefault(i, set()).add(a.id)
     pb.used0, pb.dev_used0 = used0, dev_used0
+    if ev_gone and pb.ev_prio is not None:
+        # a stopped alloc's usage already left the overlay; it must not
+        # also be selectable as a victim (its capacity would count
+        # twice).  Rebuild the touched rows on copies; sticky probes are
+        # additions and never candidates.
+        ev_prio = pb.ev_prio.copy()
+        ev_res = pb.ev_res.copy()
+        ev_ids = list(pb.ev_ids)
+        E = ev_prio.shape[1]
+        for i, gone in ev_gone.items():
+            cands = [c for c in t.ev_lists[i] if c[2] not in gone]
+            ev_prio[i], ev_res[i], ev_ids[i] = _evict_row(cands, E)
+        pb.ev_prio, pb.ev_res, pb.ev_ids = ev_prio, ev_res, ev_ids
     return pb
 
 
@@ -320,6 +346,10 @@ class Placement:
     metrics: AllocMetric
     resources: Optional[AllocatedResources] = None
     failed_reason: str = ""
+    #: alloc ids the in-kernel eviction pass chose as this placement's
+    #: victims (empty for a normal placement); the scheduler turns them
+    #: into the plan's node_preemptions
+    evicted: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -412,13 +442,21 @@ class Solver:
     (`RESIDENT_MIN_NODES` by default): the world is built on the first
     such solve and advanced by `note_plan_result` and the store's change
     log; a sync whose delta touches more than `DELTA_THRESHOLD` of the
-    nodes rebuilds it instead.  A store-less Solver always full-packs."""
+    nodes rebuilds it instead.  A store-less Solver always full-packs.
+    `evict_e` is the width of the world's eviction planes (slots per
+    node; 0 packs none, so preemption stays with the scheduler's host
+    walk)."""
 
     def __init__(self, device=None, store=None,
-                 resident_min_nodes: Optional[int] = None) -> None:
+                 resident_min_nodes: Optional[int] = None,
+                 evict_e: int = EVICT_E) -> None:
+        if not isinstance(evict_e, int) or evict_e < 0:
+            raise ValueError(f"evict_e={evict_e!r}: use a non-negative "
+                             "slot width (0 packs no eviction planes)")
         self._device = resolve_device(device)
         self._tensorizer = Tensorizer()
         self._store = store
+        self._evict_e = evict_e
         self._resident_min_nodes = (RESIDENT_MIN_NODES
                                     if resident_min_nodes is None
                                     else resident_min_nodes)
@@ -432,6 +470,10 @@ class Solver:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def evict_e(self) -> int:
+        return self._evict_e
 
     # ---------------------------------------------------------- brownout
     def set_degraded(self, degraded: bool) -> None:
@@ -525,7 +567,8 @@ class Solver:
                 if len(snapshot.nodes()) < self._resident_min_nodes:
                     return None
                 self._world = _ResidentWorld(
-                    self._tensorizer, self._store, snapshot, asks)
+                    self._tensorizer, self._store, snapshot, asks,
+                    self._evict_e)
             world = self._world
             world.sync(snapshot)
             gp = max(self._pad(len(asks)), 1)
@@ -553,20 +596,26 @@ class Solver:
     def solve(self, nodes: Sequence[Node], asks: Sequence[PlacementAsk],
               allocs_by_node: Optional[Dict[str, list]] = None,
               by_dc: Optional[Dict[str, int]] = None, *,
-              snapshot=None, proposed_delta=None) -> SolveOutput:
+              snapshot=None, proposed_delta=None,
+              preempt: bool = False) -> SolveOutput:
         """`snapshot` (the state the scheduler read) lets a
         store-attached solver take the resident path; `proposed_delta`
         is (stopped allocs, sticky probes) of the plan being built: the
-        only places the proposed usage differs from the store's."""
+        only places the proposed usage differs from the store's.
+        `preempt`: the scheduler found preemption enabled for this eval,
+        so a batch with eviction planes runs the kernel's eviction pass
+        and a placement may come back with `Placement.evicted`."""
         return self.solve_async(nodes, asks, allocs_by_node, by_dc,
                                 snapshot=snapshot,
-                                proposed_delta=proposed_delta).wait()
+                                proposed_delta=proposed_delta,
+                                preempt=preempt).wait()
 
     def solve_async(self, nodes: Sequence[Node],
                     asks: Sequence[PlacementAsk],
                     allocs_by_node: Optional[Dict[str, list]] = None,
                     by_dc: Optional[Dict[str, int]] = None, *,
-                    snapshot=None, proposed_delta=None) -> PendingSolve:
+                    snapshot=None, proposed_delta=None,
+                    preempt: bool = False) -> PendingSolve:
         """Dispatch phase of `solve`: pack and launch the solve without
         fetching the result; `wait()` on the returned PendingSolve
         fetches and runs the host fixup walk."""
@@ -585,7 +634,7 @@ class Solver:
         t_pack = time.perf_counter()
         res = _run_kernel(pb, self._device,
                           max_waves=BROWNOUT_MAX_WAVES
-                          if self._degraded else 0)
+                          if self._degraded else 0, preempt=preempt)
         pending = PendingSolve(self, pb=pb, nodes=sol_nodes,
                                asks=list(asks),
                                allocs_by_node=allocs_by_node, by_dc=by_dc,
@@ -600,17 +649,10 @@ class Solver:
                       _solve_t0: float) -> SolveOutput:
         """Fetch-side half of `solve`: walks the host fixup over the
         fetched (numpy) result and builds the SolveOutput."""
-        trace_attrs = {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
-                       "n_nodes": int(pb.n_real),
-                       "device": self._device.type,
-                       "waves": int(res.n_waves),
-                       "rescore_waves": int(res.n_rescore),
-                       "shortlist_waves": int(res.n_waves)
-                       - int(res.n_rescore),
-                       "unfinished": int(res.unfinished.sum()),
-                       "kernel_wall_s": round(
-                           time.perf_counter() - _solve_t0, 6),
-                       "resident": used_resident}
+        trace_attrs = solve_trace_attrs(pb, res, self._device)
+        trace_attrs["kernel_wall_s"] = round(
+            time.perf_counter() - _solve_t0, 6)
+        trace_attrs["resident"] = used_resident
         if used_resident:
             world = self._world
             if world is not None:
@@ -619,6 +661,7 @@ class Solver:
         n_feasible, n_exhausted = res.n_feasible, res.n_exhausted
         dim_exhausted, feas = res.dim_exhausted, res.feas
         cons_filtered, unfinished = res.cons_filtered, res.unfinished
+        evict = res.evict
 
         # host fixup state: per-node port/device accounting incl.
         # in-batch.  host_used is the AUTHORITATIVE usage: when a
@@ -634,8 +677,18 @@ class Solver:
         # distinct_property charges shared batch-wide by (scope, target)
         prop_used: Dict[tuple, Dict[str, int]] = {}
 
-        placements: List[Placement] = []
-        for p in range(pb.n_place):
+        # with the eviction pass, replay commits in the kernel's wave
+        # order: evictions make in-batch usage non-monotone, so an
+        # ask-order replay can transiently exceed `avail` on a node
+        # whose eviction the kernel sequenced earlier.  Without them
+        # usage only grows and ask order is exact (commit_wave is None).
+        order = list(range(pb.n_place))
+        if res.commit_wave is not None:
+            cwave = res.commit_wave
+            order.sort(key=lambda p: (int(cwave[p]) if cwave[p] >= 0
+                                      else np.iinfo(np.int32).max, p))
+        by_p: Dict[int, Placement] = {}
+        for p in order:
             g = int(pb.p_ask[p])
             ask = asks[g]
             m = AllocMetric()
@@ -659,6 +712,20 @@ class Solver:
 
             placed = None
             ask_vec = pb.ask_res[g]
+            if (evict is not None and evict[p].any()
+                    and bool(choice_ok[p, 0])):
+                # committed by the eviction pass: slot 0 is its one node;
+                # check the discrete leftovers with the victims removed
+                # and charge host_used the net usage (ask minus freed)
+                placed = self._evict_commit(
+                    int(choice[p, 0]), g, ask, pb, sol_nodes,
+                    allocs_by_node, evict[p], host_used,
+                    float(score[p, 0]), m)
+                if placed is not None:
+                    by_p[p] = placed
+                    continue
+                # ports or a stale victim view: a normal failure below,
+                # and the scheduler's host preemption walk takes over
             for k in range(TOP_K):
                 if not choice_ok[p, k]:
                     break
@@ -701,7 +768,10 @@ class Solver:
                     reason = "no feasible nodes"
                 placed = Placement(ask_index=g, node=None, score=0.0,
                                    metrics=m, failed_reason=reason)
-            placements.append(placed)
+            by_p[p] = placed
+        # in ask order whatever the replay order: the scheduler maps
+        # placements back to its asks by position
+        placements = [by_p[p] for p in range(pb.n_place)]
 
         # class eligibility for blocked-eval optimization
         class_elig: List[Dict[str, bool]] = []
@@ -718,6 +788,51 @@ class Solver:
 
         return SolveOutput(placements=placements,
                            class_eligibility=class_elig, trace=trace_attrs)
+
+    def _evict_commit(self, ni: int, g: int, ask: PlacementAsk,
+                      pb: PackedBatch, sol_nodes, allocs_by_node,
+                      ev_row: np.ndarray, host_used: np.ndarray,
+                      score: float, m: AllocMetric
+                      ) -> Optional[Placement]:
+        """Host fixup of a kernel-committed (place, evict) pair: map the
+        victim-slot mask to alloc ids through the packed `ev_ids` rows,
+        re-check capacity net of the freed usage, and run the discrete
+        port/device assignment against the node minus its victims (fresh
+        accounting: the shared caches still hold the victims'
+        reservations).  None when that fails; the caller falls back to
+        the host preemption walk."""
+        if pb.ev_ids is None or ni >= len(pb.ev_ids):
+            return None
+        node = sol_nodes[ni]
+        victim_ids = [pb.ev_ids[ni][e] for e in np.nonzero(ev_row)[0]
+                      if e < len(pb.ev_ids[ni]) and pb.ev_ids[ni][e]]
+        if not victim_ids:
+            return None
+        vset = set(victim_ids)
+        proposed = (list(allocs_by_node.get(node.id, ()))
+                    if allocs_by_node is not None else [])
+        victims = [a for a in proposed if a.id in vset]
+        if len(victims) != len(vset):
+            # the allocs view and the packed planes disagree (a stale
+            # world): refuse rather than evict the wrong alloc
+            return None
+        freed = np.zeros(NUM_R, np.float32)
+        for a in victims:
+            freed += alloc_usage_vector(a)
+        ask_vec = pb.ask_res[g]
+        if not np.all(host_used[ni] + ask_vec - freed <= pb.avail[ni]):
+            return None
+        remaining = [a for a in proposed if a.id not in vset]
+        resources = self._host_commit(node, ni, ask, {}, {},
+                                      {node.id: remaining})
+        if resources is None:
+            return None
+        host_used[ni] += ask_vec - freed
+        m.score_meta = [{"node_id": pb.node_ids[ni],
+                         "normalized_score": score}]
+        return Placement(ask_index=g, node=node, score=score,
+                         metrics=m, resources=resources,
+                         evicted=sorted(victim_ids))
 
     @staticmethod
     def _host_commit(node: Node, node_ix: int, ask: PlacementAsk,
@@ -824,28 +939,62 @@ class Solver:
         return None
 
 
-def _run_kernel(pb: PackedBatch, device, max_waves: int = 0):
+def solve_trace_attrs(pb: PackedBatch, res, device) -> Dict:
+    """Solve-span attributes of one kernel run (fetched result): the
+    batch shape, the wave / rescore counters and the placements the
+    eviction pass committed."""
+    waves = int(res.n_waves)
+    rescore = int(res.n_rescore)
+    evicted = (int(np.asarray(res.evict).any(axis=1).sum())
+               if res.evict is not None else 0)
+    return {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
+            "n_nodes": int(pb.n_real), "device": torch.device(device).type,
+            "waves": waves, "rescore_waves": rescore,
+            "shortlist_waves": waves - rescore,
+            "evict_commits": evicted,
+            "unfinished": int(np.asarray(res.unfinished).sum())}
+
+
+def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,
+                preempt: bool = False):
     """Launch the solve for a packed batch on `device` (not fetched).
     The fused wave kernel mode resolves from the shape ("auto": the
     CUDA kernel on a GPU, the torch scorer on the CPU).  Batches without
     distinct_hosts groups drop the blocking planes, which turns on the
-    shortlist-resident contention waves."""
+    shortlist-resident contention waves.  With `preempt`, a batch that
+    carries eviction planes and no distinct_hosts group runs the
+    eviction pass (cross-group blocking is invisible to it), with twice
+    the default wave budget: eviction commits serialize one per node
+    per wave."""
     has_spread = bool((pb.sp_col[:, 0] >= 0).any())
     has_distinct = bool((pb.distinct >= 0).any())
+    ev_kw = {}
+    if preempt and pb.ev_prio is not None and not has_distinct:
+        ev_res, ev_prio, ask_prio = _to_device(
+            (pb.ev_res, pb.ev_prio, pb.ask_prio), device)
+        ev_kw = dict(has_preempt=True, ev_res=ev_res, ev_prio=ev_prio,
+                     ask_prio=ask_prio)
+        if max_waves == 0:
+            max_waves = 2 * MAX_WAVES
     return solve_kernel(*_kernel_args(pb, device), has_spread=has_spread,
                         has_distinct=has_distinct, pallas_mode="auto",
-                        max_waves=max_waves)
+                        max_waves=max_waves, **ev_kw)
+
+
+def _to_device(planes, device):
+    """Planes as tensors on `device` (numpy planes are copied there;
+    tensors are moved)."""
+    def t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device)
+    return tuple(t(x) for x in planes)
 
 
 def _kernel_args(pb: PackedBatch, device="cpu"):
     """The solve_kernel argument tuple for `pb`, planes as tensors on
     `device` (numpy planes are copied there; tensors are moved)."""
-    def t(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(device)
-        return torch.as_tensor(np.ascontiguousarray(x)).to(device)
-
-    return tuple(t(x) for x in (
+    return _to_device((
         pb.avail, pb.reserved, pb.used0, pb.valid, pb.node_dc, pb.attr_rank,
         pb.ask_res, pb.ask_desired, pb.distinct, pb.dc_ok, pb.host_ok,
         pb.coll0,
@@ -853,4 +1002,4 @@ def _kernel_args(pb: PackedBatch, device="cpu"):
         pb.a_rank, pb.a_weight, pb.a_host, pb.sp_col, pb.sp_weight,
         pb.sp_targeted,
         pb.sp_desired, pb.sp_implicit, pb.sp_used0, pb.dev_cap, pb.dev_used0,
-        pb.dev_ask, pb.p_ask)) + (pb.n_place,)
+        pb.dev_ask, pb.p_ask), device) + (pb.n_place,)

@@ -17,8 +17,13 @@ The incremental side serves the solver's resident cluster world
 joined, changed or removed; allocs placed or stopped) into a `NodeDelta`
 of scatter rows, `apply_node_delta_host` applies it to the numpy template
 in place, and `repack_asks` rebuilds only the ask side of a batch against
-that template.  The template carries no eviction planes (the in-kernel
-preemption pass is not ported), so none of these maintain any.
+that template.
+
+`pack(..., evict_e=E)` with E > 0 also packs the in-kernel preemption
+planes: each node's top-E evictable allocs in `_evict_sort_key` order
+(`ev_prio`, `ev_res`, `ev_ids`, and the full candidate lists `ev_lists`
+on a template); `apply_node_delta_host` keeps them current through
+`apply_evict_ops`.
 
 Resource dims (R=4): cpu MHz, memory MB, disk MB, network mbits.
 """
@@ -56,6 +61,44 @@ _VECTOR_OPS = {
 
 R_CPU, R_MEM, R_DISK, R_NET = 0, 1, 2, 3
 NUM_R = 4
+
+#: evictable-alloc slots per node in the preemption planes by default
+#: (the reference's default width); 0 packs no planes
+EVICT_E = 8
+
+
+def _evict_sort_key(prio: int, create_index: int, alloc_id: str):
+    """Canonical evictable-candidate order: lowest priority first, then
+    create_index, then id (scheduler/preemption.preemptible_allocs'
+    (priority, create_index) order; the id makes ties deterministic)."""
+    return (prio, create_index, alloc_id)
+
+
+def _evict_candidates(allocs) -> list:
+    """Sorted evictable-candidate list for one node:
+    [(prio, create_index, id, usage_vec), ...].  Job-less allocs have
+    no knowable priority and are never victims."""
+    out = []
+    for a in allocs:
+        if a.terminal_status() or a.job is None:
+            continue
+        out.append((int(a.job.priority), int(a.create_index), a.id,
+                    alloc_usage_vector(a)))
+    out.sort(key=lambda t: _evict_sort_key(t[0], t[1], t[2]))
+    return out
+
+
+def _evict_row(cands, E: int):
+    """(prio [E] i16, res [E, R] f32, ids [E]) for one node's top-E
+    evictable candidates (-1 / zeros / '' pad the empty slots)."""
+    prio = np.full(E, -1, np.int16)
+    res = np.zeros((E, NUM_R), np.float32)
+    ids = [""] * E
+    for e, (p, _ci, aid, vec) in enumerate(cands[:E]):
+        prio[e] = min(max(int(p), -1), 32000)
+        res[e] = vec
+        ids[e] = aid
+    return prio, res, ids
 
 
 @dataclass
@@ -228,6 +271,14 @@ class PackedBatch:
     dc_ids: Dict[str, int] = field(default_factory=dict)
     dev_pattern_ids: Dict[Tuple[str, str, str], int] = field(
         default_factory=dict)
+    # in-kernel preemption planes, present when packed with evict_e > 0
+    ask_prio: Optional[np.ndarray] = None   # [Gp] i32 job priority
+    ev_prio: Optional[np.ndarray] = None    # [Np, E] i16 victim priority
+    #   (-1 = empty slot; slots in _evict_sort_key order)
+    ev_res: Optional[np.ndarray] = None     # [Np, E, R] f32 victim usage
+    ev_ids: Optional[List[List[str]]] = None  # [Np][E] alloc ids
+    ev_lists: Optional[List[list]] = None   # per-node candidate lists
+    #   (template only; _evict_candidates order, feeds delta recompute)
 
 
 #: array fields of PackedBatch, in declaration order (the planes
@@ -239,20 +290,24 @@ ARRAY_FIELDS = (
     "a_rank", "a_weight", "a_host", "sp_col", "sp_weight", "sp_targeted",
     "sp_desired", "sp_implicit", "sp_used0", "dev_cap", "dev_used0",
     "dev_ask", "p_ask")
+#: the preemption planes, moved like ARRAY_FIELDS when present
+EVICT_FIELDS = ("ask_prio", "ev_prio", "ev_res")
 
 
 def packed_from_numpy(arrays: dict, device) -> PackedBatch:
     """A PackedBatch whose planes are torch tensors on `device`.
 
     `arrays` maps field names to numpy arrays (the ARRAY_FIELDS, exactly
-    as either package's packer produces them) plus the scalar fields
-    `n_real`, `n_asks` and `n_place`; any other field present (ids,
-    labels, interning tables) is carried over as is.  Dtypes are kept:
-    bool planes stay bool, int16 index planes stay int16."""
+    as either package's packer produces them, and the EVICT_FIELDS where
+    not None) plus the scalar fields `n_real`, `n_asks` and `n_place`;
+    any other field present (ids, labels, interning tables) is carried
+    over as is.  Dtypes are kept: bool planes stay bool, int16 index
+    planes stay int16."""
     import torch
     kw = {}
     for f in fields(PackedBatch):
-        if f.name in ARRAY_FIELDS:
+        if f.name in ARRAY_FIELDS or (f.name in EVICT_FIELDS
+                                      and arrays.get(f.name) is not None):
             kw[f.name] = torch.as_tensor(np.ascontiguousarray(
                 arrays[f.name])).to(device)
         elif f.name in arrays:
@@ -298,6 +353,10 @@ class NodeDelta:
     u_dev: np.ndarray        # [Mu, D] signed device-usage adds
     new_nodes: List = field(default_factory=list)  # joins, slot order
     n_real_new: int = 0
+    # raw alloc ops (slot, alloc) for templates that carry eviction
+    # planes: apply_node_delta_host replays them into ev_lists
+    alloc_place: List[Tuple[int, object]] = field(default_factory=list)
+    alloc_stop: List[Tuple[int, object]] = field(default_factory=list)
 
     def touches_nodes(self) -> bool:
         return self.idx.size > 0
@@ -333,6 +392,47 @@ def apply_node_delta_host(template: PackedBatch, nd: NodeDelta,
         # u_idx rows are pre-aggregated per slot (no duplicate indices)
         template.used0[nd.u_idx] += nd.u_res
         template.dev_used0[nd.u_idx] += nd.u_dev
+    if template.ev_lists is not None:
+        _apply_evict_delta(template, nd)
+
+
+def apply_evict_ops(template: PackedBatch, stops, places) -> None:
+    """Advance the template's eviction planes by slot-level alloc ops:
+    replay (slot, alloc) stops then places into ev_lists (stops first:
+    an updated alloc arrives as stop + place of the same id) and
+    recompute the touched top-E rows."""
+    import bisect
+    lists = template.ev_lists
+    while len(lists) < len(template.node_ids):
+        lists.append([])            # joined nodes start empty
+    touched = set()
+    for s, alloc in stops:
+        aid = alloc.id
+        lists[s] = [t for t in lists[s] if t[2] != aid]
+        touched.add(s)
+    for s, alloc in places:
+        if alloc.terminal_status() or alloc.job is None:
+            continue
+        ent = (int(alloc.job.priority), int(alloc.create_index),
+               alloc.id, alloc_usage_vector(alloc))
+        keys = [_evict_sort_key(t[0], t[1], t[2]) for t in lists[s]]
+        pos = bisect.bisect_left(keys, _evict_sort_key(*ent[:3]))
+        lists[s].insert(pos, ent)
+        touched.add(s)
+    # invalid (drained or removed) slots keep their lists: the eviction
+    # pass gates on `feas`, which carries `valid`
+    E = template.ev_prio.shape[1]
+    for s in touched:
+        if s >= template.ev_prio.shape[0]:
+            continue
+        prio, res, ids = _evict_row(lists[s], E)
+        template.ev_prio[s] = prio
+        template.ev_res[s] = res
+        template.ev_ids[s] = ids
+
+
+def _apply_evict_delta(template: PackedBatch, nd: NodeDelta) -> None:
+    apply_evict_ops(template, nd.alloc_stop, nd.alloc_place)
 
 
 class Tensorizer:
@@ -343,8 +443,8 @@ class Tensorizer:
         self._class_memo: Dict[Tuple[str, tuple], bool] = {}
 
     def pack(self, nodes: Sequence[Node], asks: Sequence[PlacementAsk],
-             allocs_by_node: Optional[Dict[str, list]] = None
-             ) -> PackedBatch:
+             allocs_by_node: Optional[Dict[str, list]] = None,
+             evict_e: int = 0) -> PackedBatch:
         N = len(nodes)
         Np = _pad_nodes(N)
         G = len(asks)
@@ -660,6 +760,27 @@ class Tensorizer:
         p_ask = np.zeros(K, np.int32)
         p_ask[:len(p_ask_list)] = p_ask_list
 
+        # ---- ask priorities + evictable-alloc planes ----
+        ask_prio = np.zeros(Gp, np.int32)
+        for g, ask in enumerate(asks):
+            ask_prio[g] = int(getattr(ask.job, "priority", 0) or 0)
+        ev_prio = ev_res = ev_ids = ev_lists = None
+        if evict_e > 0:
+            E = evict_e
+            ev_prio = np.full((Np, E), -1, np.int16)
+            ev_res = np.zeros((Np, E, NUM_R), np.float32)
+            ev_ids = [[""] * E for _ in range(Np)]
+            ev_lists = [[] for _ in range(Np)]
+            if allocs_by_node:
+                for nid, allocs in allocs_by_node.items():
+                    i = node_index.get(nid)
+                    if i is None:
+                        continue
+                    cands = _evict_candidates(allocs)
+                    ev_lists[i] = cands
+                    ev_prio[i], ev_res[i], ev_ids[i] = _evict_row(
+                        cands, E)
+
         return PackedBatch(
             node_ids=[n.id for n in nodes], n_real=N,
             avail=avail, reserved=reserved, used0=used0, valid=valid,
@@ -679,6 +800,8 @@ class Tensorizer:
             class_ids=dict(class_interner.items()),
             dc_ids=dict(dc_interner.items()),
             dev_pattern_ids=dict(dev_pattern_ix),
+            ask_prio=ask_prio, ev_prio=ev_prio, ev_res=ev_res,
+            ev_ids=ev_ids, ev_lists=ev_lists,
         )
 
     def delta_pack(self, template: PackedBatch,
@@ -788,11 +911,14 @@ class Tensorizer:
         # ---- usage deltas (allocs placed / stopped), per-slot sums ----
         u_res_by: Dict[int, np.ndarray] = {}
         u_dev_by: Dict[int, np.ndarray] = {}
+        alloc_place: List[Tuple[int, object]] = []
+        alloc_stop: List[Tuple[int, object]] = []
 
         def charge(nid: str, alloc, sign: float) -> bool:
             s = slot_for(nid)
             if s is None:
                 return False
+            (alloc_place if sign > 0 else alloc_stop).append((s, alloc))
             vec = u_res_by.get(s)
             if vec is None:
                 vec = u_res_by[s] = np.zeros(R, np.float32)
@@ -826,7 +952,8 @@ class Tensorizer:
             idx=idx, avail=avail, reserved=reserved, valid=valid,
             node_class=node_class, node_dc=node_dc, attr_rank=attr_rank,
             dev_cap=dev_cap, u_idx=u_idx, u_res=u_res, u_dev=u_dev,
-            new_nodes=new_nodes, n_real_new=n_real + len(new_nodes))
+            new_nodes=new_nodes, n_real_new=n_real + len(new_nodes),
+            alloc_place=alloc_place, alloc_stop=alloc_stop)
 
     @staticmethod
     def ask_signature(ask: PlacementAsk):
@@ -1230,6 +1357,10 @@ class Tensorizer:
         p_ask = np.zeros(kp, np.int32)
         p_ask[:len(p_ask_list)] = p_ask_list
 
+        ask_prio = np.zeros(gp, np.int32)
+        for g, ask in enumerate(asks):
+            ask_prio[g] = int(getattr(ask.job, "priority", 0) or 0)
+
         return PackedBatch(
             node_ids=template.node_ids, n_real=template.n_real,
             avail=template.avail, reserved=template.reserved,
@@ -1252,6 +1383,15 @@ class Tensorizer:
             constraint_labels=constraint_labels,
             class_ids=template.class_ids, dc_ids=template.dc_ids,
             dev_pattern_ids=template.dev_pattern_ids,
+            ask_prio=ask_prio,
+            # the node-side eviction planes ride along from the template
+            # (delta-maintained there; ev_lists stay the template's).
+            # The id rows are a shallow copy: the host fixup reads them
+            # after the fetch, when a plan fed to the world meanwhile may
+            # have replaced a row (apply_evict_ops replaces, never edits)
+            ev_prio=template.ev_prio, ev_res=template.ev_res,
+            ev_ids=(None if template.ev_ids is None
+                    else list(template.ev_ids)),
         )
 
     def _class_masked(self, nodes: Sequence[Node], c: Constraint) -> np.ndarray:

@@ -39,6 +39,13 @@ class _Summary:
         self.max = max(self.max, v)
         self.values.append(v)
 
+    def percentile(self, p: float) -> float:
+        if not self.values:
+            return 0.0
+        vals = sorted(self.values)
+        k = min(int(len(vals) * p), len(vals) - 1)
+        return vals[k]
+
     def snapshot(self) -> dict:
         mean = self.sum / self.count if self.count else 0.0
         vals = sorted(self.values)     # one sort for both percentiles

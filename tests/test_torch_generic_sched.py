@@ -14,9 +14,11 @@ batches to its numpy twin (placement-identical to its jit kernel,
 tests/test_host_solver.py), and with `Solver(host="never")` in one case.
 Every scenario runs again with a store-attached solver in both packages
 (`Solver(store=h.store, resident_min_nodes=1)`: the resident cluster
-world, the plan-apply feed and the lazy allocs-by-node view), the
-reference with `NOMAD_TPU_EVICT_E=0`, so its world carries no eviction
-planes and preemption takes the host-side pass as in the port.
+world, the plan-apply feed and the lazy allocs-by-node view), once with
+no eviction planes (the reference with `NOMAD_TPU_EVICT_E=0`, the port
+with `evict_e=0`), where preemption takes the host-side pass, and once
+with both at the default width 8, where the kernel's eviction pass
+chooses the victims.
 Everything the scheduler wrote must be equal: the allocs in the store,
 the evals (status, queued allocations, failure metrics), the plans, the
 blocked and follow-up evals, the `scheduler.*` and `solver.resident.*`
@@ -47,9 +49,10 @@ from nomad_tpu_torch.utils.metrics import global_metrics as port_metrics
 class Pkg:
     """One package's factories, and the solver its harness shares."""
 
-    def __init__(self, name, host="auto", resident=False):
+    def __init__(self, name, host="auto", resident=False, evict_e=8):
         self.name = name
         self.resident = resident
+        self.evict_e = evict_e
         if name == "ref":
             self.mock, self.st, self.store, self.Harness = (
                 ref_mock, ref_structs, ref_store, RefHarness)
@@ -67,7 +70,8 @@ class Pkg:
             h.solver = RefSolver(store=h.store, resident_min_nodes=1)
         else:
             h.solver = PortSolver(device="cpu", store=h.store,
-                                  resident_min_nodes=1)
+                                  resident_min_nodes=1,
+                                  evict_e=self.evict_e)
         return h
 
     def node(self, i, **kw):
@@ -480,11 +484,15 @@ def scheduler_counters(metrics, scenario, P):
                  if v != before.get(k, 0.0)}
 
 
-def assert_same_schedule(scenario, ref_host="auto", resident=False):
+def assert_same_schedule(scenario, ref_host="auto", resident=False,
+                         evict_e=8):
+    """`evict_e` is the port's eviction-plane width; the caller sets the
+    reference's through NOMAD_TPU_EVICT_E."""
     (r, r_scores), r_moved = scheduler_counters(
         ref_metrics, scenario, Pkg("ref", host=ref_host, resident=resident))
     (p, p_scores), p_moved = scheduler_counters(
-        port_metrics, scenario, Pkg("port", resident=resident))
+        port_metrics, scenario, Pkg("port", resident=resident,
+                                    evict_e=evict_e))
     p["counters"], r["counters"] = p_moved, r_moved
     for key in r:
         assert p[key] == r[key], key
@@ -509,13 +517,29 @@ def test_scenario_matches_reference_resident(name, monkeypatch):
     packages: the world is built on the first solve and every later eval
     of the scenario takes the resident path."""
     monkeypatch.setenv("NOMAD_TPU_EVICT_E", "0")
-    got = assert_same_schedule(SCENARIOS[name], resident=True)
+    got = assert_same_schedule(SCENARIOS[name], resident=True, evict_e=0)
     assert got["evals"], "the scheduler wrote no eval"
     counters = got["counters"]
     if name != "no_nodes_blocks":
         assert counters.get("solver.resident.rebuild") == 1.0, counters
     if name == "preemption":
         assert counters["scheduler.preempt.host_fallback"] == 2.0
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_scenario_matches_reference_resident_evict8(name, monkeypatch):
+    """The resident comparison with both worlds carrying eviction planes
+    at the default width 8: the preemption scenario's victims are chosen
+    by the kernel's eviction pass in both packages."""
+    monkeypatch.delenv("NOMAD_TPU_EVICT_E", raising=False)
+    got = assert_same_schedule(SCENARIOS[name], resident=True, evict_e=8)
+    assert got["evals"], "the scheduler wrote no eval"
+    counters = got["counters"]
+    if name != "no_nodes_blocks":
+        assert counters.get("solver.resident.rebuild") == 1.0, counters
+    if name == "preemption":
+        assert counters["scheduler.preempt.kernel"] == 2.0
+        assert "scheduler.preempt.host_fallback" not in counters
 
 
 def test_scenario_matches_reference_jit_kernel():
@@ -551,10 +575,9 @@ def test_default_scheduler_needs_cuda(monkeypatch):
     the CPU."""
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     h = PortHarness()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        new_scheduler("service", h.store, h)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        new_scheduler("batch", h.store, h)
+    for sched_type in ("service", "batch", "system"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            new_scheduler(sched_type, h.store, h)
     job = port_mock.job(id="job-default")
     h.store.upsert_job(h.next_index(), job)
     ev = port_mock.eval_(job_id=job.id)
@@ -563,14 +586,16 @@ def test_default_scheduler_needs_cuda(monkeypatch):
     assert not h.evals and not h.plans
 
 
-def test_system_scheduler_not_ported():
+def test_system_scheduler_is_built():
+    """`system` builds the port's SystemScheduler with the given solver;
+    `sysbatch` is not a scheduler type of the port."""
+    from nomad_tpu_torch.scheduler.system import SystemScheduler
     h = PortHarness()
-    with pytest.raises(NotImplementedError, match="_feas_kernel"):
-        new_scheduler("system", h.store, h,
-                      solver=PortSolver(device="cpu"))
+    solver = PortSolver(device="cpu")
+    sched = new_scheduler("system", h.store, h, solver=solver)
+    assert isinstance(sched, SystemScheduler) and sched.solver is solver
     with pytest.raises(ValueError):
-        new_scheduler("sysbatch", h.store, h,
-                      solver=PortSolver(device="cpu"))
+        new_scheduler("sysbatch", h.store, h, solver=solver)
 
 
 def test_solve_span_carries_launch_wall():

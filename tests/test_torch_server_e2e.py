@@ -10,8 +10,11 @@ enqueues them together and the first dequeue fuses them on the
 coordinator.  With one worker and the fixed batch size
 (`serving_config={"adaptive": False}`) the whole backlog is one
 `process_fleet` round, whose placements must equal the JAX package's
-server on the same cluster and jobs.  Every wait is bounded and every
-server is stopped in `finally`."""
+server on the same cluster and jobs.  A system job (placed on every
+node, then on a joining node, then deregistered) and service preemption
+at the default eviction width give the same allocs and victims as the
+JAX package's server.  Every wait is bounded and every server is
+stopped in `finally`."""
 import time
 
 import pytest
@@ -19,13 +22,16 @@ import pytest
 from nomad_tpu import mock as ref_mock
 from nomad_tpu import structs as ref_structs
 from nomad_tpu.server.server import Server as RefServer
+from nomad_tpu.utils import codec as ref_codec
 from nomad_tpu_torch import mock as port_mock
 from nomad_tpu_torch import structs as port_structs
 from nomad_tpu_torch.server.server import Server
+from nomad_tpu_torch.utils import codec as port_codec
 from nomad_tpu_torch.utils.metrics import global_metrics
 
 PKGS = {"ref": (ref_mock, ref_structs, RefServer),
         "port": (port_mock, port_structs, Server)}
+CODECS = {"ref": ref_codec, "port": port_codec}
 
 
 def build(pkg, n_nodes, n_jobs, count, **server_kw):
@@ -138,26 +144,51 @@ def test_gossip_autopilot_is_not_ported():
         s.stop()
 
 
-def test_system_eval_fails_visibly():
-    """A `system` job's eval goes through the worker's error path: the
-    scheduler is not ported, so the eval is marked failed with the
-    scheduler's `NotImplementedError`, not left pending."""
-    s, _nodes, _jobs, _evals, st = build("port", 2, 0, 1, num_workers=1)
+def system_run(pkg):
+    """A system job on a 4-node server, one node joining after its eval
+    completed (the join's node-update eval places there), then the job
+    deregistered.  Returns the placements by node index after the join
+    and the live allocs after the deregistration."""
+    s, nodes, _jobs, _evals, st = build(pkg, 4, 0, 1, num_workers=1)
+    mock = PKGS[pkg][0]
     try:
         s.start()
-        job = port_mock.system_job(id="job-system")
+        job = mock.system_job(id="job-system")
+        job.datacenters = ["dc0", "dc1"]
         ev = s.register_job(job)
+        assert wait_complete(s, [ev], st), pkg
+        n = mock.node(id="node-004", name="node-4", datacenter="dc0")
+        n.node_resources.networks[0].ip = "10.0.0.5"
+        n.compute_class()
+        s.register_node(n)
+        nodes.append(n)
         deadline = time.monotonic() + 30.0
-        while time.monotonic() < deadline:
-            got = s.store.eval_by_id(ev.id)
-            if got.status == st.EVAL_STATUS_FAILED:
-                break
+        while (len(s.store.allocs_by_job("default", job.id)) < 5
+               and time.monotonic() < deadline):
             time.sleep(0.02)
-        assert got.status == st.EVAL_STATUS_FAILED
-        assert "system scheduler is not ported" in got.status_description
-        assert not s.store.allocs_by_job("default", job.id)
+        evals = [e for e in s.store.evals() if e.job_id == job.id]
+        assert wait_complete(s, evals, st), pkg
+        placed = placements(s, nodes, [job])[job.id]
+        triggers = sorted(e.triggered_by for e in evals)
+        stop = s.deregister_job("default", job.id)
+        assert wait_complete(s, [stop], st), pkg
+        live = [a for a in s.store.allocs_by_job("default", job.id)
+                if not a.server_terminal_status()]
+        return placed, triggers, len(live)
     finally:
         s.stop()
+
+
+def test_system_job_matches_reference():
+    """A `system` job through both servers: one alloc on every node,
+    including a node that joins later, then none after the job is
+    deregistered."""
+    out = {pkg: system_run(pkg) for pkg in ("ref", "port")}
+    assert out["port"] == out["ref"]
+    placed, triggers, live = out["port"]
+    assert sorted(ix for _name, ix in placed) == list(range(5))
+    assert triggers == ["job-register", "node-update"]
+    assert live == 0
 
 
 def test_serving_tier_reads_no_environment(monkeypatch):
@@ -184,3 +215,88 @@ def test_serving_tier_reads_no_environment(monkeypatch):
         assert s.serving.max_batch == 16
     finally:
         s.stop()
+
+
+def test_eviction_width_from_serving_config(monkeypatch):
+    """The workers' solvers take the eviction-plane width from
+    `serving_config` (8, the reference's default, when it is absent);
+    the reference's environment variable does not set it."""
+    monkeypatch.setenv("NOMAD_TPU_EVICT_E", "3")
+    for cfg, want in ((None, 8), ({"evict_e": 0}, 0), ({"evict_e": "4"}, 4)):
+        s = Server(num_workers=1, device="cpu", serving_config=cfg)
+        try:
+            assert s.serving.evict_e == want
+            assert s.workers[0].fleet_solver().evict_e == want
+        finally:
+            s.stop()
+
+
+def preempt_run(pkg):
+    """A running one-worker server at the default eviction width: 600
+    nodes (above the resident threshold), each full with one priority-20
+    alloc entered through raft, service preemption on, then a
+    priority-70 job of 3 whose placements need evictions.  Returns the
+    job's placements by node index and the victims by alloc id."""
+    mock, st, ServerCls = PKGS[pkg]
+    codec = CODECS[pkg]
+    kw = {"device": "cpu"} if pkg == "port" else {}
+    s = ServerCls(num_workers=1, serving_config={"adaptive": False}, **kw)
+    try:
+        nodes = []
+        for i in range(600):
+            n = mock.node(id=f"node-{i:03d}", name=f"node-{i}")
+            n.node_resources.networks[0].ip = f"10.0.{i // 250}.{i % 250 + 1}"
+            n.node_resources.cpu, n.node_resources.memory_mb = 1300, 4096
+            n.reserved_resources.cpu, n.reserved_resources.memory_mb = 100, 0
+            n.compute_class()
+            s.register_node(n)
+            nodes.append(n)
+        low = mock.job(id="job-low", priority=20)
+        low.task_groups[0].count = len(nodes)
+        low.task_groups[0].tasks[0].resources.networks = []
+        s._propose("job_upsert", {"job": codec.to_wire(low)})
+        result = st.PlanResult()
+        for i, n in enumerate(nodes):
+            a = mock.alloc(id=f"low-{i:03d}", name=f"job-low.web[{i}]",
+                           job_id=low.id, node_id=n.id)
+            a.job = None
+            a.client_status = st.ALLOC_CLIENT_RUNNING
+            tr = a.allocated_resources.tasks["web"]
+            tr.cpu, tr.memory_mb, tr.networks = 800, 256, []
+            a.allocated_resources.shared.networks = []
+            result.node_allocation.setdefault(n.id, []).append(a)
+        s._propose("plan_result", {"result": codec.to_wire(result),
+                                   "job": codec.to_wire(low)})
+        s._propose("scheduler_config", {"config": {
+            "preemption_service_enabled": True}})
+        s.start()
+        high = mock.job(id="job-high", priority=70)
+        high.task_groups[0].count = 3
+        high.task_groups[0].tasks[0].resources.cpu = 700
+        high.task_groups[0].tasks[0].resources.networks = []
+        ev = s.register_job(high)
+        assert wait_complete(s, [ev], st), pkg
+        ids = [n.id for n in nodes]
+        allocs = s.store.allocs_by_job("default", high.id)
+        return (sorted((a.name, ids.index(a.node_id),
+                        tuple(a.preempted_allocations)) for a in allocs),
+                sorted(a.id for a in s.store.allocs()
+                       if a.desired_status == st.ALLOC_DESIRED_EVICT))
+    finally:
+        s.stop()
+
+
+def test_server_preemption_matches_reference(monkeypatch):
+    """Service preemption through both running servers at the default
+    eviction width: the same placements and the same victims, chosen by
+    the kernel's eviction pass in both packages."""
+    monkeypatch.delenv("NOMAD_TPU_EVICT_E", raising=False)
+    before = global_metrics.dump()["counters"].get(
+        "scheduler.preempt.kernel", 0.0)
+    out = {pkg: preempt_run(pkg) for pkg in ("ref", "port")}
+    assert out["port"] == out["ref"]
+    placed, evicted = out["port"]
+    assert len(placed) == 3 and len(evicted) == 3
+    assert all(len(v) == 1 for _name, _ix, v in placed)
+    assert global_metrics.dump()["counters"].get(
+        "scheduler.preempt.kernel", 0.0) - before == 3.0

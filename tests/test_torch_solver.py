@@ -218,7 +218,7 @@ def test_solver_matches_reference_solver(style, kw):
 
 def test_unsupported_options_raise():
     pb, has_spread = packed("binpack", 20, 4, False)
-    for kw in (dict(mesh_axis="nodes"), dict(has_preempt=True),
+    for kw in (dict(mesh_axis="nodes"),
                dict(learned=torch.zeros(1)), dict(region_bias=torch.zeros(1)),
                dict(lane_axis="lanes"), dict(wave_mode="while")):
         with pytest.raises(NotImplementedError):

@@ -6,9 +6,9 @@ package's, on the CPU.
 A degraded (brownout) solve of a merged config-3 batch stops at the
 brownout wave budget with the reference's placements (by node index)
 and undecided count.  After one eval on a store-attached solver in each
-package (the reference with `NOMAD_TPU_EVICT_E=0`, so neither world
-carries eviction planes) the fleet health sample is the same
-`HealthCounters`.  The SLO burn tracker and the time-series rings, fed
+package the fleet health sample is the same `HealthCounters`: with no
+eviction planes (the reference with `NOMAD_TPU_EVICT_E=0`, the port
+with `evict_e=0`) and with both at the default width 8.  The SLO burn tracker and the time-series rings, fed
 the same observations on an injected clock, report the same status,
 events and points."""
 import pytest
@@ -80,34 +80,48 @@ def test_brownout_budget_matches_reference():
     assert out["port"][2] > 0
 
 
+def health_sample(pkg, evict_e):
+    """The health sample after one eval on a store-attached solver whose
+    world packs eviction planes of width `evict_e` (the reference's from
+    the environment, the port's from its argument)."""
+    mock, st, solve_mod, _ask, Harness = PKGS[pkg]
+    h = Harness()
+    kw = {} if pkg == "ref" else {"device": "cpu", "evict_e": evict_e}
+    h.solver = solve_mod.Solver(store=h.store, resident_min_nodes=1, **kw)
+    assert h.solver.health_counters() is None       # no world yet
+    for i in range(12):
+        n = mock.node(id=f"node-{i:02d}", name=f"node-{i}",
+                      datacenter=f"dc{i % 2}")
+        n.node_resources.networks[0].ip = f"10.0.0.{i + 1}"
+        n.compute_class()
+        h.store.upsert_node(h.next_index(), n)
+    job = mock.job(id="job-health")
+    job.datacenters = ["dc0", "dc1"]
+    job.task_groups[0].count = 9
+    job.task_groups[0].tasks[0].resources.cpu = 3200
+    h.store.upsert_job(h.next_index(), job)
+    ev = mock.eval_(job_id=job.id)
+    h.store.upsert_evals(h.next_index(), [ev])
+    h.process("service", ev)
+    hc = h.solver.health_counters()
+    return hc.report(), hc.nodes_busy, hc.util_ge, hc.ev_slots
+
+
 def test_health_counters_match_reference(monkeypatch):
     monkeypatch.setenv("NOMAD_TPU_EVICT_E", "0")
-    out = {}
-    for pkg in ("ref", "port"):
-        mock, st, solve_mod, _ask, Harness = PKGS[pkg]
-        h = Harness()
-        kw = {} if pkg == "ref" else {"device": "cpu"}
-        h.solver = solve_mod.Solver(store=h.store, resident_min_nodes=1,
-                                    **kw)
-        assert h.solver.health_counters() is None       # no world yet
-        for i in range(12):
-            n = mock.node(id=f"node-{i:02d}", name=f"node-{i}",
-                          datacenter=f"dc{i % 2}")
-            n.node_resources.networks[0].ip = f"10.0.0.{i + 1}"
-            n.compute_class()
-            h.store.upsert_node(h.next_index(), n)
-        job = mock.job(id="job-health")
-        job.datacenters = ["dc0", "dc1"]
-        job.task_groups[0].count = 9
-        job.task_groups[0].tasks[0].resources.cpu = 3200
-        h.store.upsert_job(h.next_index(), job)
-        ev = mock.eval_(job_id=job.id)
-        h.store.upsert_evals(h.next_index(), [ev])
-        h.process("service", ev)
-        hc = h.solver.health_counters()
-        out[pkg] = (hc.report(), hc.nodes_busy, hc.util_ge, hc.ev_slots)
+    out = {pkg: health_sample(pkg, 0) for pkg in ("ref", "port")}
     assert out["port"] == out["ref"]
     assert out["port"][1] > 0
+    assert out["port"][3] == 0
+
+
+def test_health_counters_match_reference_evict8(monkeypatch):
+    """At the default width the placed allocs fill eviction slots, which
+    the sample counts the same in both packages."""
+    monkeypatch.delenv("NOMAD_TPU_EVICT_E", raising=False)
+    out = {pkg: health_sample(pkg, 8) for pkg in ("ref", "port")}
+    assert out["port"] == out["ref"]
+    assert out["port"][3] == 9
 
 
 def feed(burn, series):

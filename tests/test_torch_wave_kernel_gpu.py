@@ -196,3 +196,115 @@ def test_kernel_matches_plain_on_gpu(name, shape, call):
     assert wk.fused_wave.launches == before + 1
     assert_wave_same({k: v.cpu() for k, v in got.items()},
                      {k: v.cpu().numpy() for k, v in want.items()})
+
+
+def overcommit_batch(seed, n_nodes=32):
+    """tests/test_preempt_kernel.py's overcommitted world built with the
+    port's own mock and packer (no JAX): nodes of 3,000-6,000 MHz mostly
+    full of priority 5-45 allocs, and three jobs of priority 60/50/25
+    that place only by evicting.  Returns the packed batch with its
+    eviction planes (width 8) and the nodes' usage in `used0`."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.solver.tensorize import (PlacementAsk, Tensorizer,
+                                                  alloc_usage_vector)
+    from nomad_tpu_torch.structs import Spread
+    rng = np.random.default_rng(seed)
+    nodes, abn = [], {}
+    for i in range(n_nodes):
+        n = mock.node(id=f"node-{i:03d}", datacenter=f"dc{i % 3}")
+        n.node_resources.cpu = int(rng.choice([3000, 4000, 6000]))
+        n.node_resources.memory_mb = 8192
+        n.reserved_resources.cpu = 0
+        n.reserved_resources.memory_mb = 0
+        n.compute_class()
+        nodes.append(n)
+        lst = []
+        for k in range(int(rng.integers(2, 6))):
+            a = mock.alloc()
+            a.id, a.node_id = f"low-{i}-{k}", n.id
+            a.job.priority = int(rng.choice([5, 10, 20, 30, 45]))
+            a.create_index = len(lst)
+            tr = a.allocated_resources.tasks["web"]
+            tr.cpu = int(rng.choice([400, 700, 900, 1200]))
+            tr.memory_mb, tr.networks = 2 * tr.cpu, []
+            a.allocated_resources.shared.networks = []
+            a.allocated_resources.shared.disk_mb = 0
+            lst.append(a)
+        abn[n.id] = lst
+    asks = []
+    for g, prio in enumerate((60, 50, 25)):
+        j = mock.job(id=f"hi-{g}", priority=prio)
+        j.datacenters = ["dc0", "dc1", "dc2"]
+        if g == 0:
+            j.spreads = [Spread(attribute="${node.datacenter}", weight=100)]
+        tg = j.task_groups[0]
+        tg.count = int(rng.integers(4, 9))
+        tg.tasks[0].resources.networks = []
+        tg.tasks[0].resources.cpu = int(rng.choice([2000, 2500]))
+        tg.tasks[0].resources.memory_mb = 2048
+        tg.ephemeral_disk.size_mb = 0
+        asks.append(PlacementAsk(job=j, tg=tg, count=tg.count))
+    pb = Tensorizer().pack(nodes, asks, abn, evict_e=8)
+    pb.used0 = np.zeros_like(pb.used0)
+    for i, n in enumerate(nodes):
+        for a in abn[n.id]:
+            pb.used0[i] += alloc_usage_vector(a)
+    return pb
+
+
+def preempt_solve(pb, device, mode):
+    from nomad_tpu_torch.solver.kernel import solve_kernel
+    from nomad_tpu_torch.solver.solve import _kernel_args, _to_device, \
+        _to_host
+    ev_res, ev_prio, ask_prio = _to_device(
+        (pb.ev_res, pb.ev_prio, pb.ask_prio), device)
+    res = solve_kernel(*_kernel_args(pb, device), has_distinct=False,
+                       pallas_mode=mode, has_preempt=True, ev_res=ev_res,
+                       ev_prio=ev_prio, ask_prio=ask_prio)
+    return _to_host(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["score", "topk"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_eviction_pass_on_gpu_matches_cpu(mode, seed):
+    """The solve with the eviction pass on the card (the fused wave
+    kernel in `mode`, the pass in torch ops) against the same call on
+    the CPU, where the wave is the kernel's plain version: the same
+    placements, victim sets and commit waves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU "
+                    "or interpret mode)")
+    pb = overcommit_batch(seed)
+    before = wk.fused_wave.mode_launches[mode]
+    got = preempt_solve(pb, "cuda", mode)
+    assert wk.fused_wave.mode_launches[mode] > before
+    want = preempt_solve(pb, "cpu", mode)
+    assert want.evict.any(), "the world must force evictions"
+    np.testing.assert_array_equal(got.choice_ok, want.choice_ok)
+    np.testing.assert_array_equal(np.where(got.choice_ok, got.choice, -1),
+                                  np.where(want.choice_ok, want.choice, -1))
+    np.testing.assert_array_equal(got.evict, want.evict)
+    np.testing.assert_array_equal(got.commit_wave, want.commit_wave)
+    np.testing.assert_array_equal(got.used_final, want.used_final)
+
+
+@pytest.mark.cuda
+def test_feas_kernel_on_gpu_matches_cpu():
+    """The system scheduler's static-feasibility words on the card equal
+    the CPU's bit for bit, on a node axis that is not a multiple of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from nomad_tpu_torch.solver.masks import _feas_kernel
+    rng = np.random.default_rng(5)
+    Gp, Np, A, C, D = 6, 1000, 5, 4, 3
+    args = (rng.random(Np) < 0.9, rng.integers(0, D, Np).astype(np.int32),
+            rng.integers(-1, 6, (Np, A)).astype(np.int16),
+            rng.random((Gp, D)) < 0.8, rng.random((Gp, Np)) < 0.9,
+            rng.integers(0, 9, (Gp, C)).astype(np.int32),
+            rng.integers(0, A, (Gp, C)).astype(np.int32),
+            rng.integers(-1, 6, (Gp, C)).astype(np.int32))
+    got = _feas_kernel(*(torch.as_tensor(a).cuda() for a in args))
+    want = _feas_kernel(*(torch.as_tensor(a) for a in args))
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
