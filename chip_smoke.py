@@ -163,12 +163,47 @@ Phases, one JSON line each; any failed phase exits nonzero:
                assert_same with equal victim sets and commit waves; the
                eviction pass is then timed on both batches.
 
+  9. stream  — the streaming ResidentSolver, bench.py run_ours at config 3:
+               `ResidentSolver(device="cuda", pallas="auto",
+               max_waves=18)` on phase 4's 10,000 nodes, gp 4 (the
+               distinct ask signatures) and kp 8,192, its carried usage
+               seeded from 100,000 resident allocs (bench.py
+               resident_used0) after a warm pass.  Main leg: 896 config-3
+               evals in 7 pipelined chunks of 128 (`merge_asks`, seeds
+               b + 1, `solve_stream_pipelined`), up to 4 retry-drain
+               rounds in rows of at most 64 (seeds 1009 + 17 t + i), then
+               the steady delta leg: 4 chunks re-dispatched, each after a
+               net-zero delta of 32 place+stop pairs.  Printed: evals/s,
+               placements/s, placed / failed / retried / unresolved, the
+               pack / dispatch / fetch split with waves and rescore waves
+               per chunk, launches by mode (zeroed before the leg, read
+               after it), the steady leg's per-wave pack, dispatch and
+               delta-apply ms and bytes, `delta_counters`, peak card
+               memory, and the card's busy share of one more chunk under
+               torch.profiler.  Checks: placed + failed + unresolved =
+               57,344; no valid node's carried usage above its avail; the
+               carried usage equal to the seeded usage plus the committed
+               asks summed on the host; a fused wave launch in the leg;
+               `plane_checksum()` equal to `template_checksum`; the health
+               kernel equal to `health_host`.  Kernel against plain, on
+               the card: a main-leg chunk re-solved from the seeded usage
+               with the kernel and with `pallas="off"`; a serial stream of
+               4 batches, a lane stream (L 4, 8 batches) and
+               `solve_parallel` over 4 batches, each batch 16 evals; and a
+               preempting stream (phase 8's fill, eviction planes of
+               width 8, 2 batches, evictions fed back as stop deltas).
+               Statuses, ok flags and waves equal, scores within 4 ulp, a
+               choice differing only where its scores tie, victim masks
+               and carried usage equal.
+
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7 and 8 as `launches_phase5`,
-`launches_phase7` and `launches_phase8` beside them), and its error
-against the plain version, times (`ms` is the kernel-only cold time) and
-bound on phase 6's own arguments; the score kernel also on the first
-fused score round's arguments (`fused_round`).  The last line is
+worker's path (phase 6; phases 5, 7, 8 and 9 as `launches_phase5`,
+`launches_phase7`, `launches_phase8` and `launches_phase9` beside them),
+and its error against the plain version, times (`ms` is the kernel-only
+cold time) and bound on phase 6's own arguments; the score kernel also
+on the first fused score round's arguments (`fused_round`), and each
+kernel on the arguments of its first call in phase 9's re-solves
+(`stream`).  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -735,16 +770,27 @@ def asks_for(job):
 
 
 def resident_allocs(mock, nodes, n_allocs):
-    """n_allocs live allocs spread round-robin, each using R_VEC."""
+    """n_allocs live allocs spread round-robin, each using R_VEC.  Their
+    job declares what they hold (count n_allocs, R_VEC, no network, one
+    name index each), so an eval of it, such as the follow-up of a
+    preemption, keeps them and replaces only what was preempted."""
     from nomad_tpu_torch.structs import (AllocatedResources,
                                          AllocatedSharedResources,
                                          AllocatedTaskResources)
     job = mock.job()
     job.id = "resident"
+    tg = job.task_groups[0]
+    tg.count = n_allocs
+    tg.networks = []
+    tg.ephemeral_disk.size_mb = R_VEC[2]
+    for t in tg.tasks:
+        t.resources.cpu, t.resources.memory_mb = R_VEC[0], R_VEC[1]
+        t.resources.networks = []
     by_node = {}
     for k in range(n_allocs):
         nd = nodes[k % len(nodes)]
         a = mock.alloc(job=job, node_id=nd.id)
+        a.name = f"{job.id}.{tg.name}[{k}]"
         a.allocated_resources = AllocatedResources(
             tasks={"web": AllocatedTaskResources(cpu=R_VEC[0],
                                                  memory_mb=R_VEC[1])},
@@ -1320,22 +1366,29 @@ def store_traffic(structs, h, allocs, nodes, e, stats):
         stats["joined"] += 1
 
 
-def device_share(torch, run, job):
-    """One more service eval under `torch.profiler`: the card's busy time
-    (the summed durations of the kernels and copies it ran; one stream,
-    so no overlap) over the eval's wall, and the device time by kernel
-    name (cut to 100 characters).  `busy_share` is None where the
-    profiler recorded no device event (not measured)."""
+def profile_card(torch, fn):
+    """fn() under `torch.profiler`: its result and the card's time by
+    kernel name in ms (the kernels and copies it ran, names cut to 100
+    characters; one stream, so no overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rec = run("service", job)
+        out = fn()
         torch.cuda.synchronize()
     by_name = collections.Counter()
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name[:100]] += ev.time_range.elapsed_us() / 1e3
+    return out, by_name
+
+
+def device_share(torch, run, job):
+    """One more service eval under `torch.profiler`: the card's busy time
+    over the eval's wall, and the device time by kernel name.
+    `busy_share` is None where the profiler recorded no device event
+    (not measured)."""
+    rec, by_name = profile_card(torch, lambda: run("service", job))
     busy_ms = sum(by_name.values())
     wall_ms = 1e3 * rec["wall"]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
@@ -1849,6 +1902,7 @@ def leg_system(torch, srv, probe, mock, structs, nodes):
     job = system_job(mock, structs)
     sp = SystemProbe()
     walls, evals = {}, {}
+    index0 = srv.store.latest_index()
     try:
         for step in ("register", "node_join", "deregister"):
             t = time.perf_counter()
@@ -1877,6 +1931,17 @@ def leg_system(torch, srv, probe, mock, structs, nodes):
                         n, srv.store.allocs_by_node_terminal(n.id, False))
                     if not fit:
                         over.append((n.name, dim))
+        # the evals the leg set off besides its own (the preempted jobs'
+        # follow-ups) run to their end before the checks
+        deadline = time.perf_counter() + 300
+        while True:
+            b = srv.broker.stats()
+            if not (b["total_ready"] or b["total_unacked"]
+                    or srv.plan_queue.depth()):
+                break
+            check(time.perf_counter() < deadline, "leg C: the server "
+                  f"did not go idle in 300 s ({b})")
+            time.sleep(0.01)
     finally:
         sp.close()
     all_nodes = nodes + [new]
@@ -1894,9 +1959,24 @@ def leg_system(torch, srv, probe, mock, structs, nodes):
         split, attempts = sp.split(ev_id, walls[step], applies)
         row["evals"][step] = {"wall_ms": 1e3 * walls[step],
                               "split_ms": split, "attempts": attempts}
-    bad = [(k, e.status, e.status_description) for k, e in finals.items()
+    from nomad_tpu_torch.utils.tracing import global_tracer
+
+    def submits(ev_id):
+        """The eval's plan submissions: outcome and seconds."""
+        return [(s["attrs"].get("outcome"), round(s["dur_s"], 3))
+                for s in global_tracer.get(ev_id) or ()
+                if s["name"] == "plan.submit"]
+    bad = [(k, e.status, e.status_description, submits(e.id))
+           for k, e in finals.items()
            if e.status != structs.EVAL_STATUS_COMPLETE]
     check(not bad, f"leg C evals not complete: {bad}")
+    follow = [e for e in srv.store.evals() if e.create_index > index0
+              and e.id not in evals.values()]
+    row["follow_up_evals"] = collections.Counter(
+        f"{e.job_id}:{e.triggered_by}:{e.status}" for e in follow)
+    failed = [(e.job_id, e.status_description, submits(e.id))
+              for e in follow if e.status == structs.EVAL_STATUS_FAILED]
+    check(not failed, f"leg C: follow-up evals failed: {failed}")
     check(sp.batches, "leg C: no feasibility pass ran")
     check(set(live) == eligible
           and all(len(v) == 1 for v in live.values()),
@@ -2216,21 +2296,15 @@ PREEMPT_PRIORITY = 70
 N_PREEMPT_JOBS = 16
 
 
-def fill_cluster(srv, mock, structs, nodes, seed=0):
+def fill_allocs(mock, structs, nodes, seed=0):
     """Fill every node with low-priority running allocs until no config-3
     group ask fits on it without an eviction, each alloc's size and
-    priority drawn from a seeded generator, and enter them into a Server
-    that has not started: five fill jobs, one per priority, then their
-    allocs as plan results of RESIDENT_CHUNK allocs.  The fill jobs name
-    a datacenter no node is in: the follow-up eval the plan applier
-    makes for a job whose allocs were preempted then finds no node and
-    leaves a blocked eval, instead of replacing the evicted allocs by
-    preempting other fill allocs.  Returns the alloc count and seconds."""
+    priority drawn from a seeded generator.  The five fill jobs (one per
+    priority) name a datacenter no node is in.  Returns (jobs by
+    priority, allocs by priority)."""
     from nomad_tpu_torch.structs import (AllocatedResources,
                                          AllocatedSharedResources,
                                          AllocatedTaskResources)
-    from nomad_tpu_torch.utils.codec import to_wire
-    t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     jobs, by_job = {}, {p: [] for p in FILL_PRIOS}
     for p in FILL_PRIOS:
@@ -2261,14 +2335,29 @@ def fill_cluster(srv, mock, structs, nodes, seed=0):
                                                      memory_mb=cpu)},
                 shared=AllocatedSharedResources(disk_mb=FILL_DISK))
             a.client_status = structs.ALLOC_CLIENT_RUNNING
-            a.job = None              # the entry carries the job once
             by_job[p].append(a)
             free_cpu -= cpu
             free_mem -= cpu
+    return jobs, by_job
+
+
+def fill_cluster(srv, mock, structs, nodes, seed=0):
+    """`fill_allocs` entered into a Server that has not started: the
+    five fill jobs, then their allocs as plan results of RESIDENT_CHUNK
+    allocs.  The follow-up eval the plan applier makes for a job whose
+    allocs were preempted then finds no node (the fill jobs' datacenter
+    holds none) and leaves a blocked eval, instead of replacing the
+    evicted allocs by preempting other fill allocs.  Returns the alloc
+    count and seconds."""
+    from nomad_tpu_torch.utils.codec import to_wire
+    t0 = time.perf_counter()
+    jobs, by_job = fill_allocs(mock, structs, nodes, seed)
     for p, job in jobs.items():
         job.task_groups[0].count = len(by_job[p])
         srv._propose("job_upsert", {"job": to_wire(job)})
         allocs = by_job[p]
+        for a in allocs:
+            a.job = None              # the entry carries the job once
         for c in range(0, len(allocs), RESIDENT_CHUNK):
             result = structs.PlanResult()
             for a in allocs[c:c + RESIDENT_CHUNK]:
@@ -2620,6 +2709,520 @@ def phase_preempt(torch, wk, n_nodes, n_serial, n_burst):
     return {m: counts["p1"][m] + counts["p2"][m] for m in counts["p1"]}
 
 
+# ------------------------------------------------------------ phase 9
+#: phase 9, bench.py run_ours at config 3: 896 evals of 64 placements in
+#: pipelined chunks of 128 (merged to 4 rows), up to 4 retry-drain
+#: rounds, then 4 re-dispatched chunks of the steady delta leg
+N_STREAM_EVALS = 896
+STREAM_EPC = 128
+DRAIN_ROUNDS = 4
+DRAIN_ROW = 64
+STEADY_CHUNKS = 4
+STEADY_PAIRS = 32
+#: the smaller kernel-vs-plain streams: evals merged into one batch
+SMALL_EPC = 16
+
+
+def pow2(n):
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def resident_used0(template, n_nodes, resident):
+    """bench.py resident_used0: `resident` allocs of R_VEC round-robin
+    over the nodes, as the carried usage."""
+    used0 = np.zeros_like(template.used0)
+    counts = np.bincount(np.arange(resident) % n_nodes,
+                         minlength=n_nodes).astype(np.float32)
+    used0[:n_nodes, :len(R_VEC)] = (counts[:, None]
+                                    * np.asarray(R_VEC, np.float32))
+    return used0
+
+
+def steady_alloc(mock, aid):
+    """bench.py _steady_alloc: a plan-apply-feedback alloc of the steady
+    delta leg."""
+    a = mock.alloc()
+    a.id = aid
+    tr = a.allocated_resources.tasks["web"]
+    tr.cpu, tr.memory_mb, tr.networks = 200, 256, []
+    a.allocated_resources.shared.networks = []
+    a.allocated_resources.shared.disk_mb = 300
+    return a
+
+
+def steady_delta(mock, nodes, w, pairs, ClusterDelta):
+    """A net-zero delta: `pairs` allocs placed and stopped, on nodes
+    (w * 977 + k * 131) mod N (bench.py's steady waves)."""
+    d = ClusterDelta()
+    for k in range(pairs):
+        nid = nodes[(w * 977 + k * 131) % len(nodes)].id
+        a = steady_alloc(mock, f"steady-{w}-{k}")
+        d.place.append((nid, a))
+        d.stop.append((nid, a))
+    return d
+
+
+def harvest(status_row, pb, asks):
+    """bench.py _harvest: (placed, failed, [(ask, retries), ...])."""
+    st = status_row[:pb.n_place]
+    placed = int((st == 1).sum())
+    failed = int((st == 0).sum())
+    retry = st == 2
+    if not retry.any():
+        return placed, failed, []
+    per_ask = np.bincount(pb.p_ask[:pb.n_place][retry],
+                          minlength=len(asks))
+    return placed, failed, [(a, int(r)) for a, r in zip(asks, per_ask) if r]
+
+
+def drain_chunks(cur, gp_cap, kp_cap):
+    """bench.py's merged drain rows: each retry count split into rows of
+    at most DRAIN_ROW, filled greedily into chunks under the solver's
+    gp / kp caps."""
+    import dataclasses
+    split = []
+    for a, r in cur:
+        while r > DRAIN_ROW:
+            split.append(dataclasses.replace(a, count=DRAIN_ROW))
+            r -= DRAIN_ROW
+        split.append(dataclasses.replace(a, count=r))
+    chunks, chunk, k = [], [], 0
+    for a in split:
+        if chunk and (len(chunk) + 1 > gp_cap or k + a.count > kp_cap):
+            chunks.append(chunk)
+            chunk, k = [], 0
+        chunk.append(a)
+        k += a.count
+    if chunk:
+        chunks.append(chunk)
+    return chunks
+
+
+def charge_committed(expect, out, pbs):
+    """Add each committed placement's ask to its node's row of the
+    host-side usage `expect`."""
+    choice, _ok, _score, status = out
+    for b, pb in enumerate(pbs):
+        k = np.nonzero(status[b, :pb.n_place] == 1)[0]
+        np.add.at(expect, choice[b, k, 0],
+                  pb.ask_res[pb.p_ask[k]].astype(np.float64))
+
+
+def streams_agree(what, k_out, p_out, k_waves=None, p_waves=None):
+    """A stream with the fused kernel against the same stream with the
+    plain scorer: statuses and ok flags equal, wave counts equal, scores
+    within ULP_TOL ulp, and a choice may differ only where its two
+    scores tie within that (the scores are not separated).  Returns the
+    largest score difference."""
+    kc, kok, ks, kst = k_out
+    pc, pok, ps, pst = p_out
+    check(np.array_equal(kst, pst), f"{what}: statuses differ")
+    check(np.array_equal(kok, pok), f"{what}: ok flags differ")
+    if k_waves is not None:
+        for a, b in zip(k_waves, p_waves):
+            check(np.array_equal(np.asarray(a), np.asarray(b)),
+                  f"{what}: wave counts {a} / {b}")
+
+    def ulps(a, b):
+        ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+        ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+        ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        return np.abs(ia - ib)
+    d = ulps(ks[kok], ps[pok])
+    check(d.size == 0 or int(d.max()) <= ULP_TOL,
+          f"{what}: scores off by {int(d.max()) if d.size else 0} ulp")
+    differ = kok & (kc != pc)
+    check(not differ.any() or int(ulps(ks[differ], ps[differ]).max())
+          <= ULP_TOL, f"{what}: a choice differs at separated scores")
+    return float(np.abs(ks[kok] - ps[pok]).max()) if kok.any() else 0.0
+
+
+def stream_busy_share(torch, fn):
+    """fn() under `torch.profiler`: the card's busy time over the wall
+    to a synchronize, and the device time by kernel name; busy_share is
+    None where the profiler recorded no device event (not measured)."""
+    def timed():
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+    wall_ms, by_name = profile_card(torch, timed)
+    busy_ms = sum(by_name.values())
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "top_device_ms": dict(by_name.most_common(8))}
+
+
+def small_streams(rs, jobs, used0, mock, structs):
+    """The three smaller kernel-vs-plain calls on the main solver, each
+    from the seeded usage: a serial stream of 4 batches in one dispatch,
+    a lane stream (L 4, 8 batches) and solve_parallel over 4 batches;
+    each batch SMALL_EPC evals merged.  Returns the rows."""
+    def batch(i):
+        asks = sum((asks_for(j) for j in
+                    jobs[i * SMALL_EPC:(i + 1) * SMALL_EPC]), [])
+        merged, keys = rs.merge_asks(asks)
+        pb = rs.pack_batch(merged, job_keys=keys)
+        check(pb is not None, "a small batch fell outside the universe")
+        return pb
+    pbs = [batch(i) for i in range(8)]
+    calls = {
+        "serial_stream": lambda: rs.finish_stream(rs.solve_stream_async(
+            pbs[:4], seeds=[1, 2, 3, 4])),
+        "lane_stream": lambda: rs.finish_stream(rs.solve_stream_async(
+            pbs, seeds=list(range(1, 9)), lanes=4)),
+        "parallel": lambda: rs.solve_parallel(pbs[:4]),
+    }
+    rows = {}
+    for name, call in calls.items():
+        runs = []
+        for pallas in ("auto", "off"):
+            rs.pallas = pallas
+            rs.reset_usage(used0=used0)
+            out = call()
+            # solve_parallel keeps no wave or lane counters
+            runs.append((out, rs.usage()[0]) + (
+                (None, None, None) if name == "parallel" else
+                (rs.last_waves, rs.last_rescore_waves, rs.lane_counters())))
+        rs.pallas = "auto"
+        (ko, ku, kw_, kr, klc), (po, pu, pw, pr, plc) = runs
+        err = streams_agree(f"{name}: kernel vs plain", ko, po,
+                            kw_ is not None and [kw_, kr] or None,
+                            pw is not None and [pw, pr] or None)
+        check(klc == plc, f"{name}: lane counters {klc} / {plc}")
+        check(np.array_equal(ku, pu), f"{name}: carried usage differs")
+        n_b = 8 if name == "lane_stream" else 4
+        rows[name] = {"batches": n_b,
+                      "placements": int(sum(pb.n_place
+                                            for pb in pbs[:n_b])),
+                      "committed": int((ko[3] == 1).sum()),
+                      "waves": (None if kw_ is None
+                                else [int(x) for x in np.asarray(kw_)]),
+                      "lane_counters": klc, "max_abs_err": err}
+    return rows
+
+
+def preempt_stream(torch, mock, structs, n_nodes, on_card):
+    """One preempting stream, kernel against plain: nodes filled by
+    `fill_allocs` (phase 8's fill), a ResidentSolver with eviction planes
+    of width 8 (wave budget doubled, as the worker's preempting solves
+    have) per scorer, two batches of one priority-70 config-3 job each,
+    the first batch's evictions fed back before the second as the stops
+    of `apply_delta(evicted=True)` (the pass already freed them).  Each
+    batch's choices, statuses, waves and victim masks agree, and the
+    carried usage is the surviving allocs plus the committed asks."""
+    from nomad_tpu_torch.solver.kernel import MAX_WAVES
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    from nomad_tpu_torch.solver.tensorize import (ClusterDelta,
+                                                  alloc_usage_vector)
+    t0 = time.perf_counter()
+    nodes = make_nodes(mock, n_nodes)
+    _jobs, by_job = fill_allocs(mock, structs, nodes)
+    abn = {}
+    for allocs in by_job.values():
+        for a in allocs:
+            abn.setdefault(a.node_id, []).append(a)
+    jobs = [preempt_job(mock, structs, f"pstream-{b}") for b in range(2)]
+    setup_s = time.perf_counter() - t0
+    runs = {}
+    for pallas in ("auto", "off"):
+        rs = ResidentSolver(nodes, asks_for(jobs[0]), abn, gp=4,
+                            kp=pow2(COUNT), max_waves=2 * MAX_WAVES,
+                            pallas=pallas, evict_e=8, device=DEVICE)
+        rs._compact = False
+        used0 = np.zeros_like(rs.template.used0)
+        for i, n in enumerate(nodes):
+            for a in abn.get(n.id, ()):
+                used0[i] += alloc_usage_vector(a)
+        rs.reset_usage(used0=used0)
+        live = {a.id: (a.node_id, a) for lst in abn.values() for a in lst}
+        rec, placed = [], []
+        for b, job in enumerate(jobs):
+            t = time.perf_counter()
+            pb = rs.pack_batch(asks_for(job))
+            out = rs.solve_stream([pb], seeds=[b + 1])
+            placed.append((out, [pb]))
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            ev = np.asarray(rs.last_evict[0].cpu())
+            rec.append((out, ev, rs.last_waves, rs.last_rescore_waves, wall))
+            ch, ok = out[0][0], out[1][0]
+            d = ClusterDelta()
+            for p in np.nonzero(ok[:, 0] & ev.any(axis=1))[0]:
+                ni = int(ch[p, 0])
+                for e in np.nonzero(ev[p])[0]:
+                    aid = rs.template.ev_ids[ni][e]
+                    if aid in live:
+                        d.stop.append(live.pop(aid))
+            if not d.empty():
+                # the pass already freed the victims in the carried usage
+                check(rs.apply_delta(d, evicted=True) == "delta",
+                      "the eviction feedback repacked the world")
+        expect = np.zeros(used0.shape, np.float64)
+        for nid, a in live.values():
+            expect[rs.node_index[nid]] += alloc_usage_vector(a)
+        for out, pbs in placed:
+            charge_committed(expect, out, pbs)
+        check(np.array_equal(rs.usage()[0], expect.astype(np.float32)),
+              f"preempting stream ({pallas}): the carried usage is not "
+              "the surviving allocs plus the committed asks")
+        runs[pallas] = (rs, rec)
+    (krs, krec), (prs, prec) = runs["auto"], runs["off"]
+    row = {"nodes": n_nodes, "setup_s": setup_s, "batches": []}
+    for b, (k, p) in enumerate(zip(krec, prec)):
+        streams_agree(f"preempting batch {b}: kernel vs plain", k[0], p[0],
+                      [k[2], k[3]], [p[2], p[3]])
+        check(np.array_equal(k[1], p[1]),
+              f"preempting batch {b}: victim masks differ")
+        row["batches"].append({
+            "placed": int((k[0][3] == 1).sum()),
+            "evict_commits": int(k[1].any(axis=1).sum()),
+            "victims": int(k[1].sum()), "waves": int(k[2][0]),
+            "wall_ms": 1e3 * k[4]})
+    check(any(b["evict_commits"] for b in row["batches"]),
+          "the preempting stream evicted nothing")
+    check(np.array_equal(krs.usage()[0], prs.usage()[0]),
+          "preempting stream: carried usage differs")
+    check(krs.plane_checksum() == prs.plane_checksum(),
+          "preempting stream: the eviction planes differ")
+    return row
+
+
+def phase_stream(torch, wk, n_nodes, resident, n_evals, epc=STREAM_EPC,
+                 preempt_nodes=None):
+    """The streaming ResidentSolver, bench.py run_ours at config 3: the
+    solver built once on the cluster (usage seeded from `resident`
+    allocs), a warm pass, then the main leg (n_evals evals in pipelined
+    chunks of `epc`, merged), the retry drain and the steady delta leg,
+    with launch counts zeroed just before and read just after.  Returns
+    (launch counts, the first score / topk wave calls of the
+    kernel-vs-plain re-solve, the row)."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    from nomad_tpu_torch.solver.tensorize import (ClusterDelta, Tensorizer,
+                                                  template_checksum)
+    from nomad_tpu_torch.telemetry.health import health_host
+    on_card = DEVICE == "cuda"
+    wk._load()
+    t0 = time.perf_counter()
+    nodes = make_nodes(mock, n_nodes)
+    probe = make_job(mock, structs, "probe", COUNT)
+    gp = pow2(len({Tensorizer.ask_signature(a) for a in asks_for(probe)}))
+    epc = min(epc, n_evals)
+    rs = ResidentSolver(nodes, asks_for(probe), gp=gp, kp=pow2(COUNT * epc),
+                        max_waves=18, pallas="auto", device=DEVICE)
+    used0 = resident_used0(rs.template, n_nodes, resident)
+    jobs = [make_job(mock, structs, e, COUNT) for e in range(n_evals)]
+    NB = -(-n_evals // epc)
+    build_s = time.perf_counter() - t0
+
+    # ---- warm pass (the kernels' first launches, the scatters), then
+    # the seeded usage again
+    t0 = time.perf_counter()
+    warm_asks, _keys = rs.merge_asks(sum((asks_for(j)
+                                          for j in jobs[:epc]), []))
+    warm = rs.pack_batch(warm_asks)
+    warm.job_keys = None
+    rs.solve_stream_pipelined([warm], seeds=[1])
+    dwarm = rs.pack_batch(drain_chunks([(a, 8) for a in warm_asks[:2]],
+                                       rs.gp, rs.kp)[0])
+    dwarm.job_keys = None
+    rs.solve_stream([dwarm], seeds=[1])
+    rs.apply_delta(steady_delta(mock, nodes, 99, STEADY_PAIRS,
+                                ClusterDelta))
+    rs.reset_usage(used0=used0)
+    if on_card:
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # ---- the main path, launch counts zeroed just before ----
+    gc.collect()
+    zero_launches(torch, wk)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    placed = failed = retried = 0
+    asks_all, batches, outs = [], [], []
+
+    def pack_one(i):
+        asks, keys = rs.merge_asks(sum((asks_for(j)
+                                        for j in jobs[i:i + epc]), []))
+        pb = rs.pack_batch_cached(asks, job_keys=keys)
+        check(pb is not None, "a config-3 chunk fell outside the universe")
+        asks_all.append(asks)
+        batches.append(pb)
+        return pb
+
+    t_start = time.perf_counter()
+    main = rs.solve_stream_pipelined([b * epc for b in range(NB)],
+                                     seeds=[b + 1 for b in range(NB)],
+                                     pack=pack_one)
+    main_stats = dict(rs.last_pipeline_stats)
+    main_waves = [int(np.asarray(w)[0]) for w in rs.last_waves]
+    main_resc = [int(np.asarray(w)[0]) for w in rs.last_rescore_waves]
+    outs.append((main, batches))
+    cur = []
+    for b, pb in enumerate(batches):
+        pl, fl, retries = harvest(main[3][b], pb, asks_all[b])
+        placed += pl
+        failed += fl
+        cur.extend(retries)
+    drains = []
+    for t_retry in range(DRAIN_ROUNDS):
+        if not cur:
+            break
+        retried += sum(r for _, r in cur)
+        chunks = drain_chunks(cur, rs.gp, rs.kp)
+        pbs = [rs.pack_batch(c) for c in chunks]
+        check(all(pb is not None for pb in pbs),
+              "a drain chunk fell outside the universe")
+        t = time.perf_counter()
+        douts = [rs.solve_stream_async([pb], seeds=[1009 + 17 * t_retry + i])
+                 for i, pb in enumerate(pbs)]
+        dout = rs.finish_stream(torch.cat(douts))
+        drains.append({"chunks": len(pbs), "rows": sum(map(len, chunks)),
+                       "placements": sum(pb.n_place for pb in pbs),
+                       "wall_ms": 1e3 * (time.perf_counter() - t)})
+        outs.append((dout, pbs))
+        nxt = []
+        for b, (pb, chunk) in enumerate(zip(pbs, chunks)):
+            pl, fl, retries = harvest(dout[3][b], pb, chunk)
+            placed += pl
+            failed += fl
+            nxt.extend(retries)
+        cur = nxt
+    unresolved = sum(r for _, r in cur)
+    elapsed = time.perf_counter() - t_start
+
+    # ---- the steady delta leg: the same chunks re-dispatched, each
+    # after a net-zero delta of place+stop pairs
+    n_steady = min(STEADY_CHUNKS, NB)
+    deltas = [steady_delta(mock, nodes, w, STEADY_PAIRS, ClusterDelta)
+              for w in range(n_steady)]
+    t = time.perf_counter()
+    steady = rs.solve_stream_pipelined(
+        batches[:n_steady], seeds=[7001 + b for b in range(n_steady)],
+        deltas=deltas)
+    steady_s = time.perf_counter() - t
+    st = rs.last_pipeline_stats
+    outs.append((steady, batches[:n_steady]))
+    if on_card:
+        torch.cuda.synchronize()
+    counts = dict(wk.fused_wave.mode_launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    total = n_evals * COUNT
+    row = {
+        "phase": "stream", "nodes": n_nodes, "resident_allocs": resident,
+        "evals": n_evals, "placements": total, "chunks": NB,
+        "evals_per_chunk": epc, "gp": rs.gp, "kp": rs.kp,
+        "Np": int(rs.template.avail.shape[0]),
+        "build_s": build_s, "warm_s": warm_s,
+        "elapsed_s": elapsed, "evals_per_s": n_evals / elapsed,
+        "placements_per_s": placed / elapsed,
+        "placed": placed, "failed": failed, "retried": retried,
+        "unresolved": unresolved,
+        "split_s": {k: main_stats[k] for k in ("pack_s", "dispatch_s",
+                                               "fetch_s")},
+        "bytes_dispatched": main_stats["bytes_dispatched"],
+        "waves": main_waves, "rescore_waves": main_resc,
+        "drains": drains,
+        "steady": {
+            "chunks": n_steady, "elapsed_s": steady_s,
+            "pack_ms_per_wave": 1e3 * st["pack_s"] / n_steady,
+            "dispatch_ms_per_wave": 1e3 * st["dispatch_s"] / n_steady,
+            "delta_apply_ms_per_wave": 1e3 * st["delta_apply_s"] / n_steady,
+            "bytes_dispatched": st["bytes_dispatched"],
+            "placed": int((steady[3] == 1).sum())},
+        "delta_counters": dict(rs.delta_counters),
+        "wave_traffic": {k: v for k, v in rs.wave_traffic(
+            batches[:1]).items() if k != "delta"},
+        "peak_card_bytes": peak, "launches": counts}
+    calls = {}
+    try:
+        # ---- checks (launches here are not counted) ----
+        check(placed + failed + unresolved == total,
+              f"{placed} placed + {failed} failed + {unresolved} "
+              f"unresolved != {total}")
+        check(counts["score"] + counts["topk"] > 0,
+              f"the leg launched no fused wave kernel: {counts}")
+        used, _dev = rs.usage()
+        t = rs.template
+        real = t.valid
+        check(bool(np.all(used[real] <= t.avail[real])),
+              "a node's carried usage exceeds its avail")
+        expect = used0.astype(np.float64)
+        for out, pbs in outs:
+            charge_committed(expect, out, pbs)
+        check(np.array_equal(used, expect.astype(np.float32)),
+              "the carried usage is not the seeded usage plus the "
+              "committed asks")
+        check(rs.plane_checksum() == template_checksum(t),
+              "the card's node planes differ from the host template")
+        check(rs.health_counters() == health_host(t, used, _dev),
+              "the health kernel differs from health_host")
+        # one main-leg chunk from the same starting usage, with the
+        # kernel and with the plain scorer (f32 payload)
+        rs._compact = False
+        runs = []
+        for pallas in ("auto", "off"):
+            rs.pallas = pallas
+            rs.reset_usage(used0=used0)
+            into = {}
+            with capture_wave(wk, "score", into):
+                out = rs.finish_stream(rs.solve_stream_async(
+                    [batches[0]], seeds=[1]))
+            runs.append((out, rs.last_waves, rs.last_rescore_waves))
+            calls.update({"score": into["kw"]} if "kw" in into else {})
+        rs.pallas = "auto"
+        (ko, kw_, kr), (po, pw, pr) = runs
+        row["chunk_max_abs_err"] = streams_agree(
+            "main-leg chunk: kernel vs plain", ko, po, [kw_, kr], [pw, pr])
+        check(np.array_equal(ko[0], main[0][:1])
+              and np.array_equal(ko[3], main[3][:1]),
+              "the re-solved chunk differs from the main leg's")
+        if drains and counts["topk"]:
+            # a drain-sized batch runs the topk kernel: its first call
+            into = {}
+            rs.reset_usage(used0=used0)
+            with capture_wave(wk, "topk", into):
+                rs.solve_stream([outs[1][1][0]], seeds=[1])
+            calls.update({"topk": into["kw"]} if "kw" in into else {})
+        row["small_streams"] = small_streams(rs, jobs, used0, mock,
+                                             structs)
+        rs._compact = True
+        row["preempt_stream"] = preempt_stream(
+            torch, mock, structs, preempt_nodes or n_nodes, on_card)
+    except PhaseError as e:
+        row["failed"] = str(e)
+        emit(row)
+        raise
+    if on_card:
+        # the card's busy share of one more pipelined chunk (after the
+        # checks: not part of the measured leg), then the health kernel
+        # and one delta scatter (32 zero rows into the carried usage) on
+        # their own, CUDA events around each call
+        from nomad_tpu_torch.solver.kernel import delta_scatter_add
+        from nomad_tpu_torch.telemetry.health import device_health_raw
+        rs.reset_usage(used0=used0)
+        row["profiled_chunk"] = stream_busy_share(
+            torch, lambda: rs.solve_stream_pipelined([batches[0]],
+                                                     seeds=[1]))
+        row["health_kernel_ms"] = time_ms(
+            torch, lambda: device_health_raw(rs))
+        idx = (np.arange(STEADY_PAIRS, dtype=np.int32) * 131) % n_nodes
+        rows = np.zeros((STEADY_PAIRS, used0.shape[1]), np.float32)
+        row["delta_scatter_ms"] = time_ms(
+            torch, lambda: delta_scatter_add(rs._used, idx, rows))
+    row["checks"] = {"accounting": "passed", "usage": "passed",
+                     "plane_checksum": "passed", "health": "passed",
+                     "kernel_vs_plain": "passed"}
+    emit(row)
+    return counts, calls, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2649,6 +3252,8 @@ def main() -> int:
         BATCH_COUNT, phase6=row6["service"])
     counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
                             N_PREEMPT_JOBS)
+    counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
+                                          N_STREAM_EVALS)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -2657,6 +3262,14 @@ def main() -> int:
                             calls["topk"], base_wk))
     kern.update(kernel_case(torch, wk, "score (fused round)",
                             calls7["score"], base_wk))
+    # and on the resident stream's (phase 9): a main-leg chunk's first
+    # score call, a drain batch's first topk call where the leg drained
+    stream_cases = {"score": "score (stream chunk)",
+                    "topk": "topk (stream drain)"}
+    for mode, case in stream_cases.items():
+        if mode in calls9:
+            kern.update(kernel_case(torch, wk, case, calls9[mode],
+                                    base_wk))
     src = "nomad_tpu_torch/solver/csrc/wave_kernel.cu"
     kernels = []
     # fused_wave[topk] is the whole topk launch (tile kernel + merge);
@@ -2673,19 +3286,24 @@ def main() -> int:
             "launches": counts[mode], "launches_phase5": counts5[mode],
             "launches_phase7": counts7[mode],
             "launches_phase8": counts8[mode],
+            "launches_phase9": counts9[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "kernel_ms_cold": r["kernel_ms_cold"],
             "kernel_ms_warm": r["kernel_ms_warm"],
             "wrapper_ms": r["wrapper_ms"]})
+        keys = ("Gp", "Np", "TK", "n_extract", "ms", "kernel_ms_warm",
+                "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")
         if mode == "score":
             f = kern["score (fused round)"]
-            kernels[-1]["fused_round"] = {
-                k: f[k] for k in ("Gp", "Np", "TK", "n_extract", "ms",
-                                  "kernel_ms_warm", "wrapper_ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "max_abs_err")}
+            kernels[-1]["fused_round"] = {k: f[k] for k in keys}
+        s_case = {"merge": "topk merge (stream drain)"}.get(
+            mode, stream_cases.get(mode))
+        if s_case in kern:
+            kernels[-1]["stream"] = {k: kern[s_case][k] for k in keys
+                                     if k in kern[s_case]}
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

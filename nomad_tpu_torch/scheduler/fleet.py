@@ -14,9 +14,13 @@ capacity freed by an eval's own stops becomes visible only after its plan
 commits. An eval that fails a placement or partially commits falls back
 to the single-eval path, which sees its stops.
 
-The counterpart of `nomad_tpu.scheduler.fleet`.  The lane-parallel solve
-that `form_lanes` and `LaneWidthController` feed is ROADMAP.md Queue 1
-item 8b; the server builds its coordinator without a lane former.
+The counterpart of `nomad_tpu.scheduler.fleet`.  `form_lanes` and
+`LaneWidthController` feed the lane stream of the streaming
+`solver.resident.ResidentSolver` (`lanes=`, `lane_counters()`), and
+the serving tier's lane knobs configure the controller
+(`ServingTier.lane_controller()`); as in the reference, the server
+builds its coordinator without a lane former (ROADMAP.md Queue 1 item
+21).
 """
 from __future__ import annotations
 

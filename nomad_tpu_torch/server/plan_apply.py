@@ -12,14 +12,17 @@ plan_apply_pool.go (per-node verify fan-out over NumCPU/2 workers).
 
 PIPELINING: plan N's raft consensus round trip overlaps plan N+1's
 evaluation — the applier evaluates N+1 against plan N's KNOWN result
-overlaid on the snapshot (`_OverlaySnapshot`), dispatches N+1's raft
-apply, and only then waits/responds for N (the reference overlaps the
-same region via applyPlan's async raft future + asyncPlanWait; it
-re-snapshots at min-index instead of overlaying, trading the extra
-wait for a narrower optimism window — both designs accept the same
-hazard class, writes landing between evaluate and apply).  A plan is
-only held outstanding while another is ALREADY queued, so a singleton
-plan keeps today's latency.
+overlaid on the snapshot (`_OverlaySnapshot`), then waits/responds for
+N, and only then dispatches N+1's raft apply (the reference overlaps
+the same region via applyPlan's async raft future + asyncPlanWait,
+which answers N as soon as it commits; it re-snapshots at min-index
+instead of overlaying, trading the extra wait for a narrower optimism
+window — both designs accept the same hazard class, writes landing
+between evaluate and apply).  N is answered before N+1 is dispatched
+because the single-server raft applies an entry inside the dispatch:
+answering after it would hold N's worker for the whole of N+1's apply.
+A plan is only held outstanding while another is ALREADY queued, so a
+singleton plan keeps today's latency.
 
 The counterpart of `nomad_tpu.server.plan_apply`.
 """
@@ -179,11 +182,12 @@ class _Outstanding:
     """A dispatched-but-unacknowledged apply: one plan, or a
     group-commit batch of K plans riding a single raft entry (one
     fsync); each member keeps its own future + result."""
-    __slots__ = ("items", "finish")
+    __slots__ = ("items", "finish", "done")
 
     def __init__(self, items, finish):
         self.items = items            # [(pending, plan, result), ...]
         self.finish = finish          # blocks until raft-applied
+        self.done = False             # set by the one _finalize
 
 
 class PlanApplier:
@@ -296,8 +300,12 @@ class PlanApplier:
             # intra-batch conflicts surface as partial commits exactly
             # as they would pipelined one by one
             snapshot = _OverlaySnapshot(snapshot, result)
+        if out is not None:
+            # N+1 is evaluated: answer N before N+1's dispatch (see the
+            # module docstring)
+            self._finalize(out)
         if not items:
-            return out
+            return None
         if len(items) > 1 and self.apply_batch_async_fn is not None:
             try:
                 index, finish = self.apply_batch_async_fn(
@@ -305,29 +313,17 @@ class PlanApplier:
             except Exception as e:
                 for p, _pl, _res in items:
                     p.future.respond(None, f"plan apply error: {e}")
-                return out
+                return None
             _m.incr_counter("plan.group_commits")
             _m.incr_counter("plan.raft_applies")
             _m.add_sample("plan.group_commit_size", float(len(items)))
-            new_out = _Outstanding(items, finish)
-            if out is not None:
-                # the batch's consensus is in flight: the previous
-                # round's wait+respond rides under it
-                self._finalize(out)
-            return new_out
+            return _Outstanding(items, finish)
         if self.apply_async_fn is not None and len(items) == 1:
             p, plan, result = items[0]
             index, finish = self.apply_async_fn(plan, result)
             _m.incr_counter("plan.raft_applies")
-            new_out = _Outstanding(items, finish)
-            if out is not None:
-                # plan N+1's consensus is in flight: N's wait+respond
-                # rides under it
-                self._finalize(out)
-            return new_out
+            return _Outstanding(items, finish)
         # legacy synchronous path (no async apply wired)
-        if out is not None:
-            self._finalize(out)
         for p, plan, result in items:
             with _m.timed("plan.apply"):
                 index = self.apply_fn(plan, result)
@@ -342,6 +338,9 @@ class PlanApplier:
         _account_and_respond that already delivered the result cannot
         be overwritten by the trailing error)."""
         from ..utils.metrics import global_metrics as _m
+        if out.done:
+            return None
+        out.done = True
         try:
             with _m.timed("plan.apply"):
                 index = out.finish(10.0)

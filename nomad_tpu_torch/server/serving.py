@@ -28,10 +28,12 @@ under it.
 
 The counterpart of `nomad_tpu.server.serving`, without the cross-region
 admission tier (`SpilloverRouter`, `RegionServingState`,
-`WanLatencyModel`; ROADMAP.md Queue 1, item 11) and without the lane
-knobs of the lane-parallel fused solve (`fused_lanes`, `max_lanes`,
-`lane_widen_below`, `lane_narrow_above`; item 8b), which nothing in the
-port's server reads.
+`WanLatencyModel`; ROADMAP.md Queue 1, item 11).  The four lane knobs
+(`fused_lanes`, `max_lanes`, `lane_widen_below`, `lane_narrow_above`)
+are the reference's, with its defaults; as there, the server builds no
+lane former yet (item 21), so their one reader is `lane_controller()`,
+the `LaneWidthController` they configure for the lane stream of
+`solver.resident.ResidentSolver`.
 """
 from __future__ import annotations
 
@@ -371,6 +373,14 @@ class ServingTier:
         # broker is sharded — pausing dequeue parallelism defeats shard
         # homing — else the reference's 3/4)
         "worker_pause_fraction": -1.0,
+        # lane-parallel stream solve: the starting lane width (1 = the
+        # serial stream), the width controller's pow2 ceiling, and its
+        # widen / narrow bounce-rate thresholds (fractions of lane
+        # placements the cross-lane revalidation bounced to a retry)
+        "fused_lanes": 1,
+        "max_lanes": 8,
+        "lane_widen_below": 0.05,
+        "lane_narrow_above": 0.25,
         # eviction-plane width of every worker's resident world (slots
         # per node for the in-kernel preemption pass; 0 = none, and
         # preemption takes the scheduler's host walk)
@@ -392,6 +402,10 @@ class ServingTier:
         self.coordinator = bool(k["coordinator"])
         self.pipeline = bool(k["pipeline"])
         self.worker_pause_fraction = k["worker_pause_fraction"]
+        self.fused_lanes = max(1, k["fused_lanes"])
+        self.max_lanes = max(1, k["max_lanes"])
+        self.lane_widen_below = k["lane_widen_below"]
+        self.lane_narrow_above = k["lane_narrow_above"]
         self.evict_e = max(0, k["evict_e"])
         self.solve_model = EwmaSolveModel()
         self.batch_controller = BatchController(
@@ -414,6 +428,16 @@ class ServingTier:
             slow_window_s=int(k["slo_slow_window_s"]),
             slow_burn=k["slo_slow_burn"],
             events=global_mesh_events, metrics=global_metrics)
+
+    def lane_controller(self):
+        """The lane width controller these knobs configure: it starts
+        at `fused_lanes`, steps by powers of two up to `max_lanes`, and
+        is fed `ResidentSolver.lane_counters()` bounce rates."""
+        from ..scheduler.fleet import LaneWidthController
+        return LaneWidthController(max_width=self.max_lanes,
+                                   start=self.fused_lanes,
+                                   widen_below=self.lane_widen_below,
+                                   narrow_above=self.lane_narrow_above)
 
     def note_device_solve(self, n_evals: int, device_s: float) -> None:
         """Feed the batch-sizing model the DEVICE-solve time of a fused
@@ -450,6 +474,8 @@ class ServingTier:
             "group_commit": self.group_commit,
             "coordinator": self.coordinator,
             "pipeline": self.pipeline,
+            "fused_lanes": self.fused_lanes,
+            "max_lanes": self.max_lanes,
             "last_target_batch": self.batch_controller.last_target(),
             "model_observations": self.solve_model.observations(),
             "admission": self.admission.stats(),

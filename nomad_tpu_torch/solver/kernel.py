@@ -29,9 +29,18 @@ With `has_preempt` each wave ends with the reference's eviction pass:
 groups with nothing placeable pick, per feasible node, a min-cost set of
 lower-priority victims from the node's eviction planes, rank nodes by
 the post-eviction bin-pack score and commit (place, evict) pairs through
-the same conflict checks.  The mesh tiers, the learned / region planes,
-the lane axis and the while-loop wave mode are not part of this
-package.
+the same conflict checks.
+
+The wave loop is a generator, `solve_steps`, that stops at the two
+decisions the reference makes lane-uniform under its lane axis (carried
+shortlist wave or full pass; rerank or skip) and takes each decision
+from its caller: `solve_kernel` answers with the solve's own
+predicates, `solve_lanes` advances L solves one wave at a time with the
+reference's psum rules.  Both wave modes ("scan", "while") run the same
+loop, which ends at the first wave with nothing left to decide, as the
+reference's while loop does.  `delta_scatter_set` / `delta_scatter_add`
+write rows into card-resident planes in place.  The mesh tiers and the
+learned / region planes are not part of this package.
 """
 from __future__ import annotations
 
@@ -65,6 +74,27 @@ _MERGED_W_CAP = 1024
 _WIDE_W_CAP = 256
 _SHORTLIST_TILE = 128          # auto shortlist width rounds up to this
 _U32 = 0xFFFFFFFF
+
+
+def _rows_like(arr: torch.Tensor, idx, rows):
+    idx = torch.as_tensor(idx).to(arr.device, torch.int64)
+    rows = torch.as_tensor(rows).to(arr.device, arr.dtype)
+    return idx, rows
+
+
+def delta_scatter_set(arr: torch.Tensor, idx, rows) -> torch.Tensor:
+    """Row "set" into a card-resident plane, in place (`arr[idx] =
+    rows`; the reference's donated `.at[idx].set`).  A repeated index
+    must carry identical rows: `apply_delta` pads by repeating row 0."""
+    i, r = _rows_like(arr, idx, rows)
+    return arr.index_put_((i,), r)
+
+
+def delta_scatter_add(arr: torch.Tensor, idx, rows) -> torch.Tensor:
+    """Row "add" into a card-resident plane, in place; repeated indices
+    accumulate (`apply_delta` pads with zero rows at index 0)."""
+    i, r = _rows_like(arr, idx, rows)
+    return arr.index_put_((i,), r, accumulate=True)
 
 
 def _op_eval(vals: torch.Tensor, op: torch.Tensor, rank: torch.Tensor
@@ -328,36 +358,85 @@ def _exact_matmul_on(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
-                 ask_res, ask_desired, distinct, dc_ok, host_ok, coll0,
-                 penalty,
-                 c_op, c_col, c_rank, a_op, a_col, a_rank, a_weight, a_host,
-                 sp_col, sp_weight, sp_targeted, sp_desired, sp_implicit,
-                 sp_used0, dev_cap, dev_used0, dev_ask, p_ask, n_place,
-                 seed=0, *, has_spread=True, max_waves=0, wave_mode="scan",
-                 has_distinct=True, has_devices=True, stack_commit=False, pallas_mode="off",
-                 shortlist_c=0, mesh_axis=None, has_preempt=False,
-                 ev_res=None, ev_prio=None, ask_prio=None,
-                 learned=None, region_bias=None,
-                 lane_axis=None) -> SolveResult:
+def solve_kernel(*args, lane_axis=None, **kw) -> SolveResult:
     """The one-device wave solve over tensors on one device (arguments
-    as `solve._kernel_args` lays them out).  `pallas_mode` picks the
-    wave scorer: "off" (the spec-driven torch scorer), "score" / "topk"
-    (the fused wave kernel's modes) or "auto" (`wave_kernel.resolve_mode`
-    on CUDA, "off" on the CPU).  `has_preempt` runs the eviction pass
-    over the planes `ev_res` [Np, E, R], `ev_prio` [Np, E] and
-    `ask_prio` [Gp]."""
+    as `solve._kernel_args` lays them out, keywords as `solve_steps`
+    takes them): one lane, so each lane-uniform decision is the solve's
+    own predicate.  Solves in lock-step go through `solve_lanes`, not
+    `lane_axis`."""
+    if lane_axis is not None:
+        raise NotImplementedError(
+            "solve_kernel: lane_axis is not part of the torch port; drive "
+            "the lanes' solve_steps through solve_lanes")
+    return solve_lanes([solve_steps(*args, **kw)])[0]
+
+
+def solve_lanes(lanes) -> list:
+    """Advance L solves (`solve_steps` generators) one wave at a time and
+    return their SolveResults: the reference's lock-stepped lanes (a vmap
+    over `lane_axis`).  At each wave's start every live lane offers its
+    carried-window flag and all take the carried window only when every
+    lane of the chunk has one; a lane that has finished (or never ran,
+    a padding lane) counts as one without, since its last wave left
+    nothing active and so no window.  At each wave's end all rerank when
+    any lane asks to.  A finished lane is frozen, so its waves and
+    rescores stop counting."""
+    lanes = list(lanes)
+    msgs, results = {}, [None] * len(lanes)
+
+    def advance(ln, value):
+        try:
+            msgs[ln] = (next(lanes[ln]) if value is None
+                        else lanes[ln].send(value))
+        except StopIteration as stop:
+            msgs.pop(ln, None)
+            results[ln] = stop.value
+
+    for ln in range(len(lanes)):
+        advance(ln, None)
+    while msgs:
+        kinds = {kind for kind, _ in msgs.values()}
+        if len(kinds) != 1:
+            raise RuntimeError(f"solve_lanes: lanes out of step: {kinds}")
+        if kinds.pop() == "carried":
+            take = (len(msgs) == len(lanes)
+                    and all(p for _, p in msgs.values()))
+        else:
+            take = any(p for _, p in msgs.values())
+        for ln in list(msgs):
+            advance(ln, take)
+    return results
+
+
+def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
+                ask_res, ask_desired, distinct, dc_ok, host_ok, coll0,
+                penalty,
+                c_op, c_col, c_rank, a_op, a_col, a_rank, a_weight, a_host,
+                sp_col, sp_weight, sp_targeted, sp_desired, sp_implicit,
+                sp_used0, dev_cap, dev_used0, dev_ask, p_ask, n_place,
+                seed=0, *, has_spread=True, group_count_hint=0,
+                max_waves=0, wave_mode="scan", has_distinct=True,
+                has_devices=True, stack_commit=False, pallas_mode="off",
+                shortlist_c=0, mesh_axis=None, has_preempt=False,
+                ev_res=None, ev_prio=None, ask_prio=None,
+                learned=None, region_bias=None):
+    """The wave solve as a generator.  With the shortlist on it yields
+    ("carried", ok) at each wave's start and ("rerank", pre_ok) at each
+    wave's end, and takes the decision sent back; it returns the
+    SolveResult.  `pallas_mode` picks the wave scorer: "off" (the
+    spec-driven torch scorer), "score" / "topk" (the fused wave kernel's
+    modes) or "auto" (`wave_kernel.resolve_mode` on CUDA, "off" on the
+    CPU).  `group_count_hint` sizes the wave window (0: K // 8).
+    `has_preempt` runs the eviction pass over the planes `ev_res`
+    [Np, E, R], `ev_prio` [Np, E] and `ask_prio` [Gp]."""
     for name, val, default in (("mesh_axis", mesh_axis, None),
                                ("learned", learned, None),
-                               ("region_bias", region_bias, None),
-                               ("lane_axis", lane_axis, None)):
+                               ("region_bias", region_bias, None)):
         if val is not default:
             raise NotImplementedError(
                 f"solve_kernel: {name} is not part of the torch port")
-    if wave_mode != "scan":
-        raise NotImplementedError(
-            f"solve_kernel: wave_mode={wave_mode!r} is not part of the "
-            "torch port (only the scan-shaped loop is)")
+    if wave_mode not in ("scan", "while"):
+        raise ValueError(f"solve_kernel: unknown wave_mode {wave_mode!r}")
     device = avail.device
     _exact_matmul_on(device)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -369,7 +448,7 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
     S = sp_col.shape[1]
     K = p_ask.shape[0]
 
-    per_group = K // 8
+    per_group = group_count_hint if group_count_hint > 0 else K // 8
     w_cap = _MERGED_W_CAP if Gp <= MERGED_GP_MAX else _WIDE_W_CAP
     TK = min(max(WAVE_K, min(2 * per_group, w_cap)) + TOP_K, Np)
     W = max(TK - TOP_K, 1)          # effective per-group wave width
@@ -764,7 +843,8 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
             break
         used_pre, dev_used_pre = used, dev_used
 
-        if use_sl and SL.ok:
+        take_carried = (yield ("carried", SL.ok)) if use_sl else False
+        if take_carried:
             # shortlist wave: window and counters were pre-computed at
             # the end of the previous wave — no [Gp, Np] plane is read
             (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
@@ -1072,7 +1152,10 @@ def solve_kernel(avail, reserved, used0, valid, node_dc, attr_rank,
                                           accumulate=True)
             SL = SL._replace(coll=coll_pad[:, :C])
 
-            if pre_ok:
+            # under lock-step a lane may rerank on a void premise: its
+            # `ok` stays False and the next wave's full pass rebuilds
+            # the window before anything reads it
+            if (yield ("rerank", pre_ok)):
                 (nw_s, nw_i, ntb_s, ntb_i, n_nexh, n_ndim, n_gany,
                  sl_ok) = rerank(SL, used_pre, dev_used_pre, used, dev_used,
                                  sp_used, n_exh_g, dim_exh_g, act_next_g)

@@ -939,20 +939,31 @@ class Solver:
         return None
 
 
-def solve_trace_attrs(pb: PackedBatch, res, device) -> Dict:
+def solve_trace_attrs(pb: PackedBatch, res, device,
+                      lane_counters: Optional[Dict] = None) -> Dict:
     """Solve-span attributes of one kernel run (fetched result): the
     batch shape, the wave / rescore counters and the placements the
-    eviction pass committed."""
+    eviction pass committed.  `lane_counters` (a lane stream's
+    `ResidentSolver.lane_counters()`) adds the lane width and the
+    cross-lane revalidation's bounce accounting."""
     waves = int(res.n_waves)
     rescore = int(res.n_rescore)
     evicted = (int(np.asarray(res.evict).any(axis=1).sum())
                if res.evict is not None else 0)
-    return {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
-            "n_nodes": int(pb.n_real), "device": torch.device(device).type,
-            "waves": waves, "rescore_waves": rescore,
-            "shortlist_waves": waves - rescore,
-            "evict_commits": evicted,
-            "unfinished": int(np.asarray(res.unfinished).sum())}
+    attrs = {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
+             "n_nodes": int(pb.n_real), "device": torch.device(device).type,
+             "waves": waves, "rescore_waves": rescore,
+             "shortlist_waves": waves - rescore,
+             "evict_commits": evicted,
+             "unfinished": int(np.asarray(res.unfinished).sum())}
+    if lane_counters is not None:
+        attrs["lanes"] = int(lane_counters.get("lanes", 1))
+        attrs["lane_chunks"] = int(lane_counters.get("chunks", 0))
+        attrs["lane_bounced"] = int(lane_counters.get("bounced", 0))
+        attrs["lane_committed"] = int(lane_counters.get("committed", 0))
+        attrs["lane_bounce_rate"] = float(
+            lane_counters.get("bounce_rate", 0.0))
+    return attrs
 
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,

@@ -25,6 +25,10 @@ planes: each node's top-E evictable allocs in `_evict_sort_key` order
 on a template); `apply_node_delta_host` keeps them current through
 `apply_evict_ops`.
 
+`plane_crc` / `template_checksum` fingerprint the node-side planes, so
+the streaming `ResidentSolver`'s card-resident planes can be held to
+the host template they mirror.
+
 Resource dims (R=4): cpu MHz, memory MB, disk MB, network mbits.
 """
 from __future__ import annotations
@@ -358,6 +362,12 @@ class NodeDelta:
     alloc_place: List[Tuple[int, object]] = field(default_factory=list)
     alloc_stop: List[Tuple[int, object]] = field(default_factory=list)
 
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in (
+            self.idx, self.avail, self.reserved, self.valid,
+            self.node_class, self.node_dc, self.attr_rank, self.dev_cap,
+            self.u_idx, self.u_res, self.u_dev))
+
     def touches_nodes(self) -> bool:
         return self.idx.size > 0
 
@@ -433,6 +443,37 @@ def apply_evict_ops(template: PackedBatch, stops, places) -> None:
 
 def _apply_evict_delta(template: PackedBatch, nd: NodeDelta) -> None:
     apply_evict_ops(template, nd.alloc_stop, nd.alloc_place)
+
+
+def plane_crc(avail, reserved, valid, node_dc, attr_rank, dev_cap,
+              ev_prio=None, ev_res=None, meta: bytes = b"") -> int:
+    """CRC32 over the node-side planes in a fixed order (numpy arrays or
+    tensors, fetched to the host).  `valid` is canonicalized to uint8 so
+    host bools and fetched device bools hash identically."""
+    import zlib
+
+    def host(a):
+        if hasattr(a, "detach"):
+            a = a.detach().cpu().numpy()
+        return np.ascontiguousarray(np.asarray(a))
+    crc = zlib.crc32(meta)
+    arrs = [host(avail), host(reserved), host(valid).astype(np.uint8),
+            host(node_dc), host(attr_rank), host(dev_cap)]
+    if ev_prio is not None:
+        arrs += [host(ev_prio), host(ev_res)]
+    for a in arrs:
+        crc = zlib.crc32(a.tobytes(), crc)
+    return crc
+
+
+def template_checksum(template: PackedBatch) -> int:
+    """Fingerprint of a template's node-side planes (the host source of
+    truth); `ResidentSolver.plane_checksum()` must equal it."""
+    t = template
+    meta = f"{t.n_real}:{','.join(t.node_ids)}".encode()
+    return plane_crc(t.avail, t.reserved, t.valid, t.node_dc,
+                     t.attr_rank, t.dev_cap, ev_prio=t.ev_prio,
+                     ev_res=t.ev_res, meta=meta)
 
 
 class Tensorizer:

@@ -1,16 +1,24 @@
-"""Fleet health counters and their numpy reduction (`health_host`).
+"""Fleet health counters: the device reduction and its numpy twin.
 
-The counterpart of the host half of `nomad_tpu.telemetry.health`:
-`HealthCounters` (exact integer fleet counters for one sample: per-
-resource utilization ge-counts, stranded-capacity fragmentation, busy /
-per-DC counts for spread-violation accounting, evictable pressure and
-device totals) and `health_host`, the reference's numpy twin of its
-device health kernel, with the same clamps, multiply-threshold compares
-and hi/lo split sums.  The server's telemetry beat samples it over the
-worker solver's resident template (`Solver.health_counters`).  The
-device kernel itself (`_health_kernel` as torch ops) is ROADMAP.md
-Queue 1, item 9; the counter-wise `merge` of regions and the report's
-per-tier byte totals come with the mesh tiers (item 11).
+The counterpart of `nomad_tpu.telemetry.health`: `HealthCounters` (exact
+integer fleet counters for one sample: per-resource utilization
+ge-counts, stranded-capacity fragmentation, busy / per-DC counts for
+spread-violation accounting, evictable pressure and device totals),
+`_health_kernel`, one pass of torch ops over a resident solver's
+card-resident planes and carried usage (`device_health_counters`,
+`ResidentSolver.health_counters`), and `health_host`, its numpy twin,
+with the same clamps, multiply-threshold compares and hi/lo split sums,
+so the two agree bit for bit.  The server's telemetry beat samples the
+twin over the worker solver's resident template
+(`Solver.health_counters`).  The counter-wise `merge` of regions, the
+elastic layouts' live-row mask and the report's per-tier byte totals
+come with the mesh tiers (ROADMAP.md Queue 1, item 11).
+
+Every reduced quantity is an integer: per-node values are clamped to
+[0, 2^24) (f32-exact), split into hi = v >> 14 and lo = v & 16383 and
+summed in int32 (overflow-free up to `MAX_NODES` nodes), then recombined
+on the host as Python ints.  Histogram membership multiplies by exact
+f32 edges (`used >= avail * edge`), never divides.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 #: static DC-universe bound for the segment-sum planes; node_dc ids are
 #: clamped into it (interned ids are small in practice).
@@ -40,10 +49,105 @@ _CAP_I = (1 << 24) - 1
 _CAP_F = np.float32(_CAP_I)
 _SPLIT = 1 << 14
 
+#: hi/lo split sums stay inside int32 for up to this many nodes
+#: (2^17 * max(hi) = 2^17 * 2^10 < 2^31); device_health_raw guards it
+MAX_NODES = 1 << 17
+
+
 def _split_sum(v_i):
     """Order-independent i32 split sum over the node axis (axis 0)."""
     return ((v_i >> 14).sum(axis=0),
             (v_i & (_SPLIT - 1)).sum(axis=0))
+
+
+def _health_kernel(avail, valid, node_dc, dev_cap, used, dev_used,
+                   ask_res, ev_prio=None, ev_res=None) -> Dict:
+    """One-pass fleet reduction on the planes' device; returns a dict of
+    small int32 tensors (unpacked by `_unpack_raw`).  `ev_prio` /
+    `ev_res` are None when the world has no preemption planes."""
+    i32 = torch.int32
+    cap = float(_CAP_F)
+    mask = _SPLIT - 1
+    edges = torch.tensor(UTIL_EDGES, dtype=torch.float32,
+                         device=avail.device)
+    vcol = valid[:, None]
+    av = torch.where(vcol, avail.clamp(0.0, cap), 0.0)
+    us = torch.where(vcol, used.clamp(0.0, cap), 0.0)
+    free = (av - us).clamp(0.0, cap)
+    av_i, us_i, free_i = av.to(i32), us.to(i32), free.to(i32)
+
+    def isum(x, dim=None):
+        return (x.to(i32).sum(dtype=i32) if dim is None
+                else x.to(i32).sum(dim=dim, dtype=i32))
+
+    def split(v_i):
+        return torch.stack([isum(v_i >> 14, 0), isum(v_i & mask, 0)])
+
+    # ge-counts per (resource, edge); av is zeroed for invalid rows, so
+    # the av > 0 gate doubles as the validity gate
+    cap_pos = av > 0.0
+    ge = isum((us[:, :, None] >= av[:, :, None] * edges)
+              & cap_pos[:, :, None], 0)                      # [R, E]
+    busy = (cap_pos & (us >= av * BUSY_EDGE)).any(dim=1)
+    # stranded capacity: free somewhere, but no nonzero probe ask fits
+    ask_mask = (ask_res > 0.0).any(dim=1)                   # [Gp]
+    fits = (ask_res[None, :, :] <= free[:, None, :]).all(dim=2)
+    placeable = (fits & ask_mask[None, :]).any(dim=1)
+    stranded = valid & (isum(free_i, 1) > 0) & ~placeable
+    dcc = node_dc.to(torch.int64).clamp(0, MAX_DC - 1)
+    # device planes: sum over the device axis first, then clamp
+    dcap = isum(torch.where(vcol, dev_cap.clamp(0.0, cap), 0.0),
+                1).clamp(max=_CAP_I)
+    dusd = isum(torch.where(vcol, dev_used.clamp(0.0, cap), 0.0),
+                1).clamp(max=_CAP_I)
+    # outputs stacked into a handful of buffers (order: _SCALAR_KEYS,
+    # _SUM_KEYS, then the eviction entries)
+    scalars = [isum(valid), isum(busy), isum(stranded),
+               isum(dcap >> 14), isum(dcap & mask),
+               isum(dusd >> 14), isum(dusd & mask)]
+    sums = [split(v_i) for v_i in (free_i, us_i, av_i,
+                                   torch.where(stranded[:, None], free_i, 0))]
+    if ev_prio is not None:
+        slots = (ev_prio >= 0) & vcol
+        scalars.append(isum(slots))
+        ev_i = isum(torch.where(slots[:, :, None], ev_res.clamp(0.0, cap),
+                                0.0), 1).clamp(max=_CAP_I)   # [Np, R]
+        sums.append(split(ev_i))
+    zeros = torch.zeros(MAX_DC, dtype=i32, device=avail.device)
+    return {
+        "scalars": torch.stack(scalars),
+        "sums": torch.stack(sums),
+        "util_ge": ge,
+        "dc_nodes": zeros.index_add(0, dcc, valid.to(i32)),
+        "dc_busy": zeros.index_add(0, dcc, busy.to(i32)),
+    }
+
+
+#: unpack order for the kernel's stacked outputs (ev entries ride at
+#: the end only when the world packs preemption planes)
+_SCALAR_KEYS = ("nodes_valid", "nodes_busy", "nodes_stranded",
+                "dev_cap_hi", "dev_cap_lo", "dev_used_hi",
+                "dev_used_lo")
+_SUM_KEYS = ("free", "used", "avail", "stranded_free")
+
+
+def _unpack_raw(got: Dict) -> Dict:
+    """Fan the kernel's stacked buffers (fetched to numpy) back out to
+    the flat raw-dict key space `HealthCounters.from_raw` and the host
+    twin share."""
+    raw = {"util_ge": got["util_ge"], "dc_nodes": got["dc_nodes"],
+           "dc_busy": got["dc_busy"]}
+    sc = np.asarray(got["scalars"])
+    for i, k in enumerate(_SCALAR_KEYS):
+        raw[k] = sc[i]
+    if sc.shape[0] > len(_SCALAR_KEYS):
+        raw["ev_slots"] = sc[len(_SCALAR_KEYS)]
+    sums = np.asarray(got["sums"])
+    for i, k in enumerate(_SUM_KEYS):
+        raw[k + "_hi"], raw[k + "_lo"] = sums[i, 0], sums[i, 1]
+    if sums.shape[0] > len(_SUM_KEYS):
+        raw["ev_hi"], raw["ev_lo"] = sums[-1, 0], sums[-1, 1]
+    return raw
 
 
 def _recombine(hi, lo) -> Tuple[int, ...]:
@@ -244,3 +348,39 @@ def health_host(template, used, dev_used,
             np.int32(_CAP_I))
         raw["ev_hi"], raw["ev_lo"] = _split_sum(ev_i)
     return HealthCounters.from_raw(raw)
+
+
+# ------------------------------------------------- resident solvers
+def device_health_raw(solver) -> Dict:
+    """Run the health kernel over a resident solver's device planes and
+    return its outputs unfetched (tensors on the solver's device).  The
+    probe ask_res is put on the device once per template."""
+    dn = solver._dev_node
+    np_rows = int(solver.template.avail.shape[0])
+    if np_rows > MAX_NODES:
+        raise ValueError(
+            f"health kernel split accumulators are i32-safe up to "
+            f"{MAX_NODES} nodes; got {np_rows}")
+    # keyed on the template: a repack swaps it
+    cache = solver.__dict__.get("_health_ask_dev")
+    if cache is None or cache[0] is not solver.template:
+        dev = solver._put_ask(
+            "health_ask_res",
+            np.asarray(solver.template.ask_res, np.float32))
+        solver.__dict__["_health_ask_dev"] = cache = (solver.template, dev)
+    return _health_kernel(
+        dn["avail"], dn["valid"], dn["node_dc"], dn["dev_cap"],
+        solver._used, solver._dev_used, cache[1],
+        dn.get("ev_prio"), dn.get("ev_res"))
+
+
+def fetch_health(raw) -> HealthCounters:
+    """Fetch a `device_health_raw` result and build its counters."""
+    got = {k: v.cpu().numpy() for k, v in raw.items()}
+    return HealthCounters.from_raw(_unpack_raw(got))
+
+
+def device_health_counters(solver) -> HealthCounters:
+    """The health kernel over a resident solver's device planes: one
+    pass on the device and one fetch."""
+    return fetch_health(device_health_raw(solver))

@@ -11,6 +11,7 @@ came out (by its position among the evals it made, since eval ids are
 fresh uuids), the stats the components report, the plan results — and
 the two records must be equal; each scenario also asserts the
 reference's expected behaviour itself."""
+import threading
 import time
 from types import SimpleNamespace
 
@@ -359,3 +360,63 @@ def test_server_plane_matches_reference(name):
     ref = SCENARIOS[name](package("ref"))
     port = SCENARIOS[name](package("port"))
     assert port == ref
+
+
+@pytest.mark.parametrize("group", [False, True], ids=["single", "group"])
+def test_applier_answers_a_plan_before_dispatching_the_next(group):
+    """The single-server raft applies an entry inside the dispatch, so
+    the applier answers plan N once N+1 is evaluated and before N+1 is
+    dispatched: N's worker never waits out N+1's apply.  Here N+1's
+    apply holds until N is answered (one plan a round, or group commits
+    of two).  The JAX package answers N after N+1's dispatch, and so
+    fails this (ROADMAP.md, Queue 3); the port alone is held to it."""
+    P = package("port")
+    store, node = store_with_node(P, cpu=64000, mem=65536)
+    q = P.PlanQueue()
+    q.set_enabled(True)
+    release = threading.Event()
+    index = {"i": 100}
+
+    def apply(pairs):
+        index["i"] += 1
+        i = index["i"]
+        for plan, result in pairs:
+            if plan.job.id.startswith("second"):
+                release.wait(10.0)
+            store.upsert_plan_results(i, result, plan.job)
+        return i, (lambda timeout=10.0: i)
+
+    if group:
+        kw = {"apply_batch_async_fn": apply, "group_commit": 2}
+    else:
+        kw = {"apply_async_fn": lambda pl, res: apply([(pl, res)])}
+    applier = P.PlanApplier(q, store, lambda pl, res: apply([(pl, res)])[0],
+                            **kw)
+    n = 2 if group else 1
+    plans = []
+    for name in [f"first{k}" for k in range(n)] + [f"second{k}"
+                                                   for k in range(n)]:
+        job = P.mock.job(id=name)
+        a = P.mock.alloc(job=job, node_id=node.id)
+        a.allocated_resources.tasks["web"].networks = []
+        plan = P.st.Plan(job=job)
+        plan.append_alloc(a)
+        plans.append(plan)
+    # all queued before the applier starts: N is held while N+1 waits
+    pending = [q.enqueue(plan) for plan in plans]
+    applier.start()
+    try:
+        firsts = [p.future.wait(5.0) for p in pending[:n]]
+        before_release = not release.is_set()
+    finally:
+        release.set()
+        seconds = [p.future.wait(5.0) for p in pending[n:]]
+        applier.stop()
+        q.set_enabled(False)
+    assert before_release
+
+    def answers(futs):
+        return [(err, getattr(r, "alloc_index", None)) for r, err in futs]
+    assert answers(firsts) == [(None, 101)] * n
+    assert answers(seconds) == [(None, 102)] * n
+    assert len(store.allocs_by_node(node.id)) == 2 * n

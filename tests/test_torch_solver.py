@@ -220,9 +220,11 @@ def test_unsupported_options_raise():
     pb, has_spread = packed("binpack", 20, 4, False)
     for kw in (dict(mesh_axis="nodes"),
                dict(learned=torch.zeros(1)), dict(region_bias=torch.zeros(1)),
-               dict(lane_axis="lanes"), dict(wave_mode="while")):
+               dict(lane_axis="lanes")):
         with pytest.raises(NotImplementedError):
             port_solve(pb, 0, has_spread=has_spread, **kw)
+    with pytest.raises(ValueError, match="wave_mode"):
+        port_solve(pb, 0, has_spread=has_spread, wave_mode="loop")
 
 
 def test_no_silent_cpu(monkeypatch):
@@ -244,7 +246,8 @@ def test_no_silent_cpu(monkeypatch):
 
 #: one module of each subpackage of the port (a later move that drops a
 #: subpackage from the scans below fails here)
-PORT_MODULES = ["nomad_tpu_torch.solver.solve", "nomad_tpu_torch.mock",
+PORT_MODULES = ["nomad_tpu_torch.solver.solve",
+                "nomad_tpu_torch.solver.resident", "nomad_tpu_torch.mock",
                 "nomad_tpu_torch.scheduler.harness",
                 "nomad_tpu_torch.scheduler.fleet",
                 "nomad_tpu_torch.state.store",
