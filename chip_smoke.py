@@ -117,7 +117,8 @@ Phases, one JSON line each; any failed phase exits nonzero:
                blocked eval of its job, no node oversubscribed or down,
                no world rebuilt in the legs (each worker ends them on the
                world object it began with, its delta syncs and plan feeds
-               only grew and no repack fell back), a
+               only grew and no repack fell back), every solve span of
+               legs A and B on the device route (`backend`), a
                fused round of two or more evals, topk and merge launches
                in leg A and score launches in leg B, and the first fused
                score round's packed batch re-solved with the kernel and
@@ -196,9 +197,40 @@ Phases, one JSON line each; any failed phase exits nonzero:
                choice differing only where its scores tie, victim masks
                and carried usage equal.
 
+  10. host route — the host route of the solve and the optional score
+               planes, three legs, one line each.  L1: bench.py config 1
+               as run_ours_latency runs it (100 nodes of the bench's
+               generator, 12 evals of one job of 10 groups x 10 under a
+               `kernel.name = linux` constraint, after one warm-up eval;
+               `prefer_host` must pick the host for its padded shape):
+               the bench's own pick, `HostResidentSolver` at the exact
+               pads (10, 100), native and numpy, timed; then the same
+               evals at the card's pads (16, 128) through
+               `HostResidentSolver(device_parity=True)` native and numpy
+               and the card's `ResidentSolver(device="cuda")`, each with
+               its own fresh usage and one `solve_stream` per eval.
+               Every eval's choices, ok flags, statuses and carried usage
+               equal across the three, scores within rtol 2e-5; p50 /
+               p99 per eval and evals/s for each, the card's wave-kernel
+               launches.  L2: `Server(device="cuda")` over 100 such
+               nodes, 12 config-1 jobs in turn: every eval complete, the
+               store holds each job's placed allocs, no node
+               oversubscribed, every solve span `backend == "host"` and
+               no wave-kernel launch; p50 / p99 eval wall and its split
+               as leg A's.  L3: one config-3 job's packed batch (Gp 4,
+               Np 10,240) on phase 4's cluster with its 100,000 resident
+               allocs, with a learned plane (a quarter of its entries
+               zero) and a three-level region plane (home dc > sibling >
+               remote) from numpy's default_rng(10), each alone and both:
+               the port's `solve_kernel` on the card against the numpy
+               `host_solve_kernel` under assert_same, each solve's card
+               ms (CUDA events), and no wave-kernel launch (a plane pins
+               the torch scorer).
+
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8 and 9 as `launches_phase5`,
-`launches_phase7`, `launches_phase8` and `launches_phase9` beside them),
+worker's path (phase 6; phases 5, 7, 8, 9 and 10 as `launches_phase5`,
+`launches_phase7`, `launches_phase8`, `launches_phase9` and
+`launches_phase10` beside them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), and each
@@ -732,7 +764,6 @@ def make_nodes(mock, n_nodes, start=0):
 def make_job(mock, structs, eval_ix, count):
     """bench.py make_job, config 3: two constraints, a rack affinity, a
     datacenter spread, 4 groups of count // 4."""
-    import copy
     job = mock.job()
     job.id = f"job-3-{eval_ix}"
     job.name = job.id
@@ -745,22 +776,26 @@ def make_job(mock, structs, eval_ix, count):
                                        operand="=", weight=35)]
     job.spreads = [structs.Spread(attribute="${node.datacenter}",
                                   weight=50)]
-    base = job.task_groups[0]
-    groups = []
-    for g in range(4):
-        tg = copy.deepcopy(base)
-        tg.name = f"g{g}"
-        tg.count = count // 4
-        tg.constraints = []
-        t = tg.tasks[0]
-        t.resources.networks = []
-        t.resources.cpu = 400 + (g % 4) * 150
-        t.resources.memory_mb = 256 + (g % 4) * 128
-        t.resources.devices = []
-        tg.ephemeral_disk.size_mb = 300
-        groups.append(tg)
-    job.task_groups = groups
+    job.task_groups = [bench_group(job.task_groups[0], g, count // 4)
+                       for g in range(4)]
     return job
+
+
+def bench_group(base, g, count):
+    """bench.py make_job's group g: a copy of `base` with cpu
+    400-850 MHz, memory 256-640 MB, disk 300 MB, no network or device."""
+    import copy
+    tg = copy.deepcopy(base)
+    tg.name = f"g{g}"
+    tg.count = count
+    tg.constraints = []
+    t = tg.tasks[0]
+    t.resources.networks = []
+    t.resources.cpu = 400 + (g % 4) * 150
+    t.resources.memory_mb = 256 + (g % 4) * 128
+    t.resources.devices = []
+    tg.ephemeral_disk.size_mb = 300
+    return tg
 
 
 def asks_for(job):
@@ -2087,6 +2122,8 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
             evals_a.append(ev.id)
             check(attrs.get("resident"), f"leg A eval {e} left the "
                   "resident path")
+            check(attrs.get("backend") == "device", f"leg A eval {e} "
+                  f"solved on the {attrs.get('backend')!r} route")
         torch.cuda.synchronize()
         counts_a = dict(wk.fused_wave.mode_launches)
         rec_a = probe.since(mark)
@@ -2131,6 +2168,11 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
         names = {ev.job_id: sorted(a.name for a in srv.store.allocs_by_job(
             structs.DEFAULT_NAMESPACE, ev.job_id)) for ev in finals}
         plans_placed = {j: sorted(v) for j, v in probe.placed.items()}
+        # the route of every config-3 solve of the legs (Np 10,240 is
+        # above the host twin's gate)
+        solve_backends = collections.Counter(
+            s["attrs"].get("backend") for eid in evals_a + evals_b
+            for s in global_tracer.get(eid) or () if s["name"] == "solve")
 
         # ---- leg C: a system job, a node join, the job deregistered
         gc.collect()
@@ -2218,7 +2260,7 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
             "raft_fsm_plan_apply_ms": [1e3 * r["s"]
                                        for r in rec_b["applies"]],
             "launches": counts_b},
-        "leg_c": leg_c,
+        "leg_c": leg_c, "solve_backends": dict(solve_backends),
         "blocked_evals": blocked, "broker": broker,
         "first_fused_score_round": (
             {k: fused_score[0][k] for k in ("evals", "asks", "Gp", "K",
@@ -2247,6 +2289,9 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
                   and w1["delta_syncs"] >= w0["delta_syncs"]
                   and w1["plan_feeds"] >= w0["plan_feeds"],
                   f"a worker's world was rebuilt in the legs: {w0} -> {w1}")
+        check(set(solve_backends) == {"device"}
+              and solve_backends["device"] >= n_serial,
+              f"config-3 solve spans by route: {dict(solve_backends)}")
         check(counts_a["topk"] > 0
               and counts_a["merge"] == counts_a["topk"],
               f"leg A launches {counts_a}")
@@ -3223,6 +3268,323 @@ def phase_stream(torch, wk, n_nodes, resident, n_evals, epc=STREAM_EPC,
     return counts, calls, row
 
 
+# ----------------------------------------------------------- phase 10
+#: bench.py config 1 (`CONFIGS[1]`): 100 nodes, 12 evals of one service
+#: job of 10 groups x 10, no resident allocs
+LAT_NODES = 100
+LAT_EVALS = 12
+LAT_COUNT = 100
+#: the card's pow2 pads of config 1 (bench.py run_ours_latency's device
+#: branch): 10 groups -> 16, 100 placements -> 128
+LAT_GP, LAT_KP = 16, 128
+#: the plane seed of leg L3
+PLANE_SEED = 10
+
+
+def make_job1(mock, structs, eval_ix, count):
+    """bench.py make_job, config 1: a `kernel.name = linux` constraint,
+    10 groups of count // 10 (`bench_group`)."""
+    job = mock.job()
+    job.id = f"job-1-{eval_ix}"
+    job.name = job.id
+    job.datacenters = [f"dc{d}" for d in range(4)]
+    job.constraints = [structs.Constraint("${attr.kernel.name}", "linux",
+                                          "=")]
+    job.affinities = []
+    job.spreads = []
+    job.task_groups = [bench_group(job.task_groups[0], g,
+                                   max(1, count // 10)) for g in range(10)]
+    return job
+
+
+def latency_run(rs, jobs):
+    """bench.py run_ours_latency's loop on one engine: one warm-up eval
+    (the first job, seed 1), the usage reset, then per eval
+    `pack_batch_cached` and one `solve_stream` (seed e + 1).  Returns
+    the per-eval outputs and carried usage, and the walls."""
+    from nomad_tpu_torch.solver.resident import STATUS_RETRY
+    rs.reset_usage()
+    rs.solve_stream([rs.pack_batch(asks_for(jobs[0]))], seeds=[1])
+    rs.reset_usage()
+    outs, usage, walls = [], [], []
+    for e, job in enumerate(jobs):
+        t = time.perf_counter()
+        pb = rs.pack_batch_cached(asks_for(job))
+        out = rs.solve_stream([pb], seeds=[e + 1])
+        walls.append(time.perf_counter() - t)
+        outs.append((pb.n_place, out))
+        usage.append(rs.usage()[0].copy())
+    placed = failed = retried = 0
+    for n, (_c, ok, _s, status) in outs:
+        placed += int(ok[0, :n, 0].sum())
+        failed += int((status[0, :n] == 0).sum())
+        retried += int((status[0, :n] == STATUS_RETRY).sum())
+    ms = [1e3 * w for w in walls]
+    row = {"p50_ms": statistics.median(ms), "p99_ms": pct(ms, 0.99),
+           "evals_per_s": len(jobs) / sum(walls), "walls_ms": ms,
+           "placed": placed, "failed": failed, "retried": retried}
+    return outs, usage, row
+
+
+def latency_agree(what, a, b, exact_usage):
+    """Two engines' per-eval outputs: ok flags, choices where ok and
+    statuses equal, scores within the reference's rtol 2e-5, and the
+    carried usage after every eval equal (to rtol 1e-5 against the
+    card's f32 sums)."""
+    (outs_a, use_a), (outs_b, use_b) = a, b
+    worst = 0.0
+    for e, ((n, oa), (_n, ob)) in enumerate(zip(outs_a, outs_b)):
+        c_a, ok_a, s_a, st_a = (x[0, :n] for x in oa)
+        c_b, ok_b, s_b, st_b = (x[0, :n] for x in ob)
+        check(np.array_equal(ok_a, ok_b), f"{what}: eval {e} ok differs")
+        check(np.array_equal(np.where(ok_a, c_a, -1),
+                             np.where(ok_b, c_b, -1)),
+              f"{what}: eval {e} choices differ")
+        check(np.array_equal(st_a, st_b), f"{what}: eval {e} statuses "
+              "differ")
+        check(np.allclose(np.where(ok_a, s_a, 0.0), np.where(ok_b, s_b, 0.0),
+                          rtol=2e-5, atol=2e-5),
+              f"{what}: eval {e} scores differ")
+        if ok_a.any():
+            worst = max(worst, float(np.abs(s_a[ok_a] - s_b[ok_a]).max()))
+        same = (np.array_equal(use_a[e], use_b[e]) if exact_usage
+                else np.allclose(use_a[e], use_b[e], rtol=1e-5))
+        check(same, f"{what}: eval {e} carried usage differs")
+    return worst
+
+
+def leg_latency(torch, wk, mock, structs, nodes):
+    """L1: bench config 1 as run_ours_latency runs it, on the host
+    engines and on the card."""
+    from nomad_tpu_torch.solver.host import HostResidentSolver, prefer_host
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    jobs = [make_job1(mock, structs, e, LAT_COUNT) for e in range(LAT_EVALS)]
+    probe = asks_for(jobs[0])
+    gp_need, kp_need = len(jobs[0].task_groups), LAT_COUNT
+    check(prefer_host(pow2(LAT_NODES), gp_need, kp_need),
+          "config 1 is not routed to the host")
+    check((pow2(gp_need), pow2(kp_need)) == (LAT_GP, LAT_KP),
+          "the card's pads of config 1")
+    row = {"nodes": LAT_NODES, "evals": LAT_EVALS, "count": LAT_COUNT,
+           "groups": gp_need, "prefer_host": True}
+    # the bench's own pick: the host engine at exact pads (10, 100)
+    timing = {}
+    for name, native in (("native", True), ("numpy", False)):
+        t = time.perf_counter()
+        rs = HostResidentSolver(nodes, probe, gp=gp_need, kp=kp_need,
+                                use_native=native)
+        build_s = time.perf_counter() - t
+        _o, _u, timing[name] = latency_run(rs, jobs)
+        timing[name]["startup_s"] = build_s
+    row["exact_pads"] = timing
+    # the comparison: every engine at the card's pads, host engines with
+    # device_parity, each with its own fresh usage
+    runs, parity = {}, {}
+    for name, native in (("native", True), ("numpy", False)):
+        rs = HostResidentSolver(nodes, probe, gp=LAT_GP, kp=LAT_KP,
+                                use_native=native, device_parity=True)
+        outs, usage, parity[name] = latency_run(rs, jobs)
+        runs[name] = (outs, usage)
+    t = time.perf_counter()
+    rs = ResidentSolver(nodes, probe, gp=LAT_GP, kp=LAT_KP, device=DEVICE)
+    # the f32 result layout, so scores compare to rtol 2e-5 (the compact
+    # fetch carries bfloat16 scores)
+    rs._compact = False
+    build_s = time.perf_counter() - t
+    zero_launches(torch, wk)
+    outs, usage, parity["card"] = latency_run(rs, jobs)
+    torch.cuda.synchronize()
+    launches = dict(wk.fused_wave.mode_launches)
+    parity["card"]["startup_s"] = build_s
+    parity["card"]["launches"] = launches
+    runs["card"] = (outs, usage)
+    row["parity_pads"] = parity
+    row["max_abs_score_diff"] = {
+        "native_vs_numpy": latency_agree("native vs numpy", runs["native"],
+                                         runs["numpy"], True),
+        "card_vs_numpy": latency_agree("card vs numpy", runs["card"],
+                                       runs["numpy"], False)}
+    check(wk.fused_wave.launches > 0, "the card's stream launched no "
+          f"wave kernel: {launches}")
+    check(parity["card"]["placed"] > 0, "config 1 placed nothing")
+    return row, launches
+
+
+def leg_server_latency(torch, wk, mock, structs, nodes):
+    """L2: the server at config-1 size: every eval routed to the host
+    twin, no wave-kernel launch."""
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    srv = Server(device=DEVICE)
+    for n in nodes:
+        srv.register_node(n)
+    probe = ServerProbe(srv, wk)
+    jobs, walls, splits, evals, backends = [], [], [], [], []
+    try:
+        srv.start()
+        zero_launches(torch, wk)
+        for e in range(LAT_EVALS):
+            job = make_job1(mock, structs, f"s{e}", LAT_COUNT)
+            t = time.perf_counter()
+            ev = srv.register_job(job)
+            t_reg = time.perf_counter()
+            wait_evals(srv, [ev.id], 120)
+            walls.append(time.perf_counter() - t)
+            split, attrs = eval_split(global_tracer, ev.id)
+            split["register"] = 1e3 * (t_reg - t)
+            split["rest"] = 1e3 * walls[-1] - sum(
+                split[k] for k in ("register", "queue", "wait_index",
+                                   "pre_solve", "solve", "plan_submit"))
+            splits.append(split)
+            backends.append(attrs.get("backend"))
+            jobs.append(job)
+            evals.append(ev.id)
+        torch.cuda.synchronize()
+        launches = dict(wk.fused_wave.mode_launches)
+        n_launches = wk.fused_wave.launches
+        finals = [srv.store.eval_by_id(x) for x in evals]
+        placed = {j.id: sorted(probe.placed.get(j.id, [])) for j in jobs}
+        check_store(structs, srv.store, [(j, placed[j.id]) for j in jobs],
+                    nodes)
+    finally:
+        probe.close()
+        srv.stop()
+    ms = [1e3 * w for w in walls]
+    row = {"evals": LAT_EVALS, "p50_ms": statistics.median(ms),
+           "p99_ms": pct(ms, 0.99), "walls_ms": ms,
+           "split_p50_ms": {k: statistics.median([s[k] for s in splits])
+                            for k in splits[0]},
+           "split_p99_ms": {k: pct([s[k] for s in splits], 0.99)
+                            for k in splits[0]},
+           "placed": sum(len(v) for v in placed.values()),
+           "backends": dict(collections.Counter(backends)),
+           "launches": launches}
+    bad = [(f.job_id, f.status) for f in finals
+           if f.status != structs.EVAL_STATUS_COMPLETE]
+    check(not bad, f"L2 evals not complete: {bad}")
+    check(backends == ["host"] * LAT_EVALS,
+          f"L2 solve spans by route: {backends}")
+    check(n_launches == 0 and not any(launches.values()),
+          f"L2 launched the wave kernel: {launches}")
+    return row
+
+
+def region_plane(pb, nodes):
+    """Three levels by datacenter: a group's home dc (g % 4) 0.5, its
+    sibling ((g + 1) % 4) 0.2, the rest 0 (padded nodes 0)."""
+    Gp, Np = pb.ask_res.shape[0], pb.avail.shape[0]
+    dc = np.full(Np, -1)
+    dc[:len(nodes)] = [int(n.datacenter[2:]) for n in nodes]
+    g = np.arange(Gp)[:, None]
+    plane = np.where(dc[None, :] == g % 4, 0.5,
+                     np.where(dc[None, :] == (g + 1) % 4, 0.2, 0.0))
+    return plane.astype(np.float32)
+
+
+def leg_planes(torch, wk, mock, structs):
+    """L3: the learned and region planes at config-3 width, the card's
+    torch solve against the numpy twin."""
+    from nomad_tpu_torch.solver.host import host_solve_kernel
+    from nomad_tpu_torch.solver.kernel import solve_kernel
+    from nomad_tpu_torch.solver.solve import (_kernel_args, _plane_args,
+                                              _to_host)
+    from nomad_tpu_torch.solver.tensorize import Tensorizer
+    t = time.perf_counter()
+    nodes = make_nodes(mock, N_NODES)
+    by_node = resident_allocs(mock, nodes, RESIDENT)
+    pb = Tensorizer().pack(nodes, asks_for(make_job(mock, structs, "p10",
+                                                    COUNT)), by_node)
+    setup_s = time.perf_counter() - t
+    Gp, Np = pb.ask_res.shape[0], pb.avail.shape[0]
+    rng = np.random.default_rng(PLANE_SEED)
+    learned = (0.5 * rng.standard_normal((Gp, Np))).astype(np.float32)
+    learned[rng.random((Gp, Np)) < 0.25] = 0.0
+    planes = {"learned": {"learned": learned},
+              "region": {"region_bias": region_plane(pb, nodes)},
+              "both": {"learned": learned,
+                       "region_bias": region_plane(pb, nodes)}}
+    has_spread = bool((pb.sp_col[:, 0] >= 0).any())
+    has_distinct = bool((pb.distinct >= 0).any())
+    args = _kernel_args(pb, DEVICE)
+    base = host_solve_kernel(*_plane_args(pb), pb.n_place, 0,
+                             has_spread=has_spread)
+    rows = {}
+    zero_launches(torch, wk)
+    for name, kw in planes.items():
+        card_kw = {k: torch.as_tensor(v).to(DEVICE) for k, v in kw.items()}
+
+        def card():
+            return solve_kernel(*args, 0, has_spread=has_spread,
+                                has_distinct=has_distinct,
+                                pallas_mode="auto", **card_kw)
+        card()                                       # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = card()
+        end.record()
+        torch.cuda.synchronize()
+        res = _to_host(res)
+        t = time.perf_counter()
+        twin = host_solve_kernel(*_plane_args(pb), pb.n_place, 0,
+                                 has_spread=has_spread, **kw)
+        host_ms = 1e3 * (time.perf_counter() - t)
+        assert_same(res, twin, f"L3 {name}: card vs twin")
+        moved = int((np.where(twin.choice_ok, twin.choice, -1)
+                     != np.where(base.choice_ok, base.choice, -1)).sum())
+        rows[name] = {"card_ms": start.elapsed_time(end),
+                      "host_twin_ms": host_ms, "waves": int(res.n_waves),
+                      "rescore_waves": int(res.n_rescore),
+                      "placed": int(res.choice_ok[:pb.n_place, 0].sum()),
+                      "choices_moved_vs_no_plane": moved,
+                      "max_abs_score_diff": float(np.abs(
+                          np.where(res.choice_ok, res.score, 0.0)
+                          - np.where(twin.choice_ok, twin.score,
+                                     0.0)).max())}
+    torch.cuda.synchronize()
+    launches = dict(wk.fused_wave.mode_launches)
+    check(wk.fused_wave.launches == 0 and not any(launches.values()),
+          f"L3 handed a plane to the wave kernel: {launches}")
+    check(any(r["choices_moved_vs_no_plane"] for r in rows.values()),
+          "L3: no plane moved a choice")
+    return {"nodes": N_NODES, "resident_allocs": RESIDENT, "Gp": Gp,
+            "Np": Np, "K": int(pb.n_place), "plane_seed": PLANE_SEED,
+            "learned_zero_share": float((learned == 0).mean()),
+            "setup_s": setup_s, "solves": rows, "launches": launches}
+
+
+def phase_host_route(torch, wk):
+    """Phase 10: the host route of the solve and the optional score
+    planes.  Returns the wave-kernel launch counts of the phase (L1's
+    card stream; L2 and L3 must launch none)."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    t0 = time.perf_counter()
+    nodes = make_nodes(mock, LAT_NODES)
+    legs, counts = {}, {"score": 0, "topk": 0, "merge": 0}
+    try:
+        # each leg starts from a full collection, so it pays only for
+        # the garbage it makes (the earlier phases leave gigabytes)
+        gc.collect()
+        legs["l1_latency"], counts = leg_latency(torch, wk, mock, structs,
+                                                 nodes)
+        emit({"phase": "host_route", "leg": "L1", **legs["l1_latency"]})
+        gc.collect()
+        legs["l2_server"] = leg_server_latency(
+            torch, wk, mock, structs, make_nodes(mock, LAT_NODES))
+        emit({"phase": "host_route", "leg": "L2", **legs["l2_server"]})
+        gc.collect()
+        legs["l3_planes"] = leg_planes(torch, wk, mock, structs)
+        emit({"phase": "host_route", "leg": "L3", **legs["l3_planes"]})
+    except PhaseError as e:
+        emit({"phase": "host_route", "failed": str(e),
+              "legs_done": sorted(legs)})
+        raise
+    emit({"phase": "host_route", "seconds": time.perf_counter() - t0,
+          "launches": counts})
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3254,6 +3616,7 @@ def main() -> int:
                             N_PREEMPT_JOBS)
     counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
                                           N_STREAM_EVALS)
+    counts10 = phase_host_route(torch, wk)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -3287,6 +3650,7 @@ def main() -> int:
             "launches_phase7": counts7[mode],
             "launches_phase8": counts8[mode],
             "launches_phase9": counts9[mode],
+            "launches_phase10": counts10[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -39,8 +39,15 @@ predicates, `solve_lanes` advances L solves one wave at a time with the
 reference's psum rules.  Both wave modes ("scan", "while") run the same
 loop, which ends at the first wave with nothing left to decide, as the
 reference's while loop does.  `delta_scatter_set` / `delta_scatter_add`
-write rows into card-resident planes in place.  The mesh tiers and the
-learned / region planes are not part of this package.
+write rows into card-resident planes in place.
+
+`learned` and `region_bias` ([Gp, Np] f32 planes, precomputed outside
+the solve) append one more scorer each (`score_spec.combine_learned` /
+`combine_region`).  Only the spec-driven torch scorer implements them,
+as in the reference: with either plane the shortlist is off and the
+wave scorer is "off" whatever `pallas_mode` asks, so no CUDA kernel is
+ever handed a plane.  The mesh tiers (`mesh_axis`) are not part of this
+package.
 """
 from __future__ import annotations
 
@@ -67,6 +74,11 @@ _FORCE_SORT_CONFLICTS = False
 # value-vocabulary size up to which spread lookups are select-sums
 _SELECT_SUM_MAX_V = 16
 _TORCH_OPS = _score_spec.TorchOps(select_sum_max_v=_SELECT_SUM_MAX_V)
+#: node-axis width from which the reference's TPU kernel extracts with
+#: `approx_max_k` (its `_APPROX_MIN_NP`, nomad_tpu/solver/kernel.py:65).
+#: The port's top-k stays exact at every width; `host.prefer_host` keeps
+#: this bound so that both packages route a problem alike
+_APPROX_MIN_NP = 4096
 # group-count at or below which a batch is treated as "merged few-group"
 MERGED_GP_MAX = 16
 # per-group candidate-window caps (wave width W <= cap)
@@ -428,13 +440,12 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     modes) or "auto" (`wave_kernel.resolve_mode` on CUDA, "off" on the
     CPU).  `group_count_hint` sizes the wave window (0: K // 8).
     `has_preempt` runs the eviction pass over the planes `ev_res`
-    [Np, E, R], `ev_prio` [Np, E] and `ask_prio` [Gp]."""
-    for name, val, default in (("mesh_axis", mesh_axis, None),
-                               ("learned", learned, None),
-                               ("region_bias", region_bias, None)):
-        if val is not default:
-            raise NotImplementedError(
-                f"solve_kernel: {name} is not part of the torch port")
+    [Np, E, R], `ev_prio` [Np, E] and `ask_prio` [Gp].  `learned` /
+    `region_bias` ([Gp, Np] f32) add their scorers and pin the
+    spec-driven scorer with the shortlist off."""
+    if mesh_axis is not None:
+        raise NotImplementedError(
+            "solve_kernel: mesh_axis is not part of the torch port")
     if wave_mode not in ("scan", "while"):
         raise ValueError(f"solve_kernel: unknown wave_mode {wave_mode!r}")
     device = avail.device
@@ -453,7 +464,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     TK = min(max(WAVE_K, min(2 * per_group, w_cap)) + TOP_K, Np)
     W = max(TK - TOP_K, 1)          # effective per-group wave width
     TKl = TK
-    C = 0 if has_distinct else resolve_shortlist_c(Np, TKl, shortlist_c)
+    # the hand-written shortlist twin and the CUDA wave kernel do not
+    # implement the learned / region terms: with a plane both stay off
+    planes = learned is not None or region_bias is not None
+    C = (0 if (has_distinct or planes)
+         else resolve_shortlist_c(Np, TKl, shortlist_c))
     use_sl = C > 0
     NE = C if use_sl else TKl       # full-wave extraction width
     ks = torch.arange(K, device=device)
@@ -529,6 +544,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         jitter = _jitter(node_ids[None, :], gs, seed)
 
     # ---------- fused wave kernel path (mode pick) ----------
+    if planes:
+        pallas_mode = "off"
     if pallas_mode == "auto":
         pallas_mode = _wk.resolve_mode(Np, Gp, TK, V, has_spread,
                                        on=device.type == "cuda")
@@ -554,7 +571,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             has_devices=has_devices, has_spread=has_spread,
             sp_col=sp_col, sp_weight=sp_weight, sp_targeted=sp_targeted,
             vnode=sp_vnode, des=sp_des, S=S, V=V, shape=(Gp, Np),
-            seed=seed, jitter=jitter)
+            seed=seed, jitter=jitter, learned=learned,
+            region_bias=region_bias)
         return _score_spec.evaluate_wave(_TORCH_OPS, ctx)
 
     # ---------- shortlist scoring twin ----------

@@ -22,14 +22,20 @@ none).  A solve with `preempt=True` on such a world runs the kernel's
 eviction pass, with a doubled wave budget, and a placement it commits
 that way comes back with the victims' alloc ids in `Placement.evicted`.
 
-The solve runs on the solver's device, `cuda` unless the caller asks for
-the CPU; with no GPU present a default `Solver()` raises instead of
-carrying on quietly on the CPU.  Under the serving tier's brownout
-(`set_degraded`) solves run with the reduced `BROWNOUT_MAX_WAVES`
-budget, and `health_counters` samples the resident world for the
-server's telemetry beat.  The reference's host-twin routing
-(`prefer_host`), watchdog failover, chaos injection and what-if plan
-view (`PlanSolverView`) are not part of this package.
+The device solve runs on the solver's device, `cuda` unless the caller
+asks for the CPU; with no GPU present a default `Solver()` raises instead
+of carrying on quietly on the CPU.  `Solver(host=)` routes a problem by
+its size, as the reference's does: "auto" (the default) solves a small
+one with the numpy twin (`host.host_solve_kernel`, when
+`host.prefer_host` holds for its padded node axis, asks and placements),
+"never" pins the device solve and "always" the twin.  The pick depends
+on the problem only, never on whether a GPU is present; each solve span
+says which ran (`backend`: "host" or "device").  Under the serving
+tier's brownout (`set_degraded`) solves run with the reduced
+`BROWNOUT_MAX_WAVES` budget, and `health_counters` samples the resident
+world for the server's telemetry beat.  The reference's watchdog
+failover, chaos injection and what-if plan view (`PlanSolverView`) are
+not part of this package.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from ..structs import (AllocatedDeviceResource, AllocatedResources,
                        AllocatedSharedResources, AllocatedTaskResources,
                        AllocMetric, DeviceAccounter, NetworkIndex, Node)
 from ..utils.metrics import global_metrics
+from .host import host_solve_kernel, prefer_host
 from .kernel import MAX_WAVES, TOP_K, solve_kernel
 from .tensorize import (EVICT_E, NUM_R, ClusterDelta, PackedBatch,
                         PlacementAsk, Tensorizer, _evict_row,
@@ -60,6 +67,8 @@ RESIDENT_MIN_NODES = 512
 #: a change-log sync whose delta touches more than this share of the
 #: nodes rebuilds the resident world instead of applying the delta
 DELTA_THRESHOLD = 0.25
+#: `Solver(host=)` routes: by the problem's size, or pinned to one side
+HOST_MODES = ("auto", "never", "always")
 #: brownout wave budget: under sustained overload the serving tier's
 #: admission controller flips workers into degraded mode and solves run
 #: with this reduced budget — undecided placements come back retryable
@@ -408,13 +417,14 @@ class PendingSolve:
         if self._out is not None:
             return self._out
         t0 = time.perf_counter()
+        backend = _backend(self._res)
         res = _to_host(self._res)
         t1 = time.perf_counter()
         self.fetch_wall_s = t1 - t0
         out = self._solver._finish_solve(self.packed, self._nodes, self._asks,
                                          res, self._used_resident,
                                          self._allocs_by_node,
-                                         self._by_dc, self._t0)
+                                         self._by_dc, self._t0, backend)
         self.finish_wall_s = time.perf_counter() - t1
         out.trace["pack_wall_s"] = round(self.pack_wall_s, 6)
         out.trace["dispatch_wall_s"] = round(self.dispatch_wall_s, 6)
@@ -425,8 +435,15 @@ class PendingSolve:
         return out
 
 
+def _backend(res) -> str:
+    """Which route produced an unfetched result: "host" for the numpy
+    twin (its arrays are numpy), else "device"."""
+    return "host" if isinstance(res.choice, np.ndarray) else "device"
+
+
 def _to_host(res):
-    """SolveResult with every tensor fetched to a numpy array."""
+    """SolveResult with every tensor fetched to a numpy array (a host
+    twin's result holds numpy arrays and passes through as it is)."""
     return res._replace(**{
         k: v.cpu().numpy() for k, v in res._asdict().items()
         if isinstance(v, torch.Tensor)})
@@ -445,15 +462,23 @@ class Solver:
     nodes rebuilds it instead.  A store-less Solver always full-packs.
     `evict_e` is the width of the world's eviction planes (slots per
     node; 0 packs none, so preemption stays with the scheduler's host
-    walk)."""
+    walk).
+
+    `host` picks the compute route: "auto" (default) solves small
+    problems with the numpy twin of the device solve (`host.py`, the
+    same placements without the device round trip), "never" / "always"
+    pin a route."""
 
     def __init__(self, device=None, store=None,
                  resident_min_nodes: Optional[int] = None,
-                 evict_e: int = EVICT_E) -> None:
+                 evict_e: int = EVICT_E, host: str = "auto") -> None:
         if not isinstance(evict_e, int) or evict_e < 0:
             raise ValueError(f"evict_e={evict_e!r}: use a non-negative "
                              "slot width (0 packs no eviction planes)")
+        if host not in HOST_MODES:
+            raise ValueError(f"host={host!r}: use one of {HOST_MODES}")
         self._device = resolve_device(device)
+        self._host = host
         self._tensorizer = Tensorizer()
         self._store = store
         self._evict_e = evict_e
@@ -618,7 +643,9 @@ class Solver:
                     preempt: bool = False) -> PendingSolve:
         """Dispatch phase of `solve`: pack and launch the solve without
         fetching the result; `wait()` on the returned PendingSolve
-        fetches and runs the host fixup walk."""
+        fetches and runs the host fixup walk.  A solve routed to the
+        host twin runs to completion here (numpy has no asynchrony), and
+        `wait()` only runs the fixup."""
         t0 = time.perf_counter()
         if not asks:
             return PendingSolve(self, out=SolveOutput(placements=[]), t0=t0)
@@ -634,7 +661,8 @@ class Solver:
         t_pack = time.perf_counter()
         res = _run_kernel(pb, self._device,
                           max_waves=BROWNOUT_MAX_WAVES
-                          if self._degraded else 0, preempt=preempt)
+                          if self._degraded else 0, preempt=preempt,
+                          host_mode=self._host)
         pending = PendingSolve(self, pb=pb, nodes=sol_nodes,
                                asks=list(asks),
                                allocs_by_node=allocs_by_node, by_dc=by_dc,
@@ -646,10 +674,11 @@ class Solver:
 
     def _finish_solve(self, pb: PackedBatch, sol_nodes, asks, res,
                       used_resident: bool, allocs_by_node, by_dc,
-                      _solve_t0: float) -> SolveOutput:
+                      _solve_t0: float, backend: str) -> SolveOutput:
         """Fetch-side half of `solve`: walks the host fixup over the
         fetched (numpy) result and builds the SolveOutput."""
-        trace_attrs = solve_trace_attrs(pb, res, self._device)
+        trace_attrs = solve_trace_attrs(pb, res, self._device,
+                                        backend=backend)
         trace_attrs["kernel_wall_s"] = round(
             time.perf_counter() - _solve_t0, 6)
         trace_attrs["resident"] = used_resident
@@ -940,18 +969,22 @@ class Solver:
 
 
 def solve_trace_attrs(pb: PackedBatch, res, device,
-                      lane_counters: Optional[Dict] = None) -> Dict:
+                      lane_counters: Optional[Dict] = None,
+                      backend: str = "device") -> Dict:
     """Solve-span attributes of one kernel run (fetched result): the
     batch shape, the wave / rescore counters and the placements the
-    eviction pass committed.  `lane_counters` (a lane stream's
-    `ResidentSolver.lane_counters()`) adds the lane width and the
-    cross-lane revalidation's bounce accounting."""
+    eviction pass committed, and which route ran it (`backend`: "host"
+    for the numpy twin, "device" for the device solve).
+    `lane_counters` (a lane stream's `ResidentSolver.lane_counters()`)
+    adds the lane width and the cross-lane revalidation's bounce
+    accounting."""
     waves = int(res.n_waves)
     rescore = int(res.n_rescore)
     evicted = (int(np.asarray(res.evict).any(axis=1).sum())
                if res.evict is not None else 0)
     attrs = {"n_asks": int(pb.n_asks), "n_place": int(pb.n_place),
              "n_nodes": int(pb.n_real), "device": torch.device(device).type,
+             "backend": backend,
              "waves": waves, "rescore_waves": rescore,
              "shortlist_waves": waves - rescore,
              "evict_commits": evicted,
@@ -967,26 +1000,36 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
 
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,
-                preempt: bool = False):
-    """Launch the solve for a packed batch on `device` (not fetched).
-    The fused wave kernel mode resolves from the shape ("auto": the
-    CUDA kernel on a GPU, the torch scorer on the CPU).  Batches without
-    distinct_hosts groups drop the blocking planes, which turns on the
-    shortlist-resident contention waves.  With `preempt`, a batch that
-    carries eviction planes and no distinct_hosts group runs the
-    eviction pass (cross-group blocking is invisible to it), with twice
-    the default wave budget: eviction commits serialize one per node
-    per wave."""
+                preempt: bool = False, host_mode: str = "auto"):
+    """Run the solve for a packed batch: on the host twin when
+    `host_mode` is "always", or "auto" and `prefer_host` holds for the
+    batch's size (returns a SolveResult of numpy arrays), else launched
+    on `device` (not fetched).  On the device the fused wave kernel mode
+    resolves from the shape ("auto": the CUDA kernel on a GPU, the torch
+    scorer on the CPU), and batches without distinct_hosts groups drop
+    the blocking planes, which turns on the shortlist-resident
+    contention waves.  With `preempt`, a batch that carries eviction
+    planes and no distinct_hosts group runs the eviction pass
+    (cross-group blocking is invisible to it), with twice the default
+    wave budget: eviction commits serialize one per node per wave.  Both
+    routes get the same decision."""
     has_spread = bool((pb.sp_col[:, 0] >= 0).any())
     has_distinct = bool((pb.distinct >= 0).any())
+    evicting = preempt and pb.ev_prio is not None and not has_distinct
+    if evicting and max_waves == 0:
+        max_waves = 2 * MAX_WAVES
+    on_host = host_mode == "always" or (host_mode == "auto" and prefer_host(
+        pb.avail.shape[0], pb.n_asks, pb.n_place))
     ev_kw = {}
-    if preempt and pb.ev_prio is not None and not has_distinct:
-        ev_res, ev_prio, ask_prio = _to_device(
-            (pb.ev_res, pb.ev_prio, pb.ask_prio), device)
+    if evicting:
+        ev = (pb.ev_res, pb.ev_prio, pb.ask_prio)
+        ev_res, ev_prio, ask_prio = ev if on_host else _to_device(ev, device)
         ev_kw = dict(has_preempt=True, ev_res=ev_res, ev_prio=ev_prio,
                      ask_prio=ask_prio)
-        if max_waves == 0:
-            max_waves = 2 * MAX_WAVES
+    if on_host:
+        return host_solve_kernel(*_plane_args(pb), pb.n_place,
+                                 has_spread=has_spread,
+                                 max_waves=max_waves, **ev_kw)
     return solve_kernel(*_kernel_args(pb, device), has_spread=has_spread,
                         has_distinct=has_distinct, pallas_mode="auto",
                         max_waves=max_waves, **ev_kw)
@@ -1002,10 +1045,10 @@ def _to_device(planes, device):
     return tuple(t(x) for x in planes)
 
 
-def _kernel_args(pb: PackedBatch, device="cpu"):
-    """The solve_kernel argument tuple for `pb`, planes as tensors on
-    `device` (numpy planes are copied there; tensors are moved)."""
-    return _to_device((
+def _plane_args(pb: PackedBatch):
+    """The solve's plane arguments for `pb`, in `solve_kernel`'s order
+    (the host twin takes them as they are)."""
+    return (
         pb.avail, pb.reserved, pb.used0, pb.valid, pb.node_dc, pb.attr_rank,
         pb.ask_res, pb.ask_desired, pb.distinct, pb.dc_ok, pb.host_ok,
         pb.coll0,
@@ -1013,4 +1056,10 @@ def _kernel_args(pb: PackedBatch, device="cpu"):
         pb.a_rank, pb.a_weight, pb.a_host, pb.sp_col, pb.sp_weight,
         pb.sp_targeted,
         pb.sp_desired, pb.sp_implicit, pb.sp_used0, pb.dev_cap, pb.dev_used0,
-        pb.dev_ask, pb.p_ask), device) + (pb.n_place,)
+        pb.dev_ask, pb.p_ask)
+
+
+def _kernel_args(pb: PackedBatch, device="cpu"):
+    """The solve_kernel argument tuple for `pb`, planes as tensors on
+    `device` (numpy planes are copied there; tensors are moved)."""
+    return _to_device(_plane_args(pb), device) + (pb.n_place,)

@@ -8,10 +8,12 @@ fused wave's score mode, is built by ONE function for both packages (each
 package's own mock, structs and Harness), with the same node ids, names
 and addresses and the same job ids; alloc, eval and deployment ids are
 fresh uuids, so allocs compare by job and alloc name and nodes by their
-index in insertion order.  The port solves with `Solver(device="cpu")`;
-the reference with its default `Solver()`, which routes these small
-batches to its numpy twin (placement-identical to its jit kernel,
-tests/test_host_solver.py), and with `Solver(host="never")` in one case.
+index in insertion order.  The port solves with `Solver(device="cpu",
+host="never")`, its torch wave loop; the reference with its default
+`Solver()`, which routes these small batches to its numpy twin
+(placement-identical to its jit kernel, tests/test_host_solver.py), and
+with `Solver(host="never")` in one case.  Once more with both packages
+on their default route, where both take their numpy twin.
 Every scenario runs again with a store-attached solver in both packages
 (`Solver(store=h.store, resident_min_nodes=1)`: the resident cluster
 world, the plan-apply feed and the lazy allocs-by-node view), once with
@@ -49,7 +51,8 @@ from nomad_tpu_torch.utils.metrics import global_metrics as port_metrics
 class Pkg:
     """One package's factories, and the solver its harness shares."""
 
-    def __init__(self, name, host="auto", resident=False, evict_e=8):
+    def __init__(self, name, host="auto", resident=False, evict_e=8,
+                 port_host="never"):
         self.name = name
         self.resident = resident
         self.evict_e = evict_e
@@ -60,7 +63,8 @@ class Pkg:
         else:
             self.mock, self.st, self.store, self.Harness = (
                 port_mock, port_structs, port_store, PortHarness)
-            self.solver = PortSolver(device="cpu")
+            self.solver = PortSolver(device="cpu", host=port_host)
+        self.port_host = port_host
 
     def harness(self):
         h = self.Harness()
@@ -71,7 +75,8 @@ class Pkg:
         else:
             h.solver = PortSolver(device="cpu", store=h.store,
                                   resident_min_nodes=1,
-                                  evict_e=self.evict_e)
+                                  evict_e=self.evict_e,
+                                  host=self.port_host)
         return h
 
     def node(self, i, **kw):
@@ -485,14 +490,15 @@ def scheduler_counters(metrics, scenario, P):
 
 
 def assert_same_schedule(scenario, ref_host="auto", resident=False,
-                         evict_e=8):
+                         evict_e=8, port_host="never"):
     """`evict_e` is the port's eviction-plane width; the caller sets the
-    reference's through NOMAD_TPU_EVICT_E."""
+    reference's through NOMAD_TPU_EVICT_E.  `port_host` is the port
+    solver's route ("never": its torch wave loop)."""
     (r, r_scores), r_moved = scheduler_counters(
         ref_metrics, scenario, Pkg("ref", host=ref_host, resident=resident))
     (p, p_scores), p_moved = scheduler_counters(
         port_metrics, scenario, Pkg("port", resident=resident,
-                                    evict_e=evict_e))
+                                    evict_e=evict_e, port_host=port_host))
     p["counters"], r["counters"] = p_moved, r_moved
     for key in r:
         assert p[key] == r[key], key
@@ -540,6 +546,14 @@ def test_scenario_matches_reference_resident_evict8(name, monkeypatch):
     if name == "preemption":
         assert counters["scheduler.preempt.kernel"] == 2.0
         assert "scheduler.preempt.host_fallback" not in counters
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_scenario_matches_reference_default_route(name):
+    """Both packages on their default solver route ("auto"), where these
+    small batches take each package's numpy twin."""
+    got = assert_same_schedule(SCENARIOS[name], port_host="auto")
+    assert got["evals"], "the scheduler wrote no eval"
 
 
 def test_scenario_matches_reference_jit_kernel():

@@ -273,7 +273,7 @@ def e2e(pkg):
                                      port_store.SchedulerConfiguration(
                                          preemption_service=True))
         h.solver = PortSolver(device="cpu", store=h.store,
-                              resident_min_nodes=1)
+                              resident_min_nodes=1, host="never")
     nodes = []
     for i in range(8):
         n = mock.node(id=f"node-{i:03d}", name=f"node-{i}")

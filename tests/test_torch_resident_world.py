@@ -9,7 +9,7 @@ After every round:
   * the port's resident placements equal the reference's resident
     placements (node ids; scores within the cross-backend rel=2e-5 —
     the reference's default Solver routes these small batches to its
-    numpy twin, the port solves with torch on the CPU),
+    numpy twin, the port solves with torch on the CPU, `host="never"`),
   * the port's resident placements equal the port's own full pack of
     the same snapshot (node ids, scores to 9 decimals: the reference's
     own criterion, tests/test_solver_resident_world.py:40-57),
@@ -55,13 +55,13 @@ class Pkg:
     def full_solver(self):
         if self.name == "ref":
             return ref_solve.Solver()
-        return port_solve.Solver(device="cpu")
+        return port_solve.Solver(device="cpu", host="never")
 
     def resident_solver(self, store):
         if self.name == "ref":
             return ref_solve.Solver(store=store, resident_min_nodes=1)
         return port_solve.Solver(device="cpu", store=store,
-                                 resident_min_nodes=1)
+                                 resident_min_nodes=1, host="never")
 
     def node(self, key, rack=None):
         """A node with a fixed id, name and address (tests/

@@ -5,8 +5,9 @@ differential scenarios (tests/test_host_solver.py, test_shortlist.py),
 handed the same packed state through `packed_from_numpy`, and must match
 the reference's numpy host twin and its jit kernel under `assert_same`,
 with the wave and rescore counts and the explainability counters exact.
-`Solver(device="cpu").solve` must place like the reference's
-`Solver(host="never").solve` on an identically built cluster.  The
+`Solver(device="cpu", host="never").solve` must place like the
+reference's `Solver(host="never").solve` on an identically built
+cluster.  The
 package must not pull in JAX or the JAX package, and must never fall
 back to the CPU quietly."""
 import ast
@@ -202,7 +203,8 @@ def test_solver_matches_reference_solver(style, kw):
     r_nodes, r_asks, r_allocs = build("ref", style, **kw)
     p_nodes, p_asks, p_allocs = build("port", style, **kw)
     ref = RefSolver(host="never").solve(r_nodes, r_asks, r_allocs)
-    out = Solver(device="cpu").solve(p_nodes, p_asks, p_allocs)
+    out = Solver(device="cpu", host="never").solve(p_nodes, p_asks,
+                                                   p_allocs)
     assert (_placements_by_index(p_nodes, out)
             == _placements_by_index(r_nodes, ref))
     for p, r in zip(out.placements, ref.placements):
@@ -218,13 +220,31 @@ def test_solver_matches_reference_solver(style, kw):
 
 def test_unsupported_options_raise():
     pb, has_spread = packed("binpack", 20, 4, False)
-    for kw in (dict(mesh_axis="nodes"),
-               dict(learned=torch.zeros(1)), dict(region_bias=torch.zeros(1)),
-               dict(lane_axis="lanes")):
+    for kw in (dict(mesh_axis="nodes"), dict(lane_axis="lanes")):
         with pytest.raises(NotImplementedError):
             port_solve(pb, 0, has_spread=has_spread, **kw)
     with pytest.raises(ValueError, match="wave_mode"):
         port_solve(pb, 0, has_spread=has_spread, wave_mode="loop")
+
+
+@pytest.mark.parametrize("plane", ["learned", "region_bias"])
+@pytest.mark.parametrize("mode", ["off", "score", "topk"])
+def test_plane_options_solve_like_reference(plane, mode):
+    """The learned / region_bias keywords, which raised before the port
+    had the planes, solve as the reference's jit kernel and twin do, in
+    every scorer mode asked for (the planes pin the torch scorer)."""
+    pb, has_spread = packed("binpack", 20, 4, False)
+    Gp, Np = pb.ask_res.shape[0], pb.avail.shape[0]
+    p = (0.5 * np.random.default_rng(11).standard_normal((Gp, Np))
+         ).astype(np.float32)
+    res = port_solve(pb, 3, has_spread=has_spread, pallas_mode=mode,
+                     **{plane: torch.as_tensor(p)})
+    ref = ref_solve_kernel(*ref_kernel_args(pb), 3, has_spread=has_spread,
+                           **{plane: p})
+    assert_identical(res, ref)
+    assert_identical(res, host_solve_kernel(*ref_kernel_args(pb), 3,
+                                            has_spread=has_spread,
+                                            **{plane: p}))
 
 
 def test_no_silent_cpu(monkeypatch):
@@ -247,7 +267,9 @@ def test_no_silent_cpu(monkeypatch):
 #: one module of each subpackage of the port (a later move that drops a
 #: subpackage from the scans below fails here)
 PORT_MODULES = ["nomad_tpu_torch.solver.solve",
-                "nomad_tpu_torch.solver.resident", "nomad_tpu_torch.mock",
+                "nomad_tpu_torch.solver.resident",
+                "nomad_tpu_torch.solver.host",
+                "nomad_tpu_torch.solver.native", "nomad_tpu_torch.mock",
                 "nomad_tpu_torch.scheduler.harness",
                 "nomad_tpu_torch.scheduler.fleet",
                 "nomad_tpu_torch.state.store",
@@ -259,10 +281,10 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port's entry points (the solver, the scheduler
-    path's harness and fleet round, the state store, raft, the server
-    plane, telemetry and ACLs) loads neither jax nor any module of the
-    JAX package."""
+    """Importing the port's entry points (the solver with its host twin
+    and native engine, the scheduler path's harness and fleet round, the
+    state store, raft, the server plane, telemetry and ACLs) loads
+    neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"

@@ -64,7 +64,7 @@ def test_brownout_budget_matches_reference():
     for pkg in ("ref", "port"):
         solve_mod = PKGS[pkg][2]
         solver = (solve_mod.Solver(host="never") if pkg == "ref"
-                  else solve_mod.Solver(device="cpu"))
+                  else solve_mod.Solver(device="cpu", host="never"))
         assert not solver.degraded
         solver.set_degraded(True)
         assert solver.degraded

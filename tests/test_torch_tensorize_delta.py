@@ -326,7 +326,7 @@ def world_case(pkg, case):
     else:
         assert port_solve.DELTA_THRESHOLD == 0.25
         solver = port_solve.Solver(device="cpu", store=store,
-                                   resident_min_nodes=1)
+                                   resident_min_nodes=1, host="never")
 
     def solve(count=2):
         snap = store.snapshot()
@@ -398,7 +398,7 @@ def overlay_case(pkg):
         solver = ref_solve.Solver(store=store, resident_min_nodes=1)
     else:
         solver = port_solve.Solver(device="cpu", store=store,
-                                   resident_min_nodes=1)
+                                   resident_min_nodes=1, host="never")
 
     def fingerprint():
         w = solver._world
