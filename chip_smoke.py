@@ -227,13 +227,44 @@ Phases, one JSON line each; any failed phase exits nonzero:
                ms (CUDA events), and no wave-kernel launch (a plane pins
                the torch scorer).
 
+  11. mesh   — the mesh tiers (`nomad_tpu_torch.parallel`) with every
+               shard on this one card, at bench.py run_multichip's and
+               run_multiregion's size: 50,000 nodes of bench.py's
+               generator (padded 50,176, 6,272 a shard), 16 evals of
+               make_job(2, e, 64) in calls of 8, max_waves 18,
+               `pallas="auto"`, 8 shards.  L0: one rich_solve_batch
+               problem (512 placements) through `sharded_solve` and the
+               flat `solve_kernel`.  L1: `ShardedResidentSolver` on a
+               1-D mesh against the flat `ResidentSolver`, then again
+               with the score kernel pinned and with the plain scorer,
+               and one call under torch.profiler.  L2: the two-tier mesh
+               (4 hosts x 2) and `CrossRegionResidentSolver` (4 regions
+               x 1 host x 2), each against the flat stream, with
+               `wave_traffic`'s modeled bytes and the measured counters.
+               L3: `ElasticShardedResidentSolver`, `fail_shard(3)`, a
+               stream against a flat solver over the live nodes,
+               `recover()`, a stream against the flat one; after each,
+               the plane checksum against the template's resident rows
+               and the health kernel (live-row mask) against
+               `health_host`.  L4: `FederatedResidentSolver`, 4 regions
+               of 12,500 nodes, 4 evals each, against each region's own
+               ResidentSolver.  Every comparison: ok flags, statuses,
+               choices and carried usage equal, scores 0.0 apart (the
+               plain and pinned re-runs: rescore waves equal, scores
+               within 4 ulp).  Per leg: wall, evals/s, ms a wave, waves,
+               launches per mode and per shard; every shard must launch
+               the wave kernel.
+
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9 and 10 as `launches_phase5`,
-`launches_phase7`, `launches_phase8`, `launches_phase9` and
-`launches_phase10` beside them),
+worker's path (phase 6; phases 5, 7, 8, 9, 10 and 11 as
+`launches_phase5`, `launches_phase7`, `launches_phase8`,
+`launches_phase9`, `launches_phase10` and `launches_phase11` beside
+them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
-on the first fused score round's arguments (`fused_round`), and each
+on the first fused score round's arguments (`fused_round`), each kernel
+on a mesh shard's (`mesh_shard`: phase 11's shard 0, L0's topk call and
+L1's pinned score call), and each
 kernel on the arguments of its first call in phase 9's re-solves
 (`stream`).  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
@@ -3585,6 +3616,420 @@ def phase_host_route(torch, wk):
     return counts
 
 
+# ----------------------------------------------------------- phase 11
+#: bench.py run_multichip / run_multiregion: 50,000 nodes of bench.py's
+#: generator, 16 evals of make_job(2, e, 64) in calls of 8, 8 shards (4
+#: hosts of 2 chips; 4 regions of 1 host of 2 chips), max_waves 18
+MESH_NODES = 50_000
+MESH_EVALS = 16
+MESH_EPC = 8
+MESH_SHARDS = 8
+MESH_HOSTS = 4
+MESH_REGIONS = 4
+MESH_FAIL_SHARD = 3
+#: L0: one rich_solve_batch problem of this many placements
+MESH_RICH_COUNT = 512
+
+
+def make_job2(mock, eval_ix, count):
+    """bench.py make_job, config 2: one group of `count` (cpu 400 MHz,
+    memory 256 MB, disk 300 MB), all four dcs, no constraint."""
+    job = mock.job()
+    job.id = job.name = f"job-2-{eval_ix}"
+    job.datacenters = [f"dc{d}" for d in range(4)]
+    job.constraints, job.affinities, job.spreads = [], [], []
+    job.task_groups = [bench_group(job.task_groups[0], 0, count)]
+    return job
+
+
+@contextlib.contextmanager
+def shard_launches(wk, planes, into):
+    """Count, per shard and mode, the wave calls made inside the block
+    (`planes`: each shard's resident `avail` tensor, which every wave
+    call of that shard passes); an observer only, every call goes on to
+    the wrapper as before."""
+    real = wk.fused_wave
+    ptrs = {t.data_ptr(): i for i, t in enumerate(planes)}
+
+    def wave(**kw):
+        res = real(**kw)
+        shard = ptrs.get(kw["avail"].data_ptr())
+        if shard is not None:
+            into[shard][kw["mode"]] += 1
+        return res
+    wave.launches, wave.mode_launches = real.launches, real.mode_launches
+    wk.fused_wave = wave
+    try:
+        yield
+    finally:
+        wk.fused_wave = real
+
+
+def mesh_stream(torch, rs, batches, epc):
+    """The stream as bench.py run_multichip drives it (usage reset, then
+    calls of `epc` batches, unseeded, one fetch a call): (outputs a call,
+    waves, rescores, wall s)."""
+    rs.reset_usage()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs, waves, resc = [], [], []
+    for b in range(0, len(batches), epc):
+        outs.append(rs.solve_stream(batches[b:b + epc]))
+        inner = getattr(rs, "solver", rs)        # the cross-region union
+        waves.append(np.asarray(inner.last_waves).tolist())
+        resc.append(np.asarray(inner.last_rescore_waves).tolist())
+    return outs, waves, resc, time.perf_counter() - t
+
+
+def outs_equal(what, a, b):
+    """Two streams' (choice, ok, score, status) a call: ok flags,
+    statuses, choices where ok equal, scores 0.0 apart."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        xc, xok, xs, xst = x
+        yc, yok, ys, yst = y
+        check(np.array_equal(xok, yok), f"{what}: call {i} ok flags")
+        check(np.array_equal(xst, yst), f"{what}: call {i} statuses")
+        check(np.array_equal(np.where(xok, xc, -1), np.where(yok, yc, -1)),
+              f"{what}: call {i} choices")
+        check(np.array_equal(np.where(xok, xs, 0.0), np.where(yok, ys, 0.0)),
+              f"{what}: call {i} scores not 0.0 apart")
+
+
+def mesh_leg_row(name, outs, waves, wall, n_evals, per_shard, counts,
+                 n_shards):
+    """A leg's record: wall, evals/s, ms a wave, waves, launches per mode
+    and per shard; checks that every shard launched the wave kernel."""
+    n_waves = int(sum(sum(w) for w in waves))
+    placed = int(sum(int((o[3] == 1).sum()) for o in outs))
+    check(all(sum(per_shard[s].values()) > 0 for s in range(n_shards)),
+          f"{name}: a shard launched no wave kernel: {per_shard}")
+    return {"wall_ms": 1e3 * wall, "evals_per_s": n_evals / wall,
+            "waves": waves, "ms_per_wave": 1e3 * wall / max(n_waves, 1),
+            "placed": placed, "launches": counts,
+            "launches_per_shard": [dict(per_shard[s])
+                                   for s in range(n_shards)]}
+
+
+def count_leg(torch, wk, total):
+    """Add the launches since the last zero_launches to `total`; returns
+    the leg's own."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    c = dict(wk.fused_wave.mode_launches)
+    for k in total:
+        total[k] += c.get(k, 0)
+    return c
+
+
+def masked_checksum(tmpl, mask):
+    """template_checksum with the rows outside `mask` zeroed: what the
+    device holds when those rows' tiles are not resident."""
+    from nomad_tpu_torch.solver.tensorize import plane_crc
+
+    def z(a):
+        out = np.zeros_like(a)
+        out[mask] = a[mask]
+        return out
+    meta = f"{tmpl.n_real}:{','.join(tmpl.node_ids)}".encode()
+    return plane_crc(z(tmpl.avail), z(tmpl.reserved), z(tmpl.valid),
+                     z(tmpl.node_dc), z(tmpl.attr_rank), z(tmpl.dev_cap),
+                     ev_prio=None if tmpl.ev_prio is None
+                     else z(tmpl.ev_prio),
+                     ev_res=None if tmpl.ev_res is None else z(tmpl.ev_res),
+                     meta=meta)
+
+
+def phase_mesh(torch, wk, n_nodes=MESH_NODES, n_evals=MESH_EVALS,
+               epc=MESH_EPC, rich_count=MESH_RICH_COUNT):
+    """Phase 11: the mesh tiers on shards of the card.  Returns (launch
+    counts of the phase's mesh drives, the first wave call of shard 0 by
+    mode: topk from L0, score from L1's pinned run, the legs' rows)."""
+    import gc
+    from collections import Counter
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel import federated as fd
+    from nomad_tpu_torch.parallel import sharded as sh
+    from nomad_tpu_torch.solver.kernel import solve_kernel
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    from nomad_tpu_torch.solver.solve import _kernel_args
+    from nomad_tpu_torch.solver.tensorize import (Tensorizer,
+                                                  template_checksum)
+    from nomad_tpu_torch.telemetry.health import health_host
+    on_card = DEVICE == "cuda"
+    dev = torch.device(DEVICE)
+    S = MESH_SHARDS
+    total = {"score": 0, "topk": 0, "merge": 0}
+    legs = {}
+    t_phase = time.perf_counter()
+
+    def per_shard(n):
+        return [Counter() for _ in range(n)]
+    try:
+        # ---- L0: one rich solve, stateless, split over 8 shards ----
+        gc.collect()
+        t0 = time.perf_counter()
+        pb = mock.rich_solve_batch(n_nodes, rich_count)
+        pack_s = time.perf_counter() - t0
+        mesh = sh.make_node_mesh(S, devices=[dev])
+        into, into_s = {}, {}
+        zero_launches(torch, wk)
+        t0 = time.perf_counter()
+        with capture_wave(wk, "topk", into):
+            res_m = sh.sharded_solve(pb, mesh, pallas_mode="auto")
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c0 = count_leg(torch, wk, total)
+        res_f = solve_kernel(*_kernel_args(pb, dev), pallas_mode="auto")
+        for f in ("choice_ok", "n_feasible", "n_exhausted", "dim_exhausted",
+                  "unfinished", "feas", "cons_filtered", "used_final"):
+            check(torch.equal(getattr(res_m, f), getattr(res_f, f)),
+                  f"L0: {f} differs from the flat solve")
+        ok = res_f.choice_ok
+        check(torch.equal(torch.where(ok, res_m.choice, -1),
+                          torch.where(ok, res_f.choice, -1)),
+              "L0: choices differ from the flat solve")
+        check(torch.equal(torch.where(ok, res_m.score, 0.0),
+                          torch.where(ok, res_f.score, 0.0)),
+              "L0: scores not 0.0 apart from the flat solve")
+        check(res_m.n_waves == res_f.n_waves, "L0: wave counts differ")
+        # every full pass of every shard launched one wave kernel
+        check(sum(c0[m] for m in ("score", "topk")) == res_m.n_rescore
+              and res_m.n_rescore >= S,
+              f"L0: {c0} launches for {res_m.n_rescore} shard passes")
+        check("kw" in into, "L0: no topk wave call")
+        legs["L0"] = {"nodes": n_nodes, "np_local": int(
+            pb.avail.shape[0]) // S, "placements": int(pb.n_place),
+            "placed": int(ok[:pb.n_place, 0].sum()), "pack_s": pack_s,
+            "wall_ms": 1e3 * wall, "waves": res_m.n_waves,
+            "shard_passes": res_m.n_rescore, "launches": c0}
+        emit({"phase": "mesh", "leg": "L0", **legs["L0"]})
+        del pb, res_m, res_f
+
+        # ---- the cluster and the stream of bench.py run_multichip ----
+        gc.collect()
+        t0 = time.perf_counter()
+        nodes = make_nodes(mock, n_nodes)
+        probe = asks_for(make_job2(mock, "probe", COUNT))
+        gp = pow2(len({Tensorizer.ask_signature(a) for a in probe}))
+        kw = dict(gp=gp, kp=pow2(COUNT), max_waves=18, pallas="auto")
+        jobs = [make_job2(mock, e, COUNT) for e in range(n_evals)]
+        flat = ResidentSolver(nodes, probe, device=DEVICE, **kw)
+        build = {"flat_s": time.perf_counter() - t0}
+        f_b = [flat.pack_batch(asks_for(j)) for j in jobs]
+        f_outs, f_waves, _, f_wall = mesh_stream(torch, flat, f_b, epc)
+
+        # ---- L1: the 1-D mesh stream ----
+        t0 = time.perf_counter()
+        rs = sh.ShardedResidentSolver(
+            nodes, probe, mesh=sh.make_node_mesh(S, devices=[dev]), **kw)
+        build["l1_s"] = time.perf_counter() - t0
+        batches = [rs.pack_batch(asks_for(j)) for j in jobs]
+        shards = per_shard(S)
+        zero_launches(torch, wk)
+        with shard_launches(wk, rs._dev_node["avail"], shards):
+            outs, waves, resc, wall = mesh_stream(torch, rs, batches, epc)
+        c1 = count_leg(torch, wk, total)
+        outs_equal("L1 mesh vs flat", outs, f_outs)
+        check(waves == f_waves, f"L1: waves {waves} vs flat {f_waves}")
+        for a, b in zip(rs.usage(), flat.usage()):
+            check(np.array_equal(a, b), "L1: carried usage differs")
+        legs["L1"] = mesh_leg_row("L1", outs, waves, wall, n_evals, shards,
+                                  c1, S)
+        legs["L1"].update(flat_wall_ms=1e3 * f_wall, rescore_waves=resc,
+                          flat_evals_per_s=n_evals / f_wall)
+        # one call under torch.profiler: the card's busy share
+        legs["L1"]["profiled_call"] = stream_busy_share(
+            torch, lambda: rs.solve_stream(batches[:epc]))
+        # the same stream with the score kernel pinned, then the plain
+        # scorer: equal, rescores too
+        rs.pallas = "score"
+        shards_s = per_shard(S)
+        zero_launches(torch, wk)
+        with capture_wave(wk, "score", into_s), \
+                shard_launches(wk, rs._dev_node["avail"], shards_s):
+            s_outs, s_waves, s_resc, s_wall = mesh_stream(torch, rs,
+                                                          batches, epc)
+        c1s = count_leg(torch, wk, total)
+        check(all(shards_s[i]["score"] > 0 for i in range(S)),
+              "L1 score: a shard launched no score kernel")
+        rs.pallas = "off"
+        p_outs, p_waves, p_resc, p_wall = mesh_stream(torch, rs, batches,
+                                                      epc)
+        rs.pallas = "auto"
+        for what, o, w, r in (("L1 score", s_outs, s_waves, s_resc),
+                              ("L1 plain", p_outs, p_waves, p_resc)):
+            for x, y in zip(outs, o):
+                streams_agree(what, x, y)
+            check(w == waves and r == resc, f"{what}: waves / rescores")
+        legs["L1"]["score_pinned"] = mesh_leg_row(
+            "L1 score", s_outs, s_waves, s_wall, n_evals, shards_s, c1s, S)
+        legs["L1"]["plain_wall_ms"] = 1e3 * p_wall
+        wt = rs.wave_traffic(batches[:epc])
+        legs["L1"]["wave_traffic"] = {k: wt[k] for k in ("ici",
+                                                         "per_shard")}
+        legs["L1"]["measured"] = rs.measured_wave_counters()
+        check(wt["ici"]["bytes_ici_per_wave"]
+              <= wt["ici"]["bound_candidate_keys"],
+              "L1: modeled key bytes above the candidate-keys bound")
+        emit({"phase": "mesh", "leg": "L1", **legs["L1"]})
+        del rs
+
+        # ---- L2: two tiers, then three tiers (cross-region) ----
+        gc.collect()
+        t0 = time.perf_counter()
+        rs2 = sh.ShardedResidentSolver(
+            nodes, probe, mesh=sh.make_two_tier_mesh(MESH_HOSTS, S,
+                                                     devices=[dev]), **kw)
+        per_region = n_nodes // MESH_REGIONS
+        cr = fd.CrossRegionResidentSolver(
+            [nodes[r * per_region:(r + 1) * per_region]
+             for r in range(MESH_REGIONS)], probe, n_hosts_per_region=1,
+            n_devices=S, devices=[dev], **kw)
+        build["l2_s"] = time.perf_counter() - t0
+        legs["L2"] = {}
+        for name, solver in (("two_tier", rs2), ("cross_region", cr)):
+            inner = getattr(solver, "solver", solver)
+            bs = [solver.pack_batch(asks_for(j)) for j in jobs]
+            shards = per_shard(S)
+            zero_launches(torch, wk)
+            with shard_launches(wk, inner._dev_node["avail"], shards):
+                o, w, r, wall = mesh_stream(torch, solver, bs, epc)
+            c = count_leg(torch, wk, total)
+            outs_equal(f"L2 {name} vs flat", o, f_outs)
+            check(w == f_waves, f"L2 {name}: waves {w} vs flat {f_waves}")
+            u = solver.usage()[0][:flat.template.avail.shape[0]]
+            check(np.array_equal(u, flat.usage()[0]),
+                  f"L2 {name}: carried usage differs")
+            row = mesh_leg_row(f"L2 {name}", o, w, wall, n_evals, shards,
+                               c, S)
+            wt = solver.wave_traffic(bs[:epc])
+            row["rescore_waves"] = r
+            row["wave_traffic"] = {k: wt[k] for k in ("ici", "dcn", "wan")
+                                   if k in wt}
+            row["bound_candidate_keys"] = wt["ici"]["bound_candidate_keys"]
+            row["measured"] = inner.measured_wave_counters()
+            legs["L2"][name] = row
+        emit({"phase": "mesh", "leg": "L2", **legs["L2"]})
+        del rs2, cr
+
+        # ---- L3: the elastic mesh through a shard loss ----
+        gc.collect()
+        t0 = time.perf_counter()
+        es = sh.ElasticShardedResidentSolver(
+            nodes, probe, mesh=sh.make_node_mesh(S, devices=[dev]), **kw)
+        build["l3_s"] = time.perf_counter() - t0
+        check(es.plane_checksum() == template_checksum(es.template),
+              "L3: checksum before the loss")
+        legs["L3"] = {}
+        for step in ("fail", "recover"):
+            if step == "fail":
+                lost = es.fail_shard(MESH_FAIL_SHARD)
+                live = es.health_row_mask()
+                live_nodes = [n for i, n in enumerate(es.nodes)
+                              if live[i]]
+                ref = ResidentSolver(live_nodes, probe, device=DEVICE, **kw)
+                want_sum = masked_checksum(es.template, live)
+            else:
+                rec_bytes = es.recover()
+                ref = flat
+                want_sum = template_checksum(es.template)
+            ns = es.n_shards
+            shards = per_shard(ns)
+            bs = [es.pack_batch(asks_for(j)) for j in jobs]
+            zero_launches(torch, wk)
+            with shard_launches(wk, es._dev_node["avail"], shards):
+                o, w, r, wall = mesh_stream(torch, es, bs, epc)
+            c = count_leg(torch, wk, total)
+            ro = (f_outs if ref is flat else mesh_stream(
+                torch, ref, [ref.pack_batch(asks_for(j)) for j in jobs],
+                epc)[0])
+            check(c["score"] > 0 and c["topk"] == 0,
+                  f"L3 {step}: the elastic layout ran {c}")
+            # by node id: the live solver numbers its nodes apart
+            for x, y in zip(o, ro):
+                ids_x = np.array(es.template.node_ids + [""])[
+                    np.where(x[1], x[0], -1)]
+                ids_y = np.array(ref.template.node_ids + [""])[
+                    np.where(y[1], y[0], -1)]
+                check(np.array_equal(ids_x, ids_y)
+                      and np.array_equal(x[3], y[3])
+                      and np.array_equal(np.where(x[1], x[2], 0.0),
+                                         np.where(y[1], y[2], 0.0)),
+                      f"L3 {step}: the stream differs from the flat "
+                      "solver over the live nodes")
+            check(es.plane_checksum() == want_sum,
+                  f"L3 {step}: plane checksum")
+            hc = es.health_counters()
+            check(hc == health_host(es.template, *es.usage(),
+                                    row_mask=es.health_row_mask()),
+                  f"L3 {step}: health kernel vs health_host")
+            row = mesh_leg_row(f"L3 {step}", o, w, wall, n_evals, shards,
+                               c, ns)
+            row.update(shards=ns, rescore_waves=r, mesh_state=es.mesh_state,
+                       nodes_valid_health=hc.nodes_valid,
+                       reshard_counters=dict(es.reshard_counters))
+            if step == "fail":
+                row["lost_tiles"] = lost
+                row["live_nodes"] = len(live_nodes)
+            else:
+                row["recovery_bytes"] = rec_bytes
+            legs["L3"][step] = row
+        emit({"phase": "mesh", "leg": "L3", **legs["L3"]})
+        del es
+
+        # ---- L4: the federated stream, 4 regions of 12,500 nodes ----
+        gc.collect()
+        t0 = time.perf_counter()
+        regions = [nodes[r * per_region:(r + 1) * per_region]
+                   for r in range(MESH_REGIONS)]
+        fed = fd.FederatedResidentSolver(regions, probe, gp=kw["gp"],
+                                         kp=kw["kp"], max_waves=18,
+                                         device=DEVICE, pallas="auto")
+        build["l4_s"] = time.perf_counter() - t0
+        per = n_evals // MESH_REGIONS
+        rjobs = [[jobs[r * per + i] for i in range(per)]
+                 for r in range(MESH_REGIONS)]
+        fb = [[fed.pack_batch(r, asks_for(j)) for j in rj]
+              for r, rj in enumerate(rjobs)]
+        shards = per_shard(MESH_REGIONS)
+        zero_launches(torch, wk)
+        t0 = time.perf_counter()
+        with shard_launches(wk, [fed._node_stack["avail"][r]
+                                 for r in range(MESH_REGIONS)], shards):
+            fout = fed.solve_stream(fb)
+        wall = time.perf_counter() - t0
+        c4 = count_leg(torch, wk, total)
+        for r, s_ in enumerate(fed.solvers):
+            sb = [s_.pack_batch(asks_for(j)) for j in rjobs[r]]
+            so = s_.solve_stream(sb)
+            ok = so[1]
+            check(np.array_equal(ok, fout[1][r])
+                  and np.array_equal(so[3], fout[3][r])
+                  and np.array_equal(np.where(ok, so[0], -1),
+                                     np.where(ok, fout[0][r], -1))
+                  and np.array_equal(np.where(ok, so[2], 0.0),
+                                     np.where(ok, fout[2][r], 0.0)),
+                  f"L4: region {r} differs from its own ResidentSolver")
+        check(all(sum(shards[r].values()) > 0
+                  for r in range(MESH_REGIONS)),
+              f"L4: a region launched no wave kernel: {shards}")
+        check(fed.health_counters() == fed.health_host_twin(),
+              "L4: health of the stacked regions vs the merged twins")
+        legs["L4"] = {"wall_ms": 1e3 * wall, "evals_per_s": n_evals / wall,
+                      "placed": int((fout[3] == 1).sum()),
+                      "launches": c4,
+                      "launches_per_region": [dict(x) for x in shards]}
+        emit({"phase": "mesh", "leg": "L4", **legs["L4"]})
+    except PhaseError as e:
+        emit({"phase": "mesh", "failed": str(e), "legs_done": sorted(legs)})
+        raise
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase,
+          "build_s": build, "launches": total})
+    return total, {"topk": into["kw"], "score": into_s["kw"]}, legs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3617,6 +4062,7 @@ def main() -> int:
     counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
                                           N_STREAM_EVALS)
     counts10 = phase_host_route(torch, wk)
+    counts11, calls11, _legs11 = phase_mesh(torch, wk)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -3625,6 +4071,11 @@ def main() -> int:
                             calls["topk"], base_wk))
     kern.update(kernel_case(torch, wk, "score (fused round)",
                             calls7["score"], base_wk))
+    # and on a mesh shard's (phase 11, shard 0: L0's topk call, L1's
+    # pinned score call)
+    for mode in ("score", "topk"):
+        kern.update(kernel_case(torch, wk, f"{mode} (mesh shard)",
+                                calls11[mode], base_wk))
     # and on the resident stream's (phase 9): a main-leg chunk's first
     # score call, a drain batch's first topk call where the leg drained
     stream_cases = {"score": "score (stream chunk)",
@@ -3651,6 +4102,7 @@ def main() -> int:
             "launches_phase8": counts8[mode],
             "launches_phase9": counts9[mode],
             "launches_phase10": counts10[mode],
+            "launches_phase11": counts11[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3663,6 +4115,10 @@ def main() -> int:
         if mode == "score":
             f = kern["score (fused round)"]
             kernels[-1]["fused_round"] = {k: f[k] for k in keys}
+        m_case = {"score": "score (mesh shard)", "topk": "topk (mesh shard)",
+                  "merge": "topk merge (mesh shard)"}[mode]
+        kernels[-1]["mesh_shard"] = {k: kern[m_case][k] for k in keys
+                                     if k in kern[m_case]}
         s_case = {"merge": "topk merge (stream drain)"}.get(
             mode, stream_cases.get(mode))
         if s_case in kern:

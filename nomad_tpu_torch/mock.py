@@ -185,3 +185,37 @@ def alloc(**kw) -> Allocation:
     for k, v in kw.items():
         setattr(a, k, v)
     return a
+
+
+def rich_solve_batch(n_nodes: int, count: int, seed_ix: int = 0):
+    """One packed placement problem that exercises every dimension of
+    the solve: a constraint, an affinity, a spread and a device ask over
+    a quarter of the nodes (the reference's multichip workload and the
+    mesh tests' shared problem)."""
+    from .solver.tensorize import PlacementAsk, Tensorizer
+    from .structs import Affinity, RequestedDevice, Spread
+    nodes = []
+    for i in range(n_nodes):
+        n = node()
+        n.attributes["rack"] = f"r{(i + seed_ix) % 8}"
+        n.node_resources.cpu = 4000 + (i % 4) * 1000
+        if i % 4 == 0:
+            n.node_resources.devices = [NodeDeviceResource(
+                vendor="google", type="tpu", name="v4",
+                instances=[NodeDevice(id=f"tpu-{i}-{k}", healthy=True)
+                           for k in range(2)])]
+        n.compute_class()
+        nodes.append(n)
+    j = job()
+    j.constraints = [Constraint("${attr.rack}", "r7", "!=")]
+    j.affinities = [Affinity(ltarget="${attr.rack}", rtarget="r3",
+                             operand="=", weight=40)]
+    j.spreads = [Spread(attribute="${node.datacenter}", weight=50)]
+    tg = j.task_groups[0]
+    tg.count = count
+    for t in tg.tasks:
+        t.resources.networks = []
+    tg.tasks[0].resources.devices = [
+        RequestedDevice(name="google/tpu/v4", count=1)]
+    return Tensorizer().pack(nodes, [PlacementAsk(job=j, tg=tg,
+                                                  count=count)], None)

@@ -7,9 +7,10 @@ Planner (scheduler/scheduler.go:106).
 
 The counterpart of `nomad_tpu.server.worker`.  Each worker's solver runs
 on the server's device (`Server(device=...)`: `cuda` unless the caller
-asks for the CPU).  The reference's elastic-mesh recovery hook
-(`mesh_supervisor`, fed by node-update evals) comes with the mesh tiers
-(ROADMAP.md Queue 1, item 11).
+asks for the CPU).  `mesh_supervisor` (an
+`parallel.sharded.ElasticMeshSupervisor`, or None) is the elastic mesh's
+recovery trigger: a node-update eval reports its node's status to it
+before the eval is solved.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ class Worker(threading.Thread):
         self.paused = threading.Event()
         self._solver = None
         self._solver_lock = threading.Lock()
+        #: the elastic mesh's recovery trigger (note_node_event), if any
+        self.mesh_supervisor = None
 
     def fleet_solver(self):
         """One Solver per worker, store-attached: its tensorizer's
@@ -225,6 +228,16 @@ class Worker(threading.Thread):
         with _tr.stage(ev.id, "worker.wait_index", index=wait_index):
             server.store.wait_for_index(wait_index, timeout=5.0)
         _m.measure_since("worker.wait_for_index", t0)
+        if self.mesh_supervisor is not None and ev.node_id:
+            from ..structs import EVAL_TRIGGER_NODE_UPDATE
+            if ev.triggered_by == EVAL_TRIGGER_NODE_UPDATE:
+                # a mesh-host node going down fails its shard BEFORE this
+                # eval solves, so the solve runs at degraded width; its
+                # return to ready triggers the rejoin
+                node = server.store.snapshot().node_by_id(ev.node_id)
+                if node is not None:
+                    self.mesh_supervisor.note_node_event(ev.node_id,
+                                                         node.status)
         _invoke_t0 = _t.monotonic()
         try:
             from ..structs import JOB_TYPE_CORE

@@ -224,28 +224,69 @@ __device__ __forceinline__ void block_counters(const WaveArgs& a,
   }
 }
 
+// ------------------------------------------------------ bounds check
+// A test build (-DNOMAD_WAVE_BOUNDS_CHECK, tests/test_torch_wave_kernel_gpu.py)
+// checks each read of the score kernel's planes at the load itself: a
+// read of elements [i, i + cnt) of a plane of n elements that reaches
+// past n is counted in `nomad_wave_oob_reads` and not made.  n passes an
+// asm move, so the compiler cannot fold the check into the lane count
+// that guards the read.  The default build compiles IN_PLANE to true.
+#ifdef NOMAD_WAVE_BOUNDS_CHECK
+__device__ unsigned int nomad_wave_oob_reads;
+
+__device__ __forceinline__ bool in_plane(size_t i, int cnt, size_t n) {
+  size_t m;
+  asm volatile("mov.b64 %0, %1;" : "=l"(m) : "l"(n));
+  if (i + (size_t)cnt <= m) return true;
+  atomicAdd(&nomad_wave_oob_reads, 1u);
+  return false;
+}
+#define IN_PLANE(i, cnt, n) in_plane((i), (cnt), (n))
+
+// the reads counted since the last call, and the count zeroed
+extern "C" int nomad_wave_oob_take(unsigned int* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, nomad_wave_oob_reads,
+                                       sizeof(unsigned int));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned int zero = 0;
+  return (int)cudaMemcpyToSymbol(nomad_wave_oob_reads, &zero,
+                                 sizeof(unsigned int));
+}
+#else
+#define IN_PLANE(i, cnt, n) true
+#endif
+
 // ---------------------------------------------------------- score mode
-// Four consecutive f32 / i16 values at element i of a row; nv of them
-// exist (the ragged end of the node axis); vec: 16-byte (8-byte) loads.
+// Four consecutive f32 / i16 values at element i of a plane of n
+// elements; nv of them exist (the ragged end of the node axis); vec:
+// 16-byte (8-byte) loads.
 __device__ __forceinline__ float4 ld4(const float* p, size_t i, int nv,
-                                      bool vec) {
-  if (vec && nv == 4) return __ldg(reinterpret_cast<const float4*>(p + i));
+                                      bool vec, size_t n) {
   float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (nv > 0) r.x = p[i];
-  if (nv > 1) r.y = p[i + 1];
-  if (nv > 2) r.z = p[i + 2];
-  if (nv > 3) r.w = p[i + 3];
+  if (vec && nv == 4) {
+    if (IN_PLANE(i, 4, n))
+      r = __ldg(reinterpret_cast<const float4*>(p + i));
+    return r;
+  }
+  if (nv > 0 && IN_PLANE(i, 1, n)) r.x = p[i];
+  if (nv > 1 && IN_PLANE(i, 2, n)) r.y = p[i + 1];
+  if (nv > 2 && IN_PLANE(i, 3, n)) r.z = p[i + 2];
+  if (nv > 3 && IN_PLANE(i, 4, n)) r.w = p[i + 3];
   return r;
 }
 
 __device__ __forceinline__ short4 ld4s(const int16_t* p, size_t i, int nv,
-                                       bool vec) {
-  if (vec && nv == 4) return __ldg(reinterpret_cast<const short4*>(p + i));
+                                       bool vec, size_t n) {
   short4 r = make_short4(-1, -1, -1, -1);
-  if (nv > 0) r.x = p[i];
-  if (nv > 1) r.y = p[i + 1];
-  if (nv > 2) r.z = p[i + 2];
-  if (nv > 3) r.w = p[i + 3];
+  if (vec && nv == 4) {
+    if (IN_PLANE(i, 4, n))
+      r = __ldg(reinterpret_cast<const short4*>(p + i));
+    return r;
+  }
+  if (nv > 0 && IN_PLANE(i, 1, n)) r.x = p[i];
+  if (nv > 1 && IN_PLANE(i, 2, n)) r.y = p[i + 1];
+  if (nv > 2 && IN_PLANE(i, 3, n)) r.z = p[i + 2];
+  if (nv > 3 && IN_PLANE(i, 4, n)) r.w = p[i + 3];
   return r;
 }
 
@@ -297,11 +338,23 @@ wave_score_kernel(WaveArgs a, int GB, float* __restrict__ score) {
   __shared__ int red[SCORE_MAX_GB * MAX_CNT * 32];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n0 = blockIdx.x * SCORE_STRIPE + tid * SCORE_NODES;
-  const int nv = max(0, min(SCORE_NODES, a.Np - n0));
+  // nodes of this lane's quad (0 past the node axis).  Not written as
+  // max(0, min(SCORE_NODES, rem)): built with nvcc (-O3, sm_90a) that
+  // form let the first lane past a node axis ending inside a stripe read
+  // the four floats after each plane (an illegal address whenever a
+  // plane ended a segment of the allocator: mesh shards of 2,560 and 640
+  // nodes did).  The bounds-check build counts those reads at every
+  // ragged width (test_score_kernel_reads_stay_in_the_planes).
+  const int rem = a.Np - n0;
+  const int nv = rem >= SCORE_NODES ? SCORE_NODES : (rem > 0 ? rem : 0);
   const int word0 = (blockIdx.x * SCORE_STRIPE + warp * 128) >> 5;
   const int g0 = blockIdx.y * GB;
   const int n_groups = min(GB, a.Gp - g0);
   const bool vec = a.vec != 0;
+  // elements of a [Np, R] node plane, a [Gp, Np] plane and the spread
+  // planes [S, Gp, Np] (for the bounds-check build)
+  const size_t n_rows = (size_t)a.Np * R, n_plane = (size_t)a.Gp * a.Np,
+               n_spread = n_plane * a.S;
 
   float u[SCORE_NODES][R], av[SCORE_NODES][R], rc[SCORE_NODES],
       rm[SCORE_NODES];
@@ -309,7 +362,7 @@ wave_score_kernel(WaveArgs a, int GB, float* __restrict__ score) {
   for (int k = 0; k < SCORE_NODES; ++k) {
     const size_t row = (size_t)(n0 + k) * R;
     if constexpr (R == 4) {
-      if (k < nv && a.node_vec) {
+      if (k < nv && a.node_vec && IN_PLANE(row, 4, n_rows)) {
         const float4 x = __ldg(reinterpret_cast<const float4*>(a.used + row));
         const float4 y =
             __ldg(reinterpret_cast<const float4*>(a.avail + row));
@@ -324,11 +377,14 @@ wave_score_kernel(WaveArgs a, int GB, float* __restrict__ score) {
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      u[k][r] = k < nv ? __ldg(a.used + row + r) : 0.f;
-      av[k][r] = k < nv ? __ldg(a.avail + row + r) : 0.f;
+      const bool in = k < nv && IN_PLANE(row, r + 1, n_rows);
+      u[k][r] = in ? __ldg(a.used + row + r) : 0.f;
+      av[k][r] = in ? __ldg(a.avail + row + r) : 0.f;
     }
-    rc[k] = k < nv ? __ldg(a.reserved + row) : 0.f;
-    rm[k] = k < nv ? __ldg(a.reserved + row + 1) : 0.f;
+    rc[k] = k < nv && IN_PLANE(row, 1, n_rows) ? __ldg(a.reserved + row)
+                                               : 0.f;
+    rm[k] = k < nv && IN_PLANE(row, 2, n_rows) ? __ldg(a.reserved + row + 1)
+                                               : 0.f;
   }
 
   for (int gi = 0; gi < n_groups; ++gi) {
@@ -341,14 +397,14 @@ wave_score_kernel(WaveArgs a, int GB, float* __restrict__ score) {
     const uint32_t fb = lane_bits(a.feas, a, g, word0)
                         & ~lane_bits(a.blocked, a, g, word0);
     const uint32_t pb = lane_bits(a.pen, a, g, word0);
-    const float4 aff = ld4(a.aff, gn, nv, vec);
-    const float4 jit = ld4(a.jitter, gn, nv, vec);
-    const float4 coll = ld4(a.coll, gn, nv, vec);
+    const float4 aff = ld4(a.aff, gn, nv, vec, n_plane);
+    const float4 jit = ld4(a.jitter, gn, nv, vec, n_plane);
+    const float4 coll = ld4(a.coll, gn, nv, vec, n_plane);
     float spread[SCORE_NODES] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int s = 0; s < a.S; ++s) {
       const size_t sgn = ((size_t)s * a.Gp + g) * a.Np + n0;
-      const short4 v = ld4s(a.sp_vnode, sgn, nv, vec);
-      const float4 des = ld4(a.sp_des, sgn, nv, vec);
+      const short4 v = ld4s(a.sp_vnode, sgn, nv, vec, n_spread);
+      const float4 des = ld4(a.sp_des, sgn, nv, vec, n_spread);
       const SpreadParams sp = spread_params(a, g, s);
 #pragma unroll
       for (int k = 0; k < SCORE_NODES; ++k)
@@ -702,13 +758,20 @@ wave_merge_kernel(MergeArgs m) {
 // ------------------------------------------------------------- launch
 template <int E>
 static int launch_merge(const MergeArgs& m, int smem, cudaStream_t st) {
-  static int smem_set = 48 * 1024;     // per instantiation
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // the dynamic shared-memory limit is a per-device attribute: set it on
+  // each device the merge runs on (shards of a mesh may span cards)
+  constexpr int MAX_DEVICES = 64;
+  static int smem_set[MAX_DEVICES] = {};   // per instantiation and device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    e = cudaFuncSetAttribute(
         wave_merge_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
   dim3 grid(m.Gp, m.Vs > 0 ? m.Vs + 2 : 1);
   wave_merge_kernel<E><<<grid, MERGE_THREADS, smem, st>>>(m);

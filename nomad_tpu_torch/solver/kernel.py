@@ -46,13 +46,24 @@ the solve) append one more scorer each (`score_spec.combine_learned` /
 `combine_region`).  Only the spec-driven torch scorer implements them,
 as in the reference: with either plane the shortlist is off and the
 wave scorer is "off" whatever `pallas_mode` asks, so no CUDA kernel is
-ever handed a plane.  The mesh tiers (`mesh_axis`) are not part of this
-package.
+ever handed a plane.
+
+In mesh mode (`mesh_axis`) the node axis is split over S shards: every
+[.., Np, ..] argument is one shard's local plane, scoring, extraction and
+the shortlist stay on the shard, and only per-group candidate keys
+(score, global node id) and K-sized integer vectors cross shards.  The
+generator then also yields the reference's collectives as requests:
+("axis_index", axis) for the shard's linear index, ("psum", x) for an
+integer sum over the mesh and ("merge", s, i, k) for the exact
+(score desc, global id asc) top-k of every shard's window.
+`solve_shards` drives the S generators in lock-step and answers them,
+the counterpart of the reference's `shard_map`.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import score_spec as _score_spec
@@ -252,6 +263,30 @@ def _top_rows(score: torch.Tensor, k: int):
     return torch.gather(score, -1, o), torch.gather(cols, -1, o)
 
 
+def _gid_top(score: torch.Tensor, gid: torch.Tensor, k: int):
+    """Top-k of each [.., Np] row in (score desc, global id asc) order,
+    where `gid` [Np] gives each column's global node id (the elastic
+    layout's local order is not id order).  Returns (score, gid, local
+    column), the reference's three-operand `lax.sort` carrying the
+    slot."""
+    o1 = torch.argsort(gid, stable=True)
+    so = score[..., o1]
+    o2 = torch.argsort(0.0 - so, dim=-1, stable=True)[..., :k]
+    col = o1[o2]
+    return torch.gather(so, -1, o2), gid[col], col
+
+
+def _add_drop(arr: torch.Tensor, idx, vals, dim: int = 0) -> torch.Tensor:
+    """`arr` with `vals` accumulated at `idx` (a tuple of index tensors),
+    where an index equal to arr.shape[dim] adds nothing: the reference's
+    `.at[].add(mode="drop")` at the pinned slot Np, never a clamp onto
+    row Np - 1.  A dropped entry adds an exact zero to index 0."""
+    drop = idx[dim] >= arr.shape[dim]
+    idx = idx[:dim] + (idx[dim].masked_fill(drop, 0),) + idx[dim + 1:]
+    keep = (~drop).reshape(drop.shape + (1,) * (vals.dim() - drop.dim()))
+    return arr.index_put(idx, torch.where(keep, vals, 0), accumulate=True)
+
+
 def static_feas(valid, node_dc, attr_rank, dc_ok, host_ok, c_op, c_col,
                 c_rank):
     """Static feasibility of every (ask, node) pair: valid node, allowed
@@ -273,7 +308,7 @@ def static_feas(valid, node_dc, attr_rank, dc_ok, host_ok, c_op, c_col,
 
 
 def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
-               ev_slot_ok, ev_res, ev_prio, dev=None):
+               ev_slot_ok, ev_res, ev_prio, dev=None, ids=None):
     """The eviction pass of one wave, against post-commit usage `used`
     [Np, R], for the groups in `want_g` [Gp] (the rest keep no option):
     per (group, node) a greedy min-cost victim set over the node's free
@@ -283,8 +318,11 @@ def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
     each group's best node by post-eviction bin-pack score, ties to the
     lower id.  `dev` = (dev_used, dev_cap, dev_ask): device instances
     are never evicted, so the node must fit the device ask as it is.
-    Returns per group (score [Gp], node [Gp], freed [Gp, R], victim
-    mask [Gp, E]); a group without an option scores NEG_INF."""
+    `ids` [Np] (mesh mode) are the rows' global node ids: ties then go
+    to the lower global id and the returned node is that id, while the
+    freed vector and victim mask are the local best row's.  Returns per
+    group (score [Gp], node [Gp], freed [Gp, R], victim mask [Gp, E]); a
+    group without an option scores NEG_INF."""
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     device = used.device
     Gp, (Np, R), EV = want_g.shape[0], used.shape, ev_prio.shape[1]
@@ -352,11 +390,16 @@ def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
     binpack = _score_spec.rescore_binpack(_TORCH_OPS, after, avail,
                                           reserved)
     ev_score = torch.where(ok_node, binpack, NEG_INF)
-    b_s, b_i = _top_rows(ev_score, 1)
-    best = b_i[:, 0].to(i64)
+    if ids is None:
+        b_s, b_i = _top_rows(ev_score, 1)
+        best = b_i[:, 0].to(i64)
+        key = best
+    else:
+        b_s, key, best = _gid_top(ev_score, ids, 1)
+        key, best = key[:, 0].to(i64), best[:, 0]
     gw = torch.arange(Gw, device=device)
     nv_s[wg] = b_s[:, 0]
-    nv_i[wg] = best
+    nv_i[wg] = key
     sel_freed[wg] = freed[gw, best]
     sel_mask[wg] = picked[gw, best]
     return nv_s, nv_i, sel_freed, sel_mask
@@ -375,11 +418,15 @@ def solve_kernel(*args, lane_axis=None, **kw) -> SolveResult:
     as `solve._kernel_args` lays them out, keywords as `solve_steps`
     takes them): one lane, so each lane-uniform decision is the solve's
     own predicate.  Solves in lock-step go through `solve_lanes`, not
-    `lane_axis`."""
+    `lane_axis`; a solve split over a mesh (`mesh_axis`) goes through
+    `solve_shards`."""
     if lane_axis is not None:
         raise NotImplementedError(
             "solve_kernel: lane_axis is not part of the torch port; drive "
             "the lanes' solve_steps through solve_lanes")
+    if kw.get("mesh_axis") is not None:
+        raise ValueError("solve_kernel: a mesh-mode solve (mesh_axis) is "
+                         "driven by solve_shards")
     return solve_lanes([solve_steps(*args, **kw)])[0]
 
 
@@ -407,10 +454,14 @@ def solve_lanes(lanes) -> list:
     for ln in range(len(lanes)):
         advance(ln, None)
     while msgs:
-        kinds = {kind for kind, _ in msgs.values()}
+        kinds = {m[0] for m in msgs.values()}
         if len(kinds) != 1:
             raise RuntimeError(f"solve_lanes: lanes out of step: {kinds}")
-        if kinds.pop() == "carried":
+        kind = kinds.pop()
+        if kind not in ("carried", "rerank"):
+            raise RuntimeError(f"solve_lanes: a lane asked for {kind!r}; "
+                               "mesh-mode solves go through solve_shards")
+        if kind == "carried":
             take = (len(msgs) == len(lanes)
                     and all(p for _, p in msgs.values()))
         else:
@@ -418,6 +469,141 @@ def solve_lanes(lanes) -> list:
         for ln in list(msgs):
             advance(ln, take)
     return results
+
+
+def _mesh_tiers(mesh):
+    """(devices in linear shard order, group sizes innermost first) of a
+    mesh: a grid of torch.devices (`mesh.devices`, a numpy object array)
+    whose axes are ("nodes",), ("hosts", "chips") or ("regions",
+    "hosts", "chips")."""
+    grid = np.asarray(mesh.devices, dtype=object)
+    return list(grid.reshape(-1)), list(grid.shape)[::-1]
+
+
+def _replicate(x: torch.Tensor, devices) -> list:
+    """x on each shard's device, one copy per distinct device."""
+    per_dev = {x.device: x}
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d not in per_dev:
+            per_dev[d] = x.to(d)
+        out.append(per_dev[d])
+    return out
+
+
+def _tiered(parts, sizes, reduce_group):
+    """Reduce `parts` (one per shard, linear order) tier by tier: groups
+    of sizes[0] consecutive parts (the chips of a host), then groups of
+    sizes[1] of those (the hosts of a region), and so on, each group on
+    its first member's device."""
+    level = list(parts)
+    for n in sizes:
+        level = [reduce_group([p.to(level[j * n].device)
+                               for p in level[j * n:(j + 1) * n]],
+                              top=len(level) == n)
+                 for j in range(len(level) // n)]
+    return level[0]
+
+
+def solve_shards(shards, mesh) -> list:
+    """Advance S mesh-mode solves (`solve_steps` generators with
+    `mesh_axis`, in the mesh's linear shard order) in lock-step and
+    return their SolveResults: the reference's `shard_map` of
+    `solve_kernel`.  Requests are answered across the shards' devices:
+
+      ("axis_index", axis)  the shard's linear index;
+      ("psum", x)           the sum of the S integer tensors, chips of a
+                            host first, then hosts, then regions (the
+                            reference's `_psum_mesh` order; integer sums
+                            are exact in any order);
+      ("merge", s, i, k)    the top-k of the concatenated windows in
+                            (score desc, global id asc) order, merged per
+                            host, then per region, then across regions
+                            (`_merge_mesh`): each tier keeps the top
+                            min(k, width) of its members, so the result
+                            equals the flat mesh's;
+      ("carried", ok) / ("rerank", p)  the shard's own predicate: the
+                            reference takes these decisions per shard.
+
+    A result's replicated fields (choices, counters) are equal on every
+    shard; `feas` and the usage planes are each shard's own."""
+    shards = list(shards)
+    devices, sizes = _mesh_tiers(mesh)
+    S = len(shards)
+    if len(devices) != S:
+        raise ValueError(f"solve_shards: {S} shards on a mesh of "
+                         f"{len(devices)} devices")
+    msgs: dict = {}
+    results = [None] * S
+
+    def advance(i, value, first=False):
+        try:
+            msgs[i] = next(shards[i]) if first else shards[i].send(value)
+        except StopIteration as stop:
+            msgs.pop(i, None)
+            results[i] = stop.value
+
+    def psum_group(parts, top):
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+
+    for i in range(S):
+        advance(i, None, first=True)
+    while msgs:
+        if len(msgs) != S:
+            raise RuntimeError("solve_shards: shards out of step "
+                               f"({len(msgs)} of {S} still running)")
+        kinds = {m[0] for m in msgs.values()}
+        if len(kinds) != 1:
+            raise RuntimeError(f"solve_shards: shards out of step: {kinds}")
+        kind = kinds.pop()
+        if kind == "axis_index":
+            answers = list(range(S))
+        elif kind in ("carried", "rerank"):
+            answers = [msgs[i][1] for i in range(S)]
+        elif kind == "psum":
+            if msgs[0][1].is_floating_point():
+                # every sum of the reference's mesh path is of integers,
+                # exact in any order; a float sum would have to keep its
+                # reduction order
+                raise TypeError("solve_shards: psum of a float tensor")
+            answers = _replicate(
+                _tiered([msgs[i][1] for i in range(S)], sizes, psum_group),
+                devices)
+        elif kind == "merge":
+            k = msgs[0][3]
+
+            def merge_group(parts, top):
+                s_ = torch.cat([p[0] for p in parts], dim=-1)
+                i_ = torch.cat([p[1] for p in parts], dim=-1)
+                return _MergeKeys(*_lex_topk(
+                    s_, i_, k if top else min(k, s_.shape[-1])))
+            merged = _tiered([_MergeKeys(msgs[i][1], msgs[i][2])
+                              for i in range(S)], sizes, merge_group)
+            answers = list(zip(_replicate(merged.s, devices),
+                               _replicate(merged.i, devices)))
+        else:
+            raise RuntimeError(f"solve_shards: unknown request {kind!r}")
+        for i in range(S):
+            advance(i, answers[i])
+    return results
+
+
+class _MergeKeys(NamedTuple):
+    """A candidate-key window (scores, global ids) moving through the
+    merge tiers."""
+    s: torch.Tensor
+    i: torch.Tensor
+
+    @property
+    def device(self):
+        return self.s.device
+
+    def to(self, device):
+        return _MergeKeys(self.s.to(device), self.i.to(device))
 
 
 def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
@@ -429,9 +615,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 seed=0, *, has_spread=True, group_count_hint=0,
                 max_waves=0, wave_mode="scan", has_distinct=True,
                 has_devices=True, stack_commit=False, pallas_mode="off",
-                shortlist_c=0, mesh_axis=None, has_preempt=False,
-                ev_res=None, ev_prio=None, ask_prio=None,
-                learned=None, region_bias=None):
+                shortlist_c=0, mesh_axis=None, mesh_shards=0,
+                has_preempt=False, ev_res=None, ev_prio=None, ask_prio=None,
+                mesh_hosts=0, mesh_nt=0, tile_np=0, node_gid=None,
+                owner_map=None, slot_map=None, learned=None, mesh_regions=0,
+                region_bias=None):
     """The wave solve as a generator.  With the shortlist on it yields
     ("carried", ok) at each wave's start and ("rerank", pre_ok) at each
     wave's end, and takes the decision sent back; it returns the
@@ -442,10 +630,17 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     `has_preempt` runs the eviction pass over the planes `ev_res`
     [Np, E, R], `ev_prio` [Np, E] and `ask_prio` [Gp].  `learned` /
     `region_bias` ([Gp, Np] f32) add their scorers and pin the
-    spec-driven scorer with the shortlist off."""
-    if mesh_axis is not None:
-        raise NotImplementedError(
-            "solve_kernel: mesh_axis is not part of the torch port")
+    spec-driven scorer with the shortlist off.
+
+    `mesh_axis` (with `mesh_shards`) runs the solve as one shard of a
+    mesh (module docstring): "nodes", ("hosts", "chips") with
+    `mesh_hosts`, or ("regions", "hosts", "chips") with `mesh_regions`
+    and `mesh_hosts` hosts a region.  The contiguous layout gives shard
+    i the global ids i * Np + local; `tile_np` > 0 is the elastic
+    layout, where `node_gid` [Np] maps local slots to global ids and
+    `owner_map` / `slot_map` [T + 1] (a -1 sentinel row last) map a
+    global id's tile to its shard and local tile slot; `mesh_nt` is the
+    global padded node axis (default Np * mesh_shards)."""
     if wave_mode not in ("scan", "while"):
         raise ValueError(f"solve_kernel: unknown wave_mode {wave_mode!r}")
     device = avail.device
@@ -459,11 +654,66 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     S = sp_col.shape[1]
     K = p_ask.shape[0]
 
+    # ---------- mesh mode: this shard's place on the node axis ----------
+    in_mesh = mesh_axis is not None
+    elastic = in_mesh and tile_np > 0
+    if in_mesh:
+        if mesh_shards < 1:
+            raise ValueError("mesh_axis requires mesh_shards")
+        if isinstance(mesh_axis, tuple):
+            n_reg = mesh_regions if len(mesh_axis) == 3 else 1
+            if len(mesh_axis) not in (2, 3) or n_reg < 1 \
+                    or mesh_shards % n_reg or mesh_hosts < 1 \
+                    or (mesh_shards // n_reg) % mesh_hosts:
+                raise ValueError(
+                    f"mesh_axis {mesh_axis!r} needs mesh_regions and "
+                    f"mesh_hosts dividing the shards: regions="
+                    f"{mesh_regions} hosts={mesh_hosts} "
+                    f"shards={mesh_shards}")
+        if elastic and (node_gid is None or owner_map is None
+                        or slot_map is None):
+            raise ValueError("tile_np > 0 needs node_gid/owner_map/"
+                             "slot_map tables")
+        my_lin = int((yield ("axis_index", mesh_axis)))
+        if elastic:
+            g_of_local = node_gid.to(i64)                  # [Np]
+            om_l, sm_l = owner_map.to(i64), slot_map.to(i64)
+            n_tiles_s = owner_map.shape[0] - 1             # sentinel row
+
+            def _g2l(gid):
+                """global id -> (owned here, local slot with non-owned
+                ids pinned to the dropped slot Np, that slot clamped for
+                gathers); dead-slot ids land on the sentinel owner -1."""
+                gid = gid.to(i64)
+                t = torch.clamp(torch.div(gid, tile_np,
+                                          rounding_mode="floor"),
+                                0, n_tiles_s)
+                own = (om_l[t] == my_lin) & (gid >= 0)
+                loc = torch.where(own, sm_l[t] * tile_np
+                                  + torch.remainder(gid, tile_np), Np)
+                return own, loc, loc.clamp(0, Np - 1)
+        else:
+            off = my_lin * Np
+            g_of_local = off + torch.arange(Np, dtype=i64, device=device)
+
+            def _g2l(gid):
+                loc = gid.to(i64) - off
+                own = (loc >= 0) & (loc < Np)
+                loc = torch.where(own, loc, Np)
+                return own, loc, loc.clamp(0, Np - 1)
+
+        def _l2g(idx):
+            return g_of_local[idx.to(i64)]
+    # the global padded node axis clamps the candidate window (the
+    # elastic layout's slack slots are not part of it)
+    NT = (mesh_nt or Np * mesh_shards) if in_mesh else Np
+
     per_group = group_count_hint if group_count_hint > 0 else K // 8
     w_cap = _MERGED_W_CAP if Gp <= MERGED_GP_MAX else _WIDE_W_CAP
-    TK = min(max(WAVE_K, min(2 * per_group, w_cap)) + TOP_K, Np)
+    TK = min(max(WAVE_K, min(2 * per_group, w_cap)) + TOP_K, NT)
     W = max(TK - TOP_K, 1)          # effective per-group wave width
-    TKl = TK
+    # each shard surfaces its top min(TK, Np) keys to the merge
+    TKl = min(TK, Np)
     # the hand-written shortlist twin and the CUDA wave kernel do not
     # implement the learned / region terms: with a plane both stay off
     planes = learned is not None or region_bias is not None
@@ -499,6 +749,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     # ---------- static feasibility [Gp, Np] ----------
     feas, cons_filtered = static_feas(valid, node_dc, attr_rank, dc_ok,
                                       host_ok, c_op, c_col, c_rank)
+    if in_mesh:
+        cons_filtered = yield ("psum", cons_filtered)
 
     # affinity matches are placement-invariant: [Gp, Np]
     vals = attr_rank_l[:, a_col.to(i64)].permute(1, 0, 2)   # [Gp, Np, CA]
@@ -537,7 +789,10 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         sp_vnode = sp_des = None
 
     # ---------- seeded tie-break jitter [Gp, Np] ----------
-    node_ids = torch.arange(Np, dtype=i64, device=device)
+    # (the GLOBAL id in mesh mode, so a node scores alike however the
+    # node axis is split)
+    node_ids = (g_of_local if in_mesh
+                else torch.arange(Np, dtype=i64, device=device))
     if seed == 0:
         jitter = torch.zeros((Gp, Np), dtype=f32, device=device)
     else:
@@ -551,8 +806,18 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                                        on=device.type == "cuda")
     Vs = V
     want_tables = has_spread and Vs <= 8 and not stack_commit
+    # per-value table widths: TKv the global window per value class, TW
+    # the shard's extraction width
     TKv = -(-TK // (Vs + 1)) if want_tables else 0
     TW = min(TKv, Np) if want_tables else 0
+    if in_mesh and pallas_mode == "topk" and want_tables and TW < TKv:
+        # the topk kernel sizes its tables from TK, past a shard this
+        # narrow; "score" is the same math with the extraction below
+        pallas_mode = "score"
+    if elastic and pallas_mode == "topk":
+        # the topk kernel breaks ties by local slot, which under a tile
+        # remap is not global-id order
+        pallas_mode = "score"
     use_pk = pallas_mode != "off"
     if use_pk:
         # bitpacked static planes and int16 value ranks, once per solve
@@ -659,7 +924,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         if seed != 0:
             total = (torch.floor(total / _score_spec.SCORE_BIN)
                      * _score_spec.SCORE_BIN)
-            total = total + _jitter(idx, gs, seed)
+            total = total + _jitter(_l2g(idx) if in_mesh else idx, gs, seed)
         else:
             total = total + 0.0
         score = torch.where(placeable, total, NEG_INF)
@@ -674,7 +939,13 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         tabs_s, tabs_i = [], []
         for v in range(Vs + 1):
             vmask = (vnode == v) if v < Vs else (vnode < 0)
-            ts, ti = _top_rows(torch.where(vmask, score, NEG_INF), TW)
+            sv = torch.where(vmask, score, NEG_INF)
+            if elastic:
+                # gid-ordered ties; the ids leave GLOBAL
+                ts, ti, _ = _gid_top(sv, g_of_local, TW)
+                ti = ti.to(i32)
+            else:
+                ts, ti = _top_rows(sv, TW)
             tabs_s.append(ts)
             tabs_i.append(ti)
         return torch.stack(tabs_s, dim=1), torch.stack(tabs_i, dim=1)
@@ -715,13 +986,19 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         carried shortlist from the same extraction."""
         committed = done & out_ok[:, 0]
         chosen = torch.where(committed, out_idx[:, 0], 0).to(i64)
-        coll = coll0.index_put((g_idx, chosen), committed.to(f32),
-                               accumulate=True)
+        if in_mesh:
+            # out_idx holds GLOBAL ids: rows of other shards drop
+            chosen = _g2l(chosen)[1]
+            coll = _add_drop(coll0, (g_idx, chosen), committed.to(f32), 1)
+        else:
+            coll = coll0.index_put((g_idx, chosen), committed.to(f32),
+                                   accumulate=True)
         if has_distinct:
             dg_all = distinct[g_idx].to(i64)
-            hit = torch.zeros((Gp, Np), dtype=i32, device=device).index_put(
+            hit = _add_drop(
+                torch.zeros((Gp, Np), dtype=i32, device=device),
                 (dg_all.clamp(min=0), chosen),
-                (committed & (dg_all >= 0)).to(i32), accumulate=True) > 0
+                (committed & (dg_all >= 0)).to(i32), 1) > 0
             blocked = (hit[distinct.to(i64).clamp(min=0)]
                        & (distinct >= 0)[:, None])
         else:
@@ -763,19 +1040,32 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             n_exh_g = (fv & ~(fit & dev_fit)).sum(dim=1).to(i32)
             dim_exh_g = (fv[:, :, None] & ~fit_dims).sum(dim=1).to(i32)
 
-        if use_pk and pallas_mode == "topk":
+        if elastic:
+            # under a tile remap local slot order is not global-id
+            # order: extract by (score desc, GLOBAL id asc), carrying
+            # the local slot
+            ext_s, ext_g, ext_i = _gid_top(score, g_of_local, NE)
+            ext_g, ext_i = ext_g.to(i32), ext_i.to(i32)
+        elif use_pk and pallas_mode == "topk":
             ext_s, ext_i = pk["top_score"], pk["top_idx"]
         else:
             ext_s, ext_i = _top_rows(score, NE)            # [Gp, NE]
         top_score, top_idx = ext_s[:, :TKl], ext_i[:, :TKl]
+        if elastic:
+            top_idx = ext_g[:, :TKl]       # window keys are GLOBAL
 
         if want_tables:
             if use_pk and pallas_mode == "topk":
                 tab_s, tab_i = pk["tab_s"], pk["tab_i"]
             else:
                 tab_s, tab_i = full_tables(score)
+            if in_mesh and not elastic:
+                tab_i = tab_i + off
         else:
             tab_s, tab_i = no_tab_s, no_tab_i
+        if in_mesh and not elastic:
+            # window keys leave the shard with GLOBAL node ids
+            top_idx = top_idx + off
 
         if use_sl:
             # rebuild the carried shortlist from this extraction (node-
@@ -794,7 +1084,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 pen=torch.gather(penalty, 1, sl_l),
                 aff=torch.gather(aff_score, 1, sl_l), vn=vn, de=de,
                 coll=torch.gather(coll, 1, sl_l),
-                cut_s=ext_s[:, NE - 1], cut_i=ext_i[:, NE - 1],
+                # the cutoff's tie-break key: the GLOBAL id under the
+                # elastic remap (its extraction order), else the local
+                # slot (the block map is monotonic)
+                cut_s=ext_s[:, NE - 1],
+                cut_i=(ext_g if elastic else ext_i)[:, NE - 1],
                 comp=(n_feas_g - n_exh_g) <= C,
                 nfeas=n_feas_g, nexh=n_exh_g, ndim=dim_exh_g,
                 win_s=top_score, win_i=top_idx, tb_s=tab_s, tb_i=tab_i,
@@ -816,7 +1110,10 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         d_dim = (dim_post.to(i32) - dim_pre.to(i32)).sum(dim=1)
         nexh_next = (n_exh_g + d_exh).to(i32)
         ndim_next = (dim_exh_g + d_dim).to(i32)
-        w_s, w_i = _lex_topk(f_score, sl.idx, TKl)
+        # the lex tie-break key: GLOBAL ids under the elastic remap (as
+        # the building extraction and cut_i), local slots otherwise
+        sl_key = _l2g(sl.idx).to(i32) if elastic else sl.idx
+        w_s, w_i = _lex_topk(f_score, sl_key, TKl)
         # TR3: the re-ranked TKl-th key must still dominate the era cutoff
         ls, li = w_s[:, TKl - 1], w_i[:, TKl - 1]
         tr3_g = (ls > sl.cut_s) | ((ls == sl.cut_s) & (li <= sl.cut_i))
@@ -826,15 +1123,19 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             for v in range(Vs + 1):
                 vmask = (vnode0 == v) if v < Vs else (vnode0 < 0)
                 ts, ti = _lex_topk(torch.where(vmask, f_score, NEG_INF),
-                                   sl.idx, TW)
+                                   sl_key, TW)
                 tabs_s.append(ts)
                 tabs_i.append(ti)
             tab_s = torch.stack(tabs_s, dim=1)
             tab_i = torch.stack(tabs_i, dim=1)
+            if in_mesh and not elastic:
+                tab_i = tab_i + off
         else:
             tab_s, tab_i = no_tab_s, no_tab_i
         gany_next = torch.where(sl.comp, f_place.any(dim=1), True)
         ok_next = bool(((tr3_g | sl.comp) | ~act_next_g).all())
+        if in_mesh and not elastic:
+            w_i = w_i + off
         return (w_s, w_i, tab_s, tab_i, nexh_next, ndim_next, gany_next,
                 ok_next)
 
@@ -873,6 +1174,20 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
              dim_exh_g, grp_any, SL) = full_wave(
                  SL, used, dev_used, sp_used, done, out_idx, out_ok)
             n_resc += 1
+
+        # ---- cross-shard candidate-key merge (mesh mode): each shard's
+        # window keys (and value-table keys) merge into the exact top-TK
+        # of the whole node axis; the counters sum over the mesh ----
+        if in_mesh:
+            top_score, top_idx = yield ("merge", top_score, top_idx, TK)
+            if want_tables:
+                tab_s, tab_i = yield ("merge", tab_s, tab_i, TKv)
+            n_feas_out = yield ("psum", n_feas_g)
+            n_exh_out = yield ("psum", n_exh_g)
+            dim_exh_out = yield ("psum", dim_exh_g)
+            grp_any = (yield ("psum", grp_any.to(i32))) > 0
+        else:
+            n_feas_out, n_exh_out, dim_exh_out = n_feas_g, n_exh_g, dim_exh_g
 
         # spread-aware candidate interleaving (slot 0): slot j of the
         # window draws from value class j mod (V+1), classes visited in
@@ -973,14 +1288,33 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
 
         ask_k = ask_res[g_idx]
         prior = prior_sum_node(ask_k * cand_ok[:, None])   # [K, R]
-        fits = ((used[cand] + prior + ask_k) <= avail[cand]).all(dim=-1)
+        if in_mesh:
+            # each shard checks the fit of the candidates it owns; the
+            # K-sized votes sum over the mesh (the [Np, R] planes stay)
+            inb, loc, locc = _g2l(cand)
+            fits_l = ((used[locc] + prior + ask_k)
+                      <= avail[locc]).all(dim=-1) & inb
+            fits = (yield ("psum", fits_l.to(i32))) > 0
+        else:
+            loc = cand
+            fits = ((used[cand] + prior + ask_k) <= avail[cand]).all(dim=-1)
         if has_devices:
             dev_k = dev_ask[g_idx]
             prior_dev = prior_sum_node(dev_k * cand_ok[:, None])
-            dev_fits = ((dev_used[cand] + prior_dev + dev_k)
-                        <= dev_cap[cand]).all(dim=-1)
+            if in_mesh:
+                dev_fits_l = ((dev_used[locc] + prior_dev + dev_k)
+                              <= dev_cap[locc]).all(dim=-1) & inb
+                dev_fits = (yield ("psum", dev_fits_l.to(i32))) > 0
+            else:
+                dev_fits = ((dev_used[cand] + prior_dev + dev_k)
+                            <= dev_cap[cand]).all(dim=-1)
         else:
             dev_fits = torch.ones(K, dtype=torch.bool, device=device)
+        if in_mesh and has_spread:
+            # one [K, A] sum of the candidates' attribute rows serves the
+            # spread quota and the commit below
+            ar_cand = (yield ("psum", torch.where(
+                inb[:, None], attr_rank[locc].to(i32), 0))).to(i64)
 
         # distinct_hosts: one commit per (node, distinct group) per wave
         if has_distinct:
@@ -993,7 +1327,10 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         sp_ok = torch.ones(K, dtype=torch.bool, device=device)
         for s in (range(S) if has_spread else range(0)):
             cols = sp_col[g_idx, s].to(i64)
-            vs = attr_rank_l[cand, cols.clamp(min=0)]
+            if in_mesh:
+                vs = torch.gather(ar_cand, 1, cols.clamp(min=0)[:, None])[:, 0]
+            else:
+                vs = attr_rank_l[cand, cols.clamp(min=0)]
             has_s = (cols >= 0) & (vs >= 0)
             # non-members read some in-range slot (the reference's
             # clamped gather); members' ranks are < V by construction
@@ -1027,14 +1364,23 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         commit = cand_ok & fits & dev_fits & dg_ok & sp_ok
         cm = commit[:, None]
 
-        # -- apply this wave's commits (duplicate nodes accumulate) --
-        used = used.index_put((cand,), ask_k * cm, accumulate=True)
-        if has_devices:
-            dev_used = dev_used.index_put((cand,), dev_ask[g_idx] * cm,
-                                          accumulate=True)
+        # -- apply this wave's commits (duplicate nodes accumulate; in
+        # mesh mode each shard adds only the rows it owns) --
+        if in_mesh:
+            used = _add_drop(used, (loc,), ask_k * cm)
+            if has_devices:
+                dev_used = _add_drop(dev_used, (loc,), dev_ask[g_idx] * cm)
+        else:
+            used = used.index_put((cand,), ask_k * cm, accumulate=True)
+            if has_devices:
+                dev_used = dev_used.index_put((cand,), dev_ask[g_idx] * cm,
+                                              accumulate=True)
         if has_spread:
             scol = sp_col[g_idx].to(i64)                   # [K, S]
-            svals = attr_rank_l[cand[:, None], scol.clamp(min=0)]
+            if in_mesh:
+                svals = torch.gather(ar_cand, 1, scol.clamp(min=0))
+            else:
+                svals = attr_rank_l[cand[:, None], scol.clamp(min=0)]
             okslot = (scol >= 0) & (svals >= 0) & cm
             # rows without a spread slot add 0 at an in-range position
             # (the reference's scatter drops them)
@@ -1054,34 +1400,59 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                     reserved=reserved, feas=feas, ev_slot_ok=ev_slot_ok,
                     ev_res=ev_res_f, ev_prio=ev_prio_i,
                     dev=(dev_used, dev_cap, dev_ask) if has_devices
-                    else None)
+                    else None, ids=g_of_local if in_mesh else None)
             else:
                 nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
                 nv_i = torch.zeros(Gp, dtype=i64, device=device)
                 sel_freed = torch.zeros((Gp, R), dtype=f32, device=device)
                 sel_mask = torch.zeros((Gp, EV), dtype=torch.bool,
                                        device=device)
-            ev_any_g = nv_s > NEG_INF / 2
-            e_cand = nv_i[g_idx]                           # [K]
+            if in_mesh:
+                # each group's best eviction key (score, global id) from
+                # every shard; the owner holds its victim set
+                win_s, win_i = yield ("merge", nv_s[:, None],
+                                      nv_i[:, None], 1)
+                win_s, win_i = win_s[:, 0], win_i[:, 0]
+            else:
+                win_s, win_i = nv_s, nv_i
+            ev_any_g = win_s > NEG_INF / 2
+            e_cand = win_i[g_idx]                          # [K] global
             p_ok = want & ev_any_g[g_idx]
             # one eviction commit per node per wave, across groups: two
             # victim sets chosen apart must never both apply to one node
             ev_commit = p_ok & (prior_rank_any(e_cand, p_ok) == 0)
             ecm = ev_commit[:, None]
-            # victims leave and the placement lands in one add
-            used = used.index_put(
-                (e_cand,), (ask_res[g_idx] - sel_freed[g_idx]) * ecm,
-                accumulate=True)
-            if has_devices:
-                dev_used = dev_used.index_put(
-                    (e_cand,), dev_ask[g_idx] * ecm, accumulate=True)
-            em = sel_mask[g_idx] & ecm                     # [K, EV]
-            EVT = EVT | (torch.zeros((Np, EV), dtype=i32, device=device)
-                         .index_put((e_cand,), em.to(i32), accumulate=True)
-                         > 0)
+            ev_val = (ask_res[g_idx] - sel_freed[g_idx]) * ecm
+            if in_mesh:
+                e_inb, e_loc, e_locc = _g2l(e_cand)
+                own = (e_inb & ev_commit)[:, None]
+                # victims leave and the placement lands in one add
+                used = _add_drop(used, (e_loc,), ev_val)
+                if has_devices:
+                    dev_used = _add_drop(dev_used, (e_loc,),
+                                         dev_ask[g_idx] * ecm)
+                em_l = sel_mask[g_idx] & own               # [K, EV]
+                EVT = EVT | (_add_drop(
+                    torch.zeros((Np, EV), dtype=i32, device=device),
+                    (e_loc,), em_l.to(i32)) > 0)
+                em = (yield ("psum", em_l.to(i32))) > 0
+            else:
+                used = used.index_put((e_cand,), ev_val, accumulate=True)
+                if has_devices:
+                    dev_used = dev_used.index_put(
+                        (e_cand,), dev_ask[g_idx] * ecm, accumulate=True)
+                em = sel_mask[g_idx] & ecm                 # [K, EV]
+                EVT = EVT | (torch.zeros((Np, EV), dtype=i32, device=device)
+                             .index_put((e_cand,), em.to(i32),
+                                        accumulate=True) > 0)
             if has_spread:
                 scol = sp_col[g_idx].to(i64)
-                evals_ = attr_rank_l[e_cand[:, None], scol.clamp(min=0)]
+                if in_mesh:
+                    ar_ev = (yield ("psum", torch.where(
+                        own, attr_rank[e_locc].to(i32), 0))).to(i64)
+                    evals_ = torch.gather(ar_ev, 1, scol.clamp(min=0))
+                else:
+                    evals_ = attr_rank_l[e_cand[:, None], scol.clamp(min=0)]
                 ok_es = (scol >= 0) & (evals_ >= 0) & ecm
                 sp_used = sp_used.index_put(
                     (g_idx[:, None], torch.arange(S, device=device)[None, :],
@@ -1107,7 +1478,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             pk_idx = torch.where(ecm, torch.where(
                 ecol, e_cand[:, None].to(i32), 0), pk_idx)
             pk_score = torch.where(ecm, torch.where(
-                ecol, nv_s[g_idx][:, None], NEG_INF), pk_score)
+                ecol, win_s[g_idx][:, None], NEG_INF), pk_score)
             ok_row = torch.where(ecm, ecol, ok_row)
         newly = commit | ev_commit | fail_now
         upd = newly[:, None]
@@ -1115,11 +1486,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         out_score = torch.where(upd, pk_score, out_score)
         out_ok = torch.where(upd, ok_row, out_ok)
         if has_preempt:
-            out_evict = torch.where(upd, em, out_evict)
+            out_evict = torch.where(upd, em & ecm, out_evict)
             out_wave = torch.where(commit | ev_commit, wave, out_wave)
-        out_nfeas = torch.where(newly, n_feas_g[g_idx], out_nfeas)
-        out_nexh = torch.where(newly, n_exh_g[g_idx], out_nexh)
-        out_dimexh = torch.where(upd, dim_exh_g[g_idx], out_dimexh)
+        out_nfeas = torch.where(newly, n_feas_out[g_idx], out_nfeas)
+        out_nexh = torch.where(newly, n_exh_out[g_idx], out_nexh)
+        out_dimexh = torch.where(upd, dim_exh_out[g_idx], out_dimexh)
         done = done | newly
 
         if use_sl:
@@ -1132,9 +1503,16 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             cf = commit.to(f32)
             # TR1: every commit this wave landed inside the group's
             # shortlist (otherwise an outsider's score moved)
-            tot = cf.sum()
-            mark = torch.zeros(Np, dtype=f32, device=device).index_put(
-                (cand,), cf, accumulate=True)
+            # (in mesh mode only commits to this shard's nodes move its
+            # scores: owned commits against the local shortlist)
+            if in_mesh:
+                tot = (cf * inb.to(f32)).sum()
+                mark = _add_drop(torch.zeros(Np, dtype=f32, device=device),
+                                 (loc,), cf)
+            else:
+                tot = cf.sum()
+                mark = torch.zeros(Np, dtype=f32, device=device).index_put(
+                    (cand,), cf, accumulate=True)
             tr1_g = mark[SL.idx.to(i64)].sum(dim=1) == tot
             g_committed = torch.zeros(Gp, dtype=f32, device=device
                                       ).index_add(0, g_idx, cf) > 0
@@ -1158,7 +1536,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             # own-group commit counts fold into the carried coll; window
             # entries outside the shortlist land in a dropped column
             sl_idx = SL.idx.to(i64)
-            tloc = top_idx.to(i64)
+            tloc = _g2l(top_idx)[1] if in_mesh else top_idx.to(i64)
             win_pos = torch.searchsorted(sl_idx, tloc)
             pos_hit = torch.gather(sl_idx, 1,
                                    win_pos.clamp(max=C - 1)) == tloc
@@ -1195,12 +1573,17 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         wave += 1
 
     unfinished = ~done & in_batch
+    if in_mesh:
+        # per-shard full passes summed over the mesh (the byte model
+        # charges a per-shard plane walk for each)
+        n_resc = (int((yield ("psum", torch.tensor(n_resc, device=device))))
+                  if use_sl else wave * mesh_shards)
     return SolveResult(choice=out_idx, choice_ok=out_ok, score=out_score,
                        n_feasible=out_nfeas, n_exhausted=out_nexh,
                        dim_exhausted=out_dimexh, feas=feas,
                        cons_filtered=cons_filtered, used_final=used,
                        dev_used_final=dev_used, n_waves=wave,
                        unfinished=unfinished,
-                       n_rescore=n_resc if use_sl else wave,
+                       n_rescore=n_resc if (use_sl or in_mesh) else wave,
                        evict=out_evict if has_preempt else None,
                        commit_wave=out_wave if has_preempt else None)

@@ -36,9 +36,10 @@ solves are done; nothing here is asynchronous.  Every wave call on CUDA
 tensors goes through `wave_kernel.fused_wave`, which launches the
 kernel or raises.
 
-Not part of this package: the reference's environment knobs (they are
-constructor arguments here), its chaos site "delta_row" and the
-subclass hooks' mesh overrides (the sharded and federated solvers).
+The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
+one through its four placement hooks and `_solve_one(..., mesh=)`.  Not
+part of this package: the reference's environment knobs (they are
+constructor arguments here) and its chaos site "delta_row".
 """
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ import torch
 from . import wave_kernel as _wk
 from .kernel import (MERGED_GP_MAX, NEG_INF, TOP_K, WAVE_K, _MERGED_W_CAP,
                      _WIDE_W_CAP, delta_scatter_add, delta_scatter_set,
-                     resolve_shortlist_c, solve_lanes, solve_steps)
+                     resolve_shortlist_c, solve_lanes, solve_shards,
+                     solve_steps)
 from .masks import np_pack_bool_u32, unpack_bool_u32
 from .solve import resolve_device
 from .tensorize import PackedBatch, PlacementAsk, Tensorizer
@@ -203,8 +205,12 @@ def _solve_steps(node, used, dev_used, batch, n_place, seed=0, *,
     """One batch's wave solve (a `solve_steps` generator) against the
     resident planes `node` and the usage `used` / `dev_used`.  host_ok
     and penalty may arrive bitpacked (int32 words) from _stack_args;
-    they unpack on the device."""
+    they unpack on the device.  A mesh shard's `node` may also carry its
+    elastic layout tables (node_gid, owner_map, slot_map)."""
     Np = node["avail"].shape[0]
+    for name in ("node_gid", "owner_map", "slot_map"):
+        if name in node:
+            kw[name] = node[name]
     host_ok, penalty = batch["host_ok"], batch["penalty"]
     if host_ok.dtype == torch.int32:
         host_ok = unpack_bool_u32(host_ok, Np)
@@ -228,8 +234,18 @@ def _solve_steps(node, used, dev_used, batch, n_place, seed=0, *,
         has_distinct=has_distinct, **kw)
 
 
-def _solve_one(*args, **kw):
-    return solve_lanes([_solve_steps(*args, **kw)])[0]
+def _solve_one(node, used, dev_used, batch, *args, mesh=None, **kw):
+    """One batch's solve.  With `mesh`, `node`, `used`, `dev_used` and
+    `batch` are lists with one entry a shard (linear order), the mesh
+    keywords (`mesh_axis`, `mesh_shards`, ...) pass through to each
+    shard's `solve_steps`, and the result is the list of the shards'
+    SolveResults (`kernel.solve_shards`)."""
+    if mesh is None:
+        return solve_lanes([_solve_steps(node, used, dev_used, batch,
+                                         *args, **kw)])[0]
+    return solve_shards(
+        [_solve_steps(node[i], used[i], dev_used[i], batch[i], *args, **kw)
+         for i in range(len(node))], mesh)
 
 
 def _batch(stacked: Dict, b: int) -> Dict:
@@ -467,11 +483,15 @@ class ResidentSolver:
         self._const_cache: Dict[Tuple[str, int], torch.Tensor] = {}
         self._put_node_side()
 
+    #: host_ok / penalty ship bitpacked; the mesh solvers ship them
+    #: dense, since a packed word of 32 node columns cannot be split on
+    #: the node axis
+    _pack_bool_planes = True
+
     # The four hooks below (`_put_node`, `_put_ask`, `_delta_set`,
-    # `_delta_add`) are where the sharded solvers of ROADMAP.md Queue 1
-    # item 11 differ, as in the reference: node planes are sharded on
-    # the node axis, ask planes replicated, and delta rows routed to
-    # their shard.
+    # `_delta_add`) are where the sharded solvers differ, as in the
+    # reference: node planes are split on the node axis, ask planes
+    # replicated, and delta rows routed to the shard that owns them.
 
     def _put_node(self, name: str, arr) -> torch.Tensor:
         """One node-side plane on the device.  Always COPIES first: on
@@ -1141,7 +1161,7 @@ class ResidentSolver:
                 continue
             arr = (self._staged_stack(name, mats) if B > 1
                    else np.stack(mats))
-            if name in ("host_ok", "penalty"):
+            if name in ("host_ok", "penalty") and self._pack_bool_planes:
                 # bitpacked words (8x fewer bytes); the uint32 bits ride
                 # in int32, which _solve_steps unpacks on the device
                 arr = np_pack_bool_u32(arr).view(np.int32)

@@ -476,6 +476,198 @@ def template_checksum(template: PackedBatch) -> int:
                      ev_res=t.ev_res, meta=meta)
 
 
+# ------------------------------------------------- elastic tile layout
+# The elastic mesh owns the node axis in TILES of `tile_np` slots routed
+# by an owner remap table instead of contiguous blocks.  A reshard (grow,
+# shrink, rebalance, recover) edits the table and moves ONE tile's rows,
+# never the world.
+
+def pick_tile_np(np_pad: int, n_shards: int, tile_np: int = 0) -> int:
+    """Shard-tile width: `tile_np` when given (a positive power of two
+    dividing the padded node axis), else ~4 tiles a shard, a power of two
+    so that it divides the padded node axis (pow2 <= 4096 or a multiple
+    of 1024, see _pad_nodes), floor 8, cap 1024."""
+    if tile_np:
+        t = int(tile_np)
+        if t <= 0 or t & (t - 1) or np_pad % t:
+            raise ValueError(
+                f"tile_np={t} invalid: must be a positive power of two "
+                f"dividing the padded node axis {np_pad}")
+        return t
+    target = max(8, np_pad // max(4 * n_shards, 1))
+    t = 1 << (target.bit_length() - 1)
+    return max(8, min(t, 1024, np_pad))
+
+
+class TileLayout:
+    """Owner remap for the elastic node axis: tile t of `tile_np` slots
+    lives on shard owner[t] at local tile position slot[t] (owner -1:
+    unowned, retired or lost with its shard).  Every shard carries
+    `cap_tiles` tile slots (a power of two); unfilled slots are dead
+    (valid False, dead global ids), the slack that lets a grow ship one
+    tile instead of repadding the world."""
+
+    def __init__(self, n_tiles: int, n_shards: int, tile_np: int,
+                 cap_tiles: Optional[int] = None, slack_tiles: int = 1):
+        self.tile_np = int(tile_np)
+        self.n_shards = int(n_shards)
+        self.n_tiles = int(n_tiles)
+        need = -(-n_tiles // max(n_shards, 1)) + max(slack_tiles, 0)
+        if cap_tiles is None:
+            cap_tiles = _pad_pow2(max(need, 1), floor=1)
+        if cap_tiles * n_shards < n_tiles:
+            raise ValueError(
+                f"cap_tiles={cap_tiles} x {n_shards} shards cannot hold "
+                f"{n_tiles} tiles")
+        self.cap_tiles = int(cap_tiles)
+        # contiguous initial placement: tile t -> shard t // per, the
+        # block layout of the static mesh
+        self.owner = np.full(n_tiles, -1, np.int32)
+        self.slot = np.zeros(n_tiles, np.int32)
+        fill = np.zeros(n_shards, np.int32)
+        for t in range(n_tiles):
+            s = min(t * n_shards // max(n_tiles, 1), n_shards - 1)
+            if fill[s] >= cap_tiles:
+                s = int(np.argmin(fill))
+            self.owner[t] = s
+            self.slot[t] = fill[s]
+            fill[s] += 1
+
+    @property
+    def npl(self) -> int:
+        """Per-shard local node-axis width (slots)."""
+        return self.cap_tiles * self.tile_np
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_shards * self.npl
+
+    def tiles_of(self, shard: int) -> List[int]:
+        return [t for t in range(self.n_tiles) if self.owner[t] == shard]
+
+    def free_slots(self, shard: int) -> int:
+        return self.cap_tiles - len(self.tiles_of(shard))
+
+    def least_loaded(self) -> int:
+        loads = [len(self.tiles_of(s)) for s in range(self.n_shards)]
+        return int(np.argmin(loads))
+
+    def assign(self, t: int, shard: int) -> int:
+        """Place tile t on `shard` at its lowest free tile slot."""
+        if self.owner[t] >= 0:
+            raise ValueError(f"tile {t} already owned by {self.owner[t]}")
+        taken = {int(self.slot[u]) for u in self.tiles_of(shard)}
+        for sl in range(self.cap_tiles):
+            if sl not in taken:
+                self.owner[t] = shard
+                self.slot[t] = sl
+                return sl
+        raise ValueError(f"shard {shard} has no free tile slot")
+
+    def release(self, t: int) -> None:
+        self.owner[t] = -1
+        self.slot[t] = 0
+
+    def grow(self, n: int = 1) -> List[int]:
+        """Extend the global axis by n unowned tiles (assign next)."""
+        new = list(range(self.n_tiles, self.n_tiles + n))
+        self.n_tiles += n
+        self.owner = np.concatenate([self.owner, np.full(n, -1, np.int32)])
+        self.slot = np.concatenate([self.slot, np.zeros(n, np.int32)])
+        return new
+
+    def dev_rows(self, t: int) -> np.ndarray:
+        """Device-layout row range of tile t (in its owner's block)."""
+        lo = int(self.owner[t]) * self.npl + int(self.slot[t]) * self.tile_np
+        return np.arange(lo, lo + self.tile_np)
+
+    def dev_src(self) -> np.ndarray:
+        """[n_slots] global row per device row (-1 = dead slot)."""
+        src = np.full(self.n_slots, -1, np.int64)
+        for t in range(self.n_tiles):
+            if self.owner[t] >= 0:
+                src[self.dev_rows(t)] = np.arange(t * self.tile_np,
+                                                  (t + 1) * self.tile_np)
+        return src
+
+    def node_gid(self, nt_pad: int) -> np.ndarray:
+        """[n_slots] global id per device row; dead rows get unique ids
+        past the global axis (they order deterministically and can never
+        win or be owned)."""
+        src = self.dev_src()
+        gid = src.astype(np.int32)
+        dead = src < 0
+        gid[dead] = nt_pad + np.nonzero(dead)[0].astype(np.int32)
+        return gid
+
+    def tables(self):
+        """(owner_map, slot_map) [T+1] i32 with the -1 sentinel row the
+        solve clips out-of-range tile indices onto."""
+        om = np.full(self.n_tiles + 1, -1, np.int32)
+        om[:self.n_tiles] = self.owner
+        sm = np.zeros(self.n_tiles + 1, np.int32)
+        sm[:self.n_tiles] = self.slot
+        return om, sm
+
+    def g2d(self, gids, unowned: str = "raise") -> np.ndarray:
+        """Global node rows -> device-layout rows.  unowned="raise"
+        rejects rows in unowned tiles; "drop" maps them to n_slots, out
+        of every shard's range, so the owner-masked scatters drop them
+        (a lost tile's rows stay on the host until recover)."""
+        g = np.asarray(gids, np.int64)
+        t = g // self.tile_np
+        bad = self.owner[t] < 0
+        if bad.any() and unowned != "drop":
+            raise ValueError("global row maps to an unowned tile")
+        d = (self.owner[t].astype(np.int64) * self.npl
+             + self.slot[t].astype(np.int64) * self.tile_np
+             + g % self.tile_np)
+        return np.where(bad, np.int64(self.n_slots), d)
+
+    def remap_shards(self, new_ids: Dict[int, int],
+                     n_shards: int) -> "TileLayout":
+        """A copy on a different shard count: surviving shards keep their
+        tiles at their slots under their new ids; tiles of shards absent
+        from `new_ids` become unowned (the shard-loss transition)."""
+        out = TileLayout.__new__(TileLayout)
+        out.tile_np = self.tile_np
+        out.n_shards = int(n_shards)
+        out.n_tiles = self.n_tiles
+        out.cap_tiles = self.cap_tiles
+        out.owner = np.full(self.n_tiles, -1, np.int32)
+        out.slot = self.slot.copy()
+        for t in range(self.n_tiles):
+            o = int(self.owner[t])
+            if o >= 0 and o in new_ids:
+                out.owner[t] = new_ids[o]
+        return out
+
+
+#: node-axis template arrays a tile-granular grow extends, with their
+#: dead-row fill values (the tensorizer's padding)
+_NODE_AXIS_FILLS = (
+    ("avail", 0), ("reserved", 0), ("used0", 0), ("valid", False),
+    ("node_class", 0), ("node_dc", 0), ("attr_rank", -1),
+    ("dev_cap", 0), ("dev_used0", 0), ("ev_prio", -1), ("ev_res", 0),
+)
+
+
+def extend_template_rows(template: PackedBatch, n_rows: int) -> None:
+    """Grow the template's global node axis by n_rows dead slots: every
+    node-axis plane is extended in place with its pad value, with no
+    repack and no re-interning; joining nodes then fill the new slots
+    through the normal delta path."""
+    for name, fill in _NODE_AXIS_FILLS:
+        arr = getattr(template, name, None)
+        if arr is None:
+            continue
+        pad = np.full((n_rows,) + arr.shape[1:], fill, arr.dtype)
+        setattr(template, name, np.concatenate([arr, pad]))
+    if template.ev_ids is not None:
+        E = template.ev_prio.shape[1]
+        template.ev_ids.extend([[""] * E for _ in range(n_rows)])
+
+
 class Tensorizer:
     """Builds PackedBatch from nodes + asks. Stateless across calls except
     for host-op memoization keyed by computed class."""

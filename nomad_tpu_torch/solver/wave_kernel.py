@@ -46,7 +46,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -185,24 +185,29 @@ def _nvcc() -> str:
                        "from csrc/ with the CUDA toolkit (set CUDA_HOME)")
 
 
-def library_path() -> Path:
+def _flags(defines: Sequence[str]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(defines: Sequence[str] = ()) -> Path:
     digest = hashlib.sha256(_CSRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(defines)).encode()).hexdigest()
     return _BUILD_DIR / f"wave_kernel_{digest[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: Sequence[str] = ()) -> Path:
     """Compile csrc/wave_kernel.cu into the build directory (no-op when
     the library for this source and these flags exists).  Raises on a
     compiler error.  ptxas's report of each kernel's registers, shared
     memory and spills (`-Xptxas -v`, which changes no code) is kept
-    beside the library as `<library>.ptxas.txt`."""
-    out = library_path()
+    beside the library as `<library>.ptxas.txt`.  `defines` are macros
+    for a test build (NOMAD_WAVE_BOUNDS_CHECK, see the source)."""
+    out = library_path(defines)
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [_nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", str(tmp),
            str(_CSRC)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -213,17 +218,21 @@ def build() -> Path:
     return out
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its launch entry point."""
+    lib = ctypes.CDLL(str(path))
+    fn = lib.nomad_wave_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I] + [P] * 23 + [I] * 7 + [P] * 9 + [I] * 10 + [P]
+    fn.restype = I
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.nomad_wave_launch
-            P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = ([I] + [P] * 23 + [I] * 7 + [P] * 9 + [I] * 10
-                           + [P])
-            fn.restype = I
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 

@@ -10,9 +10,10 @@ card-resident planes and carried usage (`device_health_counters`,
 with the same clamps, multiply-threshold compares and hi/lo split sums,
 so the two agree bit for bit.  The server's telemetry beat samples the
 twin over the worker solver's resident template
-(`Solver.health_counters`).  The counter-wise `merge` of regions, the
-elastic layouts' live-row mask and the report's per-tier byte totals
-come with the mesh tiers (ROADMAP.md Queue 1, item 11).
+(`Solver.health_counters`).  On a mesh solver the kernel runs on every
+shard's planes (with the elastic layout's live-row mask) and the integer
+outputs sum over the shards; `HealthCounters.merge` sums regions, and
+`tier_bytes` gives a report its per-tier modeled byte totals.
 
 Every reduced quantity is an integer: per-node values are clamped to
 [0, 2^24) (f32-exact), split into hi = v >> 14 and lo = v & 16383 and
@@ -23,7 +24,7 @@ f32 edges (`used >= avail * edge`), never divides.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,11 +62,16 @@ def _split_sum(v_i):
 
 
 def _health_kernel(avail, valid, node_dc, dev_cap, used, dev_used,
-                   ask_res, ev_prio=None, ev_res=None) -> Dict:
+                   ask_res, live=None, ev_prio=None, ev_res=None) -> Dict:
     """One-pass fleet reduction on the planes' device; returns a dict of
-    small int32 tensors (unpacked by `_unpack_raw`).  `ev_prio` /
-    `ev_res` are None when the world has no preemption planes."""
+    small int32 tensors (unpacked by `_unpack_raw`).  `live` masks the
+    device rows whose tile is resident (elastic layouts keep stale rows,
+    valid included, for retired and lost tiles); None: every row is
+    live.  `ev_prio` / `ev_res` are None when the world has no
+    preemption planes."""
     i32 = torch.int32
+    if live is not None:
+        valid = valid & live
     cap = float(_CAP_F)
     mask = _SPLIT - 1
     edges = torch.tensor(UTIL_EDGES, dtype=torch.float32,
@@ -246,7 +252,36 @@ class HealthCounters:
         return {"nodes": list(self.dc_nodes[:n_dc]),
                 "busy": list(self.dc_busy[:n_dc])}
 
-    def report(self) -> Dict:
+    def merge(self, other: "HealthCounters") -> "HealthCounters":
+        """Counter-wise sum: every field is a sum over nodes, so merging
+        regions equals computing over the union fleet."""
+        if self.n_resources != other.n_resources:
+            raise ValueError("resource-dim mismatch in health merge")
+
+        def add(a, b):
+            return tuple(x + y for x, y in zip(a, b))
+        ep = (add(self.ev_pressure, other.ev_pressure)
+              if self.ev_pressure and other.ev_pressure
+              else self.ev_pressure or other.ev_pressure)
+        return HealthCounters(
+            n_resources=self.n_resources,
+            nodes_valid=self.nodes_valid + other.nodes_valid,
+            nodes_busy=self.nodes_busy + other.nodes_busy,
+            nodes_stranded=self.nodes_stranded + other.nodes_stranded,
+            util_ge=tuple(add(a, b) for a, b in
+                          zip(self.util_ge, other.util_ge)),
+            free=add(self.free, other.free),
+            used=add(self.used, other.used),
+            avail=add(self.avail, other.avail),
+            stranded_free=add(self.stranded_free, other.stranded_free),
+            dc_nodes=add(self.dc_nodes, other.dc_nodes),
+            dc_busy=add(self.dc_busy, other.dc_busy),
+            dev_cap=self.dev_cap + other.dev_cap,
+            dev_used=self.dev_used + other.dev_used,
+            ev_slots=self.ev_slots + other.ev_slots,
+            ev_pressure=ep)
+
+    def report(self, tiers: Optional[Dict] = None) -> Dict:
         total_avail = sum(self.avail)
         out = {
             "nodes": {"valid": self.nodes_valid,
@@ -267,6 +302,8 @@ class HealthCounters:
                           "pressure": list(self.ev_pressure)},
             "devices": {"cap": self.dev_cap, "used": self.dev_used},
         }
+        if tiers:
+            out["tier_bytes"] = dict(tiers)
         return out
 
 
@@ -354,24 +391,45 @@ def health_host(template, used, dev_used,
 def device_health_raw(solver) -> Dict:
     """Run the health kernel over a resident solver's device planes and
     return its outputs unfetched (tensors on the solver's device).  The
-    probe ask_res is put on the device once per template."""
+    probe ask_res is put on the device once per template.  A mesh
+    solver's planes are lists with one tensor a shard: the kernel runs on
+    each shard (with its live-row mask) and the integer outputs sum on
+    shard 0's device."""
     dn = solver._dev_node
     np_rows = int(solver.template.avail.shape[0])
     if np_rows > MAX_NODES:
         raise ValueError(
             f"health kernel split accumulators are i32-safe up to "
             f"{MAX_NODES} nodes; got {np_rows}")
-    # keyed on the template: a repack swaps it
+    # keyed on the template and the mesh: a repack swaps the template, a
+    # shard loss or recovery the shards the copies live on
+    mesh = getattr(solver, "_mesh", None)
     cache = solver.__dict__.get("_health_ask_dev")
-    if cache is None or cache[0] is not solver.template:
+    if cache is None or cache[0] is not solver.template \
+            or cache[2] is not mesh:
         dev = solver._put_ask(
             "health_ask_res",
             np.asarray(solver.template.ask_res, np.float32))
-        solver.__dict__["_health_ask_dev"] = cache = (solver.template, dev)
-    return _health_kernel(
-        dn["avail"], dn["valid"], dn["node_dc"], dn["dev_cap"],
-        solver._used, solver._dev_used, cache[1],
-        dn.get("ev_prio"), dn.get("ev_res"))
+        solver.__dict__["_health_ask_dev"] = cache = (solver.template, dev,
+                                                      mesh)
+    live_fn = getattr(solver, "_health_live_mask", None)
+    live = live_fn() if live_fn is not None else None
+    if not isinstance(dn["avail"], list):
+        return _health_kernel(
+            dn["avail"], dn["valid"], dn["node_dc"], dn["dev_cap"],
+            solver._used, solver._dev_used, cache[1], live,
+            dn.get("ev_prio"), dn.get("ev_res"))
+    total = None
+    for i in range(len(dn["avail"])):
+        raw = _health_kernel(
+            dn["avail"][i], dn["valid"][i], dn["node_dc"][i],
+            dn["dev_cap"][i], solver._used[i], solver._dev_used[i],
+            cache[1][i], None if live is None else live[i],
+            dn["ev_prio"][i] if "ev_prio" in dn else None,
+            dn["ev_res"][i] if "ev_res" in dn else None)
+        total = raw if total is None else {
+            k: v + raw[k].to(v.device) for k, v in total.items()}
+    return total
 
 
 def fetch_health(raw) -> HealthCounters:
@@ -384,3 +442,26 @@ def device_health_counters(solver) -> HealthCounters:
     """The health kernel over a resident solver's device planes: one
     pass on the device and one fetch."""
     return fetch_health(device_health_raw(solver))
+
+
+def tier_bytes(solver, batches: Optional[Sequence] = None
+               ) -> Dict[str, int]:
+    """Per-tier modeled byte totals of the last dispatched stream: the
+    memory tier always, ici / dcn / wan when the solver's wave_traffic
+    models them (the mesh solvers).  {} when no batches are given."""
+    if not batches:
+        return {}
+    wt = solver.wave_traffic(list(batches))
+    m = wt.get("measured") or {}
+    waves = int(m.get("waves_total", 1)) or 1
+    out: Dict[str, int] = {}
+    if "modeled_bytes_total" in m:
+        out["hbm"] = int(m["modeled_bytes_total"])
+    else:
+        out["hbm"] = int(wt.get("bytes_per_wave", 0)) * waves
+    for tier, key in (("ici", "bytes_ici_per_wave"),
+                      ("dcn", "bytes_dcn_per_wave"),
+                      ("wan", "bytes_wan_per_wave")):
+        if key in wt:
+            out[tier] = int(wt[key]) * waves
+    return out

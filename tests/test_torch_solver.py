@@ -220,9 +220,8 @@ def test_solver_matches_reference_solver(style, kw):
 
 def test_unsupported_options_raise():
     pb, has_spread = packed("binpack", 20, 4, False)
-    for kw in (dict(mesh_axis="nodes"), dict(lane_axis="lanes")):
-        with pytest.raises(NotImplementedError):
-            port_solve(pb, 0, has_spread=has_spread, **kw)
+    with pytest.raises(NotImplementedError):
+        port_solve(pb, 0, has_spread=has_spread, lane_axis="lanes")
     with pytest.raises(ValueError, match="wave_mode"):
         port_solve(pb, 0, has_spread=has_spread, wave_mode="loop")
 
@@ -277,14 +276,16 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.raft.node",
                 "nomad_tpu_torch.server.server",
                 "nomad_tpu_torch.telemetry.health",
-                "nomad_tpu_torch.acl.acl"]
+                "nomad_tpu_torch.acl.acl",
+                "nomad_tpu_torch.parallel.sharded",
+                "nomad_tpu_torch.parallel.federated"]
 
 
 def test_import_pulls_in_no_jax():
     """Importing the port's entry points (the solver with its host twin
     and native engine, the scheduler path's harness and fleet round, the
-    state store, raft, the server plane, telemetry and ACLs) loads
-    neither jax nor any module of the JAX package."""
+    state store, raft, the server plane, telemetry, ACLs and the mesh
+    tiers) loads neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"

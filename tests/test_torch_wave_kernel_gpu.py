@@ -198,6 +198,39 @@ def test_kernel_matches_plain_on_gpu(name, shape, call):
                      {k: v.cpu().numpy() for k, v in want.items()})
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Np", [96, 640, 2560, 6272])
+def test_score_kernel_reads_stay_in_the_planes(Np, monkeypatch):
+    """The score kernel built with its bounds check
+    (-DNOMAD_WAVE_BOUNDS_CHECK) reads nothing past its planes at node
+    axes that end inside a 1,024-node stripe: the mesh shard widths of
+    phase 11 (6,272 = 50,176 / 8) and of the mesh tests (640, 2,560).
+    The check counts every such read where it would be made, so a lane
+    count that lets a lane past the axis load is caught on every run,
+    not only when a plane happens to end an allocator segment."""
+    import ctypes
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU "
+                    "or interpret mode)")
+    lib = wk.bind(wk.build(defines=("NOMAD_WAVE_BOUNDS_CHECK",)))
+    take = lib.nomad_wave_oob_take
+    take.argtypes = [ctypes.POINTER(ctypes.c_uint)]
+    take.restype = ctypes.c_int
+    monkeypatch.setattr(wk, "_lib", lib)
+    oob = ctypes.c_uint(0)
+    assert take(ctypes.byref(oob)) == 0
+    for R, D in ((4, 1), (2, 0)):          # the float4 rows and the scalar
+        x = make_inputs(Np + R, Gp=16, Np=Np, S=2, D=D, blocked=True, R=R)
+        kw = port_kwargs(x, "cuda")
+        got = wk.fused_wave(**kw, mode="score", TK=36)
+        torch.cuda.synchronize()
+        assert take(ctypes.byref(oob)) == 0
+        assert oob.value == 0, f"{oob.value} reads past a plane (R={R})"
+        want = wk.fused_wave_plain(**kw, mode="score", TK=36)
+        assert_wave_same({k: v.cpu() for k, v in got.items()},
+                         {k: v.cpu().numpy() for k, v in want.items()})
+
+
 def overcommit_batch(seed, n_nodes=32):
     """tests/test_preempt_kernel.py's overcommitted world built with the
     port's own mock and packer (no JAX): nodes of 3,000-6,000 MHz mostly

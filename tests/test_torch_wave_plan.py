@@ -23,7 +23,21 @@ def shapes():
     out += [("topk", dict(Gp=4, Np=10240, NE=1024, TK=256, tables_v=16)),
             ("topk", dict(Gp=1, Np=102400, NE=256, TK=256, tables_v=4)),
             ("score", dict(Gp=1, Np=64, TK=4, NE=4))]
+    out += MESH
     return out
+
+
+#: a mesh shard's shapes (chip_smoke.py phase 11: 50,176 padded nodes
+#: over 8 shards, 6,272 a shard, not a power of two): L0's rich solve
+#: (topk with tables), L1's stream (topk over the shortlist, and the
+#: pinned score mode), the elastic layout's 8,192 slots, and a
+#: 5,120-node cluster on 8 shards (640)
+MESH = [("topk", dict(Gp=1, Np=6272, NE=132, TK=132, tables_v=2)),
+        ("topk", dict(Gp=1, Np=6272, NE=256, TK=132, tables_v=0)),
+        ("score", dict(Gp=1, Np=6272, TK=132, NE=256)),
+        ("score", dict(Gp=1, Np=8192, TK=132, NE=256)),
+        ("score", dict(Gp=4, Np=640, TK=68, NE=128)),
+        ("topk", dict(Gp=4, Np=640, NE=128, TK=68, tables_v=4))]
 
 
 def plan_of(mode, s):
@@ -93,3 +107,23 @@ def test_merge_width_covers_every_row():
 def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="unknown mode"):
         wk.launch_plan("bogus", 4, 1024)
+
+
+@pytest.mark.parametrize("mode,shape", MESH,
+                         ids=[f"{m}-{s['Gp']}x{s['Np']}" for m, s in MESH])
+def test_mesh_shard_widths_cover_the_ragged_edge(mode, shape):
+    """At a shard width that is no multiple of the stripe or tile, the
+    last stripe / tile is partial: the grid still covers every node
+    exactly once and the last tile's lists are cut to its length."""
+    p = plan_of(mode, shape)
+    Np = shape["Np"]
+    if mode == "score":
+        assert p["grid"][0] == -(-Np // p["stripe"])
+        assert Np % p["stripe"] == 0 or \
+            (p["grid"][0] - 1) * p["stripe"] < Np < p["grid"][0] * p["stripe"]
+        return
+    T = p["tile"]
+    last = Np - (p["n_tiles"] - 1) * T
+    assert 0 < last <= T and p["n_tiles"] * T >= Np
+    assert p["partial_widths"][-1] == min(p["TKt"], last)
+    assert sum(min(T, Np - t * T) for t in range(p["n_tiles"])) == Np
