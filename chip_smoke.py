@@ -253,13 +253,67 @@ Phases, one JSON line each; any failed phase exits nonzero:
                plain and pinned re-runs: rescore waves equal, scores
                within 4 ulp).  Per leg: wall, evals/s, ms a wave, waves,
                launches per mode and per shard; every shard must launch
-               the wave kernel.
+               the wave kernel.  L5: SLO spillover, bench.py
+               run_multiregion's leg (:1066-1140, its queue simulation
+               `_region_queue_sim` copied as `region_queue_sim`): 400
+               seeded arrivals, 70% homed on one of 4 regions, at half
+               the fleet's rate, each region serving an eval in the
+               seconds L2's cross-region stream took an eval on the
+               card, through the isolated policy, the port's
+               `SpilloverRouter` (with a `WanLatencyModel`) and the router
+               on a balanced stream: p99s, `evals_lost` (must be 0),
+               `shed_accounting_intact` and `spill_ok` (spillover p99 at
+               most twice the balanced one while the isolated policy
+               browns out; must hold).
+
+  12. cluster — the cluster over the wire: the port's
+               `rpc.endpoints.serve_cluster(3, num_workers=2)` on
+               127.0.0.1 in plaintext, raft at hashicorp/raft's own
+               timeouts (election 1-2 s, heartbeat 0.1 s), each server
+               with a `GossipAgent` on its own `RpcServer` (region
+               "global"), joined and attached with `attach_gossip`.
+               Entry: phase 7's cluster (10,000 nodes, the resident job,
+               100,000 running allocs in entries of 10,000; the nodes
+               from 8 threads) through the leader, replicated over TCP
+               to both followers.  The collector is off for the phase
+               and the entered state frozen out of it (three replicas in
+               one process make a full collection's pause outgrow raft's
+               election timeout).  One warm-up job per worker.  W1: 16 config-3 jobs one after
+               another by `RpcServerEndpoints.register_job` at a
+               follower (forwarded): p50 / p99 from the call to the eval
+               complete, split into the forward, the leader's register
+               (its raft commits beside it) and phase 7's eval split; the
+               collector's state and the thread count; the last
+               eval's packed batch re-solved with the kernel and the
+               plain wave under assert_same; one more job under
+               torch.profiler for the card's busy share.  W2: 64 jobs
+               from 4 client threads over the three addresses, then the
+               1,024-placement batch job: evals/s, placements/s, the
+               fused rounds and group commits.  W3: the leader's RPC
+               server, gossip agent and server stopped (a deliberate
+               stop): the new leader's election, gossip marking the old
+               one dead and autopilot dropping it (2 peers left), each
+               first seen by a watcher thread; the first placement after
+               the kill (a job through the server list, the dead address
+               first), the new leader's world builds, then 16 jobs
+               through the same list.  W4: a one-server region "alpha"
+               joins the gossip; `RegionRouter(alpha's agent)
+               .call_region("global", "Job.Register", ...)` lands the job
+               here and not in alpha.  After every leg: each live
+               replica's allocs (ids, nodes, client statuses) equal the
+               leader's, no node oversubscribed, each eval complete with
+               its unplaced work in a blocked eval, the wave kernel
+               launched (topk in W1, W3, W4 with as many merges; score in
+               W2).  Recorded: the largest AppendEntries (encoded
+               entries) and the batches the frame limit cut, the
+               leader's `fsm.snapshot()` bytes, each against
+               `MAX_FRAME`, and the loopback bytes per leg.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10 and 11 as
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11 and 12 as
 `launches_phase5`, `launches_phase7`, `launches_phase8`,
-`launches_phase9`, `launches_phase10` and `launches_phase11` beside
-them),
+`launches_phase9`, `launches_phase10`, `launches_phase11` and
+`launches_phase12` beside them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -1575,18 +1629,25 @@ N_BURST_JOBS = 64
 RESIDENT_CHUNK = 10_000
 
 
-def server_cluster(srv, mock, structs, n_nodes, resident):
+def server_cluster(srv, mock, structs, n_nodes, resident, node_threads=1):
     """Enter bench.py's config-3 cluster into a Server that has not
-    started: each node through `register_node`, then the resident job
-    and its running allocs through raft entries (`_propose` -> FSM ->
-    store; the job without an eval, the allocs as plan results of
-    RESIDENT_CHUNK allocs).  Returns the nodes and the seconds each part
-    took."""
+    started (or a cluster's leader): each node through `register_node`
+    (from `node_threads` threads, as many clients register at once),
+    then the resident job and its running allocs through raft entries
+    (`_propose` -> FSM -> store; the job without an eval, the allocs as
+    plan results of RESIDENT_CHUNK allocs).  Returns the nodes and the
+    seconds each part took."""
+    from concurrent.futures import ThreadPoolExecutor
     from nomad_tpu_torch.utils.codec import to_wire
     t0 = time.perf_counter()
     nodes = make_nodes(mock, n_nodes)
-    for n in nodes:
-        srv.register_node(n)
+    if node_threads > 1:
+        with ThreadPoolExecutor(node_threads) as pool:
+            for f in [pool.submit(srv.register_node, n) for n in nodes]:
+                f.result()
+    else:
+        for n in nodes:
+            srv.register_node(n)
     t1 = time.perf_counter()
     by_node = resident_allocs(mock, nodes, resident)
     res_job = next(iter(by_node.values()))[0].job
@@ -3740,6 +3801,130 @@ def masked_checksum(tmpl, mask):
                      meta=meta)
 
 
+# ------------------------------------------------------ phase 11, L5
+#: the spillover leg of bench.py run_multiregion (bench.py:1066-1140):
+#: arrivals, the hot region's share, the smoke-scale watermark, the WAN
+#: hop in units of the measured per-eval time
+SPILL_ARRIVALS = 400
+SPILL_HOT_SHARE = 0.7
+SPILL_MAX_PENDING = 64
+SPILL_WAN_VS_SVC = 0.5
+SPILL_SEED = 13
+
+
+def region_queue_sim(arrivals, regions, svc, router=None, watermark=None):
+    """The deterministic FIFO queue simulation of bench.py
+    `_region_queue_sim` (:896): arrivals [(t, home)] ascending, each
+    region one server taking `svc` seconds an eval.  With a router the
+    router picks the region per arrival (backlogs fed by `note_ready`,
+    the shed lane drained as capacity returns, every cross-region hop
+    charged its WAN delay); without one every eval runs at home and a
+    backlog at `watermark` marks the region browned out.  Returns
+    (latencies, browned regions, evals completed)."""
+    comp = {r: collections.deque() for r in regions}
+    last = {r: 0.0 for r in regions}
+    lat, browned = [], set()
+
+    def depth(r, t):
+        dq = comp[r]
+        while dq and dq[0] <= t:
+            dq.popleft()
+        return len(dq)
+
+    def enqueue(r, t, t_arr):
+        done = max(last[r], t) + svc
+        last[r] = done
+        comp[r].append(done)
+        lat.append(done - t_arr)
+
+    for t, home in arrivals:
+        if router is None:
+            if depth(home, t) >= watermark:
+                browned.add(home)
+            enqueue(home, t, t)
+            continue
+        for r in regions:
+            router.region(r).note_ready(depth(r, t))
+        for ev, r in router.drain_shed():
+            enqueue(r, t + router.wan_delay(ev[1], r), ev[0])
+        reg, _cause = router.route((t, home), home=home)
+        if reg is not None:
+            enqueue(reg, t + router.wan_delay(home, reg), t)
+    # what the router shed completes once capacity returns (never
+    # dropped)
+    t = max(last.values())
+    for _ in range(100_000):
+        if router is None or not router.shed_depth():
+            break
+        t += svc
+        for r in regions:
+            router.region(r).note_ready(depth(r, t))
+        for ev, r in router.drain_shed():
+            enqueue(r, t + router.wan_delay(ev[1], r), ev[0])
+    return lat, browned, len(lat)
+
+
+def spillover_leg(svc, n_regions, SpilloverRouter, WanLatencyModel):
+    """Leg L5: bench.py run_multiregion's spillover leg at `svc` seconds
+    an eval.  400 seeded Poisson arrivals at half the fleet's rate, 70%
+    homed on one region, through three policies: isolated (every eval at
+    home), the spillover router, and the router on a balanced stream.
+    Returns the reference's figures (p99s in seconds)."""
+    import random
+    regions = [f"r{i}" for i in range(n_regions)]
+    rng = random.Random(SPILL_SEED)
+    lam = 2.0 / svc                      # total load: 50% of the fleet
+    t_a, arrivals = 0.0, []
+    for _ in range(SPILL_ARRIVALS):
+        t_a += rng.expovariate(lam)
+        hot = rng.random() < SPILL_HOT_SHARE
+        arrivals.append((t_a, regions[0] if hot else regions[
+            1 + rng.randrange(n_regions - 1)]))
+    balanced = [(t, regions[i % n_regions])
+                for i, (t, _h) in enumerate(arrivals)]
+    lat_iso, browned, done_iso = region_queue_sim(
+        arrivals, regions, svc, watermark=int(0.75 * SPILL_MAX_PENDING))
+    wan_base = SPILL_WAN_VS_SVC * svc
+
+    def router():
+        r = SpilloverRouter(
+            regions={name: 1.0 + 0.1 * i for i, name in enumerate(regions)},
+            overrides={"slo_budget_s": 2.5 * svc, "spill_margin": 1.0,
+                       "max_pending": SPILL_MAX_PENDING},
+            wan_model=WanLatencyModel(default_s=wan_base, jitter=0.25))
+        for name in regions:
+            for b in (1, 2, 4, 8, 16, 32, 64):
+                r.note_solve(name, b, b * svc)
+        return r
+
+    r_sp = router()
+    lat_sp, _b, done_sp = region_queue_sim(arrivals, regions, svc,
+                                           router=r_sp)
+    lat_bal, _b, done_bal = region_queue_sim(balanced, regions, svc,
+                                             router=router())
+    def p99(xs):                         # bench.py pct: floor rank
+        return sorted(xs)[int(0.99 * (len(xs) - 1))]
+    p99_iso, p99_sp, p99_bal = p99(lat_iso), p99(lat_sp), p99(lat_bal)
+    stats = r_sp.stats()
+    return {
+        "n_arrivals": SPILL_ARRIVALS, "svc_per_eval_s": svc,
+        "hot_region_share": SPILL_HOT_SHARE,
+        "isolated_browned_regions": sorted(browned),
+        "p99_isolated_s": p99_iso, "p99_spillover_s": p99_sp,
+        "p99_balanced_s": p99_bal,
+        "p99_vs_balanced": p99_sp / max(p99_bal, 1e-9),
+        "evals_lost": 3 * SPILL_ARRIVALS - done_sp - done_iso - done_bal,
+        "shed_lane_depth_end": r_sp.shed_depth(),
+        "routed": stats["routed"],
+        "wan": {"base_s": wan_base, "base_vs_svc": SPILL_WAN_VS_SVC,
+                "jitter": 0.25, **stats.get("wan", {})},
+        "shed_accounting_intact": (
+            stats["routed"]["shed"] == stats["routed"]["readmitted"]
+            and r_sp.shed_depth() == 0),
+        "spill_ok": bool(p99_sp <= 2 * p99_bal and browned
+                         and done_sp == SPILL_ARRIVALS)}
+
+
 def phase_mesh(torch, wk, n_nodes=MESH_NODES, n_evals=MESH_EVALS,
                epc=MESH_EPC, rich_count=MESH_RICH_COUNT):
     """Phase 11: the mesh tiers on shards of the card.  Returns (launch
@@ -4022,12 +4207,612 @@ def phase_mesh(torch, wk, n_nodes=MESH_NODES, n_evals=MESH_EVALS,
                       "launches": c4,
                       "launches_per_region": [dict(x) for x in shards]}
         emit({"phase": "mesh", "leg": "L4", **legs["L4"]})
+
+        # ---- L5: SLO spillover across the regions, at the card's rate
+        # (seconds an eval of L2's cross-region stream, as bench.py
+        # run_multiregion takes its own WAN leg's)
+        from nomad_tpu_torch.server.serving import (SpilloverRouter,
+                                                    WanLatencyModel)
+        svc = legs["L2"]["cross_region"]["wall_ms"] / 1e3 / n_evals
+        legs["L5"] = spillover_leg(svc, MESH_REGIONS, SpilloverRouter,
+                                   WanLatencyModel)
+        emit({"phase": "mesh", "leg": "L5", **legs["L5"]})
+        l5 = legs["L5"]
+        check(l5["evals_lost"] == 0, f"L5: {l5['evals_lost']} evals lost")
+        check(l5["shed_accounting_intact"], "L5: shed lane accounting")
+        check(l5["spill_ok"], "L5: spillover p99 above 2x balanced, or the "
+              "isolated policy did not brown out")
     except PhaseError as e:
         emit({"phase": "mesh", "failed": str(e), "legs_done": sorted(legs)})
         raise
     emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase,
           "build_s": build, "launches": total})
     return total, {"topk": into["kw"], "score": into_s["kw"]}, legs
+
+
+# ------------------------------------------------------------ phase 12
+#: W1 / W2 / W3 jobs, W2's client threads
+CLUSTER_W1 = 16
+CLUSTER_W2 = 64
+CLUSTER_W2_CLIENTS = 4
+CLUSTER_W3 = 16
+#: the phase fails at any wait past this many seconds
+CLUSTER_WAIT_S = 300.0
+#: raft's own timeouts, as Nomad's servers run them (hashicorp/raft's
+#: defaults: an election timeout of 1-2 s, a heartbeat every 0.1 s)
+CLUSTER_RAFT = {"election_timeout_s": (1.0, 2.0),
+                "heartbeat_interval_s": 0.1}
+#: SWIM timings for three servers that share one process, its GIL and a
+#: 100,000-alloc entry's decode: a probe waits 2 s, a suspect is dead
+#: after 4 s
+CLUSTER_GOSSIP = {"probe_interval_s": 0.5, "probe_timeout_s": 2.0,
+                  "suspicion_timeout_s": 4.0}
+#: the nodes carry no client agent: their heartbeat TTL outlasts the run
+CLUSTER_SERVER = {"min_heartbeat_ttl_s": 3600.0,
+                  "failover_heartbeat_ttl_s": 3600.0}
+HOME_REGION = "global"
+#: the resident allocs phase 12 enters, cut from RESIDENT: each entry of
+#: RESIDENT_CHUNK allocs is decoded into three replicas' stores in one
+#: process, ≈ 6.4 s an entry on the H100's host, so 100,000 took 63.6 s
+#: of a 94.2 s entry; 60,000 keeps the entry near a minute
+CLUSTER_RESIDENT = 60_000
+
+
+def wait_for(pred, what, timeout=CLUSTER_WAIT_S):
+    """Poll `pred` until true; the phase fails past `timeout` seconds.
+    Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout,
+              f"{what}: not within {timeout} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class ClusterProbe:
+    """What phase 12 reads from outside the cluster: the bytes every
+    RPC frame carried over loopback (each frame is read once, by its
+    receiver), the largest AppendEntries each raft leader cut (encoded
+    entries) and how many batches the frame limit cut, every resident
+    world built (when it ended, ms), and the packed batch of the last
+    single-lane solve while `capture` is on."""
+
+    def __init__(self, servers):
+        import threading
+        from nomad_tpu_torch.rpc import wire
+        from nomad_tpu_torch.solver import solve as solve_mod
+        from nomad_tpu_torch.solver.solve import Solver
+        self.loopback = 0
+        self.appends = {"max_bytes": 0, "batches": 0, "cut_by_bytes": 0}
+        self.world_builds = []
+        self.capture, self.last_pb = False, None
+        lock = threading.Lock()
+        restore = []
+        real_recv = wire._recv_exact
+
+        def recv_exact(sock, n):
+            b = real_recv(sock, n)
+            with lock:
+                self.loopback += len(b)
+            return b
+        wire._recv_exact = recv_exact
+        restore.append(lambda: setattr(wire, "_recv_exact", real_recv))
+        for s in servers:
+            self.watch_raft(s)
+        real_async = Solver.solve_async
+
+        def solve_async(solver, *a, **kw):
+            pending = real_async(solver, *a, **kw)
+            if self.capture:
+                self.last_pb = snapshot_pb(pending.packed)
+            return pending
+        Solver.solve_async = solve_async
+        restore.append(lambda: setattr(Solver, "solve_async", real_async))
+        real_world = solve_mod._ResidentWorld
+        builds = self.world_builds
+
+        class TimedWorld(real_world):
+            def __init__(self, *a, **kw):
+                t = time.perf_counter()
+                super().__init__(*a, **kw)
+                t1 = time.perf_counter()
+                builds.append((t1, 1e3 * (t1 - t)))
+        solve_mod._ResidentWorld = TimedWorld
+        restore.append(lambda: setattr(solve_mod, "_ResidentWorld",
+                                       real_world))
+        self.close = lambda: [fn() for fn in reversed(restore)]
+
+    def watch_raft(self, srv):
+        real = srv.raft._frame_batch
+
+        def frame_batch(peer, entries):
+            out = real(peer, entries)
+            if out:
+                n = 1 + sum(e.encoded_bytes() + 1 for e in out)
+                a = self.appends
+                a["max_bytes"] = max(a["max_bytes"], n)
+                a["batches"] += 1
+                a["cut_by_bytes"] += len(out) < len(entries)
+            return out
+        srv.raft._frame_batch = frame_batch
+
+
+def cluster_state(structs, servers, leader, jobs, evals, what):
+    """Phase 12's hard checks after a leg: every live replica holds the
+    leader's allocs (ids, nodes, client statuses) once it has applied
+    the leader's log; no node oversubscribed; each leg eval complete and
+    its job's placements all in the store or left to a blocked eval of
+    the job.  Returns (placed by the leg's jobs, unplaced)."""
+    target = leader.raft.last_applied
+    wait_for(lambda: all(s.raft.last_applied >= target for s in servers),
+             f"{what}: a replica to apply the leader's log")
+
+    def allocs(s):
+        return {(a.id, a.node_id, a.client_status) for a in s.store.allocs()}
+    want = allocs(leader)
+    for s in servers:
+        if s is not leader:
+            got = allocs(s)
+            check(got == want, f"{what}: replica {s.raft.id} holds "
+                  f"{len(got ^ want)} allocs unlike the leader's")
+    for n in leader.store.nodes():
+        live = leader.store.allocs_by_node_terminal(n.id, False)
+        fit, dim, _used = structs.allocs_fit(n, live)
+        check(fit, f"{what}: node {n.name} oversubscribed ({dim})")
+    blocked = {e.job_id for e in leader.store.evals()
+               if e.status == structs.EVAL_STATUS_BLOCKED}
+    placed = unplaced = 0
+    for job, ev_id in zip(jobs, evals):
+        ev = leader.store.eval_by_id(ev_id)
+        check(ev is not None and ev.status == structs.EVAL_STATUS_COMPLETE,
+              f"{what}: eval of {job.id} is "
+              f"{ev.status if ev else None!r}")
+        names = [a.name for a in leader.store.allocs_by_job(
+            structs.DEFAULT_NAMESPACE, job.id)]
+        check(len(set(names)) == len(names), f"{what}: {job.id} has "
+              "duplicate alloc names")
+        want_n = sum(tg.count for tg in job.task_groups)
+        check(len(names) == want_n or job.id in blocked,
+              f"{what}: {job.id} placed {len(names)} of {want_n} and no "
+              "blocked eval holds the rest")
+        placed += len(names)
+        unplaced += want_n - len(names)
+    return placed, unplaced
+
+
+def leg_launches(torch, wk, what, modes):
+    """The leg's launch counts (zeroed just before it); the leg must
+    have launched the wave kernel in each of `modes`."""
+    torch.cuda.synchronize()
+    counts = dict(wk.fused_wave.mode_launches)
+    for m in modes:
+        check(counts[m] > 0, f"{what}: no {m} launch ({counts})")
+    check(counts["merge"] == counts["topk"],
+          f"{what}: merge launches {counts}")
+    return counts
+
+
+def phase_cluster(torch, wk, n_nodes, resident):
+    """Phase 12: a three-server cluster of the port over TCP (the
+    reference's `serve_cluster`) with gossip and autopilot, the
+    config-3 state entered through the leader, and four legs: W1 jobs
+    registered at a follower and forwarded, W2 jobs from four client
+    threads over all three servers, W3 the leader killed (election,
+    gossip, autopilot, the new leader's world, jobs through the server
+    list's failover), W4 a job registered from another region through
+    gossip.  Returns the launch counts of the legs."""
+    import gc
+    import resource
+    import threading
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.membership import GossipAgent, Member, RegionRouter
+    from nomad_tpu_torch.membership.gossip import STATUS_DEAD
+    from nomad_tpu_torch.rpc import wire
+    from nomad_tpu_torch.rpc.endpoints import (RpcServerEndpoints,
+                                               serve_cluster)
+    from nomad_tpu_torch.server.eval_broker import FAILED_QUEUE
+    from nomad_tpu_torch.utils.codec import to_wire
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    wk._load()          # the kernels are built and bound by this thread
+    t_phase = time.perf_counter()
+    kw = {"device": DEVICE, **CLUSTER_SERVER}
+    servers, srpcs, _addrs = serve_cluster(3, num_workers=2,
+                                           server_kwargs=kw,
+                                           raft_kwargs=CLUSTER_RAFT)
+    rpcs = [r.rpc for r in srpcs]
+    gossips = [GossipAgent(Member(id=s.raft.id, addr=r.addr,
+                                  region=HOME_REGION), r, **CLUSTER_GOSSIP)
+               for s, r in zip(servers, rpcs)]
+    stopped = set()                   # W3's deliberate stop
+    alpha, alpha_rpc, alpha_gossip, router = None, None, None, None
+    endpoints, rounds_probe = [], None
+    row = {"phase": "cluster", "servers": len(servers),
+           "nodes": n_nodes, "resident_allocs": resident,
+           "resident_cut": RESIDENT - resident, "raft": CLUSTER_RAFT,
+           "gossip": CLUSTER_GOSSIP, "max_frame": wire.MAX_FRAME}
+    legs = {}
+    total = collections.Counter()
+
+    def live():
+        return [s for i, s in enumerate(servers) if i not in stopped]
+
+    def leader():
+        found = []
+
+        def one():
+            found[:] = [s for s in live() if s.is_leader()]
+            return len(found) == 1
+        wait_for(one, "a single leader")
+        return found[0]
+
+    def loopback(leg, b0):
+        legs[leg]["loopback_bytes"] = probe.loopback - b0
+
+    probe = ClusterProbe(servers)
+    m_start = global_metrics.dump()
+    # three replicas of the config-3 state in one process make a full
+    # collection a stop-the-world pause that grows with the legs' objects
+    # past raft's election timeout and gossip's probe timeout (1.3 s at
+    # 10,000 allocs in a CPU rehearsal): the collector is off for the
+    # phase, and the entered state is frozen out of it
+    gc.collect()
+    gc.disable()
+    try:
+        for s, g in zip(servers, gossips):
+            s.attach_gossip(g)
+            g.start()
+        for g in gossips[1:]:
+            g.join(gossips[0].me.addr)
+        wait_for(lambda: all(len(g.members(alive_only=True)) == 3
+                             for g in gossips), "gossip membership of 3")
+        lead = leader()
+
+        # ---- entry: the config-3 state through the leader, over TCP
+        b0 = probe.loopback
+        t0 = time.perf_counter()
+        nodes, setup = server_cluster(lead, mock, structs, n_nodes,
+                                      resident, node_threads=8)
+        target = lead.raft.last_applied
+        setup["replicated_s"] = wait_for(
+            lambda: all(s.raft.last_applied >= target for s in servers),
+            "the entry's replication")
+        setup["entry_s"] = time.perf_counter() - t0
+        gc.freeze()
+        setup["frozen_objects"] = gc.get_freeze_count()
+        legs["entry"] = setup
+        loopback("entry", b0)
+        check(leader() is lead, "leadership changed during the entry")
+        registered = []
+        warm_ms = warm_worlds(
+            lead, lambda i: make_job(mock, structs, f"cw{i}", COUNT),
+            registered)
+        rounds_probe = ServerProbe(lead, wk)
+
+        # ---- W1: jobs registered at a follower, forwarded to the leader
+        follower = next(i for i, s in enumerate(servers) if s is not lead)
+        ep1 = RpcServerEndpoints([rpcs[follower].addr])
+        endpoints.append(ep1)
+        reg_s, commit_s = {}, {}
+        local = threading.local()
+        real_reg, real_prop = lead.register_job, lead._propose
+
+        def register_job(job, *a, **kw):
+            local.commit = commit_s.setdefault(job.id, [])
+            t = time.perf_counter()
+            try:
+                return real_reg(job, *a, **kw)
+            finally:
+                reg_s[job.id] = time.perf_counter() - t
+                local.commit = None
+
+        def propose(etype, payload):
+            t = time.perf_counter()
+            try:
+                return real_prop(etype, payload)
+            finally:
+                sink = getattr(local, "commit", None)
+                if sink is not None:
+                    sink.append(time.perf_counter() - t)
+        lead.register_job, lead._propose = register_job, propose
+        zero_launches(torch, wk)
+        b0 = probe.loopback
+        probe.capture = True
+        walls, splits, evals_w1, jobs_w1 = [], [], [], []
+        for e in range(CLUSTER_W1):
+            job = make_job(mock, structs, f"c1-{e}", COUNT)
+            t = time.perf_counter()
+            ev_id = ep1.register_job(job)["id"]
+            t_rpc = time.perf_counter()
+            wait_evals(lead, [ev_id], 120)
+            walls.append(time.perf_counter() - t)
+            split, attrs = eval_split(global_tracer, ev_id)
+            split["register"] = 1e3 * reg_s[job.id]
+            split["raft_commit"] = 1e3 * sum(commit_s[job.id])
+            split["rpc_forward"] = 1e3 * (t_rpc - t) - split["register"]
+            split["rest"] = 1e3 * walls[-1] - sum(
+                split[k] for k in ("rpc_forward", "register", "queue",
+                                   "wait_index", "pre_solve", "solve",
+                                   "plan_submit"))
+            splits.append(split)
+            evals_w1.append(ev_id)
+            jobs_w1.append(job)
+            check(attrs.get("resident") and attrs.get("backend")
+                  == "device", f"W1 eval {e}: off the resident card "
+                  f"route ({attrs.get('backend')!r})")
+        probe.capture = False
+        counts = leg_launches(torch, wk, "W1", ("topk",))
+        ms = [1e3 * w for w in walls]
+        legs["W1"] = {
+            "jobs": CLUSTER_W1, "via": f"follower {servers[follower].raft.id}",
+            "p50_ms": pct(ms, 0.5), "p99_ms": pct(ms, 0.99), "walls_ms": ms,
+            "split_p50_ms": {k: pct([s[k] for s in splits], 0.5)
+                             for k in splits[0]},
+            "split_p99_ms": {k: pct([s[k] for s in splits], 0.99)
+                             for k in splits[0]},
+            "gc": {"enabled": gc.isenabled(), "counts": gc.get_count(),
+                   "frozen": gc.get_freeze_count()},
+            "threads": threading.active_count(), "launches": counts}
+        total.update(counts)
+        loopback("W1", b0)
+        placed, unplaced = cluster_state(structs, live(), lead, jobs_w1,
+                                             evals_w1, "W1")
+        legs["W1"].update(placed=placed, unplaced=unplaced)
+        pb_w1 = probe.last_pb
+        check(pb_w1 is not None, "W1: no packed batch captured")
+        kernel_vs_plain(wk, (("last W1 eval", pb_w1, "topk"),))
+        lead.register_job, lead._propose = real_reg, real_prop
+
+        # one more W1 job under torch.profiler: the card's busy share
+        def one_eval():
+            t = time.perf_counter()
+            ev_id = ep1.register_job(make_job(mock, structs, "c1-prof",
+                                              COUNT))["id"]
+            wait_evals(lead, [ev_id], 120)
+            return 1e3 * (time.perf_counter() - t)
+        wall_ms, by_name = profile_card(torch, one_eval)
+        busy_ms = sum(by_name.values())
+        legs["W1"]["profiled_eval"] = {
+            "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "top_device_ms": dict(by_name.most_common(8))}
+
+        # ---- W2: four client threads over all three servers
+        zero_launches(torch, wk)
+        b0 = probe.loopback
+        mark, m0 = rounds_probe.mark(), global_metrics.dump()
+        addrs = [r.addr for r in rpcs]
+        jobs_w2 = [make_job(mock, structs, f"c2-{e}", COUNT)
+                   for e in range(CLUSTER_W2)]
+        bjob = batch_job(mock, structs, BATCH_COUNT)
+        bjob.id = bjob.name = "batch-fanout-cluster"
+        per = CLUSTER_W2 // CLUSTER_W2_CLIENTS
+        shares = [jobs_w2[k * per:(k + 1) * per]
+                  for k in range(CLUSTER_W2_CLIENTS)]
+        shares[0].append(bjob)
+        evals_w2, errors = {}, []
+
+        def client(k):
+            ep = RpcServerEndpoints(addrs[k % 3:] + addrs[:k % 3])
+            endpoints.append(ep)
+            try:
+                for job in shares[k]:
+                    evals_w2[job.id] = ep.register_job(job)["id"]
+            except Exception as exc:        # read after the join
+                errors.append(f"client {k}: {type(exc).__name__}: {exc}")
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(CLUSTER_W2_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(CLUSTER_WAIT_S)
+        check(not any(th.is_alive() for th in threads),
+              "W2: a client thread is still registering")
+        check(not errors, f"W2: {errors}")
+        register_s = time.perf_counter() - t
+        all_w2 = jobs_w2 + [bjob]
+        ids_w2 = [evals_w2[j.id] for j in all_w2]
+        wait_evals(lead, ids_w2, CLUSTER_WAIT_S)
+        wall = time.perf_counter() - t
+        wait_for(lambda: lead.broker.stats()["total_unacked"] == 0,
+                 "W2: the fused rounds' acks")
+        counts = leg_launches(torch, wk, "W2", ("score",))
+        total.update(counts)
+        m1 = global_metrics.dump()
+        rounds = rounds_probe.since(mark)["rounds"]
+        placed, unplaced = cluster_state(structs, live(), lead, all_w2,
+                                             ids_w2, "W2")
+        legs["W2"] = {
+            "jobs": CLUSTER_W2, "batch_count": BATCH_COUNT,
+            "clients": CLUSTER_W2_CLIENTS, "register_s": register_s,
+            "wall_s": wall, "evals_per_s": len(ids_w2) / wall,
+            "placed": placed, "unplaced": unplaced,
+            "placements_per_s": placed / wall,
+            "fused_rounds": len(rounds),
+            "round_evals": [r["evals"] for r in rounds],
+            "score_rounds": sum(1 for r in rounds
+                                if r["modes"].get("score")),
+            "group_commits": (m1["counters"].get("plan.group_commits", 0.0)
+                              - m0["counters"].get("plan.group_commits",
+                                                   0.0)),
+            "launches": counts}
+        loopback("W2", b0)
+        rounds_probe.close()
+        rounds_probe = None
+
+        # ---- W3: the leader killed
+        zero_launches(torch, wk)
+        b0 = probe.loopback
+        li = servers.index(lead)
+        dead_id = lead.raft.id
+        # the new leader restores these first (leader.go restoreEvals)
+        blocked_at_kill = sum(1 for e in lead.store.evals()
+                              if e.status == structs.EVAL_STATUS_BLOCKED)
+        marks, watching = {}, threading.Event()
+
+        def watch():
+            # each event's first sight, seconds after the kill
+            others = [(s, g) for i, (s, g) in enumerate(zip(servers,
+                                                            gossips))
+                      if i != li]
+            while not watching.is_set():
+                now = time.perf_counter() - t_kill
+                if any(s.is_leader() for s, _g in others):
+                    marks.setdefault("election_s", now)
+                if all(g.member(dead_id) is not None
+                       and g.member(dead_id).status == STATUS_DEAD
+                       for _s, g in others):
+                    marks.setdefault("gossip_dead_s", now)
+                if any(s.is_leader() and dead_id not in s.raft.cfg.peers
+                       and len(s.raft.cfg.peers) == 2 for s, _g in others):
+                    marks.setdefault("autopilot_s", now)
+                time.sleep(0.005)
+        watcher = threading.Thread(target=watch, daemon=True)
+        t_kill = time.perf_counter()
+        rpcs[li].stop()
+        gossips[li].stop()
+        lead.stop()
+        stopped.add(li)
+        w3 = {"killed": dead_id, "stop_s": time.perf_counter() - t_kill,
+              "blocked_evals_restored": blocked_at_kill}
+        watcher.start()
+        new = leader()
+        w3["new_leader"] = new.raft.id
+        ep3 = RpcServerEndpoints([rpcs[li].addr] + [
+            rpcs[i].addr for i in range(3) if i != li])
+        endpoints.append(ep3)
+        first = make_job(mock, structs, "c3-first", COUNT)
+        t = time.perf_counter()
+        ev_first = ep3.register_job(first)["id"]
+        wait_evals(new, [ev_first], 120)
+        w3["first_eval_ms"] = 1e3 * (time.perf_counter() - t)
+        w3["first_placement_s"] = time.perf_counter() - t_kill
+        try:
+            wait_for(lambda: len(marks) == 3, "W3: the election, gossip "
+                     f"marking {dead_id} dead and autopilot dropping it")
+        except PhaseError as e:
+            raise PhaseError(f"{e} (seen: {dict(marks)})") from None
+        finally:
+            watching.set()
+            watcher.join(5.0)
+        w3.update(marks)
+        check(leader() is new, "W3: leadership moved again")
+        w3["warm_eval_ms"] = warm_worlds(
+            new, lambda i: make_job(mock, structs, f"c3w{i}", COUNT),
+            registered)
+        # the new leader's worlds, each built by the first eval its
+        # worker took (seconds after the kill it ended, ms it took)
+        w3["world_builds"] = [{"done_s": t - t_kill, "ms": ms}
+                              for t, ms in probe.world_builds if t > t_kill]
+        check(len(w3["world_builds"]) >= 2, "W3: the new leader's "
+              f"workers built {len(w3['world_builds'])} worlds")
+        walls, evals_w3, jobs_w3 = [], [ev_first], [first]
+        for e in range(CLUSTER_W3):
+            job = make_job(mock, structs, f"c3-{e}", COUNT)
+            t = time.perf_counter()
+            ev_id = ep3.register_job(job)["id"]
+            wait_evals(new, [ev_id], 120)
+            walls.append(1e3 * (time.perf_counter() - t))
+            evals_w3.append(ev_id)
+            jobs_w3.append(job)
+        counts = leg_launches(torch, wk, "W3", ("topk",))
+        total.update(counts)
+        placed, unplaced = cluster_state(structs, live(), new, jobs_w3,
+                                             evals_w3, "W3")
+        w3.update(jobs=CLUSTER_W3, p50_ms=pct(walls, 0.5),
+                  p99_ms=pct(walls, 0.99), walls_ms=walls, placed=placed,
+                  unplaced=unplaced, deliberate_stops=len(stopped),
+                  peers=leader().raft.cfg.peers, launches=counts)
+        legs["W3"] = w3
+        loopback("W3", b0)
+        lead = new
+
+        # ---- W4: a job registered from another region, through gossip
+        zero_launches(torch, wk)
+        b0 = probe.loopback
+        a_servers, a_rpcs, _ = serve_cluster(
+            1, num_workers=1, server_kwargs=kw, raft_kwargs=CLUSTER_RAFT)
+        alpha, alpha_rpc = a_servers[0], a_rpcs[0].rpc
+        alpha_gossip = GossipAgent(Member(id="alpha-1", addr=alpha_rpc.addr,
+                                          region="alpha"), alpha_rpc,
+                                   **CLUSTER_GOSSIP)
+        alpha_gossip.start()
+        alpha_gossip.join(gossips[next(i for i in range(3)
+                                       if i not in stopped)].me.addr)
+        wait_for(lambda: alpha_gossip.regions() == sorted(
+            ["alpha", HOME_REGION]) and len(alpha_gossip.members_of_region(
+                HOME_REGION)) == 2, "W4: the regions' gossip")
+        wait_for(alpha.is_leader, "W4: region alpha's leader")
+        router = RegionRouter(alpha_gossip)
+        job = make_job(mock, structs, "c4-remote", COUNT)
+        t = time.perf_counter()
+        ev_id = router.call_region(HOME_REGION, "Job.Register",
+                                   [to_wire(job)])["id"]
+        wait_evals(lead, [ev_id], 120)
+        w4 = {"wall_ms": 1e3 * (time.perf_counter() - t),
+              "regions": router.regions()}
+        check(alpha.store.job_by_id(structs.DEFAULT_NAMESPACE, job.id)
+              is None, "W4: the job landed in region alpha")
+        counts = leg_launches(torch, wk, "W4", ("topk",))
+        total.update(counts)
+        placed, unplaced = cluster_state(structs, live(), lead, [job],
+                                             [ev_id], "W4")
+        w4.update(placed=placed, unplaced=unplaced, launches=counts)
+        legs["W4"] = w4
+        loopback("W4", b0)
+
+        # ---- the record: frames and the snapshot against the limit
+        m_end = global_metrics.dump()
+        for key in ("worker.batch_error", "telemetry.tick_error"):
+            errs = (m_end["counters"].get(key, 0.0)
+                    - m_start["counters"].get(key, 0.0))
+            check(errs == 0, f"{errs} {key} in the phase")
+        broker = lead.broker.stats()
+        check(broker["by_scheduler"].get(FAILED_QUEUE, 0) == 0,
+              "evals parked on the broker's failed queue")
+        t = time.perf_counter()
+        snap = len(lead.fsm.snapshot())
+        row["frames"] = {
+            "max_append_bytes": probe.appends["max_bytes"],
+            "append_batches": probe.appends["batches"],
+            "cut_by_bytes": probe.appends["cut_by_bytes"],
+            "snapshot_bytes": snap,
+            "snapshot_s": time.perf_counter() - t,
+            "snapshot_over_max_frame": snap > wire.MAX_FRAME}
+        check(probe.appends["max_bytes"] <= wire.MAX_FRAME,
+              "an AppendEntries past the frame limit")
+        row["warm_eval_ms"] = warm_ms
+        row["world_builds_ms"] = [ms for _t, ms in probe.world_builds]
+        row["peak_rss_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    except PhaseError as e:
+        row.update(failed=str(e), legs=legs)
+        emit(row)
+        raise
+    finally:
+        if rounds_probe is not None:
+            rounds_probe.close()
+        probe.close()
+        if router is not None:
+            router.close()
+        for ep in endpoints:
+            ep.close()
+        for g in gossips + ([alpha_gossip] if alpha_gossip else []):
+            g.stop()
+        for i, s in enumerate(servers):
+            if i not in stopped:
+                s.stop()
+            rpcs[i].stop()
+        if alpha is not None:
+            alpha.stop()
+            alpha_rpc.stop()
+        gc.unfreeze()
+        gc.enable()
+    row.update(legs=legs, seconds=time.perf_counter() - t_phase,
+               launches=dict(total))
+    emit(row)
+    return {m: total[m] for m in ("score", "topk", "merge")}
 
 
 def main() -> int:
@@ -4063,6 +4848,7 @@ def main() -> int:
                                           N_STREAM_EVALS)
     counts10 = phase_host_route(torch, wk)
     counts11, calls11, _legs11 = phase_mesh(torch, wk)
+    counts12 = phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -4103,6 +4889,7 @@ def main() -> int:
             "launches_phase9": counts9[mode],
             "launches_phase10": counts10[mode],
             "launches_phase11": counts11[mode],
+            "launches_phase12": counts12[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

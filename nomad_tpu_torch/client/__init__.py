@@ -1,0 +1,6 @@
+"""The node agent's side of the client/server split.
+
+The counterpart of `nomad_tpu.client`; only `agent.ServerEndpoints` and
+`agent.InProcServer` are ported (ROADMAP.md Queue 1 item 16 holds the
+rest).
+"""

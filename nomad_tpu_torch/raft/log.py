@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
 
@@ -23,6 +23,19 @@ class LogEntry:
     term: int
     etype: str
     payload: Any
+    #: the entry's encoded size on the wire, measured once when a
+    #: transport with a frame limit first ships it
+    wire_bytes: Optional[int] = field(default=None, compare=False,
+                                      repr=False)
+
+    def encoded_bytes(self) -> int:
+        """Bytes of the entry as one AppendEntries frame carries it (the
+        `[index, term, type, payload]` array, compact JSON)."""
+        if self.wire_bytes is None:
+            self.wire_bytes = len(json.dumps(
+                [self.index, self.term, self.etype, self.payload],
+                separators=(",", ":")).encode())
+        return self.wire_bytes
 
 
 class RaftLog:

@@ -10,12 +10,31 @@ and log compaction.
 
 Transports are pluggable: InProcTransport carries clusters inside one
 process (the reference tests raft fully in-process too —
-nomad/testing.go:42).  The counterpart of `nomad_tpu.raft.node`; the TCP
-transport of the reference's `rpc` package is not ported yet.
+nomad/testing.go:42) and `rpc.transport.TcpRaftTransport` carries them
+over TCP.
+
+The counterpart of `nomad_tpu.raft.node`, with repairs that a cluster
+over TCP at config-3 width needs (ROADMAP.md Queue 3):
+  * each AppendEntries is cut to the transport's `max_append_bytes`
+    of encoded entries (the TCP one: a frame holds at most
+    `rpc.wire.MAX_FRAME` bytes) as well as to 512 entries, as
+    hashicorp/raft caps a batch; the reference sends the 512 whatever
+    their size, and a follower behind by more than a frame's worth
+    never catches up;
+  * a follower commits only up to the last entry the leader's call
+    matched (raft's min(leaderCommit, index of last new entry));
+  * the leader replicates on a thread per peer, with a heartbeat beside
+    a call in flight, and a started member applies committed entries
+    on an applier thread outside the raft lock, so one slow follower
+    neither starves the others' heartbeats nor reads its own apply as
+    the leader's silence;
+  * `barrier()` (hashicorp/raft's), which a new leader runs before it
+    reads the store.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import random
 import threading
@@ -25,6 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .fsm import NOOP, StateFSM
 from .log import LogEntry, RaftLog
+
+_log = logging.getLogger(__name__)
 
 # membership-change entry, applied by the raft layer itself (not the
 # state FSM): payload = the full new peer list (one-at-a-time changes,
@@ -64,6 +85,9 @@ class RaftConfig:
 class InProcTransport:
     """Direct-call transport: a registry of live nodes. Closed nodes are
     unreachable (simulates a crashed server)."""
+
+    #: entries pass by reference: no frame limit
+    max_append_bytes: Optional[int] = None
 
     def __init__(self):
         self._nodes: Dict[str, "RaftNode"] = {}
@@ -121,6 +145,18 @@ class RaftNode:
         self._meta_saved_commit = 0
         self._last_leader_contact = 0.0
         self._role_events: List[str] = []    # deferred callbacks
+        self._oversized = 0      # the entry last logged as unshippable
+        # peers with a replication call in flight, those kicked again
+        # meanwhile and those with a heartbeat in flight
+        # (_replicate_all); guarded by _repl_lock, not the raft lock
+        self._repl_lock = threading.Lock()
+        self._inflight: set = set()
+        self._rekick: set = set()
+        self._beating: set = set()
+        # the applier thread of a started member, and the entry it is
+        # applying outside the lock (0: none)
+        self._applier: Optional[threading.Thread] = None
+        self._applying = 0
 
         self._meta_path = (os.path.join(config.data_dir, "raft.meta")
                            if config.data_dir else None)
@@ -188,12 +224,15 @@ class RaftNode:
             self._reset_election_deadline_locked()
             if self.log.last_index() == 0 and self.term == 0:
                 self._deadline += self.cfg.join_grace_s
-            # thread handle guarded by _lock (the loop's first action
-            # is to take it, so starting here just briefly blocks it)
+            # thread handles guarded by _lock
             t = threading.Thread(target=self._run, daemon=True,
                                  name=f"raft-{self.id}")
+            self._applier = threading.Thread(
+                target=self._apply_loop, daemon=True,
+                name=f"raft-{self.id}-apply")
             t.start()
-            self._threads = [t]
+            self._applier.start()
+            self._threads = [t, self._applier]
 
     def stop(self) -> None:
         with self._lock:
@@ -233,20 +272,22 @@ class RaftNode:
     def _run(self) -> None:
         hb = self.cfg.heartbeat_interval_s
         while True:
-            with self._lock:
-                if not self.running:
-                    return
-                role = self.role
-                now = time.monotonic()
-                timed_out = now >= self._deadline
+            # read without the lock, which a large snapshot install or
+            # compaction holds: heartbeats must not wait for those
+            # (every decision below re-checks under the lock)
+            if not self.running:
+                return
+            role = self.role
+            timed_out = time.monotonic() >= self._deadline
             if role == ROLE_LEADER:
-                self._replicate_all()
+                self._replicate_all(heartbeat=True)
                 time.sleep(hb)
             elif timed_out:
                 self._start_election()
             else:
                 time.sleep(0.01)
-            self._fire_role_events()
+            if self._role_events:
+                self._fire_role_events()
 
     def _reset_election_deadline_locked(self) -> None:
         lo, hi = self.cfg.election_timeout_s
@@ -255,7 +296,10 @@ class RaftNode:
     # ---------------------------------------------------------- election
     def _start_election(self) -> None:
         with self._lock:
-            if not self.running:
+            # the loop read the clock without the lock: an append that
+            # held it (a large apply) may have reset the clock since
+            if (not self.running or self.role == ROLE_LEADER
+                    or time.monotonic() < self._deadline):
                 return
             self.role = ROLE_CANDIDATE
             self.term += 1
@@ -363,6 +407,18 @@ class RaftNode:
             term = self.term
         return self._wait_applied(index, term, timeout)
 
+    def barrier(self, timeout: float = 10.0) -> int:
+        """Block until every entry of the leader's log, its new term's
+        noop included, is applied here (hashicorp/raft `Barrier`, which
+        Nomad's leader runs before reading the state store); returns
+        that index.  Raises NotLeaderError off the leader and
+        TimeoutError past `timeout`."""
+        with self._lock:
+            if self.role != ROLE_LEADER:
+                raise NotLeaderError(self.leader_id)
+            index, term = self.log.last_index(), self.term
+        return self._wait_applied(index, term, timeout)
+
     def propose_async(self, etype: str, payload: Any):
         """Append + kick replication WITHOUT waiting; returns
         (index, wait_fn) where wait_fn(timeout) blocks until the entry
@@ -377,25 +433,12 @@ class RaftNode:
                 raise NotLeaderError(self.leader_id)
             index = self._append_locked(etype, payload)
             term = self.term
-        single = len([p for p in self.cfg.peers or [self.id]]) <= 1
-        if single:
-            with self._lock:
-                self._advance_commit_locked()
-                self._apply_committed_locked()
-            return index, (lambda timeout=10.0: index)
-        kick = threading.Thread(target=self._replicate_all, daemon=True)
-        kick.start()
+        self._replicate_all()
         return index, (lambda timeout=10.0:
                        self._await_applied(index, term, timeout))
 
     def _wait_applied(self, index: int, term: int,
                       timeout: float) -> int:
-        single = len([p for p in self.cfg.peers or [self.id]]) <= 1
-        if single:
-            with self._lock:
-                self._advance_commit_locked()
-                self._apply_committed_locked()
-                return index
         self._replicate_all()
         return self._await_applied(index, term, timeout)
 
@@ -412,16 +455,84 @@ class RaftNode:
                 self._cv.wait(remain)
             return index
 
-    def _replicate_all(self) -> None:
-        with self._lock:
-            targets = [p for p in list(self.cfg.peers)
-                       + list(self._staging) if p != self.id]
-        for peer in targets:
-            self._replicate_one(peer)
-        with self._lock:
-            if self.role == ROLE_LEADER:
-                self._advance_commit_locked()
-                self._apply_committed_locked()
+    def _replicate_all(self, heartbeat: bool = False) -> None:
+        """Kick replication to every peer and learner without waiting:
+        each peer has at most one call in flight, on a thread of its
+        own, so a follower that takes long to answer (a large batch to
+        decode and apply) delays neither the other followers' appends
+        nor their heartbeats (hashicorp/raft runs a replication
+        goroutine per follower).  A kick that finds its peer's call in
+        flight has that thread go round once more when it returns, and
+        with `heartbeat` (the leader loop's beat) sends that peer an
+        empty append meanwhile, as hashicorp/raft's heartbeat goroutine
+        does, so a large batch in flight never reads as leader
+        silence.  A single voter commits by itself, here."""
+        targets = [p for p in list(self.cfg.peers) + list(self._staging)
+                   if p != self.id]
+        if len(self.cfg.peers) <= 1:
+            with self._lock:
+                if self.role == ROLE_LEADER:
+                    self._advance_commit_locked()
+                    self._apply_committed_locked()
+        if not targets:
+            return
+        start, beat = [], []
+        with self._repl_lock:
+            for peer in targets:
+                if peer not in self._inflight:
+                    self._inflight.add(peer)
+                    start.append(peer)
+                    continue
+                self._rekick.add(peer)
+                if heartbeat and peer not in self._beating:
+                    self._beating.add(peer)
+                    beat.append(peer)
+        for fn, peers in ((self._replicate_peer, start),
+                          (self._heartbeat, beat)):
+            for peer in peers:
+                threading.Thread(target=fn, args=(peer,), daemon=True,
+                                 name=f"raft-{self.id}-{peer}").start()
+
+    def _heartbeat(self, peer: str) -> None:
+        """An empty append with no log position: it passes any
+        follower's consistency check, commits nothing, and only tells it
+        that this leader's term is alive."""
+        try:
+            term = self.term
+            if self.role != ROLE_LEADER:
+                return
+            pterm, _ok, _match = self.transport.call(
+                peer, "rpc_append_entries", term, self.id, 0, 0, [], 0)
+            if pterm > term:
+                with self._lock:
+                    if pterm > self.term:
+                        self._step_down_locked(pterm)
+        except ConnectionError:
+            pass
+        finally:
+            with self._repl_lock:
+                self._beating.discard(peer)
+
+    def _replicate_peer(self, peer: str) -> None:
+        again = True
+        try:
+            while again:
+                self._replicate_one(peer)
+                with self._lock:
+                    if self.role == ROLE_LEADER:
+                        self._advance_commit_locked()
+                        self._apply_committed_locked()
+                with self._repl_lock:
+                    again = (peer in self._rekick and self.running
+                             and self.role == ROLE_LEADER)
+                    self._rekick.discard(peer)
+                    if not again:
+                        self._inflight.discard(peer)
+        except BaseException:
+            with self._repl_lock:
+                self._inflight.discard(peer)
+                self._rekick.discard(peer)
+            raise
 
     def _replicate_one(self, peer: str) -> None:
         with self._lock:
@@ -439,10 +550,15 @@ class RaftNode:
                 prev_term = (self.log.term_at(prev)
                              if prev > self.snapshot_index else 0)
                 entries = self.log.slice_from(nxt)
-                wire = [(e.index, e.term, e.etype, e.payload)
-                        for e in entries]
                 term = self.term
                 commit = self.commit_index
+        if snap is None:
+            # measured outside the lock: a large entry takes a while
+            entries = self._frame_batch(peer, entries)
+            if entries is None:
+                return
+            wire = [(e.index, e.term, e.etype, e.payload)
+                    for e in entries]
         try:
             if snap is not None:
                 pterm = self.transport.call(peer, "rpc_install_snapshot",
@@ -472,6 +588,31 @@ class RaftNode:
             else:
                 self._next[peer] = max(1, min(nxt - 1, match + 1))
 
+    def _frame_batch(self, peer: str, entries: List[LogEntry]
+                     ) -> Optional[List[LogEntry]]:
+        """The longest prefix of `entries` whose encoded bytes fit the
+        transport's `max_append_bytes` (all of them when it states
+        none).  None when the first entry alone is over the limit: it
+        can never be shipped, which is logged, once per entry."""
+        cap = self.transport.max_append_bytes
+        if cap is None or not entries:
+            return entries
+        total = 2                                   # the array brackets
+        for k, e in enumerate(entries):
+            total += e.encoded_bytes() + (1 if k else 0)
+            if total > cap:
+                if k == 0:
+                    if self._oversized != e.index:
+                        self._oversized = e.index
+                        _log.error(
+                            "raft %s: entry %d (%d bytes) exceeds the "
+                            "transport's %d-byte append limit; %s cannot "
+                            "catch up past it", self.id, e.index,
+                            e.encoded_bytes(), cap, peer)
+                    return None
+                return entries[:k]
+        return entries
+
     def _advance_commit_locked(self) -> None:
         peers = self.cfg.peers or [self.id]
         matches = sorted((self._match.get(p, 0) for p in peers),
@@ -490,6 +631,10 @@ class RaftNode:
             self._cv.notify_all()
 
     def _apply_committed_locked(self) -> None:
+        if self._applier is not None:
+            # a started member applies on its applier thread
+            self._cv.notify_all()
+            return
         while self.last_applied < self.commit_index:
             e = self.log.get(self.last_applied + 1)
             if e is None:
@@ -503,6 +648,56 @@ class RaftNode:
         if (self.log.last_index() - self.log.offset
                 > self.cfg.snapshot_threshold):
             self._compact_locked()
+
+    def _apply_loop(self) -> None:
+        """A started member's FSM apply, one committed entry at a time,
+        OUTSIDE the raft lock (hashicorp/raft applies on its own FSM
+        goroutine): appends, heartbeats and votes are answered while a
+        large entry is decoded into the store, so a follower busy
+        applying is neither a silent leader's victim (an election) nor a
+        slow voter the leader's calls time out on."""
+        while True:
+            with self._lock:
+                while self.running and self.last_applied >= self.commit_index:
+                    self._cv.wait(0.5)
+                if not self.running:
+                    return
+                e = self.log.get(self.last_applied + 1)
+                if e is None:
+                    # behind a snapshot being installed: it moves
+                    # last_applied past the compacted prefix
+                    self._cv.wait(0.05)
+                    continue
+                if e.etype == CONFIG:
+                    self._adopt_config_locked(list(e.payload))
+                    self.last_applied = e.index
+                    self._cv.notify_all()
+                    continue
+                self._applying = e.index
+            try:
+                self.fsm.apply(e.index, e.etype, e.payload)
+            except Exception:
+                _log.exception("raft %s: FSM apply of entry %d failed; "
+                               "this member stops applying", self.id,
+                               e.index)
+                with self._lock:
+                    self._applying = 0
+                    self._cv.notify_all()
+                raise
+            with self._lock:
+                self._applying = 0
+                self.last_applied = e.index
+                self._cv.notify_all()
+                compact = (self.log.last_index() - self.log.offset
+                           > self.cfg.snapshot_threshold)
+            if compact:
+                # the applier is the FSM's one writer, so the store holds
+                # exactly the log to e.index while it takes the snapshot
+                # outside the lock (a large store takes seconds, which
+                # appends and heartbeats must not wait out)
+                data = self.fsm.snapshot()
+                with self._lock:
+                    self._compact_locked(data, e.index)
 
     def _adopt_config_locked(self, peers: List[str]) -> None:
         """Adopt a committed membership change. Additions start
@@ -583,10 +778,18 @@ class RaftNode:
         return self._wait_applied(index, term, timeout)
 
     # --------------------------------------------------------- snapshots
-    def _compact_locked(self) -> None:
-        data = self.fsm.snapshot()
-        self.snapshot_term = self.log.term_at(self.last_applied)
-        self.snapshot_index = self.last_applied
+    def _compact_locked(self, data: Optional[bytes] = None,
+                        index: int = 0) -> None:
+        """Snapshot the FSM at last_applied and drop the log up to it;
+        or, given `data` taken at `index` (the applier's snapshot, taken
+        outside the lock), up to that index unless a snapshot install
+        has moved past it."""
+        if data is None:
+            data, index = self.fsm.snapshot(), self.last_applied
+        elif index <= self.snapshot_index:
+            return
+        self.snapshot_term = self.log.term_at(index)
+        self.snapshot_index = index
         if self._snap_path:
             tmp = self._snap_path + ".tmp"
             with open(tmp, "wb") as f:
@@ -668,9 +871,11 @@ class RaftNode:
             if new:
                 self.log.append(new)
             match = prev_index + len(entries)
-            if leader_commit > self.commit_index:
-                self.commit_index = min(leader_commit,
-                                        self.log.last_index())
+            # only what this call matched is known to equal the
+            # leader's log: a tail past it may be another term's
+            commit = min(leader_commit, match)
+            if commit > self.commit_index:
+                self.commit_index = commit
                 self._save_meta_locked()
             self._apply_committed_locked()
             out = self.term, True, match
@@ -690,6 +895,8 @@ class RaftNode:
             self._reset_election_deadline_locked()
             if snap_index <= self.last_applied:
                 return self.term
+            while self._applying:               # the applier's entry
+                self._cv.wait(0.05)
             self.fsm.restore(data)
             self.snapshot_index = snap_index
             self.snapshot_term = snap_term
@@ -703,4 +910,7 @@ class RaftNode:
                             else bytes(data))
                 os.replace(tmp, self._snap_path)
             self._save_meta_locked()
+            # restoring a large snapshot is not the leader's silence
+            self._last_leader_contact = time.monotonic()
+            self._reset_election_deadline_locked()
             return self.term

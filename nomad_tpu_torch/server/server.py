@@ -13,12 +13,13 @@ workers, heartbeater, watchers and plan applier
 The counterpart of `nomad_tpu.server.server`, with one addition: the
 `device` argument, handed to every worker's solver (`None` means `cuda`,
 which raises at the first solve where no GPU is present; the tests pass
-"cpu").  Gossip-driven autopilot (`attach_gossip`, the dead-server
-reconcile) needs the membership package, which is not ported yet: those
-methods raise `NotImplementedError`.
+"cpu").  Multi-server clusters ride the in-process transport or the
+TCP one (`rpc.endpoints.serve_cluster`), and `attach_gossip` wires
+gossip membership to the autopilot's dead-server cleanup.
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time as _time
 from typing import Dict, List, Optional, Tuple
@@ -48,6 +49,8 @@ from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .worker import Worker
 
+_log = logging.getLogger(__name__)
+
 
 class JobValidationError(ValueError):
     """A job failed structural validation at registration (maps to
@@ -72,6 +75,8 @@ class Server:
                  device=None):
         #: where every worker's solver runs (`cuda` when None)
         self.device = device
+        #: gossip membership for the autopilot (`attach_gossip`)
+        self.gossip = None
         self.store = StateStore()
         self.fsm = StateFSM(self.store)
         if raft_config is None:
@@ -173,11 +178,32 @@ class Server:
 
     def _establish_leadership(self) -> None:
         """Enable leader-only services + workers
-        (reference: leader.go:197 establishLeadership)."""
+        (reference: leader.go:197 establishLeadership).  First a raft
+        barrier, as Nomad's leader runs (leader.go:229): entries of
+        earlier terms (an old leader's last plans) are applied before
+        the store is read, or a restored eval is scheduled again on a
+        store that lacks its own placements (duplicate allocs once
+        they apply).  A leader that loses its term meanwhile
+        establishes nothing; its follower event follows."""
+        while True:
+            try:
+                self.raft.barrier()
+                break
+            except NotLeaderError:
+                return
+            except TimeoutError:
+                continue          # still leader: wait out the commit
         self.broker.set_enabled(True)
         self.blocked_evals.set_enabled(True)
         self.plan_queue.set_enabled(True)
         self.planner.start()
+        # a worker is a thread and starts once: a server that leads
+        # again after losing leadership gets fresh workers (the
+        # reference starts the stopped ones again, and that raises in
+        # the raft thread's leadership callback)
+        self.workers = [w if w.ident is None
+                        else Worker(self, w.sched_types, index=w.index)
+                        for w in self.workers]
         for w in self.workers:
             w.start()
         # Reserve leader CPU for raft + plan application by pausing a
@@ -257,7 +283,11 @@ class Server:
         (reference: leader.go:625 reapDupBlockedEvaluations)."""
         import copy
         from ..structs import EVAL_STATUS_CANCELLED
+        ticks = 0
         while not self._stop_reapers.is_set():
+            ticks += 1
+            if ticks % 10 == 0:
+                self._autopilot_reconcile()
             dups = self.blocked_evals.get_duplicates(timeout=0.2)
             if not dups:
                 continue
@@ -955,18 +985,38 @@ class Server:
 
     def attach_gossip(self, gossip) -> None:
         """Autopilot wiring (reference: nomad/autopilot.go dead-server
-        cleanup + serf.go nodeFailed -> removeRaftPeer).  Needs the
-        gossip membership package, which is not ported yet."""
-        raise NotImplementedError(
-            "nomad_tpu_torch: gossip membership is not ported yet "
-            "(ROADMAP.md Queue 1, 'membership/')")
+        cleanup + serf.go nodeFailed -> removeRaftPeer): when gossip
+        declares a SERVER member dead, the leader removes it from the
+        raft peer set so quorum shrinks to the live members. The
+        edge-triggered on_fail is backed by a periodic leader-side
+        reconcile (the reference reconciles from the leader loop), so a
+        death that fires while no stable leader exists is still cleaned
+        up."""
+        self.gossip = gossip
+        prev = gossip.on_fail
+
+        def on_fail(member):
+            if prev is not None:
+                prev(member)
+            self._autopilot_reconcile()
+        gossip.on_fail = on_fail
 
     def _autopilot_reconcile(self) -> None:
-        """The leader-side dead-server reconcile over gossip membership;
-        not ported yet (see attach_gossip)."""
-        raise NotImplementedError(
-            "nomad_tpu_torch: the autopilot reconcile needs gossip "
-            "membership (ROADMAP.md Queue 1, 'membership/')")
+        gossip = self.gossip
+        if gossip is None or not self.is_leader():
+            return
+        from ..membership.gossip import STATUS_DEAD, STATUS_LEFT
+        for peer in list(self.raft.cfg.peers):
+            m = gossip.member(peer)
+            if m is not None and m.status in (STATUS_DEAD, STATUS_LEFT):
+                try:
+                    self.remove_server_peer(peer)
+                except (ValueError, NotLeaderError, TimeoutError) as e:
+                    # a membership change in flight, a lost leadership
+                    # or a commit that timed out: the next tick retries
+                    _log.info("autopilot: removal of %s deferred: %s",
+                              peer, e)
+                return    # one at a time; the next tick continues
 
     # ------------------------------------------------------------ secrets
     def upsert_secret(self, namespace: str, path: str,

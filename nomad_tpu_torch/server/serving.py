@@ -26,9 +26,11 @@ All controller state is shared across worker threads and the leader's
 eval-ingress path, so every class here owns its lock and keeps writes
 under it.
 
-The counterpart of `nomad_tpu.server.serving`, without the cross-region
-admission tier (`SpilloverRouter`, `RegionServingState`,
-`WanLatencyModel`; ROADMAP.md Queue 1, item 11).  The four lane knobs
+The counterpart of `nomad_tpu.server.serving`, with the cross-region
+admission tier (`RegionServingState`, `WanLatencyModel`,
+`SpilloverRouter`); as `ServingTier`, the router takes its knobs from
+`overrides` only (the reference's `NOMAD_TPU_*` environment layer joins
+the agent configuration, ROADMAP.md Queue 1 item 15).  The four lane knobs
 (`fused_lanes`, `max_lanes`, `lane_widen_below`, `lane_narrow_above`)
 are the reference's, with its defaults; as there, the server builds no
 lane former yet (item 21), so their one reader is `lane_controller()`,
@@ -37,9 +39,10 @@ the `LaneWidthController` they configure for the lane stream of
 """
 from __future__ import annotations
 
+import random
 import threading
 import time as _time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..structs import JOB_TYPE_CORE, Evaluation
 
@@ -481,3 +484,339 @@ class ServingTier:
             "admission": self.admission.stats(),
             "slo": self.burn.status(),
         }
+
+
+# ===================================================================
+# Cross-region admission spillover
+# ===================================================================
+
+#: spillover SLO margin: a region "meets SLO" when its predicted
+#: backlog-clear time fits inside slo_budget_s * margin
+DEFAULT_SPILL_MARGIN = 0.8
+#: relative cost of placing one eval in a region (WAN egress, energy,
+#: $/chip-hour); the router prefers cheaper regions at equal health
+DEFAULT_REGION_COST = 1.0
+
+
+class RegionServingState:
+    """One region's serving-tier view for the spillover router: its
+    own EWMA solve model (regions differ in mesh width and load) and
+    admission controller, plus the last reported ready-queue depth."""
+
+    def __init__(self, name: str, cost: float = DEFAULT_REGION_COST,
+                 model: Optional[EwmaSolveModel] = None,
+                 admission: Optional[AdmissionController] = None):
+        self.name = str(name)
+        self.cost = float(cost)
+        self.model = model if model is not None else EwmaSolveModel()
+        self.admission = (admission if admission is not None
+                          else AdmissionController())
+        self._lock = threading.Lock()
+        self._ready = 0
+        self.live = True
+
+    def note_ready(self, n: int) -> None:
+        with self._lock:
+            self._ready = max(int(n), 0)
+
+    def ready(self) -> int:
+        with self._lock:
+            return self._ready
+
+    def browned_out(self) -> bool:
+        """Brownout watermark view: the controller's latched state OR
+        the instantaneous high watermark (the router must not keep
+        feeding a region in the `brownout_after_s` grace window)."""
+        a = self.admission
+        return (a.brownout_active()
+                or self.ready() >= a.brownout_high * a.max_pending)
+
+    def meets_slo(self, n_evals: int, budget_s: float) -> bool:
+        return self.model.predict(self.ready() + max(n_evals, 1)) \
+            <= budget_s
+
+
+class WanLatencyModel:
+    """Modeled per-region-pair WAN round-trip latency, seeded jitter.
+
+    Cross-region placement in the real federation pays a WAN RPC
+    before the eval lands in the remote broker; the router's SLO math
+    and a multi-region simulation should pay that cost too, or
+    spillover looks free and the router over-spills.  Latency is
+    symmetric per unordered pair, zero within a region, and jittered
+    from a seeded RNG so two runs with the same seed see identical
+    delay sequences (the chaos plane's determinism rule: no wall
+    clocks, no unseeded randomness).
+
+    `expected()` is the jitter-free base — what the ROUTING decision
+    subtracts from the SLO budget when weighing a remote region.
+    `sample()` draws one jittered delay — what the SIMULATION adds to
+    an eval's completion time after routing."""
+
+    def __init__(self, default_s: float = 0.08, jitter: float = 0.25,
+                 seed: int = 0x3A21):
+        self.default_s = float(default_s)
+        self.jitter = float(jitter)
+        self._pairs: Dict[frozenset, float] = {}
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        self._samples = 0
+
+    def set_pair(self, a: str, b: str, base_s: float) -> None:
+        with self._lock:
+            self._pairs[frozenset((str(a), str(b)))] = float(base_s)
+
+    def expected(self, src: Optional[str], dst: str) -> float:
+        """Jitter-free base latency for routing math (0 in-region or
+        when the source region is unknown — no WAN hop to model)."""
+        if not src or src == dst:
+            return 0.0
+        with self._lock:
+            return self._pairs.get(frozenset((str(src), str(dst))),
+                                   self.default_s)
+
+    def sample(self, src: Optional[str], dst: str) -> float:
+        """One jittered delay draw for the latency simulation."""
+        base = self.expected(src, dst)
+        if base <= 0.0:
+            return 0.0
+        with self._lock:
+            self._samples += 1
+            return base * (1.0 + self.jitter
+                           * (2.0 * self._rng.random() - 1.0))
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"default_s": self.default_s, "jitter": self.jitter,
+                    "pairs": {"|".join(sorted(k)): v
+                              for k, v in self._pairs.items()},
+                    "samples": self._samples}
+
+
+class SpilloverRouter:
+    """Admission-tier cross-region spillover.
+
+    Stock Nomad's region forwarding (nomad/rpc.go `forward`) ships an
+    RPC to the job's HOME region and stops there — a browned-out home
+    region just queues deeper.  This router places NEW work across the
+    federation: the home region keeps the job while it is healthy and
+    meets SLO (per-region EWMA solve model over the reported backlog),
+    overflow goes to the cheapest sibling region meeting SLO when the
+    home brownout watermark trips, and only when EVERY live region is
+    browned out does the eval land in the router's shed lane — parked,
+    never dropped, readmitted by `drain_shed` once any region drains.
+
+    Region membership is gossip-driven: plug `on_join` / `on_fail`
+    into the serf WAN pool (membership.gossip.GossipAgent); they feed
+    the optional RegionDirectory (the federation membership table) and
+    flip region liveness here.  Knobs follow the ServingTier pattern:
+    `overrides` win over the defaults (no environment)."""
+
+    #: knob -> default (an override is cast to the default's type)
+    KNOBS = {
+        "slo_budget_s": DEFAULT_SLO_BUDGET_S,
+        "spill_margin": DEFAULT_SPILL_MARGIN,
+        "region_cost": DEFAULT_REGION_COST,
+        "max_pending": DEFAULT_MAX_PENDING,
+    }
+
+    def __init__(self, regions: Optional[Dict[str, float]] = None,
+                 overrides: Optional[dict] = None,
+                 directory=None, event_log=None, wan_model=None):
+        o = overrides or {}
+        k = {name: (type(default)(o[name]) if name in o else default)
+             for name, default in self.KNOBS.items()}
+        self.slo_budget_s = k["slo_budget_s"]
+        self.spill_margin = k["spill_margin"]
+        self.default_cost = k["region_cost"]
+        self.max_pending = k["max_pending"]
+        self.directory = directory
+        #: optional WanLatencyModel — when set, remote candidates are
+        #: judged against the SLO budget minus the modeled WAN hop, and
+        #: wan_delay() lets simulations charge the jittered transfer
+        self.wan_model = wan_model
+        if event_log is None:
+            from ..utils.tracing import global_mesh_events
+            event_log = global_mesh_events
+        self.event_log = event_log
+        self._lock = threading.Lock()
+        self._regions: Dict[str, RegionServingState] = {}
+        self._shed_lane: List = []
+        self._counts = {"home": 0, "cheapest": 0, "spillover": 0,
+                        "slo_miss": 0, "shed": 0, "readmitted": 0}
+        for name, cost in (regions or {}).items():
+            self.add_region(name, cost)
+
+    # ------------------------------------------------------ membership
+    def add_region(self, name: str,
+                   cost: Optional[float] = None) -> RegionServingState:
+        with self._lock:
+            rs = self._regions.get(name)
+            if rs is None:
+                rs = RegionServingState(
+                    name, self.default_cost if cost is None else cost,
+                    admission=AdmissionController(
+                        max_pending=self.max_pending))
+                self._regions[name] = rs
+            elif cost is not None:
+                rs.cost = float(cost)
+            rs.live = True
+            return rs
+
+    def region(self, name: str) -> RegionServingState:
+        with self._lock:
+            return self._regions[name]
+
+    def regions(self) -> List[str]:
+        with self._lock:
+            return sorted(r for r, rs in self._regions.items()
+                          if rs.live)
+
+    def on_join(self, member) -> None:
+        """Serf WAN-gossip join: a member of region X comes up — the
+        region (re)enters the routing table."""
+        region = getattr(member, "region", None) or "global"
+        if self.directory is not None:
+            self.directory.on_join(member)
+        self.add_region(str(region))
+
+    def on_fail(self, member) -> None:
+        """Serf WAN-gossip fail: when a region's LAST member dies the
+        region leaves the routing table (individual member loss keeps
+        it live — the mesh supervisor handles shard recovery)."""
+        region = str(getattr(member, "region", None) or "global")
+        if self.directory is not None:
+            self.directory.on_fail(member)
+            gone = region not in self.directory.regions()
+        else:
+            gone = True                # no membership view: fail fast
+        if gone:
+            with self._lock:
+                rs = self._regions.get(region)
+                if rs is not None:
+                    rs.live = False
+
+    # --------------------------------------------------------- routing
+    def route(self, ev, home: Optional[str] = None,
+              n_evals: int = 1) -> Tuple[Optional[str], str]:
+        """Pick the region for one arriving eval.  Returns
+        (region_name, cause); cause is "home" (healthy home region),
+        "cheapest" (no home given), "spillover" (home browned out or
+        past SLO — cheapest sibling meeting SLO), "slo_miss" (no
+        region meets SLO but one is un-browned: admit late rather
+        than park), or "shed" with region None (every live region
+        browned out: the eval is in the shed lane — never dropped)."""
+        budget = self.slo_budget_s * self.spill_margin
+        with self._lock:
+            live = sorted((rs for rs in self._regions.values()
+                           if rs.live),
+                          key=lambda rs: (rs.cost, rs.name))
+        if not live:
+            with self._lock:
+                self._shed_lane.append(ev)
+                self._counts["shed"] += 1
+            return None, "shed"
+        home_rs = next((rs for rs in live if rs.name == home), None)
+        if home_rs is not None and not home_rs.browned_out() \
+                and home_rs.meets_slo(n_evals, budget):
+            return self._picked(home_rs, "home")
+        # remote candidates must clear SLO with the modeled WAN hop
+        # already spent — otherwise spillover looks free and a distant
+        # region wins over a slightly-loaded near one
+        fits = [rs for rs in live if not rs.browned_out()
+                and rs.meets_slo(n_evals,
+                                 budget - self._wan_s(home, rs.name))]
+        if fits:
+            cause = "cheapest" if home_rs is None else "spillover"
+            return self._picked(fits[0], cause)
+        unbrowned = [rs for rs in live if not rs.browned_out()]
+        if unbrowned:
+            # admit late at the least-loaded un-browned region: an
+            # SLO miss beats parking the eval behind a drain
+            pick = min(unbrowned,
+                       key=lambda rs: (rs.model.predict(
+                           rs.ready() + max(n_evals, 1)), rs.cost,
+                           rs.name))
+            return self._picked(pick, "slo_miss")
+        with self._lock:
+            self._shed_lane.append(ev)
+            self._counts["shed"] += 1
+        self.event_log.record("region.shed",
+                              home=home or "", depth=len(
+                                  self._shed_lane))
+        return None, "shed"
+
+    def _wan_s(self, home: Optional[str], region: str) -> float:
+        if self.wan_model is None:
+            return 0.0
+        return self.wan_model.expected(home, region)
+
+    def wan_delay(self, src: Optional[str], dst: str) -> float:
+        """One jittered WAN transfer-delay draw for the chosen route
+        (0 without a model or for in-region placement) — charged by
+        the latency simulation, not by routing."""
+        if self.wan_model is None:
+            return 0.0
+        return self.wan_model.sample(src, dst)
+
+    def _picked(self, rs: RegionServingState,
+                cause: str) -> Tuple[str, str]:
+        with self._lock:
+            self._counts[cause] = self._counts.get(cause, 0) + 1
+        if cause == "spillover":
+            self.event_log.record("region.spill", region=rs.name)
+        return rs.name, cause
+
+    # ----------------------------------------------------------- drain
+    def drain_shed(self, max_n: int = DEFAULT_MAX_BATCH
+                   ) -> List[Tuple[object, str]]:
+        """Readmit parked evals once any region has drained: returns
+        up to max_n (eval, region) pairs routed to un-browned regions
+        meeting SLO (the shed lane keeps the rest — still never
+        dropped)."""
+        out: List[Tuple[object, str]] = []
+        budget = self.slo_budget_s * self.spill_margin
+        while len(out) < max_n:
+            with self._lock:
+                if not self._shed_lane:
+                    break
+                live = sorted(
+                    (rs for rs in self._regions.values()
+                     if rs.live and not rs.browned_out()),
+                    key=lambda rs: (rs.cost, rs.name))
+                fits = [rs for rs in live
+                        if rs.meets_slo(1, budget)] or live
+                if not fits:
+                    break
+                ev = self._shed_lane.pop(0)
+                self._counts["readmitted"] += 1
+            out.append((ev, fits[0].name))
+        return out
+
+    def shed_depth(self) -> int:
+        with self._lock:
+            return len(self._shed_lane)
+
+    def note_solve(self, region: str, n_evals: int,
+                   wall_s: float) -> None:
+        """Feed one region's observed solve into its EWMA model."""
+        self._regions[region].model.observe(n_evals, wall_s)
+
+    def stats(self) -> dict:
+        with self._lock:
+            counts = dict(self._counts)
+            shed_depth = len(self._shed_lane)
+            regions = {
+                name: {"cost": rs.cost, "live": rs.live,
+                       "ready": rs.ready(),
+                       "browned_out": rs.browned_out(),
+                       "model_observations":
+                           rs.model.observations()}
+                for name, rs in self._regions.items()}
+        out = {"slo_budget_s": self.slo_budget_s,
+               "spill_margin": self.spill_margin,
+               "routed": counts, "shed_lane_depth": shed_depth,
+               "regions": regions}
+        if self.wan_model is not None:
+            out["wan"] = self.wan_model.stats()
+        return out

@@ -7,12 +7,12 @@ trace's last completed one, `span()` takes an explicit parent.
 Completed spans are kept in a bounded in-memory ring of traces (oldest
 trace evicted whole) and read back with `get`.  `MeshEventLog` is the
 bounded, sequence-numbered event log (the serving tier's SLO burn
-alerts land there; the server's telemetry beat reads its rate).
+alerts land there; the server's telemetry beat reads its rate; the
+federation's `region.*` events replay into `region_table`).
 
 Not here yet (ROADMAP.md Queue 1, item 5): per-id sampling, the
 off-thread spill drainer, the JSONL sinks, queries beyond `get`, the
-learned-scorer corpus export, the event log's region table, and the
-reference's knobs (recording on/off and the ring depth from the
+learned-scorer corpus export, and the reference's knobs (recording on/off and the ring depth from the
 environment): recording is always on here, at a fixed depth of
 `TRACE_DEPTH` traces.
 """
@@ -192,6 +192,47 @@ class MeshEventLog:
         """The newest assigned cursor (0 = nothing recorded yet)."""
         with self._lock:
             return self._seq
+
+    def region_table(self) -> dict:
+        """Federation membership replayed from the region.* events:
+        region -> {"members": [...], "state": "up"|"left"
+        |"degraded"}.  region.join adds (member joins when the event
+        names one; node-universe joins from CrossRegionResidentSolver
+        carry none), region.fail removes a member, region.leave marks
+        the region gone, region.degraded/.recovered flip the mesh
+        health — the WAN-gossip view a /v1/regions surface serves."""
+        with self._lock:
+            evs = list(self._events)
+        table: dict = {}
+        degraded: Optional[str] = None
+        for ev in evs:
+            kind = ev.get("kind", "")
+            if not kind.startswith("region."):
+                continue
+            region = ev.get("region")
+            if kind == "region.recovered":
+                if degraded is not None and degraded in table:
+                    table[degraded]["state"] = "up"
+                degraded = None
+                continue
+            if region is None:
+                continue
+            row = table.setdefault(
+                region, {"members": set(), "state": "up"})
+            if kind == "region.join":
+                row["state"] = "up"
+                if ev.get("member"):
+                    row["members"].add(ev["member"])
+            elif kind == "region.fail":
+                row["members"].discard(ev.get("member"))
+            elif kind == "region.leave":
+                row["state"] = "left"
+            elif kind == "region.degraded":
+                row["state"] = "degraded"
+                degraded = region
+        return {r: {"members": sorted(row["members"]),
+                    "state": row["state"]}
+                for r, row in table.items()}
 
     def __len__(self) -> int:
         with self._lock:

@@ -228,3 +228,118 @@ def test_three_server_cluster_elects_and_replicates():
     finally:
         for s in servers:
             s.stop()
+
+
+# ------------------------------------------- replication over slow peers
+def follower_commit_after_matched_prefix(pkg):
+    """A follower holding a stale term-1 tail gets a term-2 leader's
+    first append, which matches only a prefix of that tail and carries
+    a commit index past it.  Returns the follower's (commit, applied)."""
+    if pkg == "ref":
+        from nomad_tpu.raft import InProcTransport as Transport
+        from nomad_tpu.raft import RaftConfig as Config
+        from nomad_tpu.raft import RaftNode, StateFSM
+        from nomad_tpu.state.store import StateStore
+    else:
+        from nomad_tpu_torch.raft import InProcTransport as Transport
+        from nomad_tpu_torch.raft import RaftConfig as Config
+        from nomad_tpu_torch.raft import RaftNode, StateFSM
+        from nomad_tpu_torch.state.store import StateStore
+    f = RaftNode(Config(node_id="f", peers=["a", "b", "f"], fsync=False),
+                 StateFSM(StateStore()), Transport())
+    f.rpc_append_entries(1, "a", 0, 0, [(i, 1, "noop", None)
+                                        for i in (1, 2, 3)], 0)
+    f.rpc_append_entries(2, "b", 1, 1, [(2, 1, "noop", None)], 3)
+    return f.commit_index, f.last_applied
+
+
+def test_follower_commits_only_the_matched_prefix():
+    """Raft's min(leaderCommit, index of the last new entry): the port's
+    follower commits entry 2, the one the call matched, and not its own
+    stale entry 3; the reference's commits up to its log's end."""
+    assert follower_commit_after_matched_prefix("port") == (2, 2)
+    assert follower_commit_after_matched_prefix("ref") == (3, 3)
+
+
+def slow_peer_cluster():
+    transport = InProcTransport()
+    peers = ["s0", "s1", "s2"]
+    servers = [PortServer(num_workers=0, device="cpu",
+                          raft_config=RaftConfig(
+                              node_id=p, peers=peers, fsync=False,
+                              election_timeout_s=(1.0, 2.0),
+                              heartbeat_interval_s=0.05),
+                          raft_transport=transport) for p in peers]
+    for s in servers:
+        s.start()
+    assert wait_until(lambda: sum(s.is_leader() for s in servers) == 1,
+                      timeout=20)
+    leader = next(s for s in servers if s.is_leader())
+    return servers, leader, [s for s in servers if s is not leader]
+
+
+@pytest.mark.parametrize("slow", ["append_call", "fsm_apply"])
+def test_slow_follower_does_not_depose_the_leader(slow):
+    """One follower answers an append with entries 3 s late, or takes
+    3 s to apply one: the leader keeps its term (each peer has its own
+    replication thread and an in-flight call gets heartbeats beside it;
+    a follower applies off the raft lock), and the slow follower ends up
+    with the entry."""
+    import time
+    servers, leader, (slow_f, fast_f) = slow_peer_cluster()
+    try:
+        if slow == "append_call":
+            real = slow_f.raft.rpc_append_entries
+
+            def late(term, ldr, prev_i, prev_t, entries, commit):
+                if entries:
+                    time.sleep(3.0)
+                return real(term, ldr, prev_i, prev_t, entries, commit)
+            slow_f.raft.rpc_append_entries = late
+        else:
+            real = slow_f.fsm.apply
+
+            def late(index, etype, p):
+                if etype == "secret_upsert":
+                    time.sleep(3.0)
+                return real(index, etype, p)
+            slow_f.fsm.apply = late
+        term = leader.raft.term
+        leader.upsert_secret("default", "slow/1", {"k": "v"})
+        assert wait_until(lambda: fast_f.store.secret_by_path(
+            "default", "slow/1") is not None, timeout=10)
+        assert wait_until(lambda: slow_f.store.secret_by_path(
+            "default", "slow/1") is not None, timeout=20)
+        time.sleep(0.5)
+        assert leader.is_leader() and leader.raft.term == term
+        assert [s.raft.term for s in servers] == [term] * 3
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def test_barrier_applies_the_log_before_the_leader_reads_the_store():
+    """`RaftNode.barrier` returns once every entry of the leader's log is
+    applied, refuses off the leader, and a server's leadership runs it
+    before it restores evals from the store (Nomad's leader.go:229)."""
+    from nomad_tpu_torch.raft import RaftNode, StateFSM
+    from nomad_tpu_torch.state.store import StateStore
+    node = RaftNode(RaftConfig(node_id="n", peers=[], fsync=False),
+                    StateFSM(StateStore()), InProcTransport())
+    with pytest.raises(NotLeaderError):
+        node.barrier()
+    node.bootstrap_single()
+    node.propose("noop", None)
+    assert node.barrier() == node.log.last_index() == node.last_applied
+
+    s = PortServer(num_workers=1, device="cpu")
+    order = []
+    real_barrier, real_restore = s.raft.barrier, s._restore_evals
+    s.raft.barrier = lambda *a: (order.append("barrier"),
+                                 real_barrier(*a))[1]
+    s._restore_evals = lambda: (order.append("restore"), real_restore())[1]
+    try:
+        s.start()
+        assert order == ["barrier", "restore"]
+    finally:
+        s.stop()

@@ -133,17 +133,6 @@ def test_server_without_gpu_raises_at_first_solve(monkeypatch):
         s.stop()
 
 
-def test_gossip_autopilot_is_not_ported():
-    s = Server(num_workers=0, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="membership"):
-            s.attach_gossip(object())
-        with pytest.raises(NotImplementedError, match="membership"):
-            s._autopilot_reconcile()
-    finally:
-        s.stop()
-
-
 def system_run(pkg):
     """A system job on a 4-node server, one node joining after its eval
     completed (the join's node-update eval places there), then the job
@@ -300,3 +289,28 @@ def test_server_preemption_matches_reference(monkeypatch):
     assert all(len(v) == 1 for _name, _ix, v in placed)
     assert global_metrics.dump()["counters"].get(
         "scheduler.preempt.kernel", 0.0) - before == 3.0
+
+
+def test_server_leads_again_after_losing_leadership():
+    """A server that loses leadership and wins it back starts fresh
+    workers (a worker thread starts once; the reference starts the
+    stopped ones again and raises in its leadership callback) and
+    schedules again."""
+    s, nodes, jobs, evals, st = build("port", 4, 1, 2, num_workers=1)
+    try:
+        s.start()
+        assert wait_complete(s, evals, st)
+        old = list(s.workers)
+        s._revoke_leadership()
+        s._establish_leadership()
+        assert all(w.is_alive() for w in s.workers)
+        assert not any(a is b for a, b in zip(old, s.workers))
+        job = port_mock.job(id="job-again")
+        job.datacenters = ["dc0", "dc1"]
+        job.task_groups[0].count = 2
+        job.task_groups[0].tasks[0].resources.networks = []
+        ev = s.register_job(job)
+        assert wait_complete(s, [ev], st)
+        assert len(s.store.allocs_by_job("default", job.id)) == 2
+    finally:
+        s.stop()

@@ -278,14 +278,25 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.telemetry.health",
                 "nomad_tpu_torch.acl.acl",
                 "nomad_tpu_torch.parallel.sharded",
-                "nomad_tpu_torch.parallel.federated"]
+                "nomad_tpu_torch.parallel.federated",
+                "nomad_tpu_torch.utils.tlsutil",
+                "nomad_tpu_torch.rpc.wire", "nomad_tpu_torch.rpc.server",
+                "nomad_tpu_torch.rpc.client",
+                "nomad_tpu_torch.rpc.transport",
+                "nomad_tpu_torch.rpc.endpoints",
+                "nomad_tpu_torch.client.agent",
+                "nomad_tpu_torch.membership.gossip",
+                "nomad_tpu_torch.membership.regions",
+                "nomad_tpu_torch.server.serving"]
 
 
 def test_import_pulls_in_no_jax():
     """Importing the port's entry points (the solver with its host twin
     and native engine, the scheduler path's harness and fleet round, the
-    state store, raft, the server plane, telemetry, ACLs and the mesh
-    tiers) loads neither jax nor any module of the JAX package."""
+    state store, raft, the server plane, telemetry, ACLs, the mesh
+    tiers, the wire RPC with TLS, the agent's server interface and
+    gossip membership) loads neither jax nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -302,8 +313,9 @@ def test_import_pulls_in_no_jax():
 
 
 def test_package_source_imports_no_jax():
-    """AST scan: no absolute import of jax or the JAX package anywhere in
-    the port or chip_smoke.py."""
+    """AST scan: no absolute import of jax, the JAX package or bench.py
+    anywhere in the port (every subpackage: solver, scheduler, server,
+    raft, parallel, rpc, membership, client, ...) or chip_smoke.py."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
                                                    "nomad_tpu_torch")):
@@ -321,4 +333,5 @@ def test_package_source_imports_no_jax():
                 continue
             for m in mods:
                 assert m.split(".")[0] not in ("jax", "jaxlib",
-                                               "nomad_tpu"), (path, m)
+                                               "nomad_tpu", "bench"), (
+                    path, m)
