@@ -303,17 +303,62 @@ Phases, one JSON line each; any failed phase exits nonzero:
                replica's allocs (ids, nodes, client statuses) equal the
                leader's, no node oversubscribed, each eval complete with
                its unplaced work in a blocked eval, the wave kernel
-               launched (topk in W1, W3, W4 with as many merges; score in
-               W2).  Recorded: the largest AppendEntries (encoded
-               entries) and the batches the frame limit cut, the
-               leader's `fsm.snapshot()` bytes, each against
-               `MAX_FRAME`, and the loopback bytes per leg.
+               launched (topk in W1, W3, W4, W5 with as many merges;
+               score in W2).  W5: the leader takes a snapshot of the
+               whole state (`RaftNode.snapshot_now`; the entry's 10,000
+               node entries passed `snapshot_threshold` = 8,192, so its
+               log was compacted, but at a point that held only nodes),
+               then a fourth server joins with an empty log through
+               `add_server_peer` (a learner, then a voter): it is behind
+               the compaction point and catches up by the chunked
+               InstallSnapshot of a snapshot larger than `MAX_FRAME`,
+               and a job registered at it is forwarded and placed.
+               Recorded: the snapshot's bytes and chunks, the largest
+               frame read (at most `MAX_FRAME`), the time to catch up;
+               its allocs must equal the leader's; leadership is looked
+               up each time, and a move during the join is recorded.
+               Recorded for the phase: the largest AppendEntries (encoded
+               entries) and the batches the frame limit cut, W5's
+               snapshot bytes, each against `MAX_FRAME`, and the
+               loopback bytes per leg.
+
+  13. lifecycle — on phase 7's server after phase 7's checks (its
+               state, no cut: 10,001 nodes, the resident job's 100,000
+               allocs): the lifecycle of jobs.  The server's heartbeater
+               gets Nomad's options min_heartbeat_ttl 2 s,
+               max_heartbeats_per_second 10,000 and heartbeat_grace 1 s
+               (a missed beat noticed within about 5 s at 10,000 nodes;
+               the default 50 beats a second would give a 200 s TTL); one
+               thread heartbeats every live node every half second, and
+               a `SimClient` runs the allocs of every node an alloc
+               placed in the phase lands on, without registering it again
+               (at most 600 client threads).  The heap is frozen for the
+               phase, and the blocked evals phase 7 left run first.  J: the
+               config-3 job written as an HCL jobspec (with update
+               max_parallel 8 and migrate max_parallel 2) parsed by the
+               port's `jobspec` (it must equal make_job's, field by field
+               in the wire encoding) and registered; its 64 allocs
+               running and its deployment successful.  H: 16 nodes that
+               hold its allocs stop heartbeating: the time to `down`, and
+               until every lost alloc has a replacement running on a
+               ready node.  D: 4 such nodes drained (deadline 10 s): the
+               most migrations in flight per group before the deadline
+               (at most migrate max_parallel), the time until drained.
+               R: a rolling update of the job (a new env): the time until
+               the deployment succeeds and the fewest healthy allocs.  P:
+               a periodic batch job of the same shape in HCL, forced by
+               `periodic.force_launch` (`nomad job periodic force`): its
+               child placed and complete.  After every leg: every eval
+               written in it complete, blocked or cancelled, no node
+               oversubscribed, the wave kernel launched, and the leg's
+               last solve re-solved with the kernel and the plain wave
+               under assert_same.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11 and 12 as
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12 and 13 as
 `launches_phase5`, `launches_phase7`, `launches_phase8`,
-`launches_phase9`, `launches_phase10`, `launches_phase11` and
-`launches_phase12` beside them),
+`launches_phase9`, `launches_phase10`, `launches_phase11`,
+`launches_phase12` and `launches_phase13` beside them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -2146,14 +2191,16 @@ def feas_words(torch, pb):
 
 
 def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
-                 batch_count, phase6=None):
+                 batch_count, phase6=None, then=None):
     """The server plane: a port `Server(device=DEVICE)` with the
     reference's default serving tier, register -> raft -> FSM -> store
     -> broker -> workers (single lane, or fused rounds on the solve
     coordinator) -> scheduler -> store-attached solver -> kernels -> plan
     queue -> applier (group commit) -> raft -> store.  Returns the
-    launch counts of its legs and the first fused score round's packed
-    batch."""
+    launch counts of its legs, the first fused score round's wave
+    arguments, its row, and what `then(srv)` returns: a later phase run
+    on the same server once this one's checks passed (None without
+    `then`)."""
     import gc
     from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.server.eval_broker import FAILED_QUEUE
@@ -2277,7 +2324,8 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
         m_end = global_metrics.dump()
     finally:
         probe.close()
-        srv.stop()
+        if then is None or sys.exc_info()[0] is not None:
+            srv.stop()
 
     # ---- the record, then the checks (launches here are not counted)
     if leg_c_pb is not None:
@@ -2413,11 +2461,693 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     except PhaseError as e:
         row["failed"] = str(e)
         emit(row)
+        if then is not None:
+            srv.stop()
         raise
     row["checks"] = {"kernel_vs_plain": "passed"}
     emit(row)
     total = {m: counts_a[m] + counts_b[m] for m in counts_a}
-    return total, calls, row
+    if then is None:
+        return total, calls, row, None
+    try:
+        return total, calls, row, then(srv)
+    finally:
+        srv.stop()
+
+
+# ------------------------------------------------------------ phase 13
+#: Nomad's server options min_heartbeat_ttl, max_heartbeats_per_second and
+#: heartbeat_grace, set on the server's heartbeater so that a node that
+#: stops heartbeating is noticed within about 5 s at 10,000 nodes (a TTL
+#: of 2 s, its stagger of up to 2 s, a grace of 1 s; at Nomad's default
+#: of 50 beats a second the rate-scaled TTL would be 200 s)
+LIFE_MIN_TTL_S = 2.0
+LIFE_BEATS_PER_S = 10_000.0
+LIFE_GRACE_S = 1.0
+#: the beat thread beats every live node once a period
+LIFE_BEAT_S = 0.5
+#: a simulated client's poll of its node's allocs, and the most clients
+#: the phase runs (one thread each; the legs' placements land on ≈ 450
+#: nodes of 10,000)
+LIFE_POLL_S = 0.5
+LIFE_MAX_CLIENTS = 600
+LIFE_COUNT = 64
+LIFE_LOST = 16
+LIFE_DRAIN = 4
+LIFE_MIGRATE_PARALLEL = 2
+LIFE_UPDATE_PARALLEL = 8
+#: the drain's deadline (`nomad node drain -deadline 10s`): the resident
+#: job's one-at-a-time migrations take the rest past it
+LIFE_DRAIN_DEADLINE_S = 10.0
+LIFE_BATCH_RUNTIME_S = 1.0
+LIFE_WAIT_S = 120.0
+#: the cron of the periodic leg: it never fires by itself in a run
+LIFE_CRON = "0 0 1 1 *"
+#: job fields the store stamps at registration, not part of a jobspec
+STORE_STAMPED = ("create_index", "modify_index", "job_modify_index")
+
+
+def lifecycle_hcl(name, count, batch=False):
+    """make_job's config-3 job written as an HCL jobspec, with Nomad's
+    update (max_parallel 8) and migrate (max_parallel 2) stanzas; with
+    `batch` a periodic batch job of the same shape whose tasks complete
+    (no update stanza: batch jobs roll no deployment)."""
+    def group(g):
+        cpu, mem = 400 + (g % 4) * 150, 256 + (g % 4) * 128
+        outcome = (f'mock_outcome = "complete"  mock_runtime_s = '
+                   f'{LIFE_BATCH_RUNTIME_S}' if batch else "")
+        return f'''
+  group "g{g}" {{
+    count = {count // 4}
+    restart {{ attempts = 3  interval = "10m"  delay = "1m"  mode = "delay" }}
+    reschedule {{
+      attempts = 2
+      interval = "10m"
+      delay = "5s"
+      delay_function = "constant"
+      unlimited = false
+    }}
+    ephemeral_disk {{ size = 300 }}
+    migrate {{ max_parallel = {LIFE_MIGRATE_PARALLEL} }}
+    meta {{ elb_check_type = "http" }}
+    task "web" {{
+      driver = "exec"
+      config {{ command = "/bin/date"  {outcome} }}
+      env {{ FOO = "bar" }}
+      resources {{ cpu = {cpu}  memory = {mem} }}
+    }}
+  }}'''
+    head = (f'type = "batch"\n  periodic {{ cron = "{LIFE_CRON}"  '
+            'prohibit_overlap = true }' if batch else
+            f'update {{\n    max_parallel = {LIFE_UPDATE_PARALLEL}\n'
+            '    min_healthy_time = "0s"\n  }')
+    return f'''
+job "{name}" {{
+  datacenters = ["dc0", "dc1", "dc2", "dc3"]
+  {head}
+  meta {{ owner = "armon" }}
+  constraint {{ attribute = "${{attr.rack}}"  operator = "!="  value = "r63" }}
+  constraint {{ attribute = "${{attr.zone}}"  operator = ">="  value = "z1" }}
+  affinity {{ attribute = "${{attr.rack}}"  value = "r7"  weight = 35 }}
+  spread {{ attribute = "${{node.datacenter}}"  weight = 50 }}
+{"".join(group(g) for g in range(4))}
+}}
+'''
+
+
+def lifecycle_job(mock, structs, name, count, batch=False):
+    """The job lifecycle_hcl describes, built as make_job builds it."""
+    job = make_job(mock, structs, name, count)
+    job.id = job.name = name
+    if batch:
+        job.type = structs.JOB_TYPE_BATCH
+        job.periodic = structs.PeriodicConfig(spec=LIFE_CRON,
+                                              prohibit_overlap=True)
+    else:
+        job.update = structs.UpdateStrategy(
+            max_parallel=LIFE_UPDATE_PARALLEL, min_healthy_time_s=0.0)
+    for tg in job.task_groups:
+        tg.update = job.update
+        tg.migrate = structs.MigrateStrategy(
+            max_parallel=LIFE_MIGRATE_PARALLEL)
+        if batch:
+            tg.tasks[0].config = {"command": "/bin/date",
+                                  "mock_outcome": "complete",
+                                  "mock_runtime_s": LIFE_BATCH_RUNTIME_S}
+    return job
+
+
+def parsed_job(structs, hcl, built):
+    """The port's jobspec parse of `hcl`; it must equal `built` field by
+    field in the wire encoding (but for what the store stamps)."""
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.utils.codec import to_wire
+    job = parse_job(hcl)
+    got, want = to_wire(job), to_wire(built)
+    for k in STORE_STAMPED:
+        got.pop(k, None)
+        want.pop(k, None)
+    diff = sorted(k for k in set(got) | set(want) if got.get(k)
+                  != want.get(k))
+    check(not diff, f"the HCL job differs from make_job's in {diff}")
+    return job
+
+
+class LifecycleClients:
+    """Phase 13's client side.  One thread heartbeats every live node
+    once a LIFE_BEAT_S (`silence` takes nodes out), and a `SimClient`
+    runs the allocs of each node that an alloc placed in the phase lands
+    on (the FSM's plan entries name the nodes), started when it lands
+    and without registering the node again (it is registered and the
+    beat thread heartbeats it; a registration would unblock every blocked
+    eval of its class); at most LIFE_MAX_CLIENTS, once `tracking` is on.
+    `last_pb` is the packed batch of the last solve
+    (`Solver.solve_async`)."""
+
+    def __init__(self, srv):
+        import gc
+        import threading
+        from nomad_tpu_torch.client.sim import SimClient
+        from nomad_tpu_torch.solver.solve import Solver
+
+        class AllocRunner(SimClient):
+            def start(self):
+                self._stop.clear()
+                self._thread = threading.Thread(target=self._run,
+                                                daemon=True)
+                self._thread.start()
+        self.srv, self.AllocRunner = srv, AllocRunner
+        self.clients, self.silent = {}, set()
+        self.overflow = 0
+        self.last_pb = None
+        self.tracking = False
+        self._landed, self._lock = set(), threading.Lock()
+        self._stop = threading.Event()
+        self.beat_max_s, self.beat_rounds = 0.0, 0
+        # what a missed beat is read against: each node's last beat, the
+        # expiries (s into the phase, node, s since its last beat), the
+        # slow beat rounds and the collector's pauses
+        self.t0 = time.perf_counter()
+        self.last_beat, self.expired, self.slow_rounds = {}, [], []
+        self.gc_pauses = collections.Counter()
+        self.gc_max_s = 0.0
+        restore = []
+        hb = srv.heartbeater
+        real_expire = hb._on_expire
+
+        def on_expire(nid):
+            now = time.perf_counter()
+            self.expired.append((round(now - self.t0, 3), nid[:8], round(
+                now - self.last_beat.get(nid, self.t0), 3)))
+            return real_expire(nid)
+        hb._on_expire = on_expire
+        restore.append(lambda: setattr(hb, "_on_expire", real_expire))
+        gc_start = []
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_start[:] = [time.perf_counter()]
+            elif gc_start:
+                took = time.perf_counter() - gc_start[0]
+                self.gc_pauses[info["generation"]] += 1
+                self.gc_max_s = max(self.gc_max_s, took)
+        gc.callbacks.append(on_gc)
+        restore.append(lambda: gc.callbacks.remove(on_gc))
+        real_apply = srv.fsm.apply
+
+        def apply(index, etype, payload):
+            out = real_apply(index, etype, payload)
+            items = (payload.get("items", ()) if etype == "plan_results_batch"
+                     else (payload,) if etype == "plan_result" else ())
+            nodes = {nid for it in items
+                     for nid in it["result"].get("node_allocation") or ()}
+            if nodes and self.tracking:
+                with self._lock:
+                    self._landed |= nodes
+            return out
+        srv.fsm.apply = apply
+        restore.append(lambda: setattr(srv.fsm, "apply", real_apply))
+        real_async = Solver.solve_async
+
+        def solve_async(solver, *a, **kw):
+            pending = real_async(solver, *a, **kw)
+            self.last_pb = snapshot_pb(pending.packed)
+            return pending
+        Solver.solve_async = solve_async
+        restore.append(lambda: setattr(Solver, "solve_async", real_async))
+        self._restore = restore
+        self._threads = [threading.Thread(target=fn, daemon=True)
+                         for fn in (self._beat, self._start_clients)]
+        for t in self._threads:
+            t.start()
+
+    def _beat(self):
+        from nomad_tpu_torch.structs import NODE_STATUS_DOWN
+        ids = [n.id for n in list(self.srv.store.nodes())
+               if n.status != NODE_STATUS_DOWN]
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            for nid in ids:
+                if nid not in self.silent:
+                    self.srv.node_heartbeat(nid)
+                    self.last_beat[nid] = time.perf_counter()
+            took = time.perf_counter() - t
+            self.beat_max_s = max(self.beat_max_s, took)
+            self.beat_rounds += 1
+            if took > LIFE_BEAT_S:
+                self.slow_rounds.append((round(t - self.t0, 3),
+                                         round(took, 3)))
+            self._stop.wait(max(0.0, LIFE_BEAT_S - took))
+
+    def _start_clients(self):
+        while not self._stop.wait(0.05):
+            with self._lock:
+                landed, self._landed = self._landed, set()
+            for nid in landed - set(self.clients) - self.silent:
+                if len(self.clients) >= LIFE_MAX_CLIENTS:
+                    self.overflow += 1
+                    continue
+                node = self.srv.store.node_by_id(nid)
+                c = self.AllocRunner(self.srv, node,
+                                     poll_interval_s=LIFE_POLL_S)
+                c.start()
+                self.clients[nid] = c
+
+    def silence(self, node_ids):
+        """The nodes stop heartbeating and their clients stop."""
+        self.silent |= set(node_ids)
+        for nid in node_ids:
+            c = self.clients.pop(nid, None)
+            if c is not None:
+                c.stop()
+
+    def diagnostics(self):
+        return {"beat_max_s": self.beat_max_s,
+                "beat_rounds": self.beat_rounds,
+                "slow_rounds": self.slow_rounds[:20],
+                "expired": len(self.expired),
+                "first_expiries": self.expired[:10],
+                "gc_pauses": dict(self.gc_pauses),
+                "gc_max_s": self.gc_max_s}
+
+    def close(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(5.0)
+        for c in self.clients.values():
+            c.stop()
+        for fn in reversed(self._restore):
+            fn()
+
+
+def settle(srv, structs, what, idx0):
+    """Wait until the broker holds nothing ready or unacked and no eval
+    written since index `idx0` is pending; then every such eval must be
+    complete, blocked (the rest of an eval) or cancelled (a duplicate
+    blocked eval).  Returns those evals."""
+    def quiet():
+        b = srv.broker.stats()
+        return (b["total_ready"] == 0 and b["total_unacked"] == 0
+                and not any(e.status == structs.EVAL_STATUS_PENDING
+                            for e in list(srv.store.evals())
+                            if e.modify_index > idx0))
+    try:
+        wait_for(quiet, f"{what}: the evals to settle", LIFE_WAIT_S)
+    except PhaseError as e:
+        raise PhaseError(f"{e}: {settle_state(srv, structs, idx0)}") \
+            from None
+    evals = [e for e in list(srv.store.evals()) if e.modify_index > idx0]
+    bad = [(e.job_id, e.triggered_by, e.status, e.status_description)
+           for e in evals if e.status not in (
+               structs.EVAL_STATUS_COMPLETE, structs.EVAL_STATUS_BLOCKED,
+               structs.EVAL_STATUS_CANCELLED)]
+    check(not bad, f"{what}: evals neither complete nor blocked: {bad[:5]}")
+    for e in evals:
+        check(not e.blocked_eval or srv.store.eval_by_id(e.blocked_eval)
+              is not None, f"{what}: eval {e.id} names a missing blocked "
+              "eval")
+    return evals
+
+
+def settle_state(srv, structs, idx0):
+    """What an unsettled leg left: the broker's and the blocked evals'
+    counts, the evals written since `idx0` by (status, trigger), the
+    nodes down."""
+    evals = collections.Counter(
+        (e.status, e.triggered_by) for e in list(srv.store.evals())
+        if e.modify_index > idx0)
+    b = srv.broker.stats()
+    return {"broker": {k: b[k] for k in ("total_ready", "total_unacked",
+                                         "total_blocked", "total_waiting")},
+            "blocked_evals": srv.blocked_evals.stats(),
+            "evals": {f"{s}/{t}": n for (s, t), n in evals.items()},
+            "nodes_down": sum(n.status == structs.NODE_STATUS_DOWN
+                              for n in list(srv.store.nodes()))}
+
+
+def drain_blocked(srv, structs):
+    """Run the blocked evals a phase left (phase 7's leg B leaves
+    thousands of placements to them) until they place no more, so that
+    phase 13's legs start from a quiet server; each round unblocks them
+    all and waits until they settled.  Returns the rounds' record."""
+    rounds = []
+    t = time.perf_counter()
+    for _ in range(4):
+        blocked = srv.blocked_evals.stats()["total_blocked"]
+        allocs = len(srv.store.allocs())
+        if not blocked:
+            break
+        idx0 = srv.store.latest_index()
+        srv.blocked_evals.unblock_all(idx0)
+        settle(srv, structs, "phase 7's blocked evals", idx0)
+        placed = len(srv.store.allocs()) - allocs
+        rounds.append({"blocked": blocked, "placed": placed})
+        if not placed:
+            break
+    return {"rounds": rounds, "seconds": time.perf_counter() - t,
+            "blocked_after": srv.blocked_evals.stats()["total_blocked"]}
+
+
+def leg_resolve(torch, wk, what, pb):
+    """The leg's captured packed batch re-solved with the kernel and the
+    plain wave under assert_same, in the mode its wave loop takes."""
+    from nomad_tpu_torch.solver.solve import _run_kernel
+    check(pb is not None, f"{what}: no solve captured")
+    seen = collections.Counter()
+    real = wk.fused_wave
+
+    def wave(**kw):
+        seen[kw["mode"]] += 1
+        return real(**kw)
+    wave.launches, wave.mode_launches = real.launches, real.mode_launches
+    wk.fused_wave = wave
+    try:
+        _run_kernel(pb, DEVICE)
+    finally:
+        wk.fused_wave = real
+    torch.cuda.synchronize()
+    check(seen, f"{what}: the re-solve launched no wave kernel")
+    mode = "topk" if seen["topk"] else "score"
+    kernel_vs_plain(wk, ((what, pb, mode),))
+    return mode
+
+
+def nodes_fit(srv, structs, what):
+    for n in list(srv.store.nodes()):
+        live = srv.store.allocs_by_node_terminal(n.id, False)
+        fit, dim, _used = structs.allocs_fit(n, live)
+        check(fit, f"{what}: node {n.name} oversubscribed ({dim})")
+
+
+def phase_lifecycle(torch, wk, srv):
+    """Phase 13 on phase 7's server (its state, no cut): the lifecycle
+    of jobs.  Legs J (an HCL jobspec parsed and registered), H (nodes
+    stop heartbeating), D (a drain), R (a rolling update), P (a periodic
+    batch job forced).  Returns the launch counts of the legs."""
+    import copy
+    import gc
+    import threading
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    t_phase = time.perf_counter()
+    # a full collection over phase 7's heap (100,000 allocs) stops every
+    # thread for seconds, past the heartbeat TTL: the state is frozen out
+    # of the collector for the phase (phase 12 does the same), which
+    # keeps collecting what the phase makes
+    gc.collect()
+    gc.freeze()
+    hb = srv.heartbeater
+    hb.min_ttl, hb.max_rate, hb.grace = (LIFE_MIN_TTL_S, LIFE_BEATS_PER_S,
+                                         LIFE_GRACE_S)
+    row = {"phase": "lifecycle", "nodes": len(srv.store.nodes()),
+           "reduced": {
+               "heartbeat": {"min_heartbeat_ttl_s": LIFE_MIN_TTL_S,
+                             "max_heartbeats_per_second": LIFE_BEATS_PER_S,
+                             "heartbeat_grace_s": LIFE_GRACE_S,
+                             "why": "a missed beat noticed within about "
+                                    "5 s at 10,000 nodes; Nomad's 50 beats "
+                                    "a second give a 200 s TTL"},
+               "clients": f"SimClients on the nodes the phase's allocs "
+                          f"land on (at most {LIFE_MAX_CLIENTS}), one "
+                          "thread heartbeating every node",
+               "client_poll_s": LIFE_POLL_S},
+           "gc_frozen_objects": gc.get_freeze_count()}
+    legs = {}
+    total = collections.Counter()
+    m_start = global_metrics.dump()
+    clients = LifecycleClients(srv)
+    ns = structs.DEFAULT_NAMESPACE
+
+    def allocs(job_id):
+        return srv.store.allocs_by_job(ns, job_id)
+
+    def running(job_id):
+        return [a for a in allocs(job_id) if not a.terminal_status()
+                and a.client_status == structs.ALLOC_CLIENT_RUNNING]
+
+    def leg(name, idx0, modes=("topk", "score")):
+        """The leg's checks after it settled: evals, fit, launches, the
+        kernel against the plain wave on the leg's last solve."""
+        evals = settle(srv, structs, name, idx0)
+        nodes_fit(srv, structs, name)
+        torch.cuda.synchronize()
+        counts = dict(wk.fused_wave.mode_launches)
+        check(any(counts[m] for m in modes),
+              f"{name}: no wave kernel launch ({counts})")
+        check(counts["merge"] == counts["topk"],
+              f"{name}: merge launches {counts}")
+        total.update(counts)
+        out = {"evals": len(evals),
+               "evals_by_trigger": dict(collections.Counter(
+                   e.triggered_by for e in evals)),
+               "launches": counts,
+               "resolved_mode": leg_resolve(torch, wk, name,
+                                            clients.last_pb)}
+        legs[name] = out
+        return out
+
+    def start_leg():
+        zero_launches(torch, wk)
+        clients.last_pb = None
+        return srv.store.latest_index()
+
+    try:
+        row["phase7_blocked_drained"] = drain_blocked(srv, structs)
+        clients.tracking = True
+
+        # ---- J: the config-3 job as an HCL jobspec, parsed, registered
+        idx0 = start_leg()
+        name = "job-3-life"
+        built = lifecycle_job(mock, structs, name, LIFE_COUNT)
+        t = time.perf_counter()
+        job = parsed_job(structs, lifecycle_hcl(name, LIFE_COUNT), built)
+        parse_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        ev = srv.register_job(job)
+        wait_evals(srv, [ev.id], LIFE_WAIT_S)
+        eval_s = time.perf_counter() - t
+        wait_for(lambda: len(running(job.id)) == LIFE_COUNT,
+                 "J: the job's allocs running", LIFE_WAIT_S)
+        running_s = time.perf_counter() - t
+        wait_for(lambda: any(d.status == structs.DEPLOYMENT_STATUS_SUCCESSFUL
+                             for d in srv.store.deployments_by_job(
+                                 ns, job.id)), "J: the deployment",
+                 LIFE_WAIT_S)
+        out = leg("J", idx0)
+        out.update(parse_ms=parse_ms, eval_s=eval_s, running_s=running_s,
+                   deployment_s=time.perf_counter() - t,
+                   hcl_equals_make_job=True,
+                   clients=len(clients.clients))
+
+        # ---- H: nodes holding the job's allocs stop heartbeating
+        idx0 = start_leg()
+        on = sorted({a.node_id for a in running(job.id)})
+        check(len(on) >= LIFE_LOST, f"H: the job runs on {len(on)} nodes")
+        lost_nodes = on[:LIFE_LOST]
+        lost = [(a.job_id, a.name) for nid in lost_nodes
+                for a in srv.store.allocs_by_node(nid)
+                if not a.terminal_status()]
+        t = time.perf_counter()
+        clients.silence(lost_nodes)
+        down_s = wait_for(lambda: all(
+            srv.store.node_by_id(nid).status == structs.NODE_STATUS_DOWN
+            for nid in lost_nodes), "H: the silent nodes down", LIFE_WAIT_S)
+        gone = set(lost_nodes)
+        lost_names = collections.defaultdict(set)
+        for job_id, n in lost:
+            lost_names[job_id].add(n)
+        job_done_s = {}
+
+        def replaced():
+            # each job's lost allocs replaced and running, first seen
+            for job_id, names in lost_names.items():
+                if job_id in job_done_s:
+                    continue
+                up = {a.name for a in allocs(job_id)
+                      if a.node_id not in gone and not a.terminal_status()
+                      and a.client_status == structs.ALLOC_CLIENT_RUNNING}
+                if names <= up:
+                    job_done_s[job_id] = time.perf_counter() - t
+            return len(job_done_s) == len(lost_names)
+        replaced_s = wait_for(replaced, "H: every lost alloc replaced and "
+                              "running", LIFE_WAIT_S)
+        out = leg("H", idx0)
+        out.update(nodes=LIFE_LOST, lost_allocs=len(lost),
+                   lost_by_job=dict(collections.Counter(j for j, _ in lost)),
+                   down_s=down_s, replaced_running_s=replaced_s,
+                   replaced_running_s_by_job=job_done_s,
+                   clients=len(clients.clients))
+
+        # ---- D: a drain of nodes holding the job's allocs
+        idx0 = start_leg()
+        on = sorted({a.node_id for a in running(job.id)} - gone)
+        check(len(on) >= LIFE_DRAIN, f"D: the job runs on {len(on)} nodes")
+        drained = on[:LIFE_DRAIN]
+        groups = {tg.name: tg.count for tg in job.task_groups}
+        in_flight = collections.Counter()
+        marked_max = collections.Counter()
+        sampling = threading.Event()
+
+        def sample():
+            # a group's migrations in flight, as the drainer counts them:
+            # its count less its healthy allocs (running, not marked)
+            while not sampling.is_set():
+                healthy = collections.Counter(
+                    a.task_group for a in allocs(job.id)
+                    if not a.terminal_status()
+                    and not a.desired_transition.should_migrate()
+                    and a.client_status == structs.ALLOC_CLIENT_RUNNING)
+                for g, c in groups.items():
+                    in_flight[g] = max(in_flight[g], c - healthy[g])
+                marked = collections.Counter(
+                    (a.job_id, a.task_group) for nid in drained
+                    for a in srv.store.allocs_by_node(nid)
+                    if not a.terminal_status()
+                    and a.desired_transition.should_migrate())
+                for k, c in marked.items():
+                    marked_max[f"{k[0]}.{k[1]}"] = max(
+                        marked_max[f"{k[0]}.{k[1]}"], c)
+                time.sleep(0.02)
+        sampler = threading.Thread(target=sample, daemon=True)
+        t = time.perf_counter()
+        for nid in drained:
+            srv.update_node_drain(nid, structs.DrainStrategy(
+                deadline_s=LIFE_DRAIN_DEADLINE_S))
+        sampler.start()
+        try:
+            # the pacing holds until the deadline forces the rest
+            paced = {}
+            while time.perf_counter() - t < LIFE_DRAIN_DEADLINE_S - 1.0:
+                paced = dict(in_flight)
+                if all(srv.store.node_by_id(nid).drain_strategy is None
+                       for nid in drained):
+                    break
+                time.sleep(0.05)
+            wait_for(lambda: all(
+                srv.store.node_by_id(nid).drain_strategy is None
+                for nid in drained), "D: the drains", LIFE_WAIT_S)
+            drained_s = time.perf_counter() - t
+        finally:
+            sampling.set()
+            sampler.join(5.0)
+        check(all(v <= LIFE_MIGRATE_PARALLEL for v in paced.values())
+              and any(paced.values()), f"D: migrations in flight per group "
+              f"before the deadline {paced} (migrate max_parallel "
+              f"{LIFE_MIGRATE_PARALLEL})")
+        for nid in drained:
+            n = srv.store.node_by_id(nid)
+            left = [a.name for a in srv.store.allocs_by_node(nid)
+                    if not a.terminal_status()]
+            check(not left and n.scheduling_eligibility == "ineligible",
+                  f"D: node {n.name} drained with {left} left, "
+                  f"{n.scheduling_eligibility}")
+        wait_for(lambda: len(running(job.id)) == LIFE_COUNT,
+                 "D: the job's allocs running again", LIFE_WAIT_S)
+        out = leg("D", idx0)
+        out.update(nodes=LIFE_DRAIN, deadline_s=LIFE_DRAIN_DEADLINE_S,
+                   drained_s=drained_s,
+                   max_in_flight_before_deadline=paced,
+                   max_in_flight=dict(in_flight),
+                   max_marked_on_drained_nodes=dict(marked_max),
+                   job_running_s=time.perf_counter() - t,
+                   clients=len(clients.clients))
+
+        # ---- R: a rolling update, health from the clients
+        idx0 = start_leg()
+        v1 = copy.deepcopy(srv.store.job_by_id(ns, job.id))
+        for tg in v1.task_groups:
+            tg.tasks[0].env = {"FOO": "bar", "VERSION": "2"}
+        v1.create_index = v1.modify_index = v1.job_modify_index = 0
+        low = [LIFE_COUNT]
+        sampling = threading.Event()
+
+        def healthy_low():
+            while not sampling.is_set():
+                low[0] = min(low[0], len(running(job.id)))
+                time.sleep(0.02)
+        sampler = threading.Thread(target=healthy_low, daemon=True)
+        sampler.start()
+        t = time.perf_counter()
+        try:
+            srv.register_job(v1)
+            version = srv.store.job_by_id(ns, job.id).version
+
+            def rolled():
+                d = [d for d in srv.store.deployments_by_job(ns, job.id)
+                     if d.job_version == version]
+                return d and d[0].status == \
+                    structs.DEPLOYMENT_STATUS_SUCCESSFUL
+            rolled_s = wait_for(rolled, "R: the rolling deployment",
+                                LIFE_WAIT_S)
+        finally:
+            sampling.set()
+            sampler.join(5.0)
+        new = [a for a in running(job.id)
+               if a.job is not None and a.job.version == version]
+        check(len(new) == LIFE_COUNT, f"R: {len(new)} of {LIFE_COUNT} "
+              "allocs run the new version")
+        floor = LIFE_COUNT - len(job.task_groups) * LIFE_UPDATE_PARALLEL
+        check(low[0] >= floor, f"R: {low[0]} healthy allocs at the low, "
+              f"below {floor}")
+        out = leg("R", idx0)
+        out.update(count=LIFE_COUNT, max_parallel=LIFE_UPDATE_PARALLEL,
+                   version=version, rolled_s=rolled_s,
+                   fewest_healthy=low[0], clients=len(clients.clients))
+
+        # ---- P: a periodic batch job, forced
+        idx0 = start_leg()
+        pname = "job-3-cron"
+        pjob = parsed_job(structs, lifecycle_hcl(pname, LIFE_COUNT,
+                                                 batch=True),
+                          lifecycle_job(mock, structs, pname, LIFE_COUNT,
+                                        batch=True))
+        check(srv.register_job(pjob) is None, "P: the periodic template "
+              "was evaluated")
+        t = time.perf_counter()
+        child = srv.periodic.force_launch(ns, pjob.id)
+        check(child is not None and child.parent_id == pjob.id
+              and child.id.startswith(f"{pjob.id}/periodic-"),
+              f"P: force_launch gave {child and child.id}")
+        evs = srv.store.evals_by_job(ns, child.id)
+        check(len(evs) == 1, f"P: {len(evs)} evals of the child")
+        wait_evals(srv, [evs[0].id], LIFE_WAIT_S)
+        placed_s = time.perf_counter() - t
+        done_s = wait_for(lambda: sum(
+            a.client_status == structs.ALLOC_CLIENT_COMPLETE
+            for a in allocs(child.id)) == LIFE_COUNT,
+            "P: the child's allocs complete", LIFE_WAIT_S)
+        check(srv.store.periodic_launch(ns, pjob.id) is not None,
+              "P: no launch recorded")
+        out = leg("P", idx0)
+        out.update(child=child.id, placed_s=placed_s,
+                   complete_s=placed_s + done_s,
+                   clients=len(clients.clients))
+
+        check(clients.overflow == 0, f"{clients.overflow} nodes got no "
+              f"client past {LIFE_MAX_CLIENTS}")
+        m_end = global_metrics.dump()
+        for key in ("worker.batch_error", "telemetry.tick_error"):
+            errs = (m_end["counters"].get(key, 0.0)
+                    - m_start["counters"].get(key, 0.0))
+            check(errs == 0, f"{errs} {key} in the phase")
+        down = [n.name for n in list(srv.store.nodes())
+                if n.status == structs.NODE_STATUS_DOWN
+                and n.id not in gone]
+        check(not down, f"nodes down that kept beating: {down[:5]}")
+    except PhaseError as e:
+        row.update(failed=str(e), legs=legs,
+                   diagnostics=clients.diagnostics())
+        emit(row)
+        raise
+    finally:
+        clients.close()
+        gc.unfreeze()
+    row.update(legs=legs, clients=len(clients.clients),
+               diagnostics=clients.diagnostics(),
+               seconds=time.perf_counter() - t_phase,
+               launches={m: total[m] for m in ("score", "topk", "merge")})
+    emit(row)
+    return row["launches"]
 
 
 # ------------------------------------------------------------ phase 8
@@ -4272,8 +5002,9 @@ def wait_for(pred, what, timeout=CLUSTER_WAIT_S):
 class ClusterProbe:
     """What phase 12 reads from outside the cluster: the bytes every
     RPC frame carried over loopback (each frame is read once, by its
-    receiver), the largest AppendEntries each raft leader cut (encoded
-    entries) and how many batches the frame limit cut, every resident
+    receiver) and the largest frame read, the largest AppendEntries
+    each raft leader cut (encoded entries) and how many batches the
+    frame limit cut, every resident
     world built (when it ended, ms), and the packed batch of the last
     single-lane solve while `capture` is on."""
 
@@ -4283,6 +5014,8 @@ class ClusterProbe:
         from nomad_tpu_torch.solver import solve as solve_mod
         from nomad_tpu_torch.solver.solve import Solver
         self.loopback = 0
+        #: the largest read of one frame's body (W5 resets it)
+        self.max_frame = 0
         self.appends = {"max_bytes": 0, "batches": 0, "cut_by_bytes": 0}
         self.world_builds = []
         self.capture, self.last_pb = False, None
@@ -4294,6 +5027,7 @@ class ClusterProbe:
             b = real_recv(sock, n)
             with lock:
                 self.loopback += len(b)
+                self.max_frame = max(self.max_frame, n)
             return b
         wire._recv_exact = recv_exact
         restore.append(lambda: setattr(wire, "_recv_exact", real_recv))
@@ -4392,6 +5126,150 @@ def leg_launches(torch, wk, what, modes):
     return counts
 
 
+def leg_join(torch, wk, structs, mock, servers, live, leader, probe, kw,
+             endpoints, legs, joined):
+    """Phase 12 W5: the leader takes a snapshot of the whole state (the
+    threshold compaction of the entry held only the nodes), then a
+    fourth server joins as a learner with an empty log.  It is behind
+    the leader's compaction point, so it catches up by a chunked
+    InstallSnapshot of a snapshot larger than MAX_FRAME, then joins the
+    voters, and a job registered at it is forwarded and placed.  Records
+    the snapshot's bytes, its chunks, the largest frame read, the time
+    to catch up.  Leadership is looked up each time: should it move, the
+    join goes on through the new leader, and the leg records it.  The
+    joiner and its RpcServer go into `joined`, for the phase's clean-up;
+    its allocs must equal the leader's."""
+    from nomad_tpu_torch.raft import NotLeaderError, RaftConfig
+    from nomad_tpu_torch.rpc import wire
+    from nomad_tpu_torch.rpc.endpoints import RpcServerEndpoints, ServerRpc
+    from nomad_tpu_torch.rpc.server import RpcServer
+    from nomad_tpu_torch.rpc.transport import TcpRaftTransport
+    from nomad_tpu_torch.server.server import Server
+    zero_launches(torch, wk)
+    b0 = probe.loopback
+    lead = leader()
+    threshold_index = lead.raft.snapshot_index
+    check(threshold_index > 0, "W5: the leader never compacted its log")
+    t = time.perf_counter()
+    snap_index = lead.raft.snapshot_now()
+    snap_s = time.perf_counter() - t
+    snap_bytes = len(lead.raft._read_snapshot())
+    check(snap_bytes > wire.MAX_FRAME, f"W5: the snapshot ({snap_bytes} "
+          f"bytes) fits one frame ({wire.MAX_FRAME})")
+    jid = f"s{len(servers) + 1}"
+    rpc = RpcServer("127.0.0.1", 0)
+    addrs = {**lead.raft.transport.peer_addrs, jid: rpc.addr}
+    # the joiner knows the voters, not itself: a learner until the
+    # configuration that adds it commits
+    joiner = Server(num_workers=2, raft_config=RaftConfig(
+        node_id=jid, peers=list(lead.raft.cfg.peers), **CLUSTER_RAFT),
+        raft_transport=TcpRaftTransport(rpc, addrs), **kw)
+    ServerRpc(joiner, rpc, addrs)
+    joined.append((joiner, rpc))          # the phase stops them
+    rpc.start()
+    joiner.start()
+    for s in live():
+        s.raft.transport.peer_addrs[jid] = rpc.addr
+    # every InstallSnapshot call to the joiner, from whichever server
+    # leads: (leader, offset, bytes, total, done, bytes held after, s)
+    chunks, restore = [], []
+
+    def watch(server):
+        transport = server.raft.transport
+        real_call = transport.call
+
+        def call(target, method, *args):
+            if target != jid or method != "rpc_install_snapshot":
+                return real_call(target, method, *args)
+            t0, held = time.perf_counter(), None
+            try:
+                out = real_call(target, method, *args)
+                held = out[1]
+                return out
+            finally:
+                chunks.append((server.raft.id, args[4], len(args[7]),
+                               args[5], args[6], held,
+                               time.perf_counter() - t0))
+        transport.call = call
+        restore.append(lambda: setattr(transport, "call", real_call))
+    for s in live():
+        watch(s)
+    probe.max_frame = 0
+    leaders, moves = [], []
+    t = time.perf_counter()
+    try:
+        while True:
+            lead = leader()
+            leaders.append(lead.raft.id)
+            try:
+                lead.add_server_peer(jid, rpc.addr,
+                                     catchup_timeout_s=CLUSTER_WAIT_S)
+                break
+            except NotLeaderError:
+                moves.append({"s": time.perf_counter() - t,
+                              "chunks_sent": len(chunks),
+                              "members": [(m.raft.id, m.raft.role,
+                                           m.raft.term, m.raft.last_applied)
+                                          for m in live() + [joiner]],
+                              # the old leader's dial back-off: peer ->
+                              # failed calls in a row
+                              "backoff": {p: f for p, (_u, f) in dict(
+                                  lead.raft.transport._backoff).items()}})
+                check(len(moves) < 3, f"W5: leadership moved {len(moves)} "
+                      f"times during the join: {moves}")
+    finally:
+        for fn in restore:
+            fn()
+    joined_s = time.perf_counter() - t
+    max_frame = probe.max_frame
+    lead = leader()
+    target = lead.raft.last_applied
+    wait_for(lambda: joiner.raft.last_applied >= target,
+             "W5: the joiner to apply the leader's log")
+    caught_s = time.perf_counter() - t
+    # the installs the joiner completed: (leader, total) -> chunks
+    installs = collections.Counter(
+        (who, total) for who, _o, _n, total, _d, _h, _s in chunks)
+    done = [(who, total) for who, _o, _n, total, d, held, _s in chunks
+            if d and held == total]
+    legs["W5"] = row = {
+        "joiner": jid, "threshold_snapshot_index": threshold_index,
+        "snapshot_index": snap_index, "snapshot_bytes": snap_bytes,
+        "snapshot_take_s": snap_s,
+        "snapshot_over_max_frame": snap_bytes / wire.MAX_FRAME,
+        "installs_done": [{"leader": w, "bytes": n, "chunks": installs[
+            (w, n)]} for w, n in done],
+        "chunks": len(chunks),
+        "chunk_bytes_max": max((n for _w, _o, n, *_r in chunks), default=0),
+        "refused_chunks": sum(1 for c in chunks
+                              if c[5] is not None and c[5] < c[1] + c[2]
+                              and c[5] < c[3]),
+        "largest_frame_bytes": max_frame, "max_frame": wire.MAX_FRAME,
+        "install_calls_s": {"sum": sum(c[6] for c in chunks),
+                            "max": max((c[6] for c in chunks), default=0)},
+        "learner_caught_up_s": joined_s, "caught_up_s": caught_s,
+        "leaders": leaders, "leadership_moves": moves}
+    check(jid in lead.raft.cfg.peers and jid in joiner.raft.cfg.peers,
+          f"W5: {jid} is not a voter")
+    check(any(n > wire.MAX_FRAME and installs[(w, n)] > 1 for w, n in done),
+          f"W5: no install of a snapshot past MAX_FRAME completed "
+          f"({row['installs_done']}, {len(chunks)} chunks)")
+    check(max_frame <= wire.MAX_FRAME, f"W5: a frame of {max_frame} bytes "
+          f"past the limit {wire.MAX_FRAME}")
+    ep = RpcServerEndpoints([rpc.addr])
+    endpoints.append(ep)
+    job = make_job(mock, structs, "c5-joiner", COUNT)
+    t = time.perf_counter()
+    ev_id = ep.register_job(job)["id"]
+    wait_evals(lead, [ev_id], 120)
+    row["eval_via_joiner_ms"] = 1e3 * (time.perf_counter() - t)
+    row["launches"] = leg_launches(torch, wk, "W5", ("topk",))
+    row["placed"], row["unplaced"] = cluster_state(
+        structs, live() + [joiner], lead, [job], [ev_id], "W5")
+    row.update(peers=lead.raft.cfg.peers,
+               loopback_bytes=probe.loopback - b0)
+
+
 def phase_cluster(torch, wk, n_nodes, resident):
     """Phase 12: a three-server cluster of the port over TCP (the
     reference's `serve_cluster`) with gossip and autopilot, the
@@ -4426,6 +5304,7 @@ def phase_cluster(torch, wk, n_nodes, resident):
                for s, r in zip(servers, rpcs)]
     stopped = set()                   # W3's deliberate stop
     alpha, alpha_rpc, alpha_gossip, router = None, None, None, None
+    joined = []                       # W5's member: (server, its rpc)
     endpoints, rounds_probe = [], None
     row = {"phase": "cluster", "servers": len(servers),
            "nodes": n_nodes, "resident_allocs": resident,
@@ -4762,6 +5641,12 @@ def phase_cluster(torch, wk, n_nodes, resident):
         legs["W4"] = w4
         loopback("W4", b0)
 
+        # ---- W5: a fourth server joins behind the compaction point
+        leg_join(torch, wk, structs, mock, servers, live, leader, probe,
+                 kw, endpoints, legs, joined)
+        total.update(legs["W5"]["launches"])
+        lead = leader()
+
         # ---- the record: frames and the snapshot against the limit
         m_end = global_metrics.dump()
         for key in ("worker.batch_error", "telemetry.tick_error"):
@@ -4771,14 +5656,13 @@ def phase_cluster(torch, wk, n_nodes, resident):
         broker = lead.broker.stats()
         check(broker["by_scheduler"].get(FAILED_QUEUE, 0) == 0,
               "evals parked on the broker's failed queue")
-        t = time.perf_counter()
-        snap = len(lead.fsm.snapshot())
+        snap = legs["W5"]["snapshot_bytes"]       # the whole state
         row["frames"] = {
             "max_append_bytes": probe.appends["max_bytes"],
             "append_batches": probe.appends["batches"],
             "cut_by_bytes": probe.appends["cut_by_bytes"],
             "snapshot_bytes": snap,
-            "snapshot_s": time.perf_counter() - t,
+            "snapshot_s": legs["W5"]["snapshot_take_s"],
             "snapshot_over_max_frame": snap > wire.MAX_FRAME}
         check(probe.appends["max_bytes"] <= wire.MAX_FRAME,
               "an AppendEntries past the frame limit")
@@ -4807,6 +5691,9 @@ def phase_cluster(torch, wk, n_nodes, resident):
         if alpha is not None:
             alpha.stop()
             alpha_rpc.stop()
+        for j_srv, j_rpc in joined:
+            j_srv.stop()
+            j_rpc.stop()
         gc.unfreeze()
         gc.enable()
     row.update(legs=legs, seconds=time.perf_counter() - t_phase,
@@ -4839,9 +5726,11 @@ def main() -> int:
                              BATCH_COUNT)
     counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
                                        N_SERVICE_EVALS, BATCH_COUNT)
-    counts7, calls7, _row7 = phase_server(
+    # phase 13 runs on phase 7's server, after phase 7's checks
+    counts7, calls7, _row7, counts13 = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
-        BATCH_COUNT, phase6=row6["service"])
+        BATCH_COUNT, phase6=row6["service"],
+        then=lambda srv: phase_lifecycle(torch, wk, srv))
     counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
                             N_PREEMPT_JOBS)
     counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
@@ -4890,6 +5779,7 @@ def main() -> int:
             "launches_phase10": counts10[mode],
             "launches_phase11": counts11[mode],
             "launches_phase12": counts12[mode],
+            "launches_phase13": counts13[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -10,7 +10,8 @@ Determinism: every apply writes the store purely from (index, payload,
 current store state) — timestamps are stamped by the proposer and travel
 in the payload, so leader and followers converge bit-for-bit.
 
-The counterpart of `nomad_tpu.raft.fsm`.
+The counterpart of `nomad_tpu.raft.fsm`; its snapshot is JSON lines
+(`StateFSM.snapshot` says why), the reference's one JSON object.
 """
 from __future__ import annotations
 
@@ -206,7 +207,12 @@ class StateFSM:
 
     def snapshot(self) -> bytes:
         """Serialize every replicated table (fsm.go:1189 Snapshot +
-        nomad/state snapshot persisters)."""
+        nomad/state snapshot persisters) as JSON lines: a header, then
+        one `[table, row]` line per row.  No single encode or decode
+        holds the interpreter for the whole store (a 200 MB snapshot at
+        config 3 took seconds in one `json.dumps`, and raft's heartbeats
+        of every server in the process stalled past the election
+        timeout); the reference writes one JSON object."""
         st = self.store
         with st._lock:
             out: Dict[str, Any] = {"latest_index": st.index,
@@ -238,18 +244,25 @@ class StateFSM:
                 [list(k), v] for k, v in st._t["secrets"].items()]
             tables["scheduler_config"] = [
                 [k, to_wire(v)] for k, v in st._t["scheduler_config"].items()]
-            out["tables"] = tables
-        return json.dumps(out, separators=(",", ":")).encode()
+        encode = json.JSONEncoder(separators=(",", ":")).encode
+        lines = [encode(out)]
+        for name, rows in tables.items():
+            lines.extend(encode([name, row]) for row in rows)
+        return "\n".join(lines).encode()
 
     def restore(self, data: bytes) -> None:
         """Rebuild the store from a snapshot (fsm.go:1203 Restore),
         including the derived secondary indexes."""
-        snap = json.loads(data.decode())
+        head, *rows = data.split(b"\n")
+        snap = json.loads(head)
+        t: Dict[str, list] = {}
+        for line in rows:
+            name, row = json.loads(line)
+            t.setdefault(name, []).append(row)
         st = self.store
         with st._lock:
             for name in st._t:
                 st._t[name].clear()
-            t = snap["tables"]
             for name, cls in self._STRUCT_TABLES.items():
                 for k, wire in t.get(name, ()):  # noqa: B007
                     st._t[name][self._unkey(name, k)] = from_wire(cls, wire)

@@ -29,7 +29,20 @@ over TCP at config-3 width needs (ROADMAP.md Queue 3):
     neither starves the others' heartbeats nor reads its own apply as
     the leader's silence;
   * `barrier()` (hashicorp/raft's), which a new leader runs before it
-    reads the store.
+    reads the store;
+  * a member outside its own voter configuration (a server joining as a
+    learner) never campaigns;
+  * a leader whose snapshot point is the entry before a follower's
+    next one sends that entry's term (the snapshot's), not 0: the
+    reference's 0 fails the follower's consistency check, and a
+    caught-up follower is sent the whole snapshot;
+  * a snapshot ships in chunks (InstallSnapshot with an offset), each
+    of which encodes within the transport's `max_append_bytes`: the
+    reference sends the whole FSM snapshot in one call, which a frame
+    cannot hold at config-3 size, so a follower behind the leader's
+    compaction point never catches up.  The snapshot a node compacted
+    to (or installed) is kept, so the leader ships the state at its
+    snapshot index and not the store as it stands.
 """
 from __future__ import annotations
 
@@ -46,6 +59,11 @@ from .fsm import NOOP, StateFSM
 from .log import LogEntry, RaftLog
 
 _log = logging.getLogger(__name__)
+
+#: the most snapshot bytes one InstallSnapshot chunk carries, before the
+#: transport's own limit (`max_snapshot_chunk_bytes`); a chunk of this
+#: size encodes to about as many bytes as one 10,000-alloc plan entry
+SNAPSHOT_CHUNK_BYTES = 8 * 1024 * 1024
 
 # membership-change entry, applied by the raft layer itself (not the
 # state FSM): payload = the full new peer list (one-at-a-time changes,
@@ -86,8 +104,9 @@ class InProcTransport:
     """Direct-call transport: a registry of live nodes. Closed nodes are
     unreachable (simulates a crashed server)."""
 
-    #: entries pass by reference: no frame limit
+    #: entries and snapshot chunks pass by reference: no frame limit
     max_append_bytes: Optional[int] = None
+    max_snapshot_chunk_bytes: Optional[int] = None
 
     def __init__(self):
         self._nodes: Dict[str, "RaftNode"] = {}
@@ -157,6 +176,19 @@ class RaftNode:
         # applying outside the lock (0: none)
         self._applier: Optional[threading.Thread] = None
         self._applying = 0
+        # the snapshot at (snapshot_index, snapshot_term), as compacted
+        # or installed, kept for shipping (None: none taken or read yet);
+        # guarded by the raft lock
+        self._snap_data: Optional[bytes] = None
+        # snapshot_now's request to the applier thread, and its answer
+        self._snapshot_wanted = False
+        self._snapshot_done = False
+        # leader: how far each peer's install of which snapshot got,
+        # peer -> ((snap_index, snap_term), offset); follower: the
+        # chunks of one install so far, keyed (leader, term, snap_index)
+        self._ship_offset: Dict[str, Tuple[Tuple[int, int], int]] = {}
+        self._install_key: Optional[Tuple[str, int, int]] = None
+        self._install_buf = bytearray()
 
         self._meta_path = (os.path.join(config.data_dir, "raft.meta")
                            if config.data_dir else None)
@@ -301,6 +333,14 @@ class RaftNode:
             if (not self.running or self.role == ROLE_LEADER
                     or time.monotonic() < self._deadline):
                 return
+            # a member outside its own voter configuration (a learner
+            # catching up, or a removed server) never campaigns: its
+            # raised term would depose the leader through the next
+            # answer it gives (raft §6 non-voting members; hashicorp/raft
+            # nonvoters); it campaigns once a committed config names it
+            if self.cfg.peers and self.id not in self.cfg.peers:
+                self._reset_election_deadline_locked()
+                return
             self.role = ROLE_CANDIDATE
             self.term += 1
             self.voted_for = self.id
@@ -422,8 +462,10 @@ class RaftNode:
     def propose_async(self, etype: str, payload: Any):
         """Append + kick replication WITHOUT waiting; returns
         (index, wait_fn) where wait_fn(timeout) blocks until the entry
-        is applied locally.  The pipelined plan applier overlaps the
-        consensus round trip of plan N with evaluating plan N+1
+        is applied locally (with no timeout, until it is applied or
+        leadership is lost or this member stops).  The pipelined plan
+        applier overlaps the consensus round trip of plan N with
+        evaluating plan N+1
         (reference: plan_apply.go:71-178 applyPlan's async raft future
         + asyncPlanWait)."""
         with self._lock:
@@ -434,7 +476,7 @@ class RaftNode:
             index = self._append_locked(etype, payload)
             term = self.term
         self._replicate_all()
-        return index, (lambda timeout=10.0:
+        return index, (lambda timeout=None:
                        self._await_applied(index, term, timeout))
 
     def _wait_applied(self, index: int, term: int,
@@ -443,12 +485,17 @@ class RaftNode:
         return self._await_applied(index, term, timeout)
 
     def _await_applied(self, index: int, term: int,
-                       timeout: float) -> int:
-        deadline = time.monotonic() + timeout
+                       timeout: Optional[float]) -> int:
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
         with self._lock:
             while self.last_applied < index:
-                if self.role != ROLE_LEADER or self.term != term:
+                if (self.role != ROLE_LEADER or self.term != term
+                        or self._closed):
                     raise NotLeaderError(self.leader_id)
+                if deadline is None:
+                    self._cv.wait(0.5)
+                    continue
                 remain = deadline - time.monotonic()
                 if remain <= 0:
                     raise TimeoutError("proposal not committed in time")
@@ -540,37 +587,31 @@ class RaftNode:
                 return
             nxt = self._next.get(peer, self.log.last_index() + 1)
             if nxt <= self.snapshot_index:
-                snap = self._read_snapshot()
                 term = self.term
-                snap_index = self.snapshot_index
-                snap_term = self.snapshot_term
+                key = (self.snapshot_index, self.snapshot_term)
+                snap = self._read_snapshot()
             else:
                 snap = None
                 prev = nxt - 1
+                # at the snapshot point the entry is compacted away:
+                # its term is the snapshot's (the reference sends 0,
+                # which a follower holding that entry refuses, and the
+                # refusal sends it a snapshot it does not need)
                 prev_term = (self.log.term_at(prev)
-                             if prev > self.snapshot_index else 0)
+                             if prev > self.snapshot_index
+                             else self.snapshot_term if prev else 0)
                 entries = self.log.slice_from(nxt)
                 term = self.term
                 commit = self.commit_index
-        if snap is None:
-            # measured outside the lock: a large entry takes a while
-            entries = self._frame_batch(peer, entries)
-            if entries is None:
-                return
-            wire = [(e.index, e.term, e.etype, e.payload)
-                    for e in entries]
+        if snap is not None:
+            self._install_snapshot(peer, term, key, snap)
+            return
+        # measured outside the lock: a large entry takes a while
+        entries = self._frame_batch(peer, entries)
+        if entries is None:
+            return
+        wire = [(e.index, e.term, e.etype, e.payload) for e in entries]
         try:
-            if snap is not None:
-                pterm = self.transport.call(peer, "rpc_install_snapshot",
-                                            term, self.id, snap_index,
-                                            snap_term, snap)
-                with self._lock:
-                    if pterm > self.term:
-                        self._step_down_locked(pterm)
-                        return
-                    self._next[peer] = snap_index + 1
-                    self._match[peer] = snap_index
-                return
             pterm, ok, match = self.transport.call(
                 peer, "rpc_append_entries", term, self.id, nxt - 1,
                 prev_term, wire, commit)
@@ -587,6 +628,48 @@ class RaftNode:
                 self._next[peer] = match + 1
             else:
                 self._next[peer] = max(1, min(nxt - 1, match + 1))
+
+    def _install_snapshot(self, peer: str, term: int,
+                          key: Tuple[int, int], snap: bytes) -> None:
+        """Ship the snapshot at `key` = (snap_index, snap_term) to `peer`
+        in chunks, from where the peer's install of it got.  The
+        follower answers each chunk with the bytes it holds; a refused
+        chunk (its offset is not the follower's) resumes from there.
+        Stops at an error, a higher term or a lost leadership; the next
+        round resumes."""
+        snap_index, snap_term = key
+        total = len(snap)
+        cap = self.transport.max_snapshot_chunk_bytes
+        step = SNAPSHOT_CHUNK_BYTES if cap is None else min(
+            SNAPSHOT_CHUNK_BYTES, cap)
+        view = memoryview(snap)
+        with self._lock:
+            got_key, offset = self._ship_offset.get(peer, (key, 0))
+            if got_key != key:
+                offset = 0
+        while True:
+            end = min(total, offset + step)
+            done = end >= total
+            try:
+                pterm, held = self.transport.call(
+                    peer, "rpc_install_snapshot", term, self.id,
+                    snap_index, snap_term, offset, total, done,
+                    bytes(view[offset:end]))
+            except ConnectionError:
+                return
+            with self._lock:
+                if pterm > self.term:
+                    self._step_down_locked(pterm)
+                    return
+                if self.role != ROLE_LEADER or self.term != term:
+                    return
+                if held >= total:
+                    self._ship_offset.pop(peer, None)
+                    self._next[peer] = snap_index + 1
+                    self._match[peer] = snap_index
+                    return
+                offset = held
+                self._ship_offset[peer] = (key, offset)
 
     def _frame_batch(self, peer: str, entries: List[LogEntry]
                      ) -> Optional[List[LogEntry]]:
@@ -658,22 +741,41 @@ class RaftNode:
         slow voter the leader's calls time out on."""
         while True:
             with self._lock:
-                while self.running and self.last_applied >= self.commit_index:
+                while (self.running and not self._snapshot_wanted
+                       and self.last_applied >= self.commit_index):
                     self._cv.wait(0.5)
                 if not self.running:
                     return
-                e = self.log.get(self.last_applied + 1)
-                if e is None:
-                    # behind a snapshot being installed: it moves
-                    # last_applied past the compacted prefix
-                    self._cv.wait(0.05)
-                    continue
-                if e.etype == CONFIG:
-                    self._adopt_config_locked(list(e.payload))
-                    self.last_applied = e.index
+                snap_at = None
+                if self._snapshot_wanted:
+                    self._snapshot_wanted = False
+                    snap_at = self.last_applied
+                    self._applying = -1       # an install waits it out
+                else:
+                    e = self.log.get(self.last_applied + 1)
+                    if e is None:
+                        # behind a snapshot being installed: it moves
+                        # last_applied past the compacted prefix
+                        self._cv.wait(0.05)
+                        continue
+                    if e.etype == CONFIG:
+                        self._adopt_config_locked(list(e.payload))
+                        self.last_applied = e.index
+                        self._cv.notify_all()
+                        continue
+                    self._applying = e.index
+            if snap_at is not None:
+                # snapshot_now, between two entries: the store holds
+                # exactly the log to snap_at
+                data = (self.fsm.snapshot()
+                        if snap_at > self.snapshot_index else None)
+                with self._lock:
+                    if data is not None:
+                        self._compact_locked(data, snap_at)
+                    self._applying = 0
+                    self._snapshot_done = True
                     self._cv.notify_all()
-                    continue
-                self._applying = e.index
+                continue
             try:
                 self.fsm.apply(e.index, e.etype, e.payload)
             except Exception:
@@ -778,6 +880,27 @@ class RaftNode:
         return self._wait_applied(index, term, timeout)
 
     # --------------------------------------------------------- snapshots
+    def snapshot_now(self, timeout: float = 600.0) -> int:
+        """Take a snapshot at the last applied entry and compact the log
+        to it now, as hashicorp/raft's user snapshot (`Raft.Snapshot`)
+        does beside the threshold; returns the snapshot index.  A started
+        member's applier takes it between two entries, outside the lock,
+        as it takes its threshold compactions."""
+        with self._lock:
+            if self._applier is None:
+                if self.last_applied > self.snapshot_index:
+                    self._compact_locked()
+                return self.snapshot_index
+            self._snapshot_wanted, self._snapshot_done = True, False
+            self._cv.notify_all()
+            deadline = time.monotonic() + timeout
+            while not self._snapshot_done:
+                remain = deadline - time.monotonic()
+                if remain <= 0 or not self.running:
+                    raise TimeoutError("snapshot not taken in time")
+                self._cv.wait(min(remain, 0.5))
+            return self.snapshot_index
+
     def _compact_locked(self, data: Optional[bytes] = None,
                         index: int = 0) -> None:
         """Snapshot the FSM at last_applied and drop the log up to it;
@@ -790,19 +913,30 @@ class RaftNode:
             return
         self.snapshot_term = self.log.term_at(index)
         self.snapshot_index = index
+        self._keep_snapshot_locked(data)
+        self.log.compact_to(self.snapshot_index)
+        self._save_meta_locked()
+
+    def _keep_snapshot_locked(self, data: bytes) -> None:
+        """The snapshot at snapshot_index: to the snapshot file where
+        there is one, and kept for shipping to a follower behind it."""
         if self._snap_path:
             tmp = self._snap_path + ".tmp"
             with open(tmp, "wb") as f:
                 f.write(data)
             os.replace(tmp, self._snap_path)
-        self.log.compact_to(self.snapshot_index)
-        self._save_meta_locked()
+        self._snap_data = data
 
     def _read_snapshot(self) -> bytes:
-        if self._snap_path and os.path.exists(self._snap_path):
-            with open(self._snap_path, "rb") as f:
-                return f.read()
-        return self.fsm.snapshot()
+        """The snapshot at snapshot_index, read once and kept while it
+        ships (a node restarted from disk reads its snapshot file)."""
+        if self._snap_data is None:
+            if self._snap_path and os.path.exists(self._snap_path):
+                with open(self._snap_path, "rb") as f:
+                    self._snap_data = f.read()
+            else:
+                self._snap_data = self.fsm.snapshot()
+        return self._snap_data
 
     # ------------------------------------------------------ RPC handlers
     def rpc_request_vote(self, term: int, candidate: str,
@@ -884,33 +1018,54 @@ class RaftNode:
         return out
 
     def rpc_install_snapshot(self, term: int, leader: str,
-                             snap_index: int, snap_term: int, data: bytes):
+                             snap_index: int, snap_term: int, offset: int,
+                             total: int, done: bool, data: bytes):
+        """One chunk of the leader's snapshot at `snap_index`, `offset`
+        bytes into its `total`.  The chunks build up in a buffer keyed
+        (leader, term, snap_index): a chunk of a new key starts it
+        afresh, a chunk whose offset is not the buffer's length is
+        refused.  Returns (term, the bytes of this snapshot held): the
+        leader resumes from there; `total` once it is installed (or an
+        install is not needed).  The FSM restores on `done` only.
+        Every chunk resets the election deadline (hashicorp/raft's
+        streamed InstallSnapshot keeps the follower quiet as well)."""
         with self._lock:
             if term < self.term:
-                return self.term
+                return self.term, 0
             self.term = term
             self.role = ROLE_FOLLOWER
             self.leader_id = leader
             self._last_leader_contact = time.monotonic()
             self._reset_election_deadline_locked()
             if snap_index <= self.last_applied:
-                return self.term
+                return self.term, total
+            key = (leader, term, snap_index)
+            if key != self._install_key:
+                self._install_key = key
+                self._install_buf = bytearray()
+            buf = self._install_buf
+            if offset != len(buf):
+                return self.term, len(buf)
+            buf.extend(data)
+            if not done:
+                return self.term, len(buf)
+            if len(buf) != total:
+                # a done chunk short of the total: start again
+                self._install_key, self._install_buf = None, bytearray()
+                return self.term, 0
+            snap = bytes(buf)
+            self._install_key, self._install_buf = None, bytearray()
             while self._applying:               # the applier's entry
                 self._cv.wait(0.05)
-            self.fsm.restore(data)
+            self.fsm.restore(snap)
             self.snapshot_index = snap_index
             self.snapshot_term = snap_term
             self.last_applied = snap_index
             self.commit_index = max(self.commit_index, snap_index)
             self.log.compact_to(snap_index)
-            if self._snap_path:
-                tmp = self._snap_path + ".tmp"
-                with open(tmp, "wb") as f:
-                    f.write(data if isinstance(data, bytes)
-                            else bytes(data))
-                os.replace(tmp, self._snap_path)
+            self._keep_snapshot_locked(snap)
             self._save_meta_locked()
             # restoring a large snapshot is not the leader's silence
             self._last_leader_contact = time.monotonic()
             self._reset_election_deadline_locked()
-            return self.term
+            return self.term, total

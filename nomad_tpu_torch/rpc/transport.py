@@ -9,10 +9,12 @@ is transport-agnostic.
 The counterpart of `nomad_tpu.rpc.transport`, with one addition: every
 raft call is one frame, and the wire refuses a frame over
 `wire.MAX_FRAME`, so the transport states `max_append_bytes`, the most
-that one AppendEntries may carry in encoded entries.  `RaftNode` cuts
-each batch to it (the reference ships up to 512 entries whatever their
-size, and a follower that falls behind by more than a frame's worth
-never catches up).
+that one AppendEntries may carry in encoded entries, and
+`max_snapshot_chunk_bytes`, the snapshot bytes one InstallSnapshot
+chunk may carry.  `RaftNode` cuts each batch and each snapshot chunk to
+them (the reference ships up to 512 entries
+whatever their size, and a whole snapshot in one call, and a follower
+that falls behind by more than a frame's worth never catches up).
 """
 from __future__ import annotations
 
@@ -43,6 +45,11 @@ VOTE_PROBE_WINDOW_S = 2 * VOTE_PROBE_TIMEOUT_S
 # room left in a frame for the request envelope around the entries
 # (id, method name, term, leader id, indexes)
 FRAME_HEADROOM = 64 * 1024
+# an InstallSnapshot chunk's call: the last chunk's answer waits out the
+# follower's restore of the whole snapshot (tens of seconds at config 3)
+INSTALL_CALL_TIMEOUT_S = 300.0
+# JSON bytes around a bytes argument's base64 text (`{"__b64__":"..."}`)
+_B64_ENVELOPE = 13
 
 
 class TcpRaftTransport:
@@ -67,6 +74,13 @@ class TcpRaftTransport:
     def max_append_bytes(self) -> int:
         """Encoded bytes of entries that one AppendEntries may carry."""
         return wire.MAX_FRAME - FRAME_HEADROOM
+
+    @property
+    def max_snapshot_chunk_bytes(self) -> int:
+        """Snapshot bytes that one InstallSnapshot chunk may carry: the
+        codec sends bytes as base64 text (4 bytes for every 3) inside
+        `{"__b64__":"..."}`, and that must fit `max_append_bytes`."""
+        return (self.max_append_bytes - _B64_ENVELOPE) // 4 * 3
 
     def register(self, node) -> None:
         self._local[node.id] = node
@@ -121,14 +135,13 @@ class TcpRaftTransport:
         try:
             out = client.call(f"raft.{method}",
                               _encode_args(method, list(args)),
-                              timeout=(VOTE_PROBE_TIMEOUT_S
-                                       if method == "rpc_request_vote"
-                                       else RAFT_CALL_TIMEOUT_S))
+                              timeout=_CALL_TIMEOUT_S.get(
+                                  method, RAFT_CALL_TIMEOUT_S))
         except RpcError as e:
             raise ConnectionError(f"peer {target}: {e}") from e
         except ValueError as e:
-            # a request over the frame limit (a snapshot larger than a
-            # frame): every retry fails the same way, so say so loudly
+            # a request over the frame limit: every retry fails the
+            # same way, so say so loudly
             _log.error("raft %s to %s exceeds the frame limit: %s",
                        method, target, e)
             raise ConnectionError(f"peer {target}: {e}") from e
@@ -142,6 +155,10 @@ class TcpRaftTransport:
         with self._lock:
             self._backoff.pop(target, None)
         return _decode_result(method, out)
+
+
+_CALL_TIMEOUT_S = {"rpc_request_vote": VOTE_PROBE_TIMEOUT_S,
+                   "rpc_install_snapshot": INSTALL_CALL_TIMEOUT_S}
 
 
 # bytes (snapshot payloads) ride the codec's base64 envelope; everything

@@ -24,7 +24,11 @@ answering after it would hold N's worker for the whole of N+1's apply.
 A plan is only held outstanding while another is ALREADY queued, so a
 singleton plan keeps today's latency.
 
-The counterpart of `nomad_tpu.server.plan_apply`.
+The counterpart of `nomad_tpu.server.plan_apply`.  The port's applier
+waits for a dispatched apply with no deadline (raft answers it, or
+raises when leadership is lost or raft stops), and `stop()` answers
+every plan the applier holds with an error: the workers wait for their
+plans with no deadline either, as Nomad's do.
 """
 from __future__ import annotations
 
@@ -212,6 +216,10 @@ class PlanApplier:
         self.create_evals = create_evals
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # the plans taken off the queue and not yet answered (answered
+        # ones are pruned as new ones come): stop() answers them
+        self._held_lock = threading.Lock()
+        self._held: List[PendingPlan] = []
 
     def start(self) -> None:
         self._stop.clear()
@@ -219,9 +227,29 @@ class PlanApplier:
         self._thread.start()
 
     def stop(self) -> None:
-        self._stop.set()
+        """Stop the loop and answer every plan it holds with an error, so
+        no worker waits on a plan whose apply is still in flight (its
+        eval is nacked and runs again under the next leader, which
+        applies the log first)."""
+        with self._held_lock:
+            self._stop.set()
+            held, self._held = self._held, []
+        for pending in held:
+            pending.future.respond(None, "plan applier stopped")
         if self._thread:
             self._thread.join(timeout=2.0)
+
+    def _hold(self, pending: PendingPlan) -> bool:
+        """Hold a plan taken off the queue until it is answered; once the
+        applier is stopping, answer it at once and return False (the
+        caller leaves it unapplied)."""
+        with self._held_lock:
+            if self._stop.is_set():
+                pending.future.respond(None, "plan applier stopped")
+                return False
+            self._held = [p for p in self._held if not p.future.done()]
+            self._held.append(pending)
+        return True
 
     def _run(self) -> None:
         out: Optional[_Outstanding] = None
@@ -233,6 +261,8 @@ class PlanApplier:
             if pending is None:
                 if out is not None:
                     out = self._finalize(out)
+                continue
+            if not self._hold(pending):
                 continue
             # clear the outstanding slot BEFORE the raising path:
             # apply_one owns `prev` from here (it finalizes it on every
@@ -275,6 +305,8 @@ class PlanApplier:
             while len(group) < self.group_commit:
                 extra = self.queue.dequeue(0.0)
                 if extra is None:
+                    break
+                if not self._hold(extra):
                     break
                 group.append(extra)
         snapshot = self.store.snapshot()
@@ -343,7 +375,7 @@ class PlanApplier:
         out.done = True
         try:
             with _m.timed("plan.apply"):
-                index = out.finish(10.0)
+                index = out.finish()
         except Exception as e:
             for pending, _plan, _result in out.items:
                 pending.future.respond(None, f"plan apply error: {e}")

@@ -3,7 +3,8 @@
 Reference: nomad/plan_queue.go — priority heap of pending plans, each with
 a future the submitting worker blocks on (:29, :58).
 
-The counterpart of `nomad_tpu.server.plan_queue`.
+The counterpart of `nomad_tpu.server.plan_queue`; a future's `wait` has
+no deadline unless the caller gives one (the reference's waits 30 s).
 """
 from __future__ import annotations
 
@@ -32,8 +33,14 @@ class PlanFuture:
         self._err = err
         self._event.set()
 
-    def wait(self, timeout: float = 30.0
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout: Optional[float] = None
              ) -> Tuple[Optional[PlanResult], Optional[str]]:
+        """The plan's result, once the applier answers (with no
+        `timeout`, however long its apply takes: every path that stops
+        the applier answers the plans it holds)."""
         if not self._event.wait(timeout):
             return None, "plan apply timeout"
         return self._result, self._err

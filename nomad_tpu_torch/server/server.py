@@ -1176,14 +1176,16 @@ class Server:
     def _apply_plan_async(self, plan: Plan, result: PlanResult):
         """Dispatch the plan's raft apply without waiting; returns
         (index, finish_fn) — finish_fn blocks until the entry is
-        applied and then claims CSI volumes.  The applier pipelines
-        plan N+1's evaluation under plan N's consensus round trip."""
+        applied, however long that takes (it raises when leadership is
+        lost or raft stops), and then claims CSI volumes.  The applier
+        pipelines plan N+1's evaluation under plan N's consensus round
+        trip."""
         index, wait = self.raft.propose_async("plan_result", {
             "result": to_wire(result),
             "job": to_wire(plan.job) if plan.job is not None else None})
 
-        def finish(timeout: float = 10.0) -> int:
-            ix = wait(timeout)
+        def finish() -> int:
+            ix = wait()
             self._claim_csi_for_placements(plan, result)
             return ix
         return index, finish
@@ -1201,8 +1203,8 @@ class Server:
                 "job": to_wire(plan.job) if plan.job is not None else None,
             } for plan, result in items]})
 
-        def finish(timeout: float = 10.0) -> int:
-            ix = wait(timeout)
+        def finish() -> int:
+            ix = wait()
             for plan, result in items:
                 self._claim_csi_for_placements(plan, result)
             return ix

@@ -288,7 +288,11 @@ class Worker(threading.Thread):
         if pending is None:
             sp.end(outcome="queue_disabled")
             return None, None
-        result, err = pending.future.wait(30.0)
+        # no deadline, as Nomad's Worker.SubmitPlan: the applier answers
+        # every plan it takes, with an error when it stops or loses
+        # leadership (a plan whose apply outlasted a deadline would fail
+        # its eval while the plan still stands)
+        result, err = pending.future.wait()
         # reference metric: nomad.worker.submit_plan (p50/p99 plan-submit
         # latency — the BASELINE.md headline latency metric)
         _m.measure_since("worker.submit_plan", t0)

@@ -153,7 +153,16 @@ class StateSnapshot:
 
     def allocs_by_node(self, node_id: str) -> List[Allocation]:
         ids = self._t.get("_allocs_by_node", {}).get(node_id, ())
-        return [self._t["allocs"][i] for i in ids if i in self._t["allocs"]]
+        return self._allocs_of(ids)
+
+    def _allocs_of(self, ids) -> List[Allocation]:
+        """The allocs of an index set.  Other threads read the live
+        store while the FSM's writer adds to and removes from the set in
+        place: the set is copied in one step first (a Python loop over
+        it could meet "Set changed size during iteration", as the
+        reference's can), and an alloc removed meanwhile is skipped."""
+        allocs = self._t["allocs"]
+        return [a for a in map(allocs.get, tuple(ids)) if a is not None]
 
     def allocs_by_node_terminal(self, node_id: str,
                                 terminal: bool) -> List[Allocation]:
@@ -163,7 +172,7 @@ class StateSnapshot:
     def allocs_by_job(self, namespace: str, job_id: str,
                       anyCreateIndex: bool = True) -> List[Allocation]:
         ids = self._t.get("_allocs_by_job", {}).get((namespace, job_id), ())
-        return [self._t["allocs"][i] for i in ids if i in self._t["allocs"]]
+        return self._allocs_of(ids)
 
     def allocs_by_eval(self, eval_id: str) -> List[Allocation]:
         return [a for a in self._t["allocs"].values() if a.eval_id == eval_id]

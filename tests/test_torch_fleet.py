@@ -16,7 +16,9 @@ eviction pass on the resident world (its eviction planes at the default
 width 8 in both packages): 600 nodes, each full with one low-priority
 running alloc entered through raft, and three priority-70 jobs that
 place only by evicting; the victims and every alloc's
-`preempted_allocations` must be equal too."""
+`preempted_allocations` must be equal too.  The coordinator's
+lane-former hook reorders a drain round's members at the lane
+controller's width in both packages."""
 import pytest
 
 from nomad_tpu import mock as ref_mock
@@ -207,3 +209,39 @@ def test_fused_round_with_preemption_matches_reference(monkeypatch):
     assert len(out["port"]["evicted"]) == 12
     assert all(v for _name, v in out["port"]["preempted"])
     assert out["port"]["statuses"] == ["complete"] * 3
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_coordinator_lane_former_reorders_drain_round(pkg):
+    """The drain leader passes each fused round's combined member list
+    through `lane_former` at the lane controller's width before
+    dispatch (`SolveCoordinator(lane_former=, lane_controller=)`, the
+    reference's `tests/test_lane_stream.py` case), in both packages."""
+    if pkg == "ref":
+        from nomad_tpu.scheduler import fleet
+    else:
+        from nomad_tpu_torch.scheduler import fleet
+    calls = {}
+
+    def former(members, width):
+        calls["width"] = width
+        calls["n"] = len(members)
+        return list(reversed(members))
+
+    got = []
+
+    def solve_fn(_server, _worker, combined):
+        got.extend(combined)
+
+    ctrl = fleet.LaneWidthController(max_width=8, start=4)
+    coord = fleet.SolveCoordinator(None, max_fused=16, solve_fn=solve_fn,
+                                   lane_former=former, lane_controller=ctrl)
+    coord.pause()
+    subs = [coord.submit_nowait(f"w{i}", [(f"ev{i}", f"tok{i}")])
+            for i in range(3)]
+    coord.resume()
+    for s in subs:
+        assert s.done.wait(10.0)
+        assert s.error is None
+    assert calls == {"width": 4, "n": 3}
+    assert got == [("ev2", "tok2"), ("ev1", "tok1"), ("ev0", "tok0")]

@@ -23,6 +23,7 @@ from nomad_tpu.acl import ACLPolicy as RefACLPolicy
 from nomad_tpu.acl import ACLToken as RefACLToken
 from nomad_tpu.acl import NamespaceRule as RefNamespaceRule
 from nomad_tpu.client.sim import wait_until
+from nomad_tpu.raft import NotLeaderError as RefNotLeaderError
 from nomad_tpu.server.server import Server as RefServer
 from nomad_tpu.utils import codec as ref_codec
 from nomad_tpu_torch import mock as port_mock
@@ -343,3 +344,214 @@ def test_barrier_applies_the_log_before_the_leader_reads_the_store():
         assert order == ["barrier", "restore"]
     finally:
         s.stop()
+
+
+# ------------------------------------------------ chunked InstallSnapshot
+def test_snapshot_ships_in_chunks_and_resumes_a_refused_chunk(monkeypatch):
+    """A follower behind the leader's compaction point catches up by an
+    InstallSnapshot in chunks (the chunk size patched small): one chunk
+    is lost on the way, so the follower refuses the next one (its offset
+    is not the buffer's length) and the leader resumes from the offset
+    the refusal gives.  The follower ends with the leader's store."""
+    import time
+    from nomad_tpu_torch.raft import node as raft_node
+    monkeypatch.setattr(raft_node, "SNAPSHOT_CHUNK_BYTES", 2048)
+    transport = InProcTransport()
+    peers = ["s0", "s1", "s2"]
+    servers = [PortServer(num_workers=0, device="cpu",
+                          raft_config=RaftConfig(
+                              node_id=p, peers=peers, fsync=False,
+                              election_timeout_s=(0.5, 1.0),
+                              heartbeat_interval_s=0.05,
+                              snapshot_threshold=16),
+                          raft_transport=transport) for p in peers]
+    try:
+        for s in servers:
+            s.start()
+        assert wait_until(lambda: sum(s.is_leader() for s in servers) == 1,
+                          timeout=20)
+        leader = next(s for s in servers if s.is_leader())
+        victim = next(s for s in servers if s is not leader)
+        vid = victim.raft.id
+        timeouts = victim.raft.cfg.election_timeout_s
+        with victim.raft._lock:
+            victim.raft.cfg.election_timeout_s = (3600.0, 3600.0)
+            victim.raft._reset_election_deadline_locked()
+        real_call = transport.call
+        paused = [True]
+        chunks, dropped = [], []
+
+        def call(target, method, *args):
+            if target == vid and paused[0]:
+                raise ConnectionError(f"peer {target} paused")
+            if target == vid and method == "rpc_install_snapshot":
+                offset, data = args[4], args[7]
+                if offset > 0 and not dropped:
+                    # lost on the way: the leader reads an ack the
+                    # follower never sent
+                    dropped.append(offset)
+                    return args[0], offset + len(data)
+                out = real_call(target, method, *args)
+                chunks.append((offset, len(data), out[1]))
+                return out
+            return real_call(target, method, *args)
+        transport.call = call
+        for i in range(40):
+            leader.upsert_secret("default", f"s/{i}", {"v": f"{i}" * 500})
+        last = leader.raft.log.last_index()
+        assert wait_until(lambda: leader.raft.snapshot_index >= last - 16,
+                          timeout=15)
+        assert len(leader.raft._read_snapshot()) > 8 * 2048
+        with victim.raft._lock:
+            victim.raft.cfg.election_timeout_s = timeouts
+            victim.raft._deadline = time.monotonic() + 2.0
+        paused[0] = False
+        assert wait_until(lambda: victim.store.secret_by_path(
+            "default", "s/39") is not None, timeout=30)
+        assert wait_until(lambda: victim.store.latest_index()
+                          == leader.store.latest_index(), timeout=15)
+        assert canon(dump(victim.store), {}) == canon(dump(leader.store), {})
+        assert victim.raft.snapshot_index > 0
+        # the chunk after the lost one was refused with the follower's
+        # offset, and the leader resumed from there
+        assert len(dropped) == 1
+        refused = [k for k, (off, _n, held) in enumerate(chunks)
+                   if off > held]
+        assert refused, chunks
+        k = refused[0]
+        assert chunks[k][2] == dropped[0]
+        assert chunks[k + 1][0] == dropped[0]
+        assert all(n <= 2048 for _off, n, _held in chunks)
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def installs_after_leader_compaction(pkg):
+    """A three-member in-process cluster of `pkg`; once every member has
+    applied the same entries, the leader alone compacts its log, so the
+    entry before each follower's next one is its snapshot point, and one
+    more entry commits.  Returns the InstallSnapshot calls the leader
+    made, and whether the new entry committed and both followers hold
+    it."""
+    import time
+    if pkg == "ref":
+        from nomad_tpu.raft import InProcTransport as Transport
+        from nomad_tpu.raft import RaftConfig as Config
+        ServerCls, kw = RefServer, {}
+    else:
+        Transport, Config = InProcTransport, RaftConfig
+        ServerCls, kw = PortServer, {"device": "cpu"}
+    transport = Transport()
+    peers = ["s0", "s1", "s2"]
+    servers = [ServerCls(num_workers=0, raft_config=Config(
+        node_id=p, peers=peers, fsync=False, election_timeout_s=(1.0, 2.0),
+        heartbeat_interval_s=0.05), raft_transport=transport, **kw)
+        for p in peers]
+    try:
+        for s in servers:
+            s.start()
+        assert wait_until(lambda: sum(s.is_leader() for s in servers) == 1,
+                          timeout=20)
+        leader = next(s for s in servers if s.is_leader())
+        followers = [s for s in servers if s is not leader]
+        for i in range(4):
+            leader.upsert_secret("default", f"a/{i}", {"v": "x"})
+        applied = leader.raft.last_applied
+        assert wait_until(lambda: all(f.raft.last_applied == applied
+                                      for f in followers), timeout=10)
+        real_call = transport.call
+        installs = []
+
+        def call(target, method, *args):
+            if method == "rpc_install_snapshot":
+                installs.append(target)
+            return real_call(target, method, *args)
+        transport.call = call
+        with leader.raft._lock:
+            leader.raft._compact_locked()
+        assert leader.raft.snapshot_index == applied
+        time.sleep(0.3)
+        try:
+            leader.upsert_secret("default", "b", {"v": "y"})
+        except (NotLeaderError, RefNotLeaderError, TimeoutError):
+            return installs, False
+        ok = wait_until(lambda: all(
+            f.store.secret_by_path("default", "b") is not None
+            for f in followers), timeout=10)
+        return installs, ok
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def test_leader_compaction_sends_no_snapshot_to_caught_up_followers():
+    """At its snapshot point the port's leader sends the snapshot's term
+    as the previous entry's, so followers that hold that entry take the
+    next append and need no snapshot; the reference sends term 0, each
+    follower refuses, and the leader ships each one the whole snapshot
+    (which a frame over TCP cannot hold at config-3 size)."""
+    port_installs, port_ok = installs_after_leader_compaction("port")
+    assert port_ok and port_installs == []
+    ref_installs, _ref_ok = installs_after_leader_compaction("ref")
+    assert len(set(ref_installs)) == 2, ref_installs
+
+
+def test_snapshot_now_compacts_at_the_applied_entry():
+    """`RaftNode.snapshot_now` (hashicorp/raft's user snapshot): a
+    started member's applier takes the snapshot between two entries and
+    compacts the log to the last applied one; the kept snapshot restores
+    to the store it was taken from, and a single-node member compacts
+    inline."""
+    from nomad_tpu_torch.raft import RaftNode, StateFSM
+    from nomad_tpu_torch.state.store import StateStore
+    servers, leader, _followers = slow_peer_cluster()
+    try:
+        for i in range(6):
+            leader.upsert_secret("default", f"n/{i}", {"v": str(i)})
+        index = leader.raft.snapshot_now()
+        assert index == leader.raft.last_applied == leader.raft.log.offset
+        restored = StateStore()
+        StateFSM(restored).restore(leader.raft._read_snapshot())
+        assert canon(dump(restored), {}) == canon(dump(leader.store), {})
+    finally:
+        for s in servers:
+            s.stop()
+    single = RaftNode(RaftConfig(node_id="n", peers=[], fsync=False),
+                      StateFSM(StateStore()), InProcTransport())
+    single.bootstrap_single()
+    single.propose("noop", None)
+    assert single.snapshot_now() == single.last_applied == single.log.offset
+
+
+def test_a_learner_never_campaigns_and_joins_as_a_voter():
+    """A fourth member started with the voters' configuration but not
+    itself (a learner) is never contacted for several election timeouts:
+    it starts no election, so no leader is deposed by its term.  Added
+    by `add_server_peer`, it catches up, adopts the configuration that
+    names it, and holds the leader's store."""
+    import time
+    servers, leader, _followers = slow_peer_cluster()
+    transport = leader.raft.transport
+    voters = list(leader.raft.cfg.peers)
+    joiner = PortServer(num_workers=0, device="cpu",
+                        raft_config=RaftConfig(
+                            node_id="s3", peers=voters, fsync=False,
+                            election_timeout_s=(0.2, 0.3),
+                            heartbeat_interval_s=0.05),
+                        raft_transport=transport)
+    try:
+        joiner.start()
+        term = leader.raft.term
+        time.sleep(1.5)
+        assert joiner.raft.term == 0 and joiner.raft.role == "follower"
+        assert leader.is_leader() and leader.raft.term == term
+        leader.upsert_secret("default", "j/1", {"k": "v"})
+        leader.add_server_peer("s3", catchup_timeout_s=15.0)
+        assert wait_until(lambda: "s3" in joiner.raft.cfg.peers, timeout=10)
+        assert wait_until(lambda: joiner.store.secret_by_path(
+            "default", "j/1") is not None, timeout=10)
+        assert leader.is_leader() and leader.raft.term == term
+    finally:
+        for s in servers + [joiner]:
+            s.stop()

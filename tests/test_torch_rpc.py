@@ -418,3 +418,89 @@ def test_frame_fault_reference_follower_never_catches_up(monkeypatch):
     the follower stays behind (the fault the port repairs; the JAX
     package stays as it is)."""
     assert not follower_catches_up("ref", monkeypatch, 6.0)
+
+
+# ---------------------------------------------------- snapshot fault
+def follower_catches_up_by_snapshot(pkg, monkeypatch, wait_s):
+    """`follower_catches_up` behind a compaction: once the blobs are
+    applied everywhere, the leader and the other follower compact their
+    logs at the same index (so no member but the paused one is behind
+    the snapshot point), and the resumed follower can catch up only by
+    an InstallSnapshot of a snapshot larger than the (patched) frame.
+    Returns whether it catches up within `wait_s`, and the encoded bytes
+    of each InstallSnapshot request the leader sent it."""
+    import json
+    p = PKGS[pkg]
+    monkeypatch.setattr(p["wire"], "MAX_FRAME", TEST_FRAME)
+    servers, rpcs, _addrs = p["endpoints"].serve_cluster(
+        3, num_workers=0, server_kwargs=p["server_kwargs"])
+    try:
+        assert wait_until(lambda: leader_of(servers) is not None), pkg
+        leader = leader_of(servers)
+        victim = next(s for s in servers if s is not leader)
+        other = next(s for s in servers if s not in (leader, victim))
+        vid = victim.raft.id
+        timeouts = victim.raft.cfg.election_timeout_s
+        paused = threading.Event()
+        paused.set()
+        with victim.raft._lock:
+            victim.raft.cfg.election_timeout_s = (3600.0, 3600.0)
+            victim.raft._reset_election_deadline_locked()
+        transport = leader.raft.transport
+        real_call = transport.call
+        frames = []
+
+        def call(target, method, *args):
+            if target == vid and paused.is_set():
+                raise ConnectionError(f"peer {target} paused")
+            if target == vid and method == "rpc_install_snapshot":
+                params = [{"__b64__": "x" * (4 * ((len(a) + 2) // 3))}
+                          if isinstance(a, bytes) else a for a in args]
+                frames.append(len(json.dumps(params,
+                                             separators=(",", ":"))))
+            return real_call(target, method, *args)
+        transport.call = call
+        for i in range(N_BLOBS):
+            leader.upsert_secret("default", f"blob/{i}",
+                                 {"v": f"{i}" * BLOB_BYTES})
+        applied = leader.raft.last_applied
+        assert wait_until(lambda: other.raft.last_applied == applied), pkg
+        for s in (leader, other):
+            with s.raft._lock:
+                s.raft._compact_locked()
+        assert leader.raft.snapshot_index == applied > \
+            victim.raft.last_applied
+        assert len(leader.fsm.snapshot()) > TEST_FRAME
+        leader.upsert_secret("default", "after", {"v": "x"})
+        with victim.raft._lock:
+            victim.raft.cfg.election_timeout_s = timeouts
+            victim.raft._deadline = time.monotonic() + 2.0
+        transport._backoff.pop(vid, None)
+        paused.clear()
+        ok = wait_until(lambda: victim.store.secret_by_path(
+            "default", "after") is not None
+            and victim.store.secret_by_path(
+                "default", f"blob/{N_BLOBS - 1}") is not None,
+            timeout=wait_s)
+        return ok, frames
+    finally:
+        stop_cluster(servers, rpcs)
+
+
+def test_snapshot_fault_port_follower_catches_up(monkeypatch):
+    """The port ships the snapshot in chunks, each within the frame: the
+    follower behind the compaction point catches up."""
+    ok, frames = follower_catches_up_by_snapshot("port", monkeypatch,
+                                                 WAIT_S)
+    assert ok
+    assert len(frames) > 1 and max(frames) <= TEST_FRAME, frames
+
+
+def test_snapshot_fault_reference_follower_never_catches_up(monkeypatch):
+    """The reference sends the whole snapshot in one InstallSnapshot:
+    the frame is refused, every retry fails the same way, and the
+    follower stays behind (the fault the port repairs; the JAX package
+    stays as it is)."""
+    ok, frames = follower_catches_up_by_snapshot("ref", monkeypatch, 6.0)
+    assert not ok
+    assert frames and min(frames) > TEST_FRAME, frames

@@ -420,3 +420,164 @@ def test_applier_answers_a_plan_before_dispatching_the_next(group):
     assert answers(firsts) == [(None, 101)] * n
     assert answers(seconds) == [(None, 102)] * n
     assert len(store.allocs_by_node(node.id)) == 2 * n
+
+
+# -------------------------------------- the worker's plan wait (no deadline)
+def held_plan_server(monkeypatch, hold):
+    """A one-worker port `Server(device="cpu")` on the in-process raft
+    whose FSM holds every plan entry's apply until `hold` is set, and a
+    record of the timeout each plan future's `wait` was given."""
+    from nomad_tpu_torch.server.server import Server
+    waits = []
+    real_wait = port_queue.PlanFuture.wait
+
+    def wait(self, timeout=None):
+        waits.append(timeout)
+        return real_wait(self, timeout)
+    monkeypatch.setattr(port_queue.PlanFuture, "wait", wait)
+    srv = Server(num_workers=1, device="cpu")
+    real_apply = srv.fsm.apply
+
+    def apply(index, etype, payload):
+        if etype in ("plan_result", "plan_results_batch"):
+            hold.wait()
+        return real_apply(index, etype, payload)
+    srv.fsm.apply = apply
+    for i in range(2):
+        n = port_mock.node(id=f"node-{i}", name=f"node-{i}")
+        srv.register_node(n)
+    job = port_mock.job(id="held")
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].resources.networks = []
+    return srv, job, waits
+
+
+def test_worker_waits_for_a_slow_plan_apply_with_no_deadline(monkeypatch):
+    """The FSM's plan apply is held for 3 s: the worker waits for its
+    plan with no deadline (its future's `wait` is given none) and the
+    eval completes once the apply is let go, with no constant patched."""
+    hold = threading.Event()
+    srv, job, waits = held_plan_server(monkeypatch, hold)
+    srv.start()
+    try:
+        ev = srv.register_job(job)
+        deadline = time.monotonic() + 20.0
+        while not waits and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert waits == [None]
+        time.sleep(3.0)
+        assert srv.store.eval_by_id(ev.id).status == \
+            port_structs.EVAL_STATUS_PENDING
+        hold.set()
+        deadline = time.monotonic() + 20.0
+        while (srv.store.eval_by_id(ev.id).status
+               != port_structs.EVAL_STATUS_COMPLETE
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        assert srv.store.eval_by_id(ev.id).status == \
+            port_structs.EVAL_STATUS_COMPLETE
+        live = [a for a in srv.store.allocs_by_job("default", job.id)
+                if not a.terminal_status()]
+        assert sorted(a.name for a in live) == ["held.web[0]", "held.web[1]"]
+    finally:
+        hold.set()
+        srv.stop()
+
+
+def test_worker_with_a_plan_in_apply_returns_when_the_server_stops(
+        monkeypatch):
+    """The server stops while a plan's apply is held: the applier
+    answers the plan it holds with an error at once, while the apply is
+    still held.  The worker then fails its eval, a write that waits
+    behind the held apply on the single-node raft, and once the apply
+    is let go the worker and `stop()` return within a bounded time,
+    the eval failed."""
+    hold = threading.Event()
+    srv, job, waits = held_plan_server(monkeypatch, hold)
+    srv.start()
+    worker = srv.workers[0]
+    submits = []
+    real_submit = worker.submit_plan
+    worker.submit_plan = lambda plan: submits.append(real_submit(plan)) \
+        or submits[-1]
+    stopper = threading.Thread(target=srv.stop, daemon=True)
+    try:
+        ev = srv.register_job(job)
+        deadline = time.monotonic() + 20.0
+        while not waits and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert waits == [None]
+        stopper.start()
+        deadline = time.monotonic() + 15.0
+        while not submits and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert submits == [(None, None)] and not hold.is_set()
+        hold.set()
+        worker.join(timeout=15.0)
+        stopper.join(timeout=15.0)
+        assert not worker.is_alive() and not stopper.is_alive()
+        assert srv.store.eval_by_id(ev.id).status == \
+            port_structs.EVAL_STATUS_FAILED
+    finally:
+        hold.set()
+        if stopper.ident is None:
+            srv.stop()
+        else:
+            stopper.join(timeout=15.0)
+
+
+def test_worker_with_a_plan_in_apply_returns_when_leadership_is_lost():
+    """A three-server cluster on the in-process raft: the leader's plan
+    apply is held and the leader steps down meanwhile.  The applier's
+    wait for the entry raises with the lost leadership, the plan is
+    answered with an error and the leader's worker returns within a
+    bounded time; the eval is left to the next leader."""
+    from nomad_tpu_torch.raft import InProcTransport, RaftConfig
+    from nomad_tpu_torch.server.server import Server
+    hold = threading.Event()
+    transport = InProcTransport()
+    peers = ["s0", "s1", "s2"]
+    servers = [Server(num_workers=1, device="cpu",
+                      raft_config=RaftConfig(
+                          node_id=p, peers=peers, fsync=False,
+                          election_timeout_s=(1.0, 2.0),
+                          heartbeat_interval_s=0.05),
+                      raft_transport=transport) for p in peers]
+    try:
+        for s in servers:
+            s.start()
+        deadline = time.monotonic() + 20.0
+        while (sum(s.is_leader() for s in servers) != 1
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        leader = next(s for s in servers if s.is_leader())
+        real_apply = leader.fsm.apply
+        entered = threading.Event()
+
+        def apply(index, etype, payload):
+            if etype in ("plan_result", "plan_results_batch"):
+                entered.set()
+                hold.wait()
+            return real_apply(index, etype, payload)
+        leader.fsm.apply = apply
+        worker = leader.workers[0]
+        submits = []
+        real_submit = worker.submit_plan
+        worker.submit_plan = lambda plan: submits.append(
+            real_submit(plan)) or submits[-1]
+        for i in range(2):
+            leader.register_node(port_mock.node(id=f"node-{i}",
+                                                name=f"node-{i}"))
+        job = port_mock.job(id="held")
+        job.task_groups[0].count = 2
+        job.task_groups[0].tasks[0].resources.networks = []
+        leader.register_job(job)
+        assert entered.wait(20.0)
+        assert leader.raft.step_down()
+        worker.join(timeout=15.0)
+        assert not worker.is_alive()
+        assert submits and submits[0] == (None, None)
+    finally:
+        hold.set()
+        for s in servers:
+            s.stop()

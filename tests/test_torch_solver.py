@@ -285,6 +285,13 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.rpc.transport",
                 "nomad_tpu_torch.rpc.endpoints",
                 "nomad_tpu_torch.client.agent",
+                "nomad_tpu_torch.client.sim",
+                "nomad_tpu_torch.jobspec.hcl",
+                "nomad_tpu_torch.jobspec.parse",
+                "nomad_tpu_torch.server.heartbeat",
+                "nomad_tpu_torch.server.periodic",
+                "nomad_tpu_torch.server.deployment_watcher",
+                "nomad_tpu_torch.server.drainer",
                 "nomad_tpu_torch.membership.gossip",
                 "nomad_tpu_torch.membership.regions",
                 "nomad_tpu_torch.server.serving"]
@@ -294,8 +301,9 @@ def test_import_pulls_in_no_jax():
     """Importing the port's entry points (the solver with its host twin
     and native engine, the scheduler path's harness and fleet round, the
     state store, raft, the server plane, telemetry, ACLs, the mesh
-    tiers, the wire RPC with TLS, the agent's server interface and
-    gossip membership) loads neither jax nor any module of the JAX
+    tiers, the wire RPC with TLS, the agent's server interface, the
+    simulated node agent, gossip membership, the lifecycle watchers and
+    the HCL jobspec parser) loads neither jax nor any module of the JAX
     package."""
     code = (
         "import sys\n"

@@ -220,3 +220,57 @@ def test_changelog_ring_truncation(cap):
     assert port.since(0, 10 ** 6) is None and ref.since(0, 10 ** 6) is None
     assert (port.since(port.floor, 10 ** 6)
             == ref.since(ref.floor, 10 ** 6))
+
+
+def test_alloc_index_reads_while_the_writer_runs():
+    """`allocs_by_node` / `allocs_by_job` on the live store from other
+    threads (a client agent, the drainer) while the FSM's writer adds
+    and removes allocs of that node and job: a read never raises and
+    returns only allocs of the node (the index set is copied in one
+    step; a loop over the live set can meet "Set changed size during
+    iteration")."""
+    import sys
+    import threading
+    import time
+    store = port_store.StateStore()
+    node = port_mock.node(id="node-0", name="node-0")
+    store.upsert_node(1, node)
+    job = port_mock.job(id="job-0")
+    store.upsert_job(2, job)
+    errors, reads = [], [0]
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                got = store.allocs_by_node(node.id)
+                got += store.allocs_by_job(job.namespace, job.id)
+                assert all(a.node_id == node.id for a in got)
+                reads[0] += 1
+            except Exception as e:          # read after the join
+                errors.append(repr(e))
+                return
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=reader) for _ in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        index = 3
+        deadline = time.monotonic() + 2.0
+        k = 0
+        while time.monotonic() < deadline and not errors:
+            a = port_mock.alloc(job=job, node_id=node.id)
+            a.id = f"alloc-{k}"
+            store.upsert_allocs(index, [a])
+            if k >= 50:
+                store.delete_eval(index + 1, [], [f"alloc-{k - 50}"])
+            index += 2
+            k += 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(5.0)
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and reads[0] > 0 and k > 100
