@@ -353,12 +353,46 @@ Phases, one JSON line each; any failed phase exits nonzero:
                oversubscribed, the wave kernel launched, and the leg's
                last solve re-solved with the kernel and the plain wave
                under assert_same.
+  14. chaos  — the chaos plane and the solve watchdog, as bench.py
+               run_chaos drives them (no cut).  W, on a config-3 pack
+               (10,000 nodes padded to 10,240, one job's 4 groups, phase
+               7's resident usage; past the host route's gate): a clean
+               solve with the watchdog off (topk and merge launches),
+               then armed at 0.5 s with a 2.0 s stall injected at the
+               "device_solve" site (the host twin answers:
+               `host_failover`, equal to the clean answer under
+               assert_same, the device path quarantined), a solve while
+               the backoff pends (`host_quarantine`), the abandoned call
+               joined and the probe after the backoff (`device`, wave
+               launches, a `watchdog.recovered` event), and a poisoned
+               solve (`host_failover`); 2 failovers for 2 claims of the
+               site.  C: a config-3 ResidentSolver on the card, the
+               "delta_row" site armed to corrupt 2 rows of a two-node
+               upsert: the harness's plane checksum records the
+               violation, a clean re-apply heals it, and the next
+               16-eval chunk equals a clean solver's.  S: FaultPlan
+               seed 14, horizon 36, bench.py's rates, on a
+               CrossRegionResidentSolver (4 regions of 2,500 nodes, 8
+               shards of the card, wave mode auto, the resident usage
+               of 100,000 allocs), every degraded width warmed first; a
+               fault-free leg and the storm leg over identical streams,
+               each step 4 evals through admission and the broker, 4
+               fleet solves, one watchdog-lane solve of W's pack, the
+               harness's checks (eval conservation, no double placement,
+               plane checksums, shed accounting).  Checks: no violation,
+               no eval lost, post-storm placements equal the fault-free
+               leg's, storm p99 <= 3 x fault-free p99, every shard
+               launched the wave kernel, every failover claimed an
+               injection, no watchdog thread alive and the watchdog off
+               at the end.  Phases 1-13 each check that the watchdog is
+               off and recorded nothing.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12 and 13 as
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13 and 14 as
 `launches_phase5`, `launches_phase7`, `launches_phase8`,
 `launches_phase9`, `launches_phase10`, `launches_phase11`,
-`launches_phase12` and `launches_phase13` beside them),
+`launches_phase12`, `launches_phase13` and `launches_phase14` beside
+them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -4437,13 +4471,17 @@ def make_job2(mock, eval_ix, count):
 def shard_launches(wk, planes, into):
     """Count, per shard and mode, the wave calls made inside the block
     (`planes`: each shard's resident `avail` tensor, which every wave
-    call of that shard passes); an observer only, every call goes on to
-    the wrapper as before."""
+    call of that shard passes; or a function giving them at each call,
+    for planes that a fail or recover re-puts); an observer only, every
+    call goes on to the wrapper as before."""
     real = wk.fused_wave
-    ptrs = {t.data_ptr(): i for i, t in enumerate(planes)}
+    fixed = None if callable(planes) else {
+        t.data_ptr(): i for i, t in enumerate(planes)}
 
     def wave(**kw):
         res = real(**kw)
+        ptrs = fixed if fixed is not None else {
+            t.data_ptr(): i for i, t in enumerate(planes())}
         shard = ptrs.get(kw["avail"].data_ptr())
         if shard is not None:
             into[shard][kw["mode"]] += 1
@@ -5702,6 +5740,484 @@ def phase_cluster(torch, wk, n_nodes, resident):
     return {m: total[m] for m in ("score", "topk", "merge")}
 
 
+# ------------------------------------------------------------ phase 14
+#: bench.py run_chaos (:1162): the storm's seed, horizon, rates, regions,
+#: shards, and the fleet solves and evals a step
+CHAOS_SEED = 14
+CHAOS_HORIZON = 36
+CHAOS_RATES = {"shard_kill": 0.06, "region_kill": 0.06,
+               "gossip_flap": 0.08, "stuck_solve": 0.05,
+               "slow_solve": 0.08, "poison_solve": 0.05}
+CHAOS_REGIONS = 4
+CHAOS_SHARDS = 8
+CHAOS_SPS = 4
+#: the watchdog's deadline (bench.py's default) and W's injected stall
+#: (4 x the deadline, the supervisor's stuck_solve)
+CHAOS_DEADLINE_S = 0.5
+CHAOS_STALL_S = 2.0
+#: W's backoff base and cap: the quarantine must outlast the host twin's
+#: answer, so that W's third solve finds it pending
+CHAOS_W_BACKOFF_S = 2.0
+#: C: the stream chunk after the corruption (evals of config 3)
+CHAOS_C_EVALS = 16
+#: the storm's watchdog-lane placements the harness notes a step
+CHAOS_LANE_NOTES = 4
+
+
+def watchdog_quiet(what):
+    """Phases 1-13: the watchdog off, and no watchdog counter or event
+    recorded."""
+    from nomad_tpu_torch.solver.watchdog import global_watchdog
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    from nomad_tpu_torch.utils.tracing import global_mesh_events
+    st = global_watchdog.stats()
+    check(st["deadline_s"] is None and not st["quarantined"]
+          and st["consecutive_failures"] == 0,
+          f"{what}: the solve watchdog is on: {st}")
+    moved = {k: v for k, v in global_metrics.dump()["counters"].items()
+             if k.startswith("watchdog.") and v}
+    check(not moved, f"{what}: watchdog counters moved: {moved}")
+    evs = [e["kind"] for e in global_mesh_events.events(limit=1 << 20)
+           if e["kind"].startswith("watchdog.")]
+    check(not evs, f"{what}: watchdog events {evs}")
+
+
+def watchdog_threads():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name == "solve-watchdog" and t.is_alive()]
+
+
+def launch_delta(wk, before):
+    now = dict(wk.fused_wave.mode_launches)
+    return {m: now.get(m, 0) - before.get(m, 0) for m in now}
+
+
+def chaos_watchdog_arc(torch, wk, pb):
+    """Leg W: the failover arc on one config-3 pack (bench.py:1220-1244).
+    Returns the leg's row."""
+    from nomad_tpu_torch.chaos import global_injections
+    from nomad_tpu_torch.solver.solve import _run_kernel_routed, _to_host
+    from nomad_tpu_torch.solver.watchdog import global_watchdog as wd
+    from nomad_tpu_torch.utils.tracing import global_mesh_events
+    row = {"np": int(pb.avail.shape[0]), "gp": int(pb.ask_res.shape[0]),
+           "n_place": int(pb.n_place), "deadline_s": CHAOS_DEADLINE_S,
+           "stall_s": CHAOS_STALL_S, "steps": {}}
+    steps = row["steps"]
+
+    def solve(name):
+        before = dict(wk.fused_wave.mode_launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res, backend = _run_kernel_routed(pb, DEVICE)
+        res = _to_host(res)
+        torch.cuda.synchronize()
+        steps[name] = {"backend": backend,
+                       "ms": 1e3 * (time.perf_counter() - t),
+                       "launches": launch_delta(wk, before)}
+        return res, backend
+
+    # 1. the watchdog off: the clean answer, on the card
+    base, backend = solve("clean")
+    check(backend == "device", f"W clean: backend {backend}")
+    c = steps["clean"]["launches"]
+    check(c["topk"] > 0 and c["merge"] == c["topk"] and c["score"] == 0,
+          f"W clean: launches {c}")
+    # 2. armed, and a stall past the deadline: the host twin answers
+    wd.deadline_s = CHAOS_DEADLINE_S
+    wd.base_backoff_s = wd.max_backoff_s = CHAOS_W_BACKOFF_S
+    claims0 = global_injections.counters.get("device_solve", 0)
+    global_injections.arm("device_solve", "sleep", budget=1,
+                          sleep_s=CHAOS_STALL_S)
+    res, backend = solve("stuck")
+    t_failover = time.perf_counter()
+    check(backend == "host_failover", f"W stuck: backend {backend}")
+    assert_same(base, res, "W stuck: failover vs clean")
+    check(wd.quarantined, "W stuck: not quarantined")
+    fo = global_mesh_events.events(kind="watchdog.failover", limit=4096)
+    check(len(fo) == 1, f"W stuck: {len(fo)} failover events")
+    row["waited_s"], row["retry_in_s"] = fo[-1]["waited_s"], \
+        fo[-1]["retry_in_s"]
+    # 3. the backoff pending: still the twin
+    res, backend = solve("quarantine")
+    check(backend == "host_quarantine", f"W quarantine: backend {backend}")
+    assert_same(base, res, "W quarantine: twin vs clean")
+    # the abandoned call wakes from its stall and finishes on the card
+    check(wd.join_abandoned(60.0) == 0, "W: the abandoned call still runs")
+    row["late_call_done_s"] = time.perf_counter() - t_failover
+    # 4. the backoff elapsed: one probe, back on the card
+    time.sleep(max(0.0, wd.stats()["retry_at"] - time.monotonic()) + 0.01)
+    res, backend = solve("probe")
+    check(backend == "device", f"W probe: backend {backend}")
+    assert_same(base, res, "W probe: card vs clean, after the late call")
+    check(not wd.quarantined, "W probe: still quarantined")
+    check(steps["probe"]["launches"]["topk"] > 0, "W probe: no topk launch")
+    check(global_mesh_events.events(kind="watchdog.recovered", limit=4096),
+          "W probe: no watchdog.recovered event")
+    # 5. a poisoned solve fails over too
+    global_injections.arm("device_solve", "raise", budget=1)
+    res, backend = solve("poison")
+    check(backend == "host_failover", f"W poison: backend {backend}")
+    assert_same(base, res, "W poison: failover vs clean")
+    errs = global_mesh_events.events(kind="watchdog.device_error",
+                                     limit=4096)
+    check(len(errs) == 1 and errs[0]["failover"]
+          and "ChaosInjected" in errs[0]["error"],
+          f"W poison: device_error events {errs}")
+    # 6. settle: every abandoned call joined, the card idle
+    check(wd.join_abandoned(60.0) == 0, "W: an abandoned call still runs")
+    torch.cuda.synchronize()
+    row["claims"] = global_injections.counters.get("device_solve",
+                                                   0) - claims0
+    row["failovers"] = sum(s["backend"] == "host_failover"
+                           for s in steps.values())
+    check(row["claims"] == row["failovers"] == 2,
+          f"W: {row['failovers']} failovers for {row['claims']} claims")
+    return row
+
+
+def chaos_corruption(torch, wk, nodes, probe, jobs, used0):
+    """Leg C: a delta-row corruption on a config-3 ResidentSolver on the
+    card, detected by the plane checksum, healed by a clean re-apply; the
+    next chunk equals a clean solver's.  Returns the leg's row."""
+    from nomad_tpu_torch.chaos import InvariantHarness, global_injections
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    from nomad_tpu_torch.solver.tensorize import ClusterDelta, Tensorizer
+    from nomad_tpu_torch.utils.tracing import MeshEventLog
+    gp = pow2(len({Tensorizer.ask_signature(a) for a in probe}))
+    kw = dict(gp=gp, kp=pow2(COUNT * CHAOS_C_EVALS), max_waves=18,
+              pallas="auto", device=DEVICE)
+    rs = ResidentSolver(nodes, probe, **kw)
+    clean = ResidentSolver(nodes, probe, **kw)
+    log = MeshEventLog()
+    h = InvariantHarness(event_log=log)
+    row = {"clean_before": h.check_plane_checksums(rs)}
+    victims = [nodes[7], nodes[len(nodes) // 2 + 1]]
+    for v in victims:
+        v.node_resources.cpu += 1
+        v.compute_class()
+
+    def delta():
+        d = ClusterDelta()
+        d.upsert_nodes.extend(victims)
+        return d
+    claims0 = global_injections.counters.get("delta_row", 0)
+    global_injections.arm("delta_row", "mutate", budget=1, rows=2)
+    row["apply_path"] = rs.apply_delta(delta())
+    row["claims"] = global_injections.counters.get("delta_row", 0) - claims0
+    row["detected"] = not h.check_plane_checksums(rs)
+    row["violations"] = h.report()["violations_by_check"]
+    row["reapply_path"] = rs.apply_delta(delta())
+    row["healed"] = InvariantHarness(
+        event_log=log).check_plane_checksums(rs)
+    clean.apply_delta(delta())
+    for v in victims:           # the storm runs on the config-3 cluster
+        v.node_resources.cpu -= 1
+        v.compute_class()
+    check(row["clean_before"], "C: checksums differ before the corruption")
+    check(row["apply_path"] == "delta" and row["claims"] == 1,
+          f"C: the corrupt apply took {row['apply_path']}, "
+          f"{row['claims']} claims")
+    check(row["detected"] and row["violations"] == {"plane_checksum": 1},
+          f"C: not detected: {row['violations']}")
+    check(row["healed"], "C: the clean re-apply did not heal the planes")
+    asks, _keys = rs.merge_asks(sum((asks_for(j) for j in jobs), []))
+    outs = []
+    for solver in (rs, clean):
+        solver.reset_usage(used0=used0)
+        pb = solver.pack_batch(asks)
+        pb.job_keys = None
+        before = dict(wk.fused_wave.mode_launches)
+        outs.append(solver.solve_stream([pb], seeds=[1]))
+        torch.cuda.synchronize()
+        row.setdefault("launches", launch_delta(wk, before))
+    outs_equal("C: the chunk after the heal vs a clean solver",
+               [outs[0]], [outs[1]])
+    check(row["launches"]["score"] + row["launches"]["topk"] > 0,
+          f"C: the chunk launched no wave kernel: {row['launches']}")
+    row["placed"] = int((outs[0][3] == 1).sum())
+    return row
+
+
+def chaos_storm(torch, wk, nodes, probe, jobs, pb_wd, resident):
+    """Leg S: the fault-free leg and the storm leg (bench.py:1246-1420)
+    over identical eval streams on a CrossRegionResidentSolver of 4
+    regions on 8 shards of the card.  Returns (the leg's row, launches
+    by mode)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.chaos import (ChaosSupervisor, FaultPlan,
+                                       InvariantHarness, global_injections)
+    from nomad_tpu_torch.parallel import federated as fd
+    from nomad_tpu_torch.parallel import sharded as sh
+    from nomad_tpu_torch.server.eval_broker import EvalBroker
+    from nomad_tpu_torch.server.serving import AdmissionController
+    from nomad_tpu_torch.solver.solve import _run_kernel_routed, _to_host
+    from nomad_tpu_torch.solver.tensorize import Tensorizer
+    from nomad_tpu_torch.solver.watchdog import global_watchdog as wd
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    dev = torch.device(DEVICE)
+    per_region = len(nodes) // CHAOS_REGIONS
+    n_union = per_region * CHAOS_REGIONS
+    gp = pow2(len({Tensorizer.ask_signature(a) for a in probe}))
+    t0 = time.perf_counter()
+    cr = fd.CrossRegionResidentSolver(
+        [nodes[r * per_region:(r + 1) * per_region]
+         for r in range(CHAOS_REGIONS)], probe, n_hosts_per_region=1,
+        n_devices=CHAOS_SHARDS, devices=[dev], gp=gp, kp=pow2(COUNT),
+        max_waves=18, pallas="auto")
+    resident = resident * n_union // N_NODES
+    used0 = resident_used0(cr.template, n_union, resident)
+    msup = sh.ElasticMeshSupervisor(cr.solver)
+    msup.register_host("host-r1", 1)
+    batches = [cr.pack_batch(asks_for(j)) for j in jobs]
+    row = {"nodes": n_union, "regions": CHAOS_REGIONS,
+           "shards": cr.solver.n_shards, "resident": resident,
+           "horizon": CHAOS_HORIZON, "seed": CHAOS_SEED,
+           "evals_per_step": CHAOS_SPS, "solves_per_step": CHAOS_SPS,
+           "build_s": time.perf_counter() - t0}
+    plan = FaultPlan.generate(CHAOS_SEED, CHAOS_HORIZON, CHAOS_RATES,
+                              shards=cr.solver.n_shards,
+                              regions=cr.region_names, members=["host-r1"])
+    row["planned_by_kind"] = dict(collections.Counter(
+        e.kind for e in plan.events))
+
+    # ---- warm every width the storm will drive (bench.py:1256-1275)
+    t0 = time.perf_counter()
+    cr.reset_usage(used0=used0)
+    cr.solve_stream([batches[0]])
+    warm = [("shard", 1)]                 # the gossip-flap member's shard
+    for ev in plan.events:
+        if ev.kind == "shard_kill":
+            warm.append(("shard", int(ev.target or 0) % cr.solver.n_shards))
+        elif ev.kind == "region_kill":
+            warm.append(("region", ev.target))
+    for kind, target in dict.fromkeys(warm):
+        if kind == "shard":
+            cr.solver.fail_shard(target)
+        else:
+            cr.fail_region_shard(target)
+        cr.reset_usage(used0=used0)
+        cr.solve_stream([batches[0]])
+        cr.solver.recover()
+        cr.reset_usage(used0=used0)
+        cr.solve_stream([batches[0]])
+    _to_host(_run_kernel_routed(pb_wd, DEVICE)[0])
+    torch.cuda.synchronize()
+    row["warm_s"] = time.perf_counter() - t0
+    row["warm_widths"] = len(dict.fromkeys(warm))
+
+    def run_leg(name, supervisor):
+        broker = EvalBroker(initial_nack_delay_s=0.01)
+        broker.set_enabled(True)
+        adm = AdmissionController(max_pending=4096, protect_priority=101,
+                                  brownout_high=0.9, brownout_low=0.5,
+                                  brownout_after_s=0.001,
+                                  ns_rate=1e9, ns_burst=1e9)
+        harness = InvariantHarness()
+        lat, recovery_s, lane = [], [], []
+        t_kill = None
+        shards = [collections.Counter() for _ in range(CHAOS_SHARDS)]
+        zero_launches(torch, wk)
+        # shard ids are the healthy mesh's: a degraded mesh's are not
+        with shard_launches(wk, lambda: (
+                cr.solver._dev_node["avail"]
+                if cr.mesh_state == "healthy" else ()), shards):
+            for step in range(CHAOS_HORIZON):
+                t0 = time.perf_counter()
+                kinds = []
+                if supervisor is not None:
+                    for e in supervisor.advance(step):
+                        kinds.append(e.kind)
+                        if e.kind in ("shard_kill", "region_kill"):
+                            t_kill = time.perf_counter()
+                for i in range(CHAOS_SPS):
+                    ev = mock.eval_(job_id=f"job-{step}-{i}")
+                    harness.note_enqueued(ev.id)
+                    if adm.offer(ev, broker.ready_count()):
+                        broker.enqueue(ev)
+                    else:
+                        harness.note_outcome(ev.id, "shed")
+                for b in range(CHAOS_SPS):
+                    cr.reset_usage(used0=used0)
+                    cr.solve_stream([batches[(step * CHAOS_SPS + b)
+                                             % len(batches)]])
+                claims = global_injections.counters.get("device_solve", 0)
+                res, backend = _run_kernel_routed(pb_wd, DEVICE)
+                res = _to_host(res)
+                lane.append({"step": step, "backend": backend,
+                             "claimed": global_injections.counters.get(
+                                 "device_solve", 0) - claims,
+                             "armed_by": [k for k in kinds
+                                          if k.endswith("_solve")]})
+                for p in range(min(CHAOS_LANE_NOTES, pb_wd.n_place)):
+                    harness.note_placement(f"s{step}-p{p}",
+                                           str(int(res.choice[p, 0])))
+                while True:
+                    got, tok = broker.dequeue(["service"], 0.0)
+                    if got is None:
+                        break
+                    broker.ack(got.id, tok)
+                    harness.note_outcome(got.id, "acked")
+                if supervisor is not None and t_kill is not None \
+                        and cr.mesh_state == "healthy":
+                    recovery_s.append(time.perf_counter() - t_kill)
+                    t_kill = None
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+                harness.check_eval_conservation(broker)
+                harness.check_no_double_placement()
+                harness.check_plane_checksums(cr.solver)
+                harness.check_shed_accounting(admission=adm)
+            if cr.mesh_state == "degraded":           # the final quiesce
+                t0 = time.perf_counter()
+                cr.solver.recover()
+                recovery_s.append(time.perf_counter() - (t_kill or t0))
+            harness.check_plane_checksums(cr.solver)
+            cr.reset_usage(used0=used0)
+            c, o, _s, st = cr.solve_stream([batches[0]])
+        check(wd.join_abandoned(60.0) == 0,
+              f"S {name}: an abandoned call still runs")
+        counts = count_leg(torch, wk, total)
+        final = (np.where(o, c, -1).copy(), np.asarray(st).copy())
+        rep = harness.report()
+        out = {"p50_s": pct(lat, 0.50), "p99_s": pct(lat, 0.99),
+               "step_lat_s": lat, "invariants": {
+                   k: rep[k] for k in ("ok", "checks_run",
+                                       "violations_by_check",
+                                       "evals_seen", "allocs_seen")},
+               "lane_backends": dict(collections.Counter(
+                   x["backend"] for x in lane)),
+               "launches": counts,
+               "launches_per_shard": [dict(s) for s in shards]}
+        return out, harness, recovery_s, final, lane, shards
+
+    total = {"score": 0, "topk": 0, "merge": 0}
+    c0 = global_metrics.dump()["counters"]
+    ff, h_ff, _rec, final_ff, lane_ff, shards_ff = run_leg("fault-free",
+                                                           None)
+    sup = ChaosSupervisor(plan, federated=cr, mesh_supervisor=msup,
+                          injections=global_injections,
+                          watchdog_deadline_s=CHAOS_DEADLINE_S)
+    st, h_st, recovery_s, final_st, lane_st, shards_st = run_leg("storm",
+                                                                 sup)
+    c1 = global_metrics.dump()["counters"]
+    moved = {k: c1.get(k, 0) - c0.get(k, 0)
+             for k in ("watchdog.host_failover", "watchdog.host_quarantine",
+                       "watchdog.expired", "watchdog.recovered")}
+    rep = sup.report()
+    failovers = [x for x in lane_ff + lane_st
+                 if x["backend"] == "host_failover"]
+    unmatched = [x for x in failovers
+                 if x["claimed"] != 1 or not x["armed_by"]]
+    lane_calls = len(lane_st)
+    row.update({
+        "fault_free": ff, "storm": st,
+        "p99_ratio": st["p99_s"] / max(ff["p99_s"], 1e-9),
+        "plan": rep,
+        "skipped_by_kind": dict(collections.Counter(
+            e.kind for e in sup.skipped)),
+        "recovery_s": recovery_s,
+        "failovers": [{k: x[k] for k in ("step", "armed_by")}
+                      for x in failovers],
+        "watchdog_counters": moved,
+        "fast_path_retention": sum(x["backend"] == "device"
+                                   for x in lane_st) / lane_calls,
+        "post_storm_placements_match_fault_free": bool(
+            np.array_equal(final_st[0], final_ff[0])
+            and np.array_equal(final_st[1], final_ff[1])),
+    })
+    check(h_ff.ok and h_st.ok, "S: invariant violations: "
+          f"{h_ff.report()['violations'][:3]} "
+          f"{h_st.report()['violations'][:3]}")
+    check(all(x["backend"] == "device" for x in lane_ff),
+          f"S fault-free: the lane left the card: {ff['lane_backends']}")
+    check(not unmatched, f"S: failovers with no injection behind them: "
+          f"{unmatched}")
+    check(moved["watchdog.host_failover"] == len(failovers),
+          f"S: {moved['watchdog.host_failover']} failovers counted, "
+          f"{len(failovers)} on the lane")
+    check(row["post_storm_placements_match_fault_free"],
+          "S: post-storm placements differ from the fault-free leg's")
+    check(row["p99_ratio"] <= 3.0,
+          f"S: storm p99 {st['p99_s']:.4f} s > 3 x fault-free "
+          f"{ff['p99_s']:.4f} s")
+    for name, shards in (("fault-free", shards_ff), ("storm", shards_st)):
+        check(all(sum(shards[s].values()) > 0
+                  for s in range(CHAOS_SHARDS)),
+              f"S {name}: a shard launched no wave kernel: "
+              f"{[dict(s) for s in shards]}")
+    check(rep["applied"] > 0, "S: the storm applied no event")
+    return row, total
+
+
+def phase_chaos(torch, wk, n_nodes=N_NODES, resident=RESIDENT):
+    """Phase 14: the chaos plane and the solve watchdog on the card
+    (bench.py run_chaos).  Returns the launch counts of its legs."""
+    import gc
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.chaos import global_injections
+    from nomad_tpu_torch.solver.tensorize import Tensorizer
+    from nomad_tpu_torch.solver.watchdog import global_watchdog
+    wk._load()
+    legs = {}
+    total = {"score": 0, "topk": 0, "merge": 0}
+    t_phase = time.perf_counter()
+    backoff = (global_watchdog.base_backoff_s, global_watchdog.max_backoff_s)
+    try:
+        gc.collect()
+        t0 = time.perf_counter()
+        nodes = make_nodes(mock, n_nodes)
+        probe = asks_for(make_job(mock, structs, "probe", COUNT))
+        jobs = [make_job(mock, structs, e, COUNT) for e in range(8)]
+        # W's pack: one config-3 job on the whole cluster at phase 7's
+        # resident usage, node planes included (padded Np >= 4,096, so
+        # the default route takes the card)
+        pb_wd = Tensorizer().pack(nodes, asks_for(jobs[0]))
+        pb_wd.used0 = resident_used0(pb_wd, n_nodes, resident)
+        check(pb_wd.avail.shape[0] >= 4096, "W's pack is on the host route")
+        setup_s = time.perf_counter() - t0
+
+        zero_launches(torch, wk)
+        legs["W"] = chaos_watchdog_arc(torch, wk, pb_wd)
+        legs["W"]["launches"] = count_leg(torch, wk, total)
+        emit({"phase": "chaos", "leg": "W", **legs["W"]})
+        global_watchdog.reset()
+        global_watchdog.base_backoff_s, global_watchdog.max_backoff_s = \
+            backoff
+
+        gc.collect()
+        c_jobs = [make_job(mock, structs, f"c{e}", COUNT)
+                  for e in range(CHAOS_C_EVALS)]
+        zero_launches(torch, wk)
+        legs["C"] = chaos_corruption(torch, wk, nodes, probe, c_jobs,
+                                     resident_used0(pb_wd, n_nodes,
+                                                    resident))
+        count_leg(torch, wk, total)
+        emit({"phase": "chaos", "leg": "C", **legs["C"]})
+
+        gc.collect()
+        global_watchdog.deadline_s = CHAOS_DEADLINE_S
+        legs["S"], s_total = chaos_storm(torch, wk, nodes, probe, jobs,
+                                         pb_wd, resident)
+        for m in total:
+            total[m] += s_total[m]
+        emit({"phase": "chaos", "leg": "S", **legs["S"]})
+    except PhaseError as e:
+        emit({"phase": "chaos", "failed": str(e), "legs_done": sorted(legs)})
+        raise
+    finally:
+        global_injections.reset()
+        global_watchdog.reset()
+        global_watchdog.base_backoff_s, global_watchdog.max_backoff_s = \
+            backoff
+    global_watchdog.join_abandoned(60.0)
+    check(not watchdog_threads(), "chaos: a solve-watchdog thread is alive")
+    check(global_watchdog.deadline_s is None, "chaos: the watchdog is on")
+    emit({"phase": "chaos", "seconds": time.perf_counter() - t_phase,
+          "setup_s": setup_s, "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5721,23 +6237,34 @@ def main() -> int:
     phase_build(wk)
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
+    watchdog_quiet("phases 1-3")
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
+    watchdog_quiet("phase 4")
     counts5 = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
                              BATCH_COUNT)
+    watchdog_quiet("phase 5")
     counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
                                        N_SERVICE_EVALS, BATCH_COUNT)
+    watchdog_quiet("phase 6")
     # phase 13 runs on phase 7's server, after phase 7's checks
     counts7, calls7, _row7, counts13 = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
         BATCH_COUNT, phase6=row6["service"],
         then=lambda srv: phase_lifecycle(torch, wk, srv))
+    watchdog_quiet("phases 7 and 13")
     counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
                             N_PREEMPT_JOBS)
+    watchdog_quiet("phase 8")
     counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
                                           N_STREAM_EVALS)
+    watchdog_quiet("phase 9")
     counts10 = phase_host_route(torch, wk)
+    watchdog_quiet("phase 10")
     counts11, calls11, _legs11 = phase_mesh(torch, wk)
+    watchdog_quiet("phase 11")
     counts12 = phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT)
+    watchdog_quiet("phase 12")
+    counts14 = phase_chaos(torch, wk)
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -5780,6 +6307,7 @@ def main() -> int:
             "launches_phase11": counts11[mode],
             "launches_phase12": counts12[mode],
             "launches_phase13": counts13[mode],
+            "launches_phase14": counts14[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -4,13 +4,14 @@ Reference: helper/pool ConnPool — persistent connections per server,
 reused across requests. One in-flight request per pooled connection;
 concurrent callers draw distinct sockets.
 
-The counterpart of `nomad_tpu.rpc.client`, less two hooks that wait for
-other packages of the port: the `NOMAD_TPU_RPC_RETRIES` environment
-override of the retry count (the agent configuration, ROADMAP.md Queue
-1 item 15) and the chaos plane's `"rpc_transport"` injection site (item
-18).  A request over the frame limit raises ValueError at once, where
-the reference retries it as a transport fault (ROADMAP.md Queue 3, the
-frame fault).
+The counterpart of `nomad_tpu.rpc.client`, less the
+`NOMAD_TPU_RPC_RETRIES` environment override of the retry count, which
+waits for the agent configuration (ROADMAP.md Queue 1 item 15).  Each
+attempt consults the chaos site "rpc_transport" (one dict lookup while
+nothing is armed): an armed injection fires and the attempt fails as a
+transport fault, which the retry loop treats as any other.  A request
+over the frame limit raises ValueError at once, where the reference
+retries it as a transport fault (ROADMAP.md Queue 3, the frame fault).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..chaos.injection import global_injections
 from .wire import recv_frame, send_frame
 
 DIAL_TIMEOUT_S = 0.5
@@ -111,6 +113,11 @@ class RpcClient:
 
     def _call_once(self, method: str, params: List[Any],
                    timeout: float) -> Any:
+        inj = global_injections.get("rpc_transport")
+        if inj is not None:
+            inj.fire()
+            raise ConnectionError(
+                f"rpc to {self.addr}: injected transport fault")
         try:
             sock = self._checkout()
         except OSError as e:

@@ -37,9 +37,13 @@ tensors goes through `wave_kernel.fused_wave`, which launches the
 kernel or raises.
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
-one through its four placement hooks and `_solve_one(..., mesh=)`.  Not
-part of this package: the reference's environment knobs (they are
-constructor arguments here) and its chaos site "delta_row".
+one through its four placement hooks and `_solve_one(..., mesh=)`.  The
+reference's environment knobs are constructor arguments here.
+`apply_delta` consults the chaos site "delta_row" (one dict lookup while
+nothing is armed): an armed "mutate" corrupts the first `rows` node rows
+bound for the card after the host template took the clean apply, so
+`plane_checksum()` differs from `template_checksum` until a clean
+re-apply of those rows or a repack.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..chaos.injection import global_injections
 from . import wave_kernel as _wk
 from .kernel import (MERGED_GP_MAX, NEG_INF, TOP_K, WAVE_K, _MERGED_W_CAP,
                      _WIDE_W_CAP, delta_scatter_add, delta_scatter_set,
@@ -592,6 +597,15 @@ class ResidentSolver:
 
         dn = self._dev_node
         if nd.touches_nodes():
+            inj = global_injections.get("delta_row")
+            if inj is not None:
+                # corrupt only the rows bound for the card: the host
+                # template took the clean apply above, so the planes
+                # diverge until a checksum audit catches it
+                inj.fire()
+                k = min(int(inj.args.get("rows", 1)), nd.avail.shape[0])
+                nd.avail = nd.avail.copy()
+                nd.avail[:k] += 1.0
             idx, rows = _pad(nd.idx, [getattr(nd, n) for n in _NODE_PLANES],
                              repeat_first=True)
             for name, r in zip(_NODE_PLANES, rows):

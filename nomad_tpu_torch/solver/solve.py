@@ -33,12 +33,20 @@ on the problem only, never on whether a GPU is present; each solve span
 says which ran (`backend`: "host" or "device").  Under the serving
 tier's brownout (`set_degraded`) solves run with the reduced
 `BROWNOUT_MAX_WAVES` budget, and `health_counters` samples the resident
-world for the server's telemetry beat.  The reference's watchdog
-failover, chaos injection and what-if plan view (`PlanSolverView`) are
-not part of this package.
+world for the server's telemetry beat.
+
+The device route consults the chaos site "device_solve" just before
+`solve_kernel` (one dict lookup while nothing is armed) and runs under
+the solve watchdog (`watchdog.global_watchdog`), which is off unless a
+chaos harness sets its deadline.  Armed, it answers a device solve that
+an injected fault stalled past the deadline or poisoned from the host
+twin, and the solve span's `backend` then reads "host_failover" or
+"host_quarantine"; any other device error propagates.  The reference's
+what-if plan view (`PlanSolverView`) is not part of this package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 import time
@@ -51,6 +59,7 @@ import torch
 from ..structs import (AllocatedDeviceResource, AllocatedResources,
                        AllocatedSharedResources, AllocatedTaskResources,
                        AllocMetric, DeviceAccounter, NetworkIndex, Node)
+from ..chaos.injection import global_injections
 from ..utils.metrics import global_metrics
 from .host import host_solve_kernel, prefer_host
 from .kernel import MAX_WAVES, TOP_K, solve_kernel
@@ -58,6 +67,7 @@ from .tensorize import (EVICT_E, NUM_R, ClusterDelta, PackedBatch,
                         PlacementAsk, Tensorizer, _evict_row,
                         alloc_device_usage, alloc_usage_vector,
                         apply_node_delta_host, R_CPU, R_DISK, R_MEM, R_NET)
+from .watchdog import global_watchdog
 
 _DIM_NAMES = {R_CPU: "cpu", R_MEM: "memory", R_DISK: "disk", R_NET: "network"}
 
@@ -384,13 +394,15 @@ class PendingSolve:
     """
 
     __slots__ = ("_solver", "packed", "_nodes", "_asks", "_allocs_by_node",
-                 "_by_dc", "_used_resident", "_res", "_t0", "_out",
+                 "_by_dc", "_used_resident", "_res", "_backend", "_t0",
+                 "_out",
                  "pack_wall_s", "dispatch_wall_s", "t_dispatched",
                  "fetch_wall_s", "finish_wall_s")
 
     def __init__(self, solver, pb=None, nodes=None, asks=None,
                  allocs_by_node=None, by_dc=None,
-                 used_resident: bool = False, res=None, t0: float = 0.0,
+                 used_resident: bool = False, res=None,
+                 backend: str = "device", t0: float = 0.0,
                  out: Optional[SolveOutput] = None):
         self._solver = solver
         #: the batch this solve packed (resident or full); kept after
@@ -402,6 +414,8 @@ class PendingSolve:
         self._by_dc = by_dc
         self._used_resident = used_resident
         self._res = res
+        #: the route that answered (`_run_kernel_routed`)
+        self._backend = backend
         self._t0 = t0
         self._out = out
         self.pack_wall_s = 0.0
@@ -417,7 +431,7 @@ class PendingSolve:
         if self._out is not None:
             return self._out
         t0 = time.perf_counter()
-        backend = _backend(self._res)
+        backend = self._backend
         res = _to_host(self._res)
         t1 = time.perf_counter()
         self.fetch_wall_s = t1 - t0
@@ -433,12 +447,6 @@ class PendingSolve:
         self._res = self._nodes = self._asks = None
         self._allocs_by_node = self._by_dc = None
         return out
-
-
-def _backend(res) -> str:
-    """Which route produced an unfetched result: "host" for the numpy
-    twin (its arrays are numpy), else "device"."""
-    return "host" if isinstance(res.choice, np.ndarray) else "device"
 
 
 def _to_host(res):
@@ -659,14 +667,15 @@ class Solver:
         if pb is None:
             pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
         t_pack = time.perf_counter()
-        res = _run_kernel(pb, self._device,
-                          max_waves=BROWNOUT_MAX_WAVES
-                          if self._degraded else 0, preempt=preempt,
-                          host_mode=self._host)
+        res, backend = _run_kernel_routed(
+            pb, self._device,
+            max_waves=BROWNOUT_MAX_WAVES if self._degraded else 0,
+            preempt=preempt, host_mode=self._host)
         pending = PendingSolve(self, pb=pb, nodes=sol_nodes,
                                asks=list(asks),
                                allocs_by_node=allocs_by_node, by_dc=by_dc,
-                               used_resident=used_resident, res=res, t0=t0)
+                               used_resident=used_resident, res=res,
+                               backend=backend, t0=t0)
         pending.t_dispatched = time.perf_counter()
         pending.pack_wall_s = t_pack - t0
         pending.dispatch_wall_s = pending.t_dispatched - t_pack
@@ -974,7 +983,8 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
     """Solve-span attributes of one kernel run (fetched result): the
     batch shape, the wave / rescore counters and the placements the
     eviction pass committed, and which route ran it (`backend`: "host"
-    for the numpy twin, "device" for the device solve).
+    for the numpy twin, "device" for the device solve, "host_failover" /
+    "host_quarantine" for the twin answering under the watchdog).
     `lane_counters` (a lane stream's `ResidentSolver.lane_counters()`)
     adds the lane width and the cross-lane revalidation's bounce
     accounting."""
@@ -1001,38 +1011,88 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,
                 preempt: bool = False, host_mode: str = "auto"):
-    """Run the solve for a packed batch: on the host twin when
-    `host_mode` is "always", or "auto" and `prefer_host` holds for the
-    batch's size (returns a SolveResult of numpy arrays), else launched
-    on `device` (not fetched).  On the device the fused wave kernel mode
-    resolves from the shape ("auto": the CUDA kernel on a GPU, the torch
-    scorer on the CPU), and batches without distinct_hosts groups drop
-    the blocking planes, which turns on the shortlist-resident
-    contention waves.  With `preempt`, a batch that carries eviction
-    planes and no distinct_hosts group runs the eviction pass
-    (cross-group blocking is invisible to it), with twice the default
-    wave budget: eviction commits serialize one per node per wave.  Both
-    routes get the same decision."""
+    """The solve of a packed batch (`_run_kernel_routed` without the
+    route): a SolveResult of numpy arrays from the host twin, of
+    tensors on `device` (not fetched) from the device solve, or of numpy
+    arrays when the watchdog answered (it fetches under its deadline)."""
+    return _run_kernel_routed(pb, device, max_waves, preempt, host_mode)[0]
+
+
+def _run_kernel_routed(pb: PackedBatch, device, max_waves: int = 0,
+                       preempt: bool = False, host_mode: str = "auto"):
+    """Run the solve for a packed batch; returns (result, backend).
+
+    On the host twin ("host") when `host_mode` is "always", or "auto"
+    and `prefer_host` holds for the batch's size (a SolveResult of numpy
+    arrays), else launched on `device` ("device", not fetched).  On the
+    device the fused wave kernel mode resolves from the shape ("auto":
+    the CUDA kernel on a GPU, the torch scorer on the CPU), and batches
+    without distinct_hosts groups drop the blocking planes, which turns
+    on the shortlist-resident contention waves.  With `preempt`, a batch
+    that carries eviction planes and no distinct_hosts group runs the
+    eviction pass (cross-group blocking is invisible to it), with twice
+    the default wave budget: eviction commits serialize one per node per
+    wave.  Both routes get the same decision.
+
+    The device route consults the chaos site "device_solve" just before
+    `solve_kernel`.  With the solve watchdog armed (a chaos harness set
+    `global_watchdog.deadline_s`) the device solve runs on the
+    watchdog's thread, on the caller's CUDA stream, and fetches its
+    result inside the deadline; an injected stall past the deadline or
+    an injected poison is answered by the host twin over the batch's
+    numpy planes ("host_failover", or "host_quarantine" while the
+    device path backs off), which never touches the card.  Any other
+    device error propagates.  `solve_kernel` writes into none of its
+    arguments, so a device call abandoned at the deadline and finishing
+    late leaves the batch and the planes a later solve reads as they
+    were."""
     has_spread = bool((pb.sp_col[:, 0] >= 0).any())
     has_distinct = bool((pb.distinct >= 0).any())
     evicting = preempt and pb.ev_prio is not None and not has_distinct
     if evicting and max_waves == 0:
         max_waves = 2 * MAX_WAVES
-    on_host = host_mode == "always" or (host_mode == "auto" and prefer_host(
-        pb.avail.shape[0], pb.n_asks, pb.n_place))
-    ev_kw = {}
-    if evicting:
-        ev = (pb.ev_res, pb.ev_prio, pb.ask_prio)
-        ev_res, ev_prio, ask_prio = ev if on_host else _to_device(ev, device)
-        ev_kw = dict(has_preempt=True, ev_res=ev_res, ev_prio=ev_prio,
-                     ask_prio=ask_prio)
-    if on_host:
+    host_ev_kw = (dict(has_preempt=True, ev_res=pb.ev_res,
+                       ev_prio=pb.ev_prio, ask_prio=pb.ask_prio)
+                  if evicting else {})
+
+    def _host():
         return host_solve_kernel(*_plane_args(pb), pb.n_place,
                                  has_spread=has_spread,
-                                 max_waves=max_waves, **ev_kw)
-    return solve_kernel(*_kernel_args(pb, device), has_spread=has_spread,
-                        has_distinct=has_distinct, pallas_mode="auto",
-                        max_waves=max_waves, **ev_kw)
+                                 max_waves=max_waves, **host_ev_kw)
+
+    if host_mode == "always" or (host_mode == "auto" and prefer_host(
+            pb.avail.shape[0], pb.n_asks, pb.n_place)):
+        return _host(), "host"
+
+    def _device(fetch: bool):
+        inj = global_injections.get("device_solve")
+        if inj is not None:
+            inj.fire()
+        ev_kw = {}
+        if evicting:
+            ev_res, ev_prio, ask_prio = _to_device(
+                (pb.ev_res, pb.ev_prio, pb.ask_prio), device)
+            ev_kw = dict(has_preempt=True, ev_res=ev_res, ev_prio=ev_prio,
+                         ask_prio=ask_prio)
+        res = solve_kernel(*_kernel_args(pb, device), has_spread=has_spread,
+                           has_distinct=has_distinct, pallas_mode="auto",
+                           max_waves=max_waves, **ev_kw)
+        return _to_host(res) if fetch else res
+
+    if global_watchdog.deadline_s is None:
+        return _device(False), "device"
+    dev = torch.device(device)
+    # the watchdog's thread starts on the default stream: enter the
+    # caller's, so the solve stays ordered after its earlier scatters
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def _on_thread():
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            return _device(True)
+
+    return global_watchdog.run(_on_thread, _host,
+                               label=f"solve:{pb.n_asks}x{pb.n_real}")
 
 
 def _to_device(planes, device):

@@ -341,17 +341,20 @@ def test_auto_route_reads_problem_size_only(monkeypatch):
 
 def test_host_result_passes_fetch_untouched():
     """A twin's result holds numpy arrays: `_to_host` hands every field
-    through as it is, and it is told apart from a device result."""
+    through as it is, and the route that answered tells it apart from a
+    device result."""
     pb, has_spread = packed("binpack", 20, 4, False)
     res = host.host_solve_kernel(*ref_kernel_args(pb), 0,
                                  has_spread=has_spread)
     fetched = port_solve._to_host(res)
     for f in res._fields:
         assert getattr(fetched, f) is getattr(res, f), f
-    assert port_solve._backend(res) == "host"
-    dev = port_kernel.solve_kernel(
-        *port_solve._kernel_args(_port_pb(pb), "cpu"), has_spread=has_spread)
-    assert port_solve._backend(dev) == "device"
+    twin, backend = port_solve._run_kernel_routed(_port_pb(pb), "cpu",
+                                                  host_mode="always")
+    assert backend == "host" and isinstance(twin.choice, np.ndarray)
+    dev, backend = port_solve._run_kernel_routed(_port_pb(pb), "cpu",
+                                                 host_mode="never")
+    assert backend == "device" and isinstance(dev.choice, torch.Tensor)
     attrs = port_solve.solve_trace_attrs(_port_pb(pb), res, "cpu",
                                          backend="host")
     assert attrs["backend"] == "host"

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 
 from nomad_tpu.scheduler.fleet import LaneWidthController as RefController
+from nomad_tpu_torch.chaos import InvariantHarness
 from nomad_tpu_torch.scheduler.fleet import (LaneWidthController,
                                              form_lanes)
 from nomad_tpu_torch.solver.resident import STATUS_COMMITTED, STATUS_RETRY
 from nomad_tpu_torch.solver.solve import (_run_kernel, _to_host,
                                           solve_trace_attrs)
+from nomad_tpu_torch.utils.tracing import MeshEventLog
 from test_torch_resident import (SIDES, _reference_defaults,  # noqa: F401
                                  assert_counters_equal, assert_stream_equal,
                                  both, f32_layout, host, make_ask,
@@ -133,10 +135,11 @@ def test_lane_uniform_rescore_rule():
     assert (lane2.last_rescore_waves > ser.last_rescore_waves).any()
 
 
-def _drain(rs, side, batches, lanes, ids):
+def _drain(rs, side, batches, lanes, ids, harness=None):
     """Solve lane-parallel, re-solve bounced counts until every
-    placement is terminal.  Returns (committed ids, failed ids,
-    per-round outputs)."""
+    placement is terminal, feeding each terminal outcome and committed
+    placement to `harness` (an InvariantHarness).  Returns (committed
+    ids, failed ids, per-round outputs)."""
     committed, failed, rounds = [], [], []
     r = 0
     while batches:
@@ -146,14 +149,21 @@ def _drain(rs, side, batches, lanes, ids):
         rounds.append(out)
         status = out[3]
         nxt_b, nxt_i = [], []
+        node_ids = rs.template.node_ids
         for b, pb in enumerate(batches):
             retry = []
             for k, pid in enumerate(ids[b]):
                 st = status[b, k]
                 if st == STATUS_COMMITTED:
                     committed.append(pid)
+                    if harness is not None:
+                        harness.note_outcome(pid, "acked")
+                        harness.note_placement(
+                            pid, node_ids[int(host(out[0])[b, k, 0])])
                 elif st == 0:
                     failed.append(pid)
+                    if harness is not None:
+                        harness.note_outcome(pid, "failed")
                 else:
                     assert st == STATUS_RETRY
                     retry.append(pid)
@@ -170,16 +180,26 @@ def test_lane_storm_conserves_placements(lanes):
     """Every batch wants the same tight cluster: after the retry drain
     every placement is terminal exactly once, no node is overcommitted,
     the totals equal the serial stream's, and each round equals the
-    reference's."""
+    reference's.  The port's InvariantHarness watches the drain, as the
+    reference's storm runs under its own: every placement terminal,
+    none lost, none placed twice."""
     def run(side):
         rs = solver(side, n_nodes=8, cpu=2000, kp=8)
         ser = solver(side, n_nodes=8, cpu=2000, kp=8)
         s_out = solve(ser, tight(side, ser, 8, count=4))
         ids = [[f"ev{b}.p{k}" for k in range(4)] for b in range(8)]
+        harness = InvariantHarness(event_log=MeshEventLog())
+        for row in ids:
+            for pid in row:
+                harness.note_enqueued(pid)
         committed, failed, rounds = _drain(
-            rs, side, tight(side, rs, 8, count=4), lanes, ids)
+            rs, side, tight(side, rs, 8, count=4), lanes, ids, harness)
         assert len(committed) + len(failed) == 32
         assert len(set(committed) | set(failed)) == 32
+        assert harness.check_eval_conservation()
+        assert harness.check_no_double_placement()
+        assert harness.ok and harness.report()["allocs_seen"] == len(
+            committed)
         used, _ = rs.usage()
         assert (used[:8, 0] <= 2000).all()
         assert len(committed) == int((s_out[3][:, :4] == 1).sum())

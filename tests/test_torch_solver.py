@@ -294,7 +294,12 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.server.drainer",
                 "nomad_tpu_torch.membership.gossip",
                 "nomad_tpu_torch.membership.regions",
-                "nomad_tpu_torch.server.serving"]
+                "nomad_tpu_torch.server.serving",
+                "nomad_tpu_torch.chaos.plan",
+                "nomad_tpu_torch.chaos.injection",
+                "nomad_tpu_torch.chaos.supervisor",
+                "nomad_tpu_torch.chaos.invariants",
+                "nomad_tpu_torch.solver.watchdog"]
 
 
 def test_import_pulls_in_no_jax():
@@ -303,8 +308,8 @@ def test_import_pulls_in_no_jax():
     state store, raft, the server plane, telemetry, ACLs, the mesh
     tiers, the wire RPC with TLS, the agent's server interface, the
     simulated node agent, gossip membership, the lifecycle watchers and
-    the HCL jobspec parser) loads neither jax nor any module of the JAX
-    package."""
+    the HCL jobspec parser, the chaos plane and the solve watchdog) loads
+    neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
