@@ -386,13 +386,39 @@ Phases, one JSON line each; any failed phase exits nonzero:
                injection, no watchdog thread alive and the watchdog off
                at the end.  Phases 1-13 each check that the watchdog is
                off and recorded nothing.
+  15. api    — the HTTP API on phase 7's server after phase 13 (its
+               state, no cut), driven only through `ApiClient` against
+               `HTTPAgentServer(srv, None, port=0)`.  H1: 16 config-3
+               jobs in turn, each an HCL jobspec through
+               `/v1/jobs/parse`, then `/v1/jobs`, then a blocking query
+               on `/v1/evaluation/:id?index=` until the eval is complete;
+               wall from the POST to complete, beside phase 7's leg A.
+               H2 (workers paused): 16 what-if plans
+               (`/v1/job/:id/plan`) of H1's first job's next version, its
+               count doubled, over the whole cluster through the first
+               worker's plan view; the world's carried planes, live map,
+               index and eviction rows bit-identical before and after
+               (tests/test_plan_overlay.py's fingerprint), the store's
+               alloc count unchanged, the kernel launched in every plan,
+               one plan's batch re-solved with the kernel and the plain
+               wave under assert_same.  The same version is then
+               registered over HTTP at once; H3 (its eval still queued):
+               `/v1/agent/pprof/profile?mode=solver` of that job for 2 s
+               (plan solves under `torch.profiler` with CUDA activities):
+               solves > 0 and `wave_*_kernel` events in the exported
+               Chrome trace; the workers resume and the registration's
+               placed and failed counts must equal the plans'.  H4: the
+               read side (`/v1/metrics?format=prometheus`, `/v1/traces`,
+               `/v1/trace/:id` of an H1 eval, whose solve span must read
+               `backend` "device", `/v1/search`, `/v1/telemetry/health`),
+               each answering 200, ms per call.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13 and 14 as
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15 as
 `launches_phase5`, `launches_phase7`, `launches_phase8`,
 `launches_phase9`, `launches_phase10`, `launches_phase11`,
-`launches_phase12`, `launches_phase13` and `launches_phase14` beside
-them),
+`launches_phase12`, `launches_phase13`, `launches_phase14` and
+`launches_phase15` beside them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -2232,8 +2258,8 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     coordinator) -> scheduler -> store-attached solver -> kernels -> plan
     queue -> applier (group commit) -> raft -> store.  Returns the
     launch counts of its legs, the first fused score round's wave
-    arguments, its row, and what `then(srv)` returns: a later phase run
-    on the same server once this one's checks passed (None without
+    arguments, its row, and what `then(srv, row)` returns: later phases
+    run on the same server once this one's checks passed (None without
     `then`)."""
     import gc
     from nomad_tpu_torch import mock, structs
@@ -2504,7 +2530,7 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
     if then is None:
         return total, calls, row, None
     try:
-        return total, calls, row, then(srv)
+        return total, calls, row, then(srv, row)
     finally:
         srv.stop()
 
@@ -2541,11 +2567,12 @@ LIFE_CRON = "0 0 1 1 *"
 STORE_STAMPED = ("create_index", "modify_index", "job_modify_index")
 
 
-def lifecycle_hcl(name, count, batch=False):
+def lifecycle_hcl(name, count, batch=False, deploy=True):
     """make_job's config-3 job written as an HCL jobspec, with Nomad's
     update (max_parallel 8) and migrate (max_parallel 2) stanzas; with
     `batch` a periodic batch job of the same shape whose tasks complete
-    (no update stanza: batch jobs roll no deployment)."""
+    (no update stanza: batch jobs roll no deployment); without `deploy`
+    no update stanza either (a job whose allocs no client runs)."""
     def group(g):
         cpu, mem = 400 + (g % 4) * 150, 256 + (g % 4) * 128
         outcome = (f'mock_outcome = "complete"  mock_runtime_s = '
@@ -2574,7 +2601,7 @@ def lifecycle_hcl(name, count, batch=False):
     head = (f'type = "batch"\n  periodic {{ cron = "{LIFE_CRON}"  '
             'prohibit_overlap = true }' if batch else
             f'update {{\n    max_parallel = {LIFE_UPDATE_PARALLEL}\n'
-            '    min_healthy_time = "0s"\n  }')
+            '    min_healthy_time = "0s"\n  }' if deploy else "")
     return f'''
 job "{name}" {{
   datacenters = ["dc0", "dc1", "dc2", "dc3"]
@@ -2891,6 +2918,7 @@ def phase_lifecycle(torch, wk, srv):
     gc.collect()
     gc.freeze()
     hb = srv.heartbeater
+    hb_opts = (hb.min_ttl, hb.max_rate, hb.grace)
     hb.min_ttl, hb.max_rate, hb.grace = (LIFE_MIN_TTL_S, LIFE_BEATS_PER_S,
                                          LIFE_GRACE_S)
     row = {"phase": "lifecycle", "nodes": len(srv.store.nodes()),
@@ -3174,11 +3202,340 @@ def phase_lifecycle(torch, wk, srv):
         emit(row)
         raise
     finally:
+        # the server's own heartbeat options back, and the nodes still
+        # beating the failover TTL, before the beat stops: a later phase
+        # on this server (phase 15) must not see them go down
+        hb.min_ttl, hb.max_rate, hb.grace = hb_opts
+        hb.initialize([n.id for n in list(srv.store.nodes())
+                       if n.status != structs.NODE_STATUS_DOWN
+                       and n.id not in clients.silent])
         clients.close()
         gc.unfreeze()
     row.update(legs=legs, clients=len(clients.clients),
                diagnostics=clients.diagnostics(),
                seconds=time.perf_counter() - t_phase,
+               launches={m: total[m] for m in ("score", "topk", "merge")})
+    emit(row)
+    return row["launches"]
+
+
+# ------------------------------------------------------------ phase 15
+#: H1's registrations and H2's what-if plans
+API_JOBS = 16
+API_PLANS = 16
+#: H3's solver-profile window (s)
+API_PROFILE_S = 2.0
+#: a blocking query's wait, and the most any eval may take
+API_BLOCK = "30s"
+API_WAIT_S = 120.0
+#: the CUDA kernels the solver profile must show
+WAVE_KERNEL_RE = r"wave_\w+_kernel"
+
+
+def world_fingerprint(solver):
+    """tests/test_plan_overlay.py's fingerprint of a worker solver's
+    resident world (its carried planes, live-alloc map, index, node ids
+    and eviction rows) as one sha256 digest.  The world is a host
+    template: a solve uploads its planes to the card afresh, so no card
+    plane outlives a solve."""
+    import hashlib
+    w = solver._world
+    check(w is not None, "api: the first worker has no resident world")
+    t = w.template
+    h = hashlib.sha256()
+    names = ["avail", "used0", "dev_used0", "valid", "attr_rank",
+             "reserved"] + (["ev_prio", "ev_res"] if t.ev_prio is not None
+                            else [])
+    for name in names:
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(getattr(t, name)).tobytes())
+    h.update(json.dumps([sorted(w.live), w.last_index, list(t.node_ids),
+                         None if t.ev_ids is None
+                         else [list(r) for r in t.ev_ids]]).encode())
+    return h.hexdigest()
+
+
+def kernel_events(events):
+    """The CUDA kernel events of a Chrome trace, by name (cut to 120
+    characters)."""
+    return collections.Counter(e["name"][:120] for e in events
+                               if e.get("cat") == "kernel")
+
+
+def failed_allocs(ev):
+    """The placements an eval (wire form) failed, coalesced ones too."""
+    return sum(m.get("coalesced_failures", 0) + 1
+               for m in (ev.get("failed_tg_allocs") or {}).values())
+
+
+def api_eval_done(api, eval_id):
+    """Follow an eval by blocking queries on `/v1/evaluation/:id?index=`
+    until it leaves `pending`; returns it (wire form)."""
+    ev, index = api.get(f"/v1/evaluation/{eval_id}")
+    deadline = time.perf_counter() + API_WAIT_S
+    while ev["status"] == "pending":
+        check(time.perf_counter() < deadline,
+              f"api: eval {eval_id} pending after {API_WAIT_S} s")
+        ev, index = api.get(f"/v1/evaluation/{eval_id}", index=index,
+                            wait=API_BLOCK)
+    return ev
+
+
+def phase_api(torch, wk, srv, leg_a):
+    """Phase 15 on phase 7's server after phase 13 (its state, no cut):
+    the HTTP API, driven only through `ApiClient`.  H1 registrations over
+    HTTP, H2 what-if plans through the plan view, H3 the solver profile,
+    H4 the read side.  Returns the launch counts of the phase."""
+    import copy
+    import gc
+    import re
+    import shutil
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.api import APIError, ApiClient, HTTPAgentServer
+    from nomad_tpu_torch.api import http_server
+    from nomad_tpu_torch.solver import solve as solve_mod
+    t_phase = time.perf_counter()
+    ns = structs.DEFAULT_NAMESPACE
+    http = HTTPAgentServer(srv, None, port=0)
+    http.start()
+    api = ApiClient(address=http.address, timeout=API_WAIT_S)
+    paused0 = [w.paused.is_set() for w in srv.workers]
+    real_route = solve_mod._run_kernel_routed
+    real_submit = http_server._DryRunPlanner.submit_plan
+    row = {"phase": "api", "nodes": len(srv.store.nodes()),
+           "allocs": len(srv.store.allocs())}
+    legs = {}
+    total = collections.Counter()
+
+    def launches():
+        torch.cuda.synchronize()
+        return dict(wk.fused_wave.mode_launches)
+
+    def timed(fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    try:
+        # phase 13 hands its frozen heap back to the collector: a full
+        # collection now, so that H1's evals pay only for their garbage
+        t = time.perf_counter()
+        gc.collect()
+        row["gc_collect_s"] = time.perf_counter() - t
+
+        # ---- H1: config-3 jobs registered over HTTP, one at a time
+        zero_launches(torch, wk)
+        walls, h1_evals = [], []
+        for i in range(API_JOBS):
+            name = f"api-{i}"
+            job = api.jobs.parse(lifecycle_hcl(name, COUNT, deploy=False))
+            t = time.perf_counter()
+            resp = api.jobs.register(job)
+            ev = api_eval_done(api, resp["eval_id"])
+            walls.append(1e3 * (time.perf_counter() - t))
+            check(ev["status"] == "complete",
+                  f"H1 {name}: eval {ev['status']} "
+                  f"({ev.get('status_description')})")
+            stubs = api.jobs.allocations(name)
+            check(len(stubs) == COUNT and all(
+                srv.store.alloc_by_id(a["ID"]) is not None for a in stubs),
+                f"H1 {name}: {len(stubs)} of {COUNT} allocs in the store")
+            h1_evals.append(resp["eval_id"])
+        nodes_fit(srv, structs, "H1")
+        legs["H1"] = {"jobs": API_JOBS, "count": COUNT,
+                      "p50_ms": pct(walls, 0.5), "p99_ms": pct(walls, 0.99),
+                      "walls_ms": walls,
+                      "phase7_leg_a_p50_ms": leg_a["p50_ms"],
+                      "phase7_leg_a_p99_ms": leg_a["p99_ms"],
+                      "launches": launches()}
+        check(legs["H1"]["launches"]["score"]
+              + legs["H1"]["launches"]["topk"] > 0,
+              f"H1: no wave kernel launch {legs['H1']['launches']}")
+        total.update(legs["H1"]["launches"])
+        emit({"phase": "api", "leg": "H1", **legs["H1"]})
+
+        # ---- H2: what-if plans of H1's first job's next version
+        for w in srv.workers:
+            w.paused.set()
+        wait_for(lambda: srv.broker.stats()["total_unacked"] == 0,
+                 "H2: the workers idle", API_WAIT_S)
+        solver = srv.workers[0].fleet_solver()
+        fp0 = world_fingerprint(solver)
+        n_allocs0 = len(srv.store.allocs())
+        index0 = srv.store.latest_index()
+        job_id = "api-0"
+        cur, _ = api.jobs.info(job_id)
+        nxt = copy.deepcopy(cur)
+        for tg in nxt["task_groups"]:
+            tg["count"] *= 2
+        batches, chosen = [], []
+
+        def route(pb, *a, **kw):
+            batches.append(pb)
+            return real_route(pb, *a, **kw)
+
+        def submit(planner, plan):
+            # the plan's new placements (not its in-place updates)
+            chosen[:] = sorted(a.node_id for allocs in
+                               plan.node_allocation.values()
+                               for a in allocs
+                               if srv.store.alloc_by_id(a.id) is None)
+            return real_submit(planner, plan)
+        solve_mod._run_kernel_routed = route
+        http_server._DryRunPlanner.submit_plan = submit
+        zero_launches(torch, wk)
+        plan_walls, per_plan, plans = [], [], []
+        for k in range(API_PLANS):
+            before = launches()
+            del batches[:]
+            out, ms = timed(api.jobs.plan, job_id, nxt)
+            after = launches()
+            plan_walls.append(ms)
+            per_plan.append({m: after[m] - before[m] for m in after})
+            plans.append(out)
+            check(out["error"] == "", f"H2 plan {k}: {out['error']}")
+            check(per_plan[-1]["score"] + per_plan[-1]["topk"] > 0,
+                  f"H2 plan {k}: no wave kernel launch {per_plan[-1]}")
+        solve_mod._run_kernel_routed = real_route
+        http_server._DryRunPlanner.submit_plan = real_submit
+        plan_nodes = list(chosen)
+        h2_counts = launches()
+        fp1 = world_fingerprint(solver)
+        check(fp1 == fp0, "H2: the plans changed the resident world")
+        check(len(srv.store.allocs()) == n_allocs0
+              and srv.store.latest_index() == index0,
+              "H2: the plans wrote to the store")
+        ann = plans[-1]["annotations"]["desired_tg_updates"]
+        plan_place = sum(u["place"] for u in ann.values())
+        plan_failed = sum(failed_allocs(e)
+                          for e in plans[-1]["created_evals"]
+                          if e["status"] != "blocked")
+        check(all(p["annotations"] == plans[0]["annotations"]
+                  for p in plans), "H2: the plans' annotations differ")
+        check(batches, "H2: no plan batch seen")
+        mode = "topk" if per_plan[-1]["topk"] else "score"
+        kernel_vs_plain(wk, (("H2 plan", batches[0], mode),))
+
+        # the same version registered at once; its eval waits while the
+        # workers are paused
+        old_ids = {a.id for a in srv.store.allocs_by_job(ns, job_id)}
+        reg = api.jobs.register(nxt)
+
+        # ---- H3: the solver profile of that job (plan solves)
+        zero_launches(torch, wk)
+        prof, prof_ms = timed(api.get, "/v1/agent/pprof/profile",
+                              mode="solver", job_id=job_id,
+                              seconds=API_PROFILE_S)
+        prof = prof[0]
+        h3_counts = launches()
+        path = os.path.join(prof["artifact"], http_server.SOLVER_TRACE)
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        shutil.rmtree(prof["artifact"], ignore_errors=True)
+        by_name = kernel_events(events)
+        wave = {n: c for n, c in by_name.items()
+                if re.search(WAVE_KERNEL_RE, n)}
+        check(prof["solves"] > 0, f"H3: {prof['solves']} solves")
+        check(wave, f"H3: no wave_*_kernel event in the trace "
+              f"({sorted(by_name)[:8]})")
+        check(world_fingerprint(solver) == fp0,
+              "H3: the profile's plan solves changed the resident world")
+
+        # the registration runs
+        for w, was in zip(srv.workers, paused0):
+            if not was:
+                w.paused.clear()
+        zero_launches(torch, wk)
+        t_reg = time.perf_counter()
+        reg_ev = api_eval_done(api, reg["eval_id"])
+        reg_ms = 1e3 * (time.perf_counter() - t_reg)
+        reg_counts = launches()
+        check(reg_ev["status"] == "complete",
+              f"H2: the registration's eval {reg_ev['status']}")
+        new = [a for a in srv.store.allocs_by_job(ns, job_id)
+               if not a.terminal_status() and a.id not in old_ids]
+        placed = len(new)
+        reg_failed = failed_allocs(reg_ev)
+        check(placed == plan_place and reg_failed == plan_failed,
+              f"H2: plans place {plan_place} / fail {plan_failed}, the "
+              f"registration placed {placed} / failed {reg_failed}")
+        reg_nodes = sorted(a.node_id for a in new)
+        nodes_fit(srv, structs, "H2")
+        legs["H2"] = {"plans": API_PLANS, "job": job_id,
+                      "count_from": COUNT, "count_to": 2 * COUNT,
+                      "p50_ms": pct(plan_walls, 0.5),
+                      "p99_ms": pct(plan_walls, 0.99),
+                      "walls_ms": plan_walls,
+                      "annotations": plans[-1]["annotations"],
+                      "diff": plans[-1]["diff"],
+                      "plan_place": plan_place, "plan_failed": plan_failed,
+                      "registration_placed": placed,
+                      "registration_failed": reg_failed,
+                      "registration_resumed_ms": reg_ms,
+                      "same_nodes_as_registration":
+                          plan_nodes == reg_nodes,
+                      "world_fingerprint": fp0, "world_bit_identical": True,
+                      "store_allocs_unchanged": True,
+                      "launches_per_plan": per_plan,
+                      "launches": h2_counts,
+                      "registration_launches": reg_counts,
+                      "kernel_vs_plain": {"mode": mode,
+                                          "result": "passed"}}
+        total.update(h2_counts)
+        total.update(reg_counts)
+        emit({"phase": "api", "leg": "H2", **legs["H2"]})
+        legs["H3"] = {"job": job_id, "seconds": prof["seconds"],
+                      "solves": prof["solves"], "call_ms": prof_ms,
+                      "trace_bytes": trace_bytes,
+                      "trace_events": len(events),
+                      "wave_kernel_events": wave,
+                      "launches": h3_counts}
+        total.update(h3_counts)
+        emit({"phase": "api", "leg": "H3", **legs["H3"]})
+
+        # ---- H4: the read side
+        calls = {}
+        prom, calls["metrics_prometheus"] = timed(api.text, "/v1/metrics",
+                                                  format="prometheus")
+        check("# TYPE " in prom, "H4: no Prometheus exposition")
+        (traces, _), calls["traces"] = timed(api.get, "/v1/traces",
+                                             limit=20)
+        (tr, _), calls["trace"] = timed(api.get,
+                                        f"/v1/trace/{h1_evals[0]}")
+        backends = [s["attrs"].get("backend") for s in tr["spans"]
+                    if s["name"] == "solve"]
+        check(backends and all(b == "device" for b in backends),
+              f"H4: the H1 eval's solve spans ran on {backends}")
+        (found, _), calls["search"] = timed(
+            api.post, "/v1/search", {"prefix": "api-", "context": "jobs"})
+        check(f"api-{API_JOBS - 1}" in found["matches"]["jobs"],
+              f"H4: search found {found['matches']}")
+        (health, _), calls["telemetry_health"] = timed(
+            api.get, "/v1/telemetry/health")
+        check("health" in health and "tracer" in health,
+              f"H4: telemetry health keys {sorted(health)}")
+        legs["H4"] = {"ms": calls, "prometheus_bytes": len(prom),
+                      "traces": len(traces["traces"]),
+                      "h1_solve_backend": backends,
+                      "search_matches": len(found["matches"]["jobs"])}
+        emit({"phase": "api", "leg": "H4", **legs["H4"]})
+    except APIError as e:
+        row.update(failed=f"api: {e}", legs=sorted(legs))
+        emit(row)
+        raise PhaseError(f"api: {e}") from None
+    except PhaseError as e:
+        row.update(failed=str(e), legs=sorted(legs))
+        emit(row)
+        raise
+    finally:
+        solve_mod._run_kernel_routed = real_route
+        http_server._DryRunPlanner.submit_plan = real_submit
+        for w, was in zip(srv.workers, paused0):
+            if not was:
+                w.paused.clear()
+        http.stop()
+    row.update(seconds=time.perf_counter() - t_phase,
                launches={m: total[m] for m in ("score", "topk", "merge")})
     emit(row)
     return row["launches"]
@@ -6246,12 +6603,16 @@ def main() -> int:
     counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
                                        N_SERVICE_EVALS, BATCH_COUNT)
     watchdog_quiet("phase 6")
-    # phase 13 runs on phase 7's server, after phase 7's checks
-    counts7, calls7, _row7, counts13 = phase_server(
+    # phases 13 and 15 run on phase 7's server, after phase 7's checks
+    def lifecycle_then_api(srv, row7):
+        counts13 = phase_lifecycle(torch, wk, srv)
+        watchdog_quiet("phases 7 and 13")
+        return counts13, phase_api(torch, wk, srv, row7["leg_a"])
+
+    counts7, calls7, _row7, (counts13, counts15) = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
-        BATCH_COUNT, phase6=row6["service"],
-        then=lambda srv: phase_lifecycle(torch, wk, srv))
-    watchdog_quiet("phases 7 and 13")
+        BATCH_COUNT, phase6=row6["service"], then=lifecycle_then_api)
+    watchdog_quiet("phase 15")
     counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
                             N_PREEMPT_JOBS)
     watchdog_quiet("phase 8")
@@ -6308,6 +6669,7 @@ def main() -> int:
             "launches_phase12": counts12[mode],
             "launches_phase13": counts13[mode],
             "launches_phase14": counts14[mode],
+            "launches_phase15": counts15[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -23,8 +23,9 @@ over TCP at config-3 width needs (ROADMAP.md Queue 3):
     never catches up;
   * a follower commits only up to the last entry the leader's call
     matched (raft's min(leaderCommit, index of last new entry));
-  * the leader replicates on a thread per peer, with a heartbeat beside
-    a call in flight, and a started member applies committed entries
+  * the leader replicates on two long-lived threads per peer (appends,
+    and a heartbeat beside an append in flight) that the raft loop only
+    signals, and a started member applies committed entries
     on an applier thread outside the raft lock, so one slow follower
     neither starves the others' heartbeats nor reads its own apply as
     the leader's silence;
@@ -128,6 +129,101 @@ class InProcTransport:
         return getattr(node, method)(*args)
 
 
+class _Replicator:
+    """A leader's two long-lived threads for one peer, as hashicorp/raft
+    keeps a replication and a heartbeat goroutine per follower: one
+    sends appends (or ships the snapshot), one sends heartbeats, so at
+    most one of each is in flight and a beat goes out while a large
+    append is in flight.  The raft loop only signals them (`kick`):
+    starting a thread per beat stalled the leader's loop for seconds in
+    `Thread.start` whenever another thread held the interpreter (a
+    joiner restoring a large snapshot in the same process).  A heartbeat
+    interval without a signal sets each going by itself (a round, which
+    to a caught-up follower is an empty append; a beat while an append
+    is in flight), as hashicorp/raft's goroutines run on their own
+    timers: the raft loop also runs the leadership callbacks (a new
+    leader's barrier and eval restore), and the followers must not read
+    that as the leader's silence."""
+
+    def __init__(self, node: "RaftNode", peer: str):
+        self.node, self.peer = node, peer
+        self._cv = threading.Condition(threading.Lock())
+        self._want_append = False
+        self._want_beat = False
+        self._appending = False
+        self._beating = False
+        self._stopped = False
+        name = f"raft-{node.id}-{peer}"
+        self._threads = (
+            threading.Thread(target=self._append_loop, daemon=True,
+                             name=name),
+            threading.Thread(target=self._beat_loop, daemon=True,
+                             name=name + "-beat"))
+
+    def start(self) -> None:
+        for t in self._threads:
+            t.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+
+    def kick(self, heartbeat: bool) -> None:
+        """Ask for an append round; with `heartbeat`, also a beat if an
+        append is in flight and no beat is."""
+        with self._cv:
+            self._want_append = True
+            if heartbeat and self._appending and not self._beating:
+                self._want_beat = True
+            self._cv.notify_all()
+
+    def _take(self, want: str, busy: str, idle) -> bool:
+        """Wait for the `want` signal, or for a heartbeat interval to pass
+        without one while `idle()` holds; then mark `busy`.  False once
+        stopped."""
+        hb = self.node.cfg.heartbeat_interval_s
+        with self._cv:
+            deadline = time.monotonic() + hb
+            while not (self._stopped or getattr(self, want)):
+                remain = deadline - time.monotonic()
+                if remain > 0:
+                    self._cv.wait(remain)
+                elif idle():
+                    break
+                else:
+                    deadline = time.monotonic() + hb
+            if self._stopped:
+                return False
+            setattr(self, want, False)
+            setattr(self, busy, True)
+            return True
+
+    def _done(self, busy: str) -> None:
+        with self._cv:
+            setattr(self, busy, False)
+
+    def _append_loop(self) -> None:
+        self._loop("_want_append", "_appending", lambda: True,
+                   self.node._replicate_round)
+
+    def _beat_loop(self) -> None:
+        self._loop("_want_beat", "_beating", lambda: self._appending,
+                   self.node._heartbeat)
+
+    def _loop(self, want: str, busy: str, idle, call) -> None:
+        while self._take(want, busy, idle):
+            try:
+                call(self.peer)
+            except Exception:
+                # the thread outlives a failed call: the next kick retries
+                # (a thread per call died with its call)
+                _log.exception("raft %s: %s to %s failed", self.node.id,
+                               call.__name__, self.peer)
+            finally:
+                self._done(busy)
+
+
 class RaftNode:
     def __init__(self, config: RaftConfig, fsm: StateFSM,
                  transport: InProcTransport,
@@ -165,13 +261,9 @@ class RaftNode:
         self._last_leader_contact = 0.0
         self._role_events: List[str] = []    # deferred callbacks
         self._oversized = 0      # the entry last logged as unshippable
-        # peers with a replication call in flight, those kicked again
-        # meanwhile and those with a heartbeat in flight
-        # (_replicate_all); guarded by _repl_lock, not the raft lock
-        self._repl_lock = threading.Lock()
-        self._inflight: set = set()
-        self._rekick: set = set()
-        self._beating: set = set()
+        # a running leader's replicator per peer and learner
+        # (_sync_replicators_locked); changed under the raft lock
+        self._replicators: Dict[str, "_Replicator"] = {}
         # the applier thread of a started member, and the entry it is
         # applying outside the lock (0: none)
         self._applier: Optional[threading.Thread] = None
@@ -265,12 +357,14 @@ class RaftNode:
             t.start()
             self._applier.start()
             self._threads = [t, self._applier]
+            self._sync_replicators_locked()    # a bootstrapped leader
 
     def stop(self) -> None:
         with self._lock:
             self.running = False
             self._closed = True
             self._save_meta_locked()
+            self._sync_replicators_locked()
             self._cv.notify_all()
         for t in self._threads:
             t.join(timeout=2.0)
@@ -384,6 +478,7 @@ class RaftNode:
         # entries (raft's no-op-on-election rule)
         self._append_locked(NOOP, None)
         self._role_events.append("leader")
+        self._sync_replicators_locked()
 
     def step_down(self) -> bool:
         """Voluntary leader step-down (the chaos plane's
@@ -406,6 +501,7 @@ class RaftNode:
         self._reset_election_deadline_locked()
         if was_leader:
             self._role_events.append("follower")
+            self._sync_replicators_locked()
 
     def _fire_role_events(self) -> None:
         # _events_lock serializes callback execution across the _run loop
@@ -504,41 +600,41 @@ class RaftNode:
 
     def _replicate_all(self, heartbeat: bool = False) -> None:
         """Kick replication to every peer and learner without waiting:
-        each peer has at most one call in flight, on a thread of its
-        own, so a follower that takes long to answer (a large batch to
-        decode and apply) delays neither the other followers' appends
-        nor their heartbeats (hashicorp/raft runs a replication
-        goroutine per follower).  A kick that finds its peer's call in
-        flight has that thread go round once more when it returns, and
-        with `heartbeat` (the leader loop's beat) sends that peer an
-        empty append meanwhile, as hashicorp/raft's heartbeat goroutine
-        does, so a large batch in flight never reads as leader
-        silence.  A single voter commits by itself, here."""
-        targets = [p for p in list(self.cfg.peers) + list(self._staging)
-                   if p != self.id]
+        each peer's long-lived `_Replicator` holds its calls, so a
+        follower that takes long to answer (a large batch to decode and
+        apply) delays neither the other followers' appends nor their
+        heartbeats (hashicorp/raft runs a replication goroutine per
+        follower).  With `heartbeat` (the leader loop's beat) a peer
+        whose append is in flight is sent an empty append meanwhile, as
+        hashicorp/raft's heartbeat goroutine does, so a large batch in
+        flight never reads as leader silence.  Only signals: it starts
+        no thread and waits on none.  A single voter commits by itself,
+        here."""
         if len(self.cfg.peers) <= 1:
             with self._lock:
                 if self.role == ROLE_LEADER:
                     self._advance_commit_locked()
                     self._apply_committed_locked()
-        if not targets:
-            return
-        start, beat = [], []
-        with self._repl_lock:
-            for peer in targets:
-                if peer not in self._inflight:
-                    self._inflight.add(peer)
-                    start.append(peer)
-                    continue
-                self._rekick.add(peer)
-                if heartbeat and peer not in self._beating:
-                    self._beating.add(peer)
-                    beat.append(peer)
-        for fn, peers in ((self._replicate_peer, start),
-                          (self._heartbeat, beat)):
-            for peer in peers:
-                threading.Thread(target=fn, args=(peer,), daemon=True,
-                                 name=f"raft-{self.id}-{peer}").start()
+        for rep in list(self._replicators.values()):
+            rep.kick(heartbeat)
+
+    def _sync_replicators_locked(self) -> None:
+        """Start a replicator for each peer and learner of a running
+        leader that has none, and stop those of peers that left, of a
+        lost leadership and of a stopped member.  Called where the
+        role or the membership changes, never from the beat."""
+        want = set()
+        if self.running and not self._closed and self.role == ROLE_LEADER:
+            want = {p for p in list(self.cfg.peers) + list(self._staging)
+                    if p != self.id}
+        for peer in list(self._replicators):
+            if peer not in want:
+                self._replicators.pop(peer).stop()
+        for peer in want:
+            if peer not in self._replicators:
+                rep = _Replicator(self, peer)
+                self._replicators[peer] = rep
+                rep.start()
 
     def _heartbeat(self, peer: str) -> None:
         """An empty append with no log position: it passes any
@@ -556,30 +652,15 @@ class RaftNode:
                         self._step_down_locked(pterm)
         except ConnectionError:
             pass
-        finally:
-            with self._repl_lock:
-                self._beating.discard(peer)
 
-    def _replicate_peer(self, peer: str) -> None:
-        again = True
-        try:
-            while again:
-                self._replicate_one(peer)
-                with self._lock:
-                    if self.role == ROLE_LEADER:
-                        self._advance_commit_locked()
-                        self._apply_committed_locked()
-                with self._repl_lock:
-                    again = (peer in self._rekick and self.running
-                             and self.role == ROLE_LEADER)
-                    self._rekick.discard(peer)
-                    if not again:
-                        self._inflight.discard(peer)
-        except BaseException:
-            with self._repl_lock:
-                self._inflight.discard(peer)
-                self._rekick.discard(peer)
-            raise
+    def _replicate_round(self, peer: str) -> None:
+        """One append (or snapshot shipment) to `peer`, then the commit
+        it may advance."""
+        self._replicate_one(peer)
+        with self._lock:
+            if self.role == ROLE_LEADER:
+                self._advance_commit_locked()
+                self._apply_committed_locked()
 
     def _replicate_one(self, peer: str) -> None:
         with self._lock:
@@ -621,7 +702,7 @@ class RaftNode:
             if pterm > self.term:
                 self._step_down_locked(pterm)
                 return
-            if self.role != ROLE_LEADER:
+            if self.role != ROLE_LEADER or self.term != term:
                 return
             if ok:
                 self._match[peer] = match
@@ -818,6 +899,7 @@ class RaftNode:
                 self.role = ROLE_FOLLOWER
                 self._reset_election_deadline_locked()
                 self._role_events.append("follower")
+                self._sync_replicators_locked()
                 return
             for p in peers:
                 if p not in old and p != self.id:
@@ -826,6 +908,7 @@ class RaftNode:
             for p in old - set(peers):
                 self._next.pop(p, None)
                 self._match.pop(p, None)
+            self._sync_replicators_locked()
 
     def add_learner(self, peer: str) -> None:
         """Start replicating to a NON-VOTING peer (it never counts
@@ -835,6 +918,7 @@ class RaftNode:
                 self._staging.append(peer)
                 self._next[peer] = self.log.last_index() + 1
                 self._match[peer] = 0
+                self._sync_replicators_locked()
 
     def learner_caught_up(self, peer: str) -> bool:
         with self._lock:
@@ -853,6 +937,7 @@ class RaftNode:
             if peer not in self.cfg.peers:
                 self._next.pop(peer, None)
                 self._match.pop(peer, None)
+            self._sync_replicators_locked()
 
     def propose_config(self, peers: List[str],
                        timeout: float = 10.0) -> int:
@@ -983,6 +1068,7 @@ class RaftNode:
                 self._save_meta_locked()
                 if was_leader:
                     self._role_events.append("follower")
+                    self._sync_replicators_locked()
                     events = True
             self.leader_id = leader
             self._last_leader_contact = time.monotonic()
@@ -1034,6 +1120,7 @@ class RaftNode:
                 return self.term, 0
             self.term = term
             self.role = ROLE_FOLLOWER
+            self._sync_replicators_locked()
             self.leader_id = leader
             self._last_leader_contact = time.monotonic()
             self._reset_election_deadline_locked()

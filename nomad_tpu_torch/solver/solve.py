@@ -41,13 +41,18 @@ the solve watchdog (`watchdog.global_watchdog`), which is off unless a
 chaos harness sets its deadline.  Armed, it answers a device solve that
 an injected fault stalled past the deadline or poisoned from the host
 twin, and the solve span's `backend` then reads "host_failover" or
-"host_quarantine"; any other device error propagates.  The reference's
-what-if plan view (`PlanSolverView`) is not part of this package.
+"host_quarantine"; any other device error propagates.
+
+`plan_view()` gives the what-if plan view (`PlanSolverView`) that the
+HTTP API's `/v1/job/:id/plan` dry runs solve through: overlay-only
+solves over the resident template that never create, sync, rebuild,
+grow or feed the world, on the solver's device and its kernels.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass, field
@@ -357,6 +362,22 @@ def _overlay_usage(world: _ResidentWorld, pb: PackedBatch,
     return pb
 
 
+def _private_planes(pb: PackedBatch) -> PackedBatch:
+    """`pb` with a copy of every array and list it holds: a what-if
+    plan's batch shares nothing with the resident template, so neither
+    the solve (its planes, their uploads to the card) nor a plan result
+    fed into the template while it runs can touch the other."""
+    pb = copy.copy(pb)
+    for f in dataclasses.fields(pb):
+        v = getattr(pb, f.name)
+        if isinstance(v, np.ndarray):
+            setattr(pb, f.name, v.copy())
+        elif isinstance(v, list):
+            setattr(pb, f.name, [list(r) if isinstance(r, list) else r
+                                 for r in v])
+    return pb
+
+
 @dataclass
 class Placement:
     ask_index: int
@@ -587,29 +608,48 @@ class Solver:
             t = world.template
             return health_host(t, t.used0, t.dev_used0)
 
-    def _resident_pack(self, snapshot, asks, proposed_delta):
+    def plan_view(self) -> "PlanSolverView":
+        """Facade for dry-run (what-if) schedulers: same resident
+        template, overlay-only solves, zero writes to carried state."""
+        return PlanSolverView(self)
+
+    def _resident_pack(self, snapshot, asks, proposed_delta,
+                       overlay_only: bool = False):
         """The steady-state pack: sync the world to the snapshot via
         the change log, repack ONLY the ask side against the resident
         template, and overlay this plan's proposed stops/probes onto a
         copy of the maintained usage.  None -> caller full-packs.
+
+        `overlay_only` (the what-if plan path): NEVER create, sync,
+        rebuild, or grow the world — read the current template under
+        the lock and overlay onto copies, so carried state stays
+        bit-identical no matter how many plan solves interleave.  The
+        batch then holds copies of every plane (taken under the lock),
+        so a plan result fed into the world by another thread while
+        this solve uploads and runs changes nothing it reads.
         Returns (pb, nodes) so callers never re-read self._world."""
         if any(a.property_limits for a in asks):
             return None          # host-side walk the resident path skips
         with self._world_lock:
             if self._world is None:
+                if overlay_only:
+                    return None
                 if len(snapshot.nodes()) < self._resident_min_nodes:
                     return None
                 self._world = _ResidentWorld(
                     self._tensorizer, self._store, snapshot, asks,
                     self._evict_e)
             world = self._world
-            world.sync(snapshot)
+            if not overlay_only:
+                world.sync(snapshot)
             gp = max(self._pad(len(asks)), 1)
             kp = max(self._pad(sum(max(a.count, 1) for a in asks)), 1)
             pb = self._tensorizer.repack_asks(
                 world.nodes, asks, world.template, gp=gp, kp=kp,
                 drv_cache=world.drv_cache, row_cache=world.row_cache)
             if pb is None:
+                if overlay_only:
+                    return None
                 # ask universe escape: grow the probes and rebuild once
                 if not world.add_probes(asks):
                     return None
@@ -619,8 +659,10 @@ class Solver:
                     drv_cache=world.drv_cache, row_cache=world.row_cache)
                 if pb is None:
                     return None
-            return (_overlay_usage(world, pb, proposed_delta),
-                    world.nodes)
+            pb = _overlay_usage(world, pb, proposed_delta)
+            if overlay_only:
+                pb = _private_planes(pb)
+            return pb, list(world.nodes)
 
     @staticmethod
     def _pad(n: int) -> int:
@@ -630,25 +672,29 @@ class Solver:
               allocs_by_node: Optional[Dict[str, list]] = None,
               by_dc: Optional[Dict[str, int]] = None, *,
               snapshot=None, proposed_delta=None,
-              preempt: bool = False) -> SolveOutput:
+              preempt: bool = False,
+              _overlay_only: bool = False) -> SolveOutput:
         """`snapshot` (the state the scheduler read) lets a
         store-attached solver take the resident path; `proposed_delta`
         is (stopped allocs, sticky probes) of the plan being built: the
         only places the proposed usage differs from the store's.
         `preempt`: the scheduler found preemption enabled for this eval,
         so a batch with eviction planes runs the kernel's eviction pass
-        and a placement may come back with `Placement.evicted`."""
+        and a placement may come back with `Placement.evicted`.
+        `_overlay_only`: what-if plan mode (see PlanSolverView)."""
         return self.solve_async(nodes, asks, allocs_by_node, by_dc,
                                 snapshot=snapshot,
                                 proposed_delta=proposed_delta,
-                                preempt=preempt).wait()
+                                preempt=preempt,
+                                _overlay_only=_overlay_only).wait()
 
     def solve_async(self, nodes: Sequence[Node],
                     asks: Sequence[PlacementAsk],
                     allocs_by_node: Optional[Dict[str, list]] = None,
                     by_dc: Optional[Dict[str, int]] = None, *,
                     snapshot=None, proposed_delta=None,
-                    preempt: bool = False) -> PendingSolve:
+                    preempt: bool = False,
+                    _overlay_only: bool = False) -> PendingSolve:
         """Dispatch phase of `solve`: pack and launch the solve without
         fetching the result; `wait()` on the returned PendingSolve
         fetches and runs the host fixup walk.  A solve routed to the
@@ -660,12 +706,16 @@ class Solver:
         pb = None
         sol_nodes = nodes
         if snapshot is not None and self.resident_active(snapshot):
-            packed = self._resident_pack(snapshot, asks, proposed_delta)
+            packed = self._resident_pack(snapshot, asks, proposed_delta,
+                                         overlay_only=_overlay_only)
             if packed is not None:
                 pb, sol_nodes = packed
         used_resident = pb is not None
         if pb is None:
-            pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
+            with self._world_lock:
+                # the tensorizer's interners are shared with concurrent
+                # plan-view solves: every pack through it is serialized
+                pb = self._tensorizer.pack(nodes, asks, allocs_by_node)
         t_pack = time.perf_counter()
         res, backend = _run_kernel_routed(
             pb, self._device,
@@ -975,6 +1025,38 @@ class Solver:
                     vendor=dv, type=dt, name=dm,
                     device_ids=free[:req.count])
         return None
+
+
+class PlanSolverView:
+    """Read-only facade over a worker's Solver for what-if planning
+    (`/v1/job/:id/plan`): dry-run schedulers share the resident
+    template — plan solves answer at steady-state speed instead of
+    re-walking the cluster — but every solve goes through the
+    copy-on-read overlay with `overlay_only` pinned, so the world is
+    never created, synced, rebuilt, grown, or fed from a plan.  Carried
+    usage stays bit-identical under any plan/solve interleaving
+    (tests/test_torch_plan_overlay.py).  A plan solve on `cuda` runs
+    the same kernels as the worker's."""
+
+    def __init__(self, inner: Solver):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def resident_active(self, snapshot=None) -> bool:
+        # only ride a world that already exists; a plan never builds one
+        return self._inner._world is not None
+
+    def note_plan_result(self, plan, result) -> None:
+        return None              # dry-run plans never feed the world
+
+    def set_degraded(self, degraded: bool) -> None:
+        return None              # brownout belongs to the worker
+
+    def solve(self, *args, **kw) -> SolveOutput:
+        kw["_overlay_only"] = True
+        return self._inner.solve(*args, **kw)
 
 
 def solve_trace_attrs(pb: PackedBatch, res, device,

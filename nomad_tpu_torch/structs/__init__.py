@@ -1,7 +1,6 @@
 """Domain model (the counterpart of `nomad_tpu.structs`, with the same
 exports): what the placement solve, the state store and the schedulers
-pass around.  `diff.py` (job diffs for the plan endpoint) is not part of
-this package yet."""
+pass around.  `diff.py` holds the job diffs of the plan endpoint."""
 from .consts import *  # noqa: F401,F403
 from .resources import (AllocatedDeviceResource, AllocatedResources,
                         AllocatedSharedResources, AllocatedTaskResources,

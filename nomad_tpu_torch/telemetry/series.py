@@ -7,17 +7,23 @@ boundary the finalized point (min / max / sum / count over the bucket)
 is pushed into the 1s ring AND merged into the current 10s bucket,
 which rolls over into the 60s ring the same way.  Memory is bounded:
 ring lengths are fixed at construction, the name universe is capped
-(overflow recorded in a counter), and a point is a 5-tuple — no
-per-sample retention.
+(overflow recorded in a counter, mirroring MetricsRegistry's
+admission cap), and a point is a 5-tuple — no per-sample retention.
 
-The counterpart of `nomad_tpu.telemetry.series`, without its JSONL sink
-of finalized points (`open_sink`; ROADMAP.md Queue 1, item 5).
+An optional JSONL sink receives every FINALIZED 1s point (one line
+per point), so a scrape-less deployment still gets a durable,
+greppable trail at bounded rate.
+
+The counterpart of `nomad_tpu.telemetry.series`.
 
 Clock is injected (`clock=time.monotonic` default) so the rollover
 tests drive time explicitly, like every other timed component here.
 """
 from __future__ import annotations
 
+import io
+import json
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -103,6 +109,7 @@ class TimeSeriesStore:
                  resolutions: Sequence[Tuple[int, int]] =
                  DEFAULT_RESOLUTIONS,
                  max_names: int = DEFAULT_MAX_NAMES,
+                 sink: Optional[io.TextIOBase] = None,
                  clock=time.monotonic):
         res = sorted(resolutions)
         if not res or any(r <= 0 or cap <= 0 for r, cap in res):
@@ -118,11 +125,14 @@ class TimeSeriesStore:
         self._lock = threading.Lock()
         self._series: Dict[str, _Series] = {}
         self._overflow = 0
+        self._sink = sink
+        self._sink_lock = threading.Lock()
 
     # ------------------------------------------------------ recording
     def record(self, name: str, value: float,
                now: Optional[float] = None) -> None:
         t = self._clock() if now is None else now
+        lines = None
         with self._lock:
             s = self._series.get(name)
             if s is None:
@@ -131,17 +141,21 @@ class TimeSeriesStore:
                     self._overflow += 1
                     return
                 s = self._series[name] = _Series(self.resolutions)
-            self._roll_locked(s, t)
+            lines = self._roll_locked(name, s, t)
             b = s.cur[0]
             if b is None:
                 b = s.cur[0] = _Bucket(
                     int(t) // self.resolutions[0][0]
                     * self.resolutions[0][0])
             b.add(float(value))
+        if lines:
+            self._emit(lines)
 
-    def _roll_locked(self, s: _Series, t: float) -> None:
+    def _roll_locked(self, name: str, s: _Series, t: float) -> List:
         """Finalize any current buckets the clock has moved past,
-        cascading each finalized point into the next resolution."""
+        cascading each finalized point into the next resolution.
+        Returns sink lines to emit outside the lock."""
+        lines: List[str] = []
         carry = None
         for i, (res, _cap) in enumerate(self.resolutions):
             b = s.cur[i]
@@ -156,14 +170,35 @@ class TimeSeriesStore:
                 s.rings[i].push(p)
                 s.cur[i] = None
                 carry = p
+                if i == 0 and self._sink is not None:
+                    lines.append(json.dumps(
+                        {"name": name, "t": p[0], "min": p[1],
+                         "max": p[2], "sum": p[3], "count": p[4]},
+                        separators=(",", ":")))
+        return lines
+
+    def _emit(self, lines: List[str]) -> None:
+        sink = self._sink
+        if sink is None:
+            return
+        with self._sink_lock:
+            for ln in lines:
+                sink.write(ln + "\n")
 
     def flush(self, now: Optional[float] = None) -> None:
         """Finalize every in-progress bucket (shutdown / test hook)."""
         t = self._clock() if now is None else now
+        out: List[str] = []
         with self._lock:
-            for s in self._series.values():
+            for name, s in self._series.items():
                 # nudge past every resolution's bucket end
-                self._roll_locked(s, t + self.resolutions[-1][0])
+                out += self._roll_locked(
+                    name, s, t + self.resolutions[-1][0])
+        if out:
+            self._emit(out)
+        if self._sink is not None:
+            with self._sink_lock:
+                self._sink.flush()
 
     # -------------------------------------------------------- reading
     def names(self) -> List[str]:
@@ -196,6 +231,12 @@ class TimeSeriesStore:
                     "overflow": self._overflow,
                     "resolutions": [list(rc)
                                     for rc in self.resolutions]}
+
+
+def open_sink(path: str):
+    """Line-buffered append JSONL sink for a TimeSeriesStore."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return open(path, "a", buffering=1, encoding="utf-8")
 
 
 #: process-wide store, mirroring global_metrics / global_tracer.

@@ -5,19 +5,30 @@ nomad/worker.go:162,245,282 and nomad/plan_apply.go:185,369,400).
 The counterpart of `nomad_tpu.utils.metrics`: counters, gauges, timing
 samples (`measure_since`, the MeasureSince analog; `timed` the
 context-manager sugar) and explicit-bucket histograms, read back with
-`dump`.  Not here yet (ROADMAP.md Queue 1, item 5): the Prometheus
-exposition and the per-namespace key cap (`NOMAD_TPU_METRICS_MAX_KEYS`,
-`metrics.overflow`).
+`dump` or as Prometheus text (`prometheus`), surfaced at /v1/metrics.
+The per-namespace key cap is a constructor argument (`max_keys_per_ns`,
+the reference's default); the port reads no `NOMAD_TPU_METRICS_MAX_KEYS`
+(the agent configuration, ROADMAP.md item 15, will pass it).
 """
 from __future__ import annotations
 
+import re
 import threading
 import time as _time
 from collections import deque
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, List, Optional
+
 
 _RESERVOIR = 2048
+
+#: per-namespace key-cardinality cap (namespace = the key's first
+#: dot-segment).  A runaway label (per-eval ids, per-node gauges from a
+#: buggy caller) must not grow the registry without bound: past the cap
+#: new keys are dropped and the `metrics.overflow` counter ticks.
+#: `MetricsRegistry(max_keys_per_ns=)` overrides.
+DEFAULT_MAX_KEYS_PER_NS = 512
+OVERFLOW_KEY = "metrics.overflow"
 
 
 class _Summary:
@@ -68,8 +79,8 @@ DEFAULT_HIST_BUCKETS = (0.001, 0.004, 0.016, 0.064, 0.256, 1.024,
 
 
 class _Histogram:
-    """Explicit-bucket histogram: cumulative bucket counts, +Inf
-    implied by the total count."""
+    """Explicit-bucket histogram: cumulative bucket counts as
+    Prometheus expects, +Inf implied by total count."""
     __slots__ = ("bounds", "counts", "sum", "count")
 
     def __init__(self, bounds):
@@ -95,24 +106,45 @@ class _Histogram:
 
 
 class MetricsRegistry:
-    def __init__(self):
+    def __init__(self, max_keys_per_ns: int = DEFAULT_MAX_KEYS_PER_NS):
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._samples: Dict[str, _Summary] = {}
         self._hists: Dict[str, _Histogram] = {}
+        self.max_keys_per_ns = max(int(max_keys_per_ns), 1)
+        self._ns_keys: Dict[str, int] = {}   # namespace -> distinct keys
+
+    def _admit_locked(self, key: str, table: dict) -> bool:
+        """Label-explosion guard: True when `key` may be written to
+        `table` — existing keys always pass, a NEW key only while its
+        namespace is under the cap (otherwise the overflow counter
+        ticks and the write is dropped)."""
+        if key in table:
+            return True
+        ns = key.split(".", 1)[0]
+        n = self._ns_keys.get(ns, 0)
+        if n >= self.max_keys_per_ns and key != OVERFLOW_KEY:
+            self._counters[OVERFLOW_KEY] = \
+                self._counters.get(OVERFLOW_KEY, 0.0) + 1.0
+            return False
+        self._ns_keys[ns] = n + 1
+        return True
 
     def incr_counter(self, key: str, value: float = 1.0) -> None:
         with self._lock:
-            self._counters[key] = self._counters.get(key, 0.0) + value
+            if self._admit_locked(key, self._counters):
+                self._counters[key] = self._counters.get(key, 0.0) + value
 
     def set_gauge(self, key: str, value: float) -> None:
         with self._lock:
-            self._gauges[key] = value
+            if self._admit_locked(key, self._gauges):
+                self._gauges[key] = value
 
     def add_sample(self, key: str, value_s: float) -> None:
         with self._lock:
-            self._samples.setdefault(key, _Summary()).add(value_s)
+            if self._admit_locked(key, self._samples):
+                self._samples.setdefault(key, _Summary()).add(value_s)
 
     def observe_hist(self, key: str, value: float,
                      buckets=None) -> None:
@@ -120,6 +152,8 @@ class MetricsRegistry:
         fixed at first observation; a later call with different bounds
         keeps the original (bounds are config, not data)."""
         with self._lock:
+            if not self._admit_locked(key, self._hists):
+                return
             h = self._hists.get(key)
             if h is None:
                 h = self._hists[key] = _Histogram(
@@ -156,6 +190,77 @@ class MetricsRegistry:
             self._gauges.clear()
             self._samples.clear()
             self._hists.clear()
+            self._ns_keys.clear()
+
+    # --------------------------------------------------------- prometheus
+    def prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4) of the registry —
+        served at /v1/metrics?format=prometheus next to the JSON dump.
+        Counters map to `counter`, gauges to `gauge`, timing samples to
+        a `summary` (quantile series + _sum/_count), explicit-bucket
+        histograms to `histogram` (cumulative `_bucket{le=}` series
+        plus the implied +Inf).  Keys are mangled
+        to the metric charset ([a-zA-Z0-9_:]); collisions after
+        mangling keep the first-seen series (stable within a dump —
+        both orderings are sorted)."""
+        with self._lock:
+            counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
+            samples = sorted((k, s.snapshot())
+                             for k, s in self._samples.items())
+            hists = sorted((k, h.snapshot())
+                           for k, h in self._hists.items())
+        out: List[str] = []
+        seen: set = set()
+
+        def name(key: str) -> Optional[str]:
+            n = re.sub(r"[^a-zA-Z0-9_:]", "_", key)
+            if re.match(r"^[0-9]", n):
+                n = "_" + n
+            if n in seen:
+                return None
+            seen.add(n)
+            return n
+
+        for key, v in counters:
+            n = name(key)
+            if n is None:
+                continue
+            out.append(f"# TYPE {n} counter")
+            out.append(f"{n} {_fmt(v)}")
+        for key, v in gauges:
+            n = name(key)
+            if n is None:
+                continue
+            out.append(f"# TYPE {n} gauge")
+            out.append(f"{n} {_fmt(v)}")
+        for key, snap in samples:
+            n = name(key)
+            if n is None:
+                continue
+            out.append(f"# TYPE {n} summary")
+            out.append(f'{n}{{quantile="0.5"}} {_fmt(snap["p50"])}')
+            out.append(f'{n}{{quantile="0.99"}} {_fmt(snap["p99"])}')
+            out.append(f"{n}_sum {_fmt(snap['sum'])}")
+            out.append(f"{n}_count {snap['count']}")
+        for key, snap in hists:
+            n = name(key)
+            if n is None:
+                continue
+            out.append(f"# TYPE {n} histogram")
+            for le, c in snap["buckets"]:
+                out.append(f'{n}_bucket{{le="{_fmt(le)}"}} {c}')
+            out.append(f'{n}_bucket{{le="+Inf"}} {snap["count"]}')
+            out.append(f"{n}_sum {_fmt(snap['sum'])}")
+            out.append(f"{n}_count {snap['count']}")
+        return "\n".join(out) + "\n"
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integral floats render bare."""
+    if float(v) == int(v):
+        return str(int(v))
+    return repr(float(v))
 
 
 #: process-global registry (the go-metrics global sink analog)

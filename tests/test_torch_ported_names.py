@@ -1,7 +1,7 @@
 """Names of the JAX package's modules that the port's copies of those
 modules now carry too (`AdmissionController.offer`, `mock.gpu_node`,
-`_Summary.percentile`, `feasible.check_affinity`), against the
-reference's, on the CPU."""
+`_Summary.percentile`, `feasible.check_affinity`, `Solver.plan_view` /
+`PlanSolverView`), against the reference's, on the CPU."""
 import pytest
 
 from nomad_tpu import mock as ref_mock
@@ -64,3 +64,32 @@ def test_check_affinity_matches_reference(operand, lval, rval, lfound):
     assert port_feasible.check_affinity(*args) == \
         ref_feasible.check_affinity(*args) == \
         port_feasible.check_constraint(*args)
+
+
+def test_plan_view_and_plan_solver_view_are_ported():
+    """`Solver.plan_view()` returns the package's `PlanSolverView`, which
+    pins `_overlay_only` on its solves, never feeds or degrades the
+    world, and rides a world only once one exists, as the reference's
+    does; `solve` / `solve_async` take `_overlay_only`."""
+    import inspect
+
+    from nomad_tpu.solver import solve as ref_solve
+    from nomad_tpu_torch.solver import solve as port_solve
+    from nomad_tpu_torch.state.store import StateStore
+    for mod in (ref_solve, port_solve):
+        for fn in (mod.Solver.solve, mod.Solver.solve_async):
+            assert "_overlay_only" in inspect.signature(fn).parameters
+        assert "overlay_only" in inspect.signature(
+            mod.Solver._resident_pack).parameters
+        for name in ("resident_active", "note_plan_result",
+                     "set_degraded", "solve"):
+            assert name in vars(mod.PlanSolverView), name
+    solver = port_solve.Solver(device="cpu", store=StateStore(),
+                               resident_min_nodes=1)
+    view = solver.plan_view()
+    assert isinstance(view, port_solve.PlanSolverView)
+    assert view.device == solver.device and view.evict_e == solver.evict_e
+    assert view.resident_active() is False
+    assert view.note_plan_result(None, object()) is None
+    view.set_degraded(True)
+    assert solver.degraded is False

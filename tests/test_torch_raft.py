@@ -555,3 +555,91 @@ def test_a_learner_never_campaigns_and_joins_as_a_voter():
     finally:
         for s in servers + [joiner]:
             s.stop()
+
+
+def test_leader_starts_no_thread_per_beat(monkeypatch):
+    """Once a leader's replicators exist, its raft loop and
+    `_replicate_all` only signal them: over 20 heartbeat intervals with
+    a proposal among them, no `threading.Thread.start` is called from
+    `raft/node.py` (a thread per beat stalled the loop in
+    `Thread.start` while another thread held the interpreter); both
+    followers still hold the proposal."""
+    import sys
+    import threading
+    import time
+
+    from nomad_tpu_torch.raft import node as raft_node
+    servers, leader, followers = slow_peer_cluster()
+    try:
+        others = {f.raft.id for f in followers}
+        assert wait_until(
+            lambda: set(leader.raft._replicators) == others, timeout=10)
+        starts = []
+        real_start = threading.Thread.start
+
+        def counting_start(thread):
+            if sys._getframe(1).f_code.co_filename == raft_node.__file__:
+                starts.append(thread.name)
+            return real_start(thread)
+        monkeypatch.setattr(threading.Thread, "start", counting_start)
+        term = leader.raft.term
+        hb = leader.raft.cfg.heartbeat_interval_s
+        time.sleep(10 * hb)
+        leader.upsert_secret("default", "beat/1", {"k": "v"})
+        time.sleep(10 * hb)
+        assert wait_until(lambda: all(f.store.secret_by_path(
+            "default", "beat/1") is not None for f in followers), timeout=10)
+        monkeypatch.undo()
+        assert starts == []
+        assert leader.is_leader() and leader.raft.term == term
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def test_replicator_outlives_a_failed_call():
+    """An append that raises something other than a lost connection
+    (here a follower's handler error) does not end that peer's
+    replicator: the next kick retries and the follower gets the entry."""
+    servers, leader, (flaky, _other) = slow_peer_cluster()
+    try:
+        real = flaky.raft.rpc_append_entries
+        failed = []
+
+        def once(term, ldr, prev_i, prev_t, entries, commit):
+            if entries and not failed:
+                failed.append(1)
+                raise RuntimeError("handler fault")
+            return real(term, ldr, prev_i, prev_t, entries, commit)
+        flaky.raft.rpc_append_entries = once
+        rep = leader.raft._replicators[flaky.raft.id]
+        leader.upsert_secret("default", "flaky/1", {"k": "v"})
+        assert wait_until(lambda: flaky.store.secret_by_path(
+            "default", "flaky/1") is not None, timeout=10)
+        assert failed and all(t.is_alive() for t in rep._threads)
+        assert leader.raft._replicators[flaky.raft.id] is rep
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def test_replication_goes_on_while_the_raft_loop_is_busy():
+    """While the leader's raft loop signals nothing (it runs the
+    leadership callbacks, a new leader's barrier and eval restore), its
+    replicators go on by themselves every heartbeat interval: for three
+    election timeouts no follower campaigns, and an entry proposed
+    meanwhile commits on every member."""
+    import time
+    servers, leader, followers = slow_peer_cluster()
+    try:
+        term = leader.raft.term
+        leader.raft._replicate_all = lambda heartbeat=False: None
+        time.sleep(3 * leader.raft.cfg.election_timeout_s[1] / 2)
+        leader.upsert_secret("default", "busy/1", {"k": "v"})
+        assert wait_until(lambda: all(f.store.secret_by_path(
+            "default", "busy/1") is not None for f in followers), timeout=5)
+        assert leader.is_leader()
+        assert [s.raft.term for s in servers] == [term] * 3
+    finally:
+        for s in servers:
+            s.stop()

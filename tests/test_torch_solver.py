@@ -299,7 +299,16 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.chaos.injection",
                 "nomad_tpu_torch.chaos.supervisor",
                 "nomad_tpu_torch.chaos.invariants",
-                "nomad_tpu_torch.solver.watchdog"]
+                "nomad_tpu_torch.solver.watchdog",
+                "nomad_tpu_torch.api.http_server",
+                "nomad_tpu_torch.api.client",
+                "nomad_tpu_torch.api.ui",
+                "nomad_tpu_torch.utils.monitor",
+                "nomad_tpu_torch.structs.diff",
+                "nomad_tpu_torch.server.search",
+                "nomad_tpu_torch.utils.tracing",
+                "nomad_tpu_torch.utils.metrics",
+                "nomad_tpu_torch.telemetry.series"]
 
 
 def test_import_pulls_in_no_jax():
