@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Phases, one JSON line each; any failed phase exits nonzero:
+Phases, one JSON line each; any failed phase exits nonzero.  They run
+in the order 1-7, 13, 15, 16, then 8-11 in this process while phase 12
+runs in a process of its own (`--phase-12`), then 14.  After each, a
+`timeline` line gives the seconds since the script started.
 
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
   2. build   — nvcc builds the fused wave kernels from
@@ -266,7 +269,8 @@ Phases, one JSON line each; any failed phase exits nonzero:
                most twice the balanced one while the isolated policy
                browns out; must hold).
 
-  12. cluster — the cluster over the wire: the port's
+  12. cluster — (in its own process, beside phases 8-11) the cluster
+               over the wire: the port's
                `rpc.endpoints.serve_cluster(3, num_workers=2)` on
                127.0.0.1 in plaintext, raft at hashicorp/raft's own
                timeouts (election 1-2 s, heartbeat 0.1 s), each server
@@ -326,8 +330,8 @@ Phases, one JSON line each; any failed phase exits nonzero:
                state, no cut: 10,001 nodes, the resident job's 100,000
                allocs): the lifecycle of jobs.  The server's heartbeater
                gets Nomad's options min_heartbeat_ttl 2 s,
-               max_heartbeats_per_second 10,000 and heartbeat_grace 1 s
-               (a missed beat noticed within about 5 s at 10,000 nodes;
+               max_heartbeats_per_second 10,000 and heartbeat_grace 3 s
+               (a missed beat noticed within about 7 s at 10,000 nodes;
                the default 50 beats a second would give a 200 s TTL); one
                thread heartbeats every live node every half second, and
                a `SimClient` runs the allocs of every node an alloc
@@ -412,13 +416,48 @@ Phases, one JSON line each; any failed phase exits nonzero:
                `/v1/trace/:id` of an H1 eval, whose solve span must read
                `backend` "device", `/v1/search`, `/v1/telemetry/health`),
                each answering 200, ms per call.
+  16. agent  — the node agent on phase 7's server after phase 15 (its
+               state, no cut): 4 real `Client`s (`meta.agent = "real"`,
+               each with a data dir of its own under a temp dir, its
+               `StateDB`, the default device registry and its own
+               `HTTPAgentServer`, which advertises
+               `unique.advertise.http`), and a server-only
+               `HTTPAgentServer(srv, None)` through which every job is
+               posted and every remote read goes.  K1: an HCL batch job,
+               count 32, raw_exec, constrained to `${meta.agent} =
+               "real"`, each task echoing its NOMAD_ALLOC_ID: every eval
+               complete, the 32 allocs on the real nodes and complete,
+               each alloc's stdout read through `/v1/client/fs/logs/:id`
+               (forwarded to the owning agent) holds its id; the wall
+               from the POST to the last alloc complete, and each alloc's
+               placement (`create_time`) to its task's start, p50 / p99.
+               K2: a service job, count 1, asking `device "nvidia/gpu"
+               { count = 1 }`, its raw_exec task running `env` then
+               sleeping: each real node advertises what `torch.cuda`
+               reports (one group named `get_device_name(0)` with
+               `device_count()` healthy instances), the config-3 nodes
+               none, so the alloc lands on a real node with an instance
+               assigned, and its stdout read over HTTP holds that
+               instance's CUDA_VISIBLE_DEVICES and NOMAD_DEVICE_GPU.  K3:
+               K2's agent shut down with `halt_tasks=False` and a new
+               `Client` started on the same data dir: the same node id,
+               the task re-attached (the same pid alive, its one
+               executor), the alloc still `running` in the store.  K4:
+               `/v1/client/stats`, `/v1/client/allocation/:id/stats`,
+               `fs/ls` and `fs/cat` of K2's alloc dir, each read on the
+               owning agent and forwarded, ms per call.  Then K2's job is
+               stopped and its pid must be gone.  Checks: `topk` and
+               merge launches in K1 and in K2, every solve span of their
+               evals `backend` "device", no node oversubscribed, and once
+               every client has shut down with `halt_tasks=True`, no
+               task or executor process of the phase alive.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15 as
-`launches_phase5`, `launches_phase7`, `launches_phase8`,
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
+16 as `launches_phase5`, `launches_phase7`, `launches_phase8`,
 `launches_phase9`, `launches_phase10`, `launches_phase11`,
-`launches_phase12`, `launches_phase13`, `launches_phase14` and
-`launches_phase15` beside them),
+`launches_phase12`, `launches_phase13`, `launches_phase14`,
+`launches_phase15` and `launches_phase16` beside them),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -2538,12 +2577,16 @@ def phase_server(torch, wk, n_nodes, resident, n_serial, n_burst,
 # ------------------------------------------------------------ phase 13
 #: Nomad's server options min_heartbeat_ttl, max_heartbeats_per_second and
 #: heartbeat_grace, set on the server's heartbeater so that a node that
-#: stops heartbeating is noticed within about 5 s at 10,000 nodes (a TTL
-#: of 2 s, its stagger of up to 2 s, a grace of 1 s; at Nomad's default
-#: of 50 beats a second the rate-scaled TTL would be 200 s)
+#: stops heartbeating is noticed within about 7 s at 10,000 nodes (a TTL
+#: of 2 s, its stagger of up to 2 s, a grace of 3 s; at Nomad's defaults
+#: of 50 beats a second and a 10 s grace the rate-scaled TTL would be
+#: 200 s).  The grace outlasts a beat round that the server's threads
+#: hold up for 3 s (one thread beats all 10,000 nodes, under one GIL with
+#: the server): with a grace of 1 s such a round once expired 33 live
+#: nodes, and their node-update evals kept leg H from settling
 LIFE_MIN_TTL_S = 2.0
 LIFE_BEATS_PER_S = 10_000.0
-LIFE_GRACE_S = 1.0
+LIFE_GRACE_S = 3.0
 #: the beat thread beats every live node once a period
 LIFE_BEAT_S = 0.5
 #: a simulated client's poll of its node's allocs, and the most clients
@@ -2927,7 +2970,7 @@ def phase_lifecycle(torch, wk, srv):
                              "max_heartbeats_per_second": LIFE_BEATS_PER_S,
                              "heartbeat_grace_s": LIFE_GRACE_S,
                              "why": "a missed beat noticed within about "
-                                    "5 s at 10,000 nodes; Nomad's 50 beats "
+                                    "7 s at 10,000 nodes; Nomad's 50 beats "
                                     "a second give a 200 s TTL"},
                "clients": f"SimClients on the nodes the phase's allocs "
                           f"land on (at most {LIFE_MAX_CLIENTS}), one "
@@ -3535,6 +3578,387 @@ def phase_api(torch, wk, srv, leg_a):
             if not was:
                 w.paused.clear()
         http.stop()
+    row.update(seconds=time.perf_counter() - t_phase,
+               launches={m: total[m] for m in ("score", "topk", "merge")})
+    emit(row)
+    return row["launches"]
+
+
+# ------------------------------------------------------------ phase 16
+#: the real agents, K1's batch job and K2's device job
+AGENTS = 4
+AGENT_DC = "dc0"
+AGENT_K1_COUNT = 32
+AGENT_WAIT_S = 120.0
+AGENT_POLL_S = 0.05
+
+
+def agent_hcl(name, count, batch, args, device=False):
+    """Phase 16's HCL jobspecs: one group of raw_exec tasks on the real
+    agents (K1: a batch job constrained to `meta.agent`; K2: a service
+    job that asks for one GPU, which only the real agents offer)."""
+    head = ('type = "batch"\n  constraint {\n    attribute = '
+            '"${meta.agent}"\n    value = "real"\n  }' if batch else
+            'type = "service"')
+    dev = '\n        device "nvidia/gpu" { count = 1 }' if device else ""
+    argv = ", ".join(json.dumps(a) for a in args)
+    return f"""
+job "{name}" {{
+  datacenters = ["{AGENT_DC}"]
+  {head}
+  group "g" {{
+    count = {count}
+    restart {{ attempts = 0  mode = "fail" }}
+    reschedule {{ attempts = 0  unlimited = false }}
+    task "t" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args    = [{argv}]
+      }}
+      resources {{
+        cpu    = 100
+        memory = 64{dev}
+      }}
+    }}
+  }}
+}}
+"""
+
+
+def phase_procs(root):
+    """The live (not zombie) processes whose command line names `root`
+    or whose working directory is under it: the phase's executors (their
+    spec file is under an agent's data dir) and tasks (they run in their
+    task dir)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            if state in ("Z", "X"):
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            cwd = os.readlink(f"/proc/{d}/cwd")
+        except OSError:
+            continue
+        if root in cmd or cwd.startswith(root):
+            out.append((int(d), cmd.strip()))
+    return out
+
+
+def pid_running(pid):
+    """`pid` exists and is no zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except OSError:
+        return False
+
+
+def phase_agent(torch, wk, srv):
+    """Phase 16 on phase 7's server after phase 15 (its state, no cut):
+    the node agent.  4 real `Client`s with raw_exec and the card's device
+    plugin, each behind its own HTTP agent; K1 a batch job over HTTP, K2
+    a GPU ask, K3 a restart that re-attaches, K4 the agent client's
+    routes, locally and forwarded.  Returns the launch counts."""
+    import shutil
+    import tempfile
+    from nomad_tpu_torch import structs
+    from nomad_tpu_torch.api import APIError, ApiClient, HTTPAgentServer
+    from nomad_tpu_torch.client.agent import Client
+    from nomad_tpu_torch.plugins.device import default_device_registry
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    t_phase = time.perf_counter()
+    ns = structs.DEFAULT_NAMESPACE
+    root = tempfile.mkdtemp(prefix="nomad-agents-")
+    row = {"phase": "agent", "agents": AGENTS,
+           "nodes": len(srv.store.nodes())}
+    legs = {}
+    total = collections.Counter()
+    clients, https = [], []
+    server_http = HTTPAgentServer(srv, None, port=0)
+    server_http.start()
+    api = ApiClient(address=server_http.address, timeout=AGENT_WAIT_S)
+
+    def launches():
+        torch.cuda.synchronize()
+        return dict(wk.fused_wave.mode_launches)
+
+    def timed(fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def start_agent(i):
+        c = Client(srv, data_dir=os.path.join(root, f"agent{i}"),
+                   datacenter=AGENT_DC, meta={"agent": "real"},
+                   device_registry=default_device_registry())
+        c.start()
+        h = HTTPAgentServer(srv, c, port=0)
+        h.start()
+        return c, h
+
+    def wait(pred, what, timeout=AGENT_WAIT_S):
+        deadline = time.perf_counter() + timeout
+        while not pred():
+            check(time.perf_counter() < deadline,
+                  f"agent: {what} after {timeout} s")
+            time.sleep(AGENT_POLL_S)
+
+    def register(hcl):
+        """POST a jobspec and follow its eval to complete: (eval id, ms
+        from the POST to complete, the eval's split by trace span)."""
+        t = time.perf_counter()
+        resp = api.jobs.register(api.jobs.parse(hcl))
+        ev = api_eval_done(api, resp["eval_id"])
+        ms = 1e3 * (time.perf_counter() - t)
+        check(ev["status"] == "complete",
+              f"agent: eval {ev['status']} ({ev.get('status_description')})")
+        return resp["eval_id"], ms, eval_split(global_tracer,
+                                               resp["eval_id"])[0]
+
+    def solve_backends(eval_ids):
+        out = []
+        for e in eval_ids:
+            tr, _ = api.get(f"/v1/trace/{e}")
+            out += [s["attrs"].get("backend") for s in tr["spans"]
+                    if s["name"] == "solve"]
+        return out
+
+    def kernel_ran(leg, counts, backends):
+        check(counts["topk"] > 0 and counts["merge"] > 0,
+              f"{leg}: no topk / merge launch {counts}")
+        check(backends and all(b == "device" for b in backends),
+              f"{leg}: solve spans ran on {backends}")
+
+    try:
+        t0 = time.perf_counter()
+        idx0 = srv.store.latest_index()
+        for i in range(AGENTS):
+            c, h = start_agent(i)
+            clients.append(c)
+            https.append(h)
+        real = {c.node.id for c in clients}
+        wait(lambda: all(srv.store.node_by_id(n) is not None
+                         and srv.store.node_by_id(n).attributes.get(
+                             "unique.advertise.http") for n in real),
+             "the real agents registered")
+        row["start_ms"] = 1e3 * (time.perf_counter() - t0)
+        # the joins unblock what earlier phases left to blocked evals:
+        # let those run before K1, so that K1 measures the agents' path
+        # and not a queue of other jobs' evals and plans
+        t = time.perf_counter()
+        settled = settle(srv, structs, "agent: the real agents' joins",
+                         idx0)
+        row["join_settle"] = {"s": time.perf_counter() - t,
+                              "evals": len(settled)}
+
+        # ---- K1: a raw_exec batch job over HTTP on the real agents
+        zero_launches(torch, wk)
+        t_post = time.perf_counter()
+        k1_eval, k1_eval_ms, k1_split = register(agent_hcl(
+            "agent-k1", AGENT_K1_COUNT, True,
+            ["-c", "echo alloc=$NOMAD_ALLOC_ID"]))
+
+        def k1_allocs():
+            return srv.store.allocs_by_job(ns, "agent-k1")
+        wait(lambda: len(k1_allocs()) == AGENT_K1_COUNT and all(
+            a.client_status == structs.ALLOC_CLIENT_COMPLETE
+            for a in k1_allocs()), "K1's allocs complete")
+        k1_wall = 1e3 * (time.perf_counter() - t_post)
+        k1_counts = launches()
+        allocs = k1_allocs()
+        check(all(a.node_id in real for a in allocs),
+              "K1: an alloc off the real agents")
+        start_ms = [1e3 * (a.task_states["t"].started_at - a.create_time)
+                    for a in allocs]
+        read_ms = []
+        for a in allocs:
+            out, ms = timed(api.allocations.logs, a.id, task="t")
+            read_ms.append(ms)
+            check(f"alloc={a.id}" in out,
+                  f"K1: alloc {a.id}'s stdout reads {out!r}")
+        k1_backends = solve_backends([k1_eval])
+        kernel_ran("K1", k1_counts, k1_backends)
+        nodes_fit(srv, structs, "K1")
+        legs["K1"] = {"count": AGENT_K1_COUNT, "wall_ms": k1_wall,
+                      "eval_ms": k1_eval_ms, "eval_split_ms": k1_split,
+                      "start_p50_ms": pct(start_ms, 0.5),
+                      "start_p99_ms": pct(start_ms, 0.99),
+                      "start_ms": start_ms,
+                      "per_agent": dict(collections.Counter(
+                          a.node_id[:8] for a in allocs)),
+                      "log_read_p50_ms": pct(read_ms, 0.5),
+                      "log_read_p99_ms": pct(read_ms, 0.99),
+                      "launches": k1_counts, "solve_backends": k1_backends}
+        total.update(k1_counts)
+        emit({"phase": "agent", "leg": "K1", **legs["K1"]})
+
+        # ---- K2: a device ask, which only the real agents offer
+        name0, n_dev = (torch.cuda.get_device_name(0),
+                        torch.cuda.device_count())
+        for n in real:
+            groups = srv.store.node_by_id(n).node_resources.devices
+            check([(g.vendor, g.type, g.name, len(g.instances),
+                    all(i.healthy for i in g.instances)) for g in groups]
+                  == [("nvidia", "gpu", name0, n_dev, True)],
+                  f"K2: node {n[:8]} advertises {groups}")
+        others = [x.id for x in srv.store.nodes()
+                  if x.id not in real and x.node_resources.devices]
+        check(not others, f"K2: {len(others)} other nodes offer devices")
+        zero_launches(torch, wk)
+        t_post = time.perf_counter()
+        k2_eval, k2_eval_ms, k2_split = register(agent_hcl(
+            "agent-k2", 1, False,
+            ["-c", "env; exec sleep 600"], device=True))
+
+        def k2_alloc():
+            live = [a for a in srv.store.allocs_by_job(ns, "agent-k2")
+                    if not a.terminal_status()]
+            return live[0] if len(live) == 1 else None
+        wait(lambda: k2_alloc() is not None and k2_alloc().client_status
+             == structs.ALLOC_CLIENT_RUNNING, "K2's alloc running")
+        k2_wall = 1e3 * (time.perf_counter() - t_post)
+        k2_counts = launches()
+        alloc = k2_alloc()
+        check(alloc.node_id in real, "K2: the alloc is off the real agents")
+        k2_start = 1e3 * (alloc.task_states["t"].started_at
+                          - alloc.create_time)
+        devs = alloc.allocated_resources.tasks["t"].devices
+        check(len(devs) == 1 and len(devs[0].device_ids) == 1
+              and (devs[0].vendor, devs[0].type, devs[0].name)
+              == ("nvidia", "gpu", name0), f"K2: devices assigned {devs}")
+        inst = devs[0].device_ids[0]
+        want = {"CUDA_VISIBLE_DEVICES": inst.rsplit("-", 1)[1],
+                "NOMAD_DEVICE_GPU": inst}
+        seen = {}
+
+        def env_read():
+            text = api.allocations.logs(alloc.id, task="t")
+            seen.update(line.split("=", 1) for line in text.splitlines()
+                        if line.split("=", 1)[0] in want)
+            return len(seen) == len(want)
+        wait(env_read, "K2's env in its stdout", timeout=30.0)
+        check(seen == want, f"K2: the task saw {seen}, want {want}")
+        k2_backends = solve_backends([k2_eval])
+        kernel_ran("K2", k2_counts, k2_backends)
+        nodes_fit(srv, structs, "K2")
+        legs["K2"] = {"wall_ms": k2_wall, "eval_ms": k2_eval_ms,
+                      "eval_split_ms": k2_split, "start_ms": k2_start,
+                      "device": name0,
+                      "instances": n_dev,
+                      "node": alloc.node_id[:8], "instance": inst,
+                      "env": seen, "launches": k2_counts,
+                      "solve_backends": k2_backends}
+        total.update(k2_counts)
+        emit({"phase": "agent", "leg": "K2", **legs["K2"]})
+
+        # ---- K3: K2's agent restarts and re-attaches
+        i = next(k for k, c in enumerate(clients) if c.node.id
+                 == alloc.node_id)
+        old = clients[i]
+        tr = old.get_alloc_runner(alloc.id).task_runners[0]
+        ds = dict(tr.handle.driver_state)
+        pid, exe_pid = ds["pid"], ds["executor_pid"]
+        spec = os.path.join(tr.alloc_dir.task_dir("t"), ".executor",
+                            "spec.json")
+        index0 = srv.store.alloc_by_id(alloc.id).modify_index
+        t_down = time.perf_counter()
+        https[i].stop()
+        old.shutdown(halt_tasks=False)
+        down_ms = 1e3 * (time.perf_counter() - t_down)
+        check(pid_running(pid), "K3: the task died with its agent")
+        t_up = time.perf_counter()
+        clients[i], https[i] = start_agent(i)
+        new = clients[i]
+        check(new.node.id == old.node.id,
+              f"K3: node id {new.node.id} after restart, was {old.node.id}")
+
+        def attached():
+            r = new.get_alloc_runner(alloc.id)
+            return (r is not None and r.task_runners[0].handle is not None)
+        wait(attached, "K3: the task re-attached", timeout=30.0)
+        reattach_ms = 1e3 * (time.perf_counter() - t_up)
+        tr2 = new.get_alloc_runner(alloc.id).task_runners[0]
+        check(tr2.handle.driver_state["pid"] == pid and pid_running(pid),
+              f"K3: re-attached to pid {tr2.handle.driver_state['pid']}, "
+              f"the task's was {pid}")
+        check(tr2.task_state().restarts == 0, "K3: the task was re-run")
+        executors = [p for p, cmd in phase_procs(root) if spec in cmd]
+        check(executors == [exe_pid],
+              f"K3: executors {executors}, the task's was {exe_pid}")
+        wait(lambda: srv.store.alloc_by_id(alloc.id).modify_index > index0,
+             "K3: the restored runner's first update", timeout=30.0)
+        check(srv.store.alloc_by_id(alloc.id).client_status
+              == structs.ALLOC_CLIENT_RUNNING,
+              f"K3: the alloc is {srv.store.alloc_by_id(alloc.id)}"
+              ".client_status after the restart")
+        legs["K3"] = {"node": alloc.node_id[:8], "pid": pid,
+                      "executor_pid": exe_pid, "shutdown_ms": down_ms,
+                      "reattach_ms": reattach_ms,
+                      "executors_for_task": len(executors)}
+
+        # ---- K4: the agent client's routes, on the owner and forwarded
+        local = ApiClient(address=https[i].address, timeout=AGENT_WAIT_S)
+        calls = {}
+        for where, a in (("local", local), ("forwarded", api)):
+            st, calls[f"host_stats_{where}"] = timed(
+                a.nodes.stats, "" if where == "local" else alloc.node_id)
+            check(st["memory"].get("total", 0) > 0,
+                  f"K4: host stats {where} {sorted(st)}")
+            ast, calls[f"alloc_stats_{where}"] = timed(
+                a.allocations.stats, alloc.id)
+            ts = ast["tasks"]["t"]
+            check(ts and ts["pid"] == pid and ts["num_procs"] >= 1,
+                  f"K4: alloc stats {where} {ast}")
+            ls, calls[f"fs_ls_{where}"] = timed(a.allocations.fs_ls,
+                                                alloc.id, "/")
+            check({"alloc", "t"} <= {e["name"] for e in ls},
+                  f"K4: fs ls {where} {ls}")
+            cat, calls[f"fs_cat_{where}"] = timed(
+                a.allocations.fs_cat, alloc.id, "alloc/logs/t.stdout.0")
+            check(f"NOMAD_DEVICE_GPU={inst}".encode() in cat,
+                  f"K4: fs cat {where} read {len(cat)} bytes")
+        legs["K4"] = {"ms": calls}
+        emit({"phase": "agent", "leg": "K4", **legs["K4"]})
+
+        # K3's end: stop the job; the re-attached task goes with it
+        t_stop = time.perf_counter()
+        api.jobs.deregister("agent-k2")
+        wait(lambda: not pid_running(pid), "K3: the pid gone after stop",
+             timeout=60.0)
+        legs["K3"]["stop_ms"] = 1e3 * (time.perf_counter() - t_stop)
+        emit({"phase": "agent", "leg": "K3", **legs["K3"]})
+        nodes_fit(srv, structs, "K3")
+    except APIError as e:
+        row.update(failed=f"agent: {e}", legs=sorted(legs))
+        emit(row)
+        raise PhaseError(f"agent: {e}") from None
+    except PhaseError as e:
+        row.update(failed=str(e), legs=sorted(legs))
+        emit(row)
+        raise
+    finally:
+        import threading
+        for h in https:
+            h.stop()
+        # each agent's shutdown waits out its alloc watch's long poll:
+        # all of them at once
+        downs = [threading.Thread(target=c.shutdown, args=(True,))
+                 for c in clients]
+        for t in downs:
+            t.start()
+        for t in downs:
+            t.join()
+        server_http.stop()
+    left = phase_procs(root)
+    shutil.rmtree(root, ignore_errors=True)
+    check(not left, f"agent: processes of the phase alive after shutdown: "
+          f"{left[:4]}")
     row.update(seconds=time.perf_counter() - t_phase,
                launches={m: total[m] for m in ("score", "topk", "merge")})
     emit(row)
@@ -6139,6 +6563,63 @@ def watchdog_quiet(what):
     check(not evs, f"{what}: watchdog events {evs}")
 
 
+#: the script's start (main; wall clock, which phase 12's process
+#: shares), for the timeline lines
+SCRIPT_T0 = [None]
+#: the longest wait for phase 12's process once phase 11 has ended
+PHASE_12_WAIT_S = 600
+
+
+def timeline(what):
+    """A timeline line: the seconds from the script's start to the end of
+    `what`."""
+    emit({"phase": "timeline", "after": what,
+          "t_s": time.time() - SCRIPT_T0[0]})
+
+
+def start_phase_12():
+    """Phase 12 in a process of its own (this script with `--phase-12`),
+    started once phase 16 has ended so that it runs beside phases 8-11:
+    its three servers are one process's threads, and they and the
+    phases that follow phase 16 share no state.  Its output goes to a
+    temporary file until `finish_phase_12`."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase-12",
+         repr(SCRIPT_T0[0])], stdout=out, cwd=HERE)
+    return proc, out
+
+
+def finish_phase_12(proc, out):
+    """Wait for phase 12's process, print its lines and return the launch
+    counts it read; the phase fails if the process did not exit 0 within
+    PHASE_12_WAIT_S or gave no counts."""
+    try:
+        rc = proc.wait(timeout=PHASE_12_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    counts = None
+    for line in out.read().splitlines():
+        if line.startswith('{"phase": "cluster_launches"'):
+            counts = json.loads(line)["launches"]
+        else:
+            print(line, flush=True)
+    out.close()
+    check(rc == 0 and counts is not None,
+          f"phase 12's process ended with {rc} and counts {counts}")
+    return counts
+
+
+def phase_done(what):
+    """`watchdog_quiet(what)`, then `timeline(what)`."""
+    watchdog_quiet(what)
+    timeline(what)
+
+
 def watchdog_threads():
     import threading
     return [t for t in threading.enumerate()
@@ -6586,46 +7067,71 @@ def main() -> int:
                     help="also time the fused wave kernel of the checkout "
                     "at DIR (e.g. the parent commit), kernel-only, in "
                     "turns with this tree's")
+    ap.add_argument("--phase-12", type=float, metavar="T0",
+                    help="run phase 12 alone, its timeline from T0 (the "
+                    "script's start, wall clock): the script's own "
+                    "process for it")
     args = ap.parse_args()
+    SCRIPT_T0[0] = time.time() if args.phase_12 is None else args.phase_12
     sys.path.insert(0, HERE)
     from nomad_tpu_torch.solver import wave_kernel as wk
+    if args.phase_12 is not None:
+        counts12 = phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT)
+        phase_done("phase 12")
+        emit({"phase": "cluster_launches", "launches": counts12})
+        # the phase stopped every server it started: the interpreter's
+        # teardown of its objects (about 40 s on the H100 machine's
+        # host) is skipped
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
 
     card = phase_device(torch)
     phase_build(wk)
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
-    watchdog_quiet("phases 1-3")
+    phase_done("phases 1-3")
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
-    watchdog_quiet("phase 4")
+    phase_done("phase 4")
     counts5 = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
                              BATCH_COUNT)
-    watchdog_quiet("phase 5")
+    phase_done("phase 5")
     counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
                                        N_SERVICE_EVALS, BATCH_COUNT)
-    watchdog_quiet("phase 6")
-    # phases 13 and 15 run on phase 7's server, after phase 7's checks
-    def lifecycle_then_api(srv, row7):
+    phase_done("phase 6")
+    # phases 13, 15 and 16 run on phase 7's server, after phase 7's
+    # checks
+    def lifecycle_api_agent(srv, row7):
         counts13 = phase_lifecycle(torch, wk, srv)
-        watchdog_quiet("phases 7 and 13")
-        return counts13, phase_api(torch, wk, srv, row7["leg_a"])
+        phase_done("phases 7 and 13")
+        counts15 = phase_api(torch, wk, srv, row7["leg_a"])
+        phase_done("phase 15")
+        return counts13, counts15, phase_agent(torch, wk, srv)
 
-    counts7, calls7, _row7, (counts13, counts15) = phase_server(
+    counts7, calls7, _row7, (counts13, counts15, counts16) = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
-        BATCH_COUNT, phase6=row6["service"], then=lifecycle_then_api)
-    watchdog_quiet("phase 15")
-    counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
-                            N_PREEMPT_JOBS)
-    watchdog_quiet("phase 8")
-    counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
-                                          N_STREAM_EVALS)
-    watchdog_quiet("phase 9")
-    counts10 = phase_host_route(torch, wk)
-    watchdog_quiet("phase 10")
-    counts11, calls11, _legs11 = phase_mesh(torch, wk)
-    watchdog_quiet("phase 11")
-    counts12 = phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT)
-    watchdog_quiet("phase 12")
+        BATCH_COUNT, phase6=row6["service"], then=lifecycle_api_agent)
+    phase_done("phase 16")
+    proc12, out12 = start_phase_12()
+    try:
+        counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
+                                N_PREEMPT_JOBS)
+        phase_done("phase 8")
+        counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
+                                              N_STREAM_EVALS)
+        phase_done("phase 9")
+        counts10 = phase_host_route(torch, wk)
+        phase_done("phase 10")
+        counts11, calls11, _legs11 = phase_mesh(torch, wk)
+        phase_done("phase 11")
+        counts12 = finish_phase_12(proc12, out12)
+        timeline("phase 12's process")
+    finally:
+        if proc12.poll() is None:
+            proc12.kill()
+            proc12.wait()
     counts14 = phase_chaos(torch, wk)
+    timeline("phase 14")
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -6670,6 +7176,7 @@ def main() -> int:
             "launches_phase13": counts13[mode],
             "launches_phase14": counts14[mode],
             "launches_phase15": counts15[mode],
+            "launches_phase16": counts16[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -6691,6 +7198,7 @@ def main() -> int:
         if s_case in kern:
             kernels[-1]["stream"] = {k: kern[s_case][k] for k in keys
                                      if k in kern[s_case]}
+    timeline("the kernels on the phases' arguments")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

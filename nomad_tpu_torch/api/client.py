@@ -10,7 +10,7 @@ the address, token and TLS settings are constructor arguments (the
 reference's `NOMAD_ADDR`, `NOMAD_TOKEN` and `NOMAD_CACERT` /
 `NOMAD_CLIENT_CERT` / `NOMAD_CLIENT_KEY` come with the CLI, ROADMAP.md
 item 15), and the interactive exec stream (`exec_stream`, over a
-websocket) comes with the agent client, item 16.  `text` reads a route
+websocket) comes with the `exec` driver, item 16b.  `text` reads a route
 that answers plain text (the Prometheus exposition).
 """
 from __future__ import annotations

@@ -11,11 +11,14 @@ The counterpart of `nomad_tpu.api.http_server`, over the port's
 `Server`.  The what-if plan (`/v1/job/:id/plan`) solves through the
 first worker's `Solver.plan_view()`, on the server's device and its
 kernels; the solver profile (`/v1/agent/pprof/profile?mode=solver`)
-records with `torch.profiler` and exports a Chrome trace.  The routes
-that need the agent client (`/v1/client/fs/*`, `/v1/client/stats`,
-`/v1/client/allocation/*/stats`, `/v1/client/allocation/*/exec` and
-its websocket, `/v1/client/csi/plugin/*`) come with it (ROADMAP.md
-item 16); until then they answer the unknown-route 404.
+records with `torch.profiler` and exports a Chrome trace.  With a node
+agent (`client=`) the agent client's routes answer (`/v1/client/fs/*`,
+`/v1/client/stats`, `/v1/client/allocation/*/stats`), each forwarded to
+the alloc's or node's owning agent by its advertised
+`unique.advertise.http`.  Interactive exec (`/v1/client/allocation/*/exec`
+and its websocket) and CSI plugin registration (`/v1/client/csi/plugin/*`)
+come with the `exec` driver and CSI (ROADMAP.md Queue 1 item 16b); until
+then they answer the unknown-route 404.
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ from ..server.server import JobValidationError
 from ..structs import Evaluation, Job, Plan, PlanResult
 from ..utils.codec import from_wire, to_wire
 from ..utils.metrics import global_metrics
+
+import logging
+
+_log = logging.getLogger(__name__)
 
 MAX_BLOCK_S = 300.0     # reference: nomad/rpc.go:35 maxQueryTime
 #: the Chrome trace the solver profile writes into its artifact directory
@@ -204,6 +211,27 @@ class HTTPAgentServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
+        # advertise this agent's HTTP address on its node so any server
+        # can route client endpoints (logs/exec/fs/stats) to the owning
+        # agent (reference: servers reach clients over persistent
+        # nodeConns, nomad/server.go:151-153 + nomad/client_rpc.go; the
+        # TPU build routes over the agent HTTP surface instead — unique.
+        # prefix keeps it out of the computed class)
+        if self.client is not None:
+            host, port = self._httpd.server_address[:2]
+            if host in ("0.0.0.0", "::", ""):
+                # wildcard bind: advertise the node's fingerprinted
+                # address so cross-host routing reaches THIS machine
+                nets = self.client.node.node_resources.networks
+                host = (nets[0].ip if nets and nets[0].ip
+                        else "127.0.0.1")
+            self.client.node.attributes["unique.advertise.http"] = \
+                f"{host}:{port}"
+            try:
+                self.client.servers.register_node(self.client.node)
+            except Exception:
+                _log.warning("could not re-register node with advertise "
+                             "address", exc_info=True)
 
     def stop(self) -> None:
         self._httpd.shutdown()
@@ -226,19 +254,62 @@ class HTTPAgentServer:
             # so an encoded '/' (dispatched child ids embed one:
             # <parent>/dispatch-<...>) routes as one segment but reaches
             # the handler as the real id (reference: the agent mux
-            # handles these ids the same way).
-            self._enforce_acl(method, url.path, q, body, token)
+            # handles these ids the same way).  The ACL check receives
+            # each segment decoded the same way so it authorizes the
+            # exact id the handler will act on.
+            segs = [unquote(s) for s in url.path.split("/")]
+            self._enforce_acl(method, url.path, q, body, token, segs)
             self._tl.token = token
             return fn(q, body, *(unquote(g) for g in m.groups()))
         raise HTTPError(404, f"no handler for {url.path}")
 
+    def _valid_migrate_token(self, alloc_prefix: str, token: str) -> bool:
+        """Does `token` authorize disk-migration reads of this alloc?
+        HMAC under the OWNING node's secret (structs.funcs
+        generate_migrate_token)."""
+        if not token:
+            return False
+        from ..structs.funcs import compare_migrate_token
+        alloc = self.server.store.alloc_by_id(alloc_prefix)
+        if alloc is None:
+            return False
+        node = self.server.store.node_by_id(alloc.node_id)
+        if node is None or not node.secret_id:
+            # never verify under a missing/empty secret — an empty HMAC
+            # key would make the token forgeable from the alloc id
+            return False
+        return compare_migrate_token(alloc.id, node.secret_id, token)
+
+    def _alloc_namespace(self, prefix: str) -> str:
+        """Namespace of the alloc a client endpoint will act on; an
+        AMBIGUOUS prefix is rejected here so the capability check can
+        never authorize against a different alloc than the handler
+        resolves (both layers demand uniqueness)."""
+        exact = self.server.store.alloc_by_id(prefix)
+        if exact is not None:
+            return exact.namespace
+        matches = {al.namespace for al in self.server.store.allocs()
+                   if al.id.startswith(prefix)}
+        if len(matches) > 1:
+            raise HTTPError(400, f"ambiguous alloc prefix {prefix!r}")
+        return next(iter(matches), "default")
+
     def _enforce_acl(self, method: str, path: str, q, body,
-                     token: str) -> None:
+                     token: str, segs=None) -> None:
         """Route-class capability checks (reference: each agent endpoint
         resolves the token and asserts one capability — e.g.
         job_endpoint.go requires submit-job to register, read-job to
         get). Disabled servers skip enforcement entirely."""
         if not self.acl_enabled or path == "/v1/acl/bootstrap":
+            return
+        if segs is None:
+            segs = path.split("/")
+        # a migrate token is not an ACL token: it authorizes exactly
+        # one alloc's fs reads for disk migration (reference:
+        # fs_endpoint.go CompareMigrateToken) and is checked before
+        # token resolution
+        if (path.startswith("/v1/client/fs/")
+                and self._valid_migrate_token(segs[-1], token)):
             return
         from ..acl import acl as aclmod
         a = self.server.resolve_token(token) if token else None
@@ -266,6 +337,37 @@ class HTTPAgentServer:
             return
         write = (method in ("POST", "PUT", "DELETE")
                  and path != "/v1/search")
+        if path.startswith("/v1/client/fs/logs/"):
+            # task logs often carry secrets: require read-logs in the
+            # ALLOC's namespace (resolved server-side, not caller-said)
+            target_ns = self._alloc_namespace(segs[-1])
+            if not a.allow_namespace_op(target_ns,
+                                        aclmod.CAP_READ_LOGS):
+                raise HTTPError(403, "missing capability read-logs")
+            return
+        if path.startswith("/v1/client/fs/"):
+            # ls/stat/cat/readat/stream over the alloc dir: read-fs in
+            # the alloc's namespace (reference: fs_endpoint.go ACL), OR
+            # a migrate token scoped to exactly this alloc — the
+            # replacement alloc's disk-migration read authority
+            # (reference: fs_endpoint.go checks CompareMigrateToken)
+            target_ns = self._alloc_namespace(segs[-1])
+            if not a.allow_namespace_op(target_ns, aclmod.CAP_READ_FS):
+                raise HTTPError(403, "missing capability read-fs")
+            return
+        if (path == "/v1/client/stats"
+                or path.endswith("/stats")
+                and path.startswith("/v1/client/allocation/")):
+            # host stats = node:read; alloc stats = read-job in ns
+            if path == "/v1/client/stats":
+                if not a.allow_node_read():
+                    raise HTTPError(403, "node permission denied")
+            else:
+                target_ns = self._alloc_namespace(segs[4])
+                if not a.allow_namespace_op(target_ns,
+                                            aclmod.CAP_READ_JOB):
+                    raise HTTPError(403, "missing capability read-job")
+            return
         if path.startswith("/v1/secret"):
             # secrets are write-class EVEN TO READ: a read-only job
             # token must not exfiltrate raw secret values
@@ -1016,6 +1118,271 @@ class HTTPAgentServer:
                      "truncations": truncations}, \
             self.server.store.latest_index()
 
+    def client_logs(self, q, body, alloc_id):
+        """Task log contents (reference: client/fs_endpoint.go logs;
+        plain read of the alloc dir's rotated log files, ?task= and
+        ?type=stdout|stderr, tail via ?offset/?limit or ?tail_lines).
+        Routed to the owning agent when the alloc is not local."""
+        remote = self._client_route(alloc_id, q)
+        if remote is not None:
+            return self._proxy_client_http(
+                remote, "GET", f"/v1/client/fs/logs/{alloc_id}", q, None)
+        runner = self._local_runner(alloc_id)
+        names = [t.name for t in
+                 (runner.alloc.job.lookup_task_group(
+                     runner.alloc.task_group).tasks
+                  if runner.alloc.job else [])]
+        task = q.get("task")
+        if not task:
+            if len(names) != 1:
+                raise HTTPError(400, "specify ?task= (multiple tasks)")
+            task = names[0]
+        elif task not in names:
+            # also forecloses path traversal through the task name
+            raise HTTPError(404, f"unknown task {task!r}")
+        kind = q.get("type", "stdout")
+        if kind not in ("stdout", "stderr"):
+            raise HTTPError(400, "type must be stdout|stderr")
+        path = (runner.alloc_dir.stdout_path(task) if kind == "stdout"
+                else runner.alloc_dir.stderr_path(task))
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:
+            data = b""
+        tail = q.get("tail_lines")
+        if tail:
+            try:
+                n = int(tail)
+                if n <= 0:
+                    raise ValueError
+            except ValueError:
+                raise HTTPError(400, "tail_lines must be a positive int")
+            data = b"\n".join(data.splitlines()[-n:])
+        text = data.decode("utf-8", errors="replace")
+        return 200, {"task": task, "type": kind, "data": text,
+                     "size": len(data)}, None
+
+    # ---------------------------------------------- fs + stats surface
+    def _local_runner(self, alloc_id: str):
+        """The local alloc runner for an id/prefix, or 404."""
+        if self.client is None:
+            raise HTTPError(400, "no client agent on this node")
+        runner = self.client.get_alloc_runner(alloc_id)
+        if runner is None:
+            matches = [r for aid, r in list(self.client.runners.items())
+                       if aid.startswith(alloc_id)]
+            if len(matches) != 1:
+                raise HTTPError(404, f"alloc {alloc_id} not on node")
+            runner = matches[0]
+        return runner
+
+    def _fs_call(self, q, alloc_id: str, verb: str, fn):
+        """Route-or-serve shared shell for the fs verbs (reference:
+        command/agent/fs_endpoint.go dispatching to the owning client
+        via server RPC)."""
+        from ..client import fs as fsmod
+        remote = self._client_route(alloc_id, q)
+        if remote is not None:
+            return self._proxy_client_http(
+                remote, "GET", f"/v1/client/fs/{verb}/{alloc_id}",
+                q, None)
+        runner = self._local_runner(alloc_id)
+        try:
+            return fn(fsmod, runner)
+        except fsmod.FSError as e:
+            raise HTTPError(e.code, e.msg)
+
+    def client_fs_ls(self, q, body, alloc_id):
+        """Directory listing inside the alloc dir (reference:
+        client/fs_endpoint.go List)."""
+        return self._fs_call(q, alloc_id, "ls", lambda fsmod, r: (
+            200, {"files": fsmod.list_dir(r.alloc_dir.root,
+                                          q.get("path", "/"))}, None))
+
+    def client_fs_stat(self, q, body, alloc_id):
+        """Stat one path (reference: client/fs_endpoint.go Stat)."""
+        return self._fs_call(q, alloc_id, "stat", lambda fsmod, r: (
+            200, {"file": fsmod.stat_path(r.alloc_dir.root,
+                                          q.get("path", "/"))}, None))
+
+    def client_fs_cat(self, q, body, alloc_id):
+        """Whole-file read (reference: fs_endpoint.go Cat) — base64 in
+        JSON so it survives the routing proxy byte-exact.  `size` is
+        the FILE's size and `truncated` is explicit so callers can
+        page the remainder with readat (the SDK does)."""
+        import base64
+
+        def run(fsmod, r):
+            st = fsmod.stat_path(r.alloc_dir.root, q.get("path", "/"))
+            data = fsmod.read_at(r.alloc_dir.root, q.get("path", "/"),
+                                 0, 1 << 24)
+            return 200, {"data": base64.b64encode(data).decode(),
+                         "encoding": "base64", "size": st["size"],
+                         "truncated": len(data) < st["size"]}, None
+        return self._fs_call(q, alloc_id, "cat", run)
+
+    def client_fs_readat(self, q, body, alloc_id):
+        """Bounded range read (reference: fs_endpoint.go ReadAt)."""
+        import base64
+
+        def run(fsmod, r):
+            try:
+                offset = int(q.get("offset", 0))
+                limit = int(q.get("limit", 1 << 20))
+            except ValueError:
+                raise HTTPError(400, "offset/limit must be integers")
+            data = fsmod.read_at(r.alloc_dir.root, q.get("path", "/"),
+                                 offset, limit)
+            return 200, {"data": base64.b64encode(data).decode(),
+                         "encoding": "base64", "offset": offset,
+                         "size": len(data)}, None
+        return self._fs_call(q, alloc_id, "readat", run)
+
+    def client_fs_stream(self, q, body, alloc_id):
+        """Follow a growing file: long-poll returning bytes past
+        ?offset (reference: fs_endpoint.go Stream's follow frames,
+        JSON-framed so it routes like everything else)."""
+        import base64
+
+        def run(fsmod, r):
+            try:
+                offset = int(q.get("offset", 0))
+                wait_s = float(q.get("wait", 2.0))
+            except ValueError:
+                raise HTTPError(400, "offset/wait must be numeric")
+            res = fsmod.stream_from(r.alloc_dir.root,
+                                    q.get("path", "/"), offset, wait_s)
+            return 200, {"data": base64.b64encode(res["data"]).decode(),
+                         "encoding": "base64",
+                         "offset": res["offset"],
+                         "size": res["size"]}, None
+        return self._fs_call(q, alloc_id, "stream", run)
+
+    def client_host_stats(self, q, body):
+        """Host resource gauges (reference: /v1/client/stats,
+        client/stats/host.go); ?node_id= routes to that node's agent."""
+        from ..client import fs as fsmod
+        node_prefix = q.get("node_id", "")
+        if (node_prefix and not q.get("_routed")
+                and (self.client is None
+                     or not self.client.node.id.startswith(node_prefix))):
+            nodes = [n for n in self.server.store.nodes()
+                     if n.id.startswith(node_prefix)]
+            if len(nodes) != 1:
+                raise HTTPError(404 if not nodes else 400,
+                                f"node {node_prefix!r} "
+                                + ("not found" if not nodes
+                                   else "is ambiguous"))
+            addr = nodes[0].attributes.get("unique.advertise.http", "")
+            if not addr:
+                raise HTTPError(502, "node has no advertised agent "
+                                     "address")
+            return self._proxy_client_http(addr, "GET",
+                                           "/v1/client/stats", q, None)
+        if self.client is None:
+            raise HTTPError(400, "no client agent on this node")
+        return 200, fsmod.host_stats(self.client.data_dir), None
+
+    def client_alloc_stats(self, q, body, alloc_id):
+        """Per-task resource usage for one alloc (reference:
+        client/allocrunner stats hooks + pid_collector)."""
+        from ..client import fs as fsmod
+        remote = self._client_route(alloc_id, q)
+        if remote is not None:
+            return self._proxy_client_http(
+                remote, "GET",
+                f"/v1/client/allocation/{alloc_id}/stats", q, None)
+        runner = self._local_runner(alloc_id)
+        tasks = {}
+        for tr in runner.task_runners:
+            ds = (tr.handle.driver_state if tr.handle else None) or {}
+            pid = ds.get("pid")
+            tasks[tr.task.name] = (fsmod.task_stats(pid) if pid
+                                   else None)
+        return 200, {"alloc_id": runner.alloc.id, "tasks": tasks}, None
+
+    # -------------------------------------------- server->client routing
+    def _client_route(self, alloc_prefix: str,
+                      q: Optional[Dict[str, str]] = None
+                      ) -> Optional[str]:
+        """Which agent owns this alloc?  None = this one (serve
+        locally); otherwise the owning node's advertised HTTP address
+        to route to (reference: nomad/client_rpc.go — any server
+        forwards client RPCs to the node over a persistent connection;
+        here the agent's advertised HTTP surface is the conduit)."""
+        if q and q.get("_routed"):
+            # already forwarded once: answer locally or fail — never
+            # bounce a request around the cluster
+            return None
+        if self.client is not None:
+            if (self.client.get_alloc_runner(alloc_prefix) is not None
+                or any(aid.startswith(alloc_prefix)
+                       for aid in list(self.client.runners))):
+                return None
+        exact = self.server.store.alloc_by_id(alloc_prefix)
+        matches = [exact] if exact is not None else [
+            al for al in self.server.store.allocs()
+            if al.id.startswith(alloc_prefix)]
+        # prefer live allocs, but still route terminal ones — the
+        # owning agent keeps terminal runners (and their logs) around
+        live = [al for al in matches if not al.terminal_status()]
+        pool = live or matches
+        if len(pool) > 1:
+            raise HTTPError(400, f"ambiguous alloc prefix "
+                                 f"{alloc_prefix!r}")
+        if not pool:
+            raise HTTPError(404, f"alloc {alloc_prefix} not found")
+        alloc = pool[0]
+        if (self.client is not None
+                and alloc.node_id == self.client.node.id):
+            return None
+        node = self.server.store.node_by_id(alloc.node_id)
+        addr = (node.attributes.get("unique.advertise.http", "")
+                if node else "")
+        if not addr:
+            raise HTTPError(
+                502, f"node {alloc.node_id[:8]} has no advertised "
+                     "agent address to route to")
+        return addr
+
+    def _proxy_client_http(self, remote: str, method: str, path: str,
+                           q: Dict[str, str], body):
+        """Forward one client-endpoint request to the owning agent and
+        relay its JSON reply."""
+        from urllib.parse import urlencode
+        qs = urlencode(dict(q, _routed="1"))
+        # the forwarded request may itself run a command with a
+        # caller-chosen timeout; allow it to finish plus slack
+        try:
+            budget = float((body or {}).get("timeout_s", 0)) + 30.0
+        except (TypeError, ValueError):
+            budget = 30.0
+        conn = self._peer_conn(remote, timeout=max(60.0, budget))
+        try:
+            conn.request(
+                method, f"{path}?{qs}",
+                body=(json.dumps(body) if body is not None else None),
+                headers={"X-Nomad-Token":
+                         getattr(self._tl, "token", "") or "",
+                         "Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+        except OSError as e:
+            raise HTTPError(502, f"routing to {remote} failed: {e}")
+        finally:
+            conn.close()
+        try:
+            payload = json.loads(data) if data else {}
+        except json.JSONDecodeError:
+            payload = {"error": data.decode("utf-8", "replace")}
+        if resp.status != 200:
+            raise HTTPError(resp.status,
+                            payload.get("error", f"agent {remote} "
+                                                 f"replied {resp.status}"))
+        idx = resp.getheader("X-Nomad-Index")
+        return 200, payload, (int(idx) if idx else None)
+
     def job_dispatch(self, q, body, job_id):
         """Instantiate a parameterized job with a payload + meta
         (reference: command/agent/job_endpoint.go Dispatch →
@@ -1318,6 +1685,17 @@ def _build_routes(s: HTTPAgentServer):
                                   "PUT": s.acl_token_upsert}),
         (R(r"^/v1/acl/token/([^/]+)$"), {"GET": s.acl_token_get,
                                          "DELETE": s.acl_token_delete}),
+        (R(r"^/v1/client/fs/logs/([^/]+)$"), {"GET": s.client_logs}),
+        (R(r"^/v1/client/fs/ls/([^/]+)$"), {"GET": s.client_fs_ls}),
+        (R(r"^/v1/client/fs/stat/([^/]+)$"), {"GET": s.client_fs_stat}),
+        (R(r"^/v1/client/fs/cat/([^/]+)$"), {"GET": s.client_fs_cat}),
+        (R(r"^/v1/client/fs/readat/([^/]+)$"),
+         {"GET": s.client_fs_readat}),
+        (R(r"^/v1/client/fs/stream/([^/]+)$"),
+         {"GET": s.client_fs_stream}),
+        (R(r"^/v1/client/stats$"), {"GET": s.client_host_stats}),
+        (R(r"^/v1/client/allocation/([^/]+)/stats$"),
+         {"GET": s.client_alloc_stats}),
         (R(r"^/v1/job/([^/]+)/scale$"), {"POST": s.job_scale,
                                          "PUT": s.job_scale}),
         (R(r"^/v1/job/([^/]+)/dispatch$"), {"POST": s.job_dispatch,

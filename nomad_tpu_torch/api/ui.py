@@ -15,9 +15,8 @@ Everything renders from the same /v1 endpoints the CLI and SDK use,
 auto-refreshing every 2s; all interpolated values are HTML-escaped.
 
 The counterpart of `nomad_tpu.api.ui`.  The alloc page's log tail reads
-`/v1/client/fs/logs/`, which the port's agent serves once it has the
-agent client (ROADMAP.md item 16); until then that route answers 404
-and the page shows no log tail.
+`/v1/client/fs/logs/`, which an agent with a node agent serves (or
+forwards to the alloc's owning agent).
 """
 
 UI_HTML = """<!doctype html>

@@ -9,8 +9,9 @@ one `SimClient` node from its own `client/sim.py` (it "runs" the
 through its own `ApiClient`.  A case returns an outcome of what it saw:
 status codes, error bodies, job / eval / alloc statuses, whether a
 blocking query's index moved, the plan's annotations and its `diff`;
-the port's outcome must equal the reference's.  The routes that wait
-for the agent client answer the port's unknown-route 404."""
+the port's outcome must equal the reference's.  The agent-client routes
+answer as the reference's on an agent with no node agent; those that
+wait for the `exec` driver and CSI answer the port's unknown-route 404."""
 import copy
 import threading
 import time
@@ -384,14 +385,15 @@ def test_ui_served(pkg):
                                                 (200, True), True]
 
 
-#: the reference's routes that need the agent client, which the port
-#: serves once it has one
-CLIENT_ROUTES = [("GET", "/v1/client/fs/logs/abcd1234"),
-                 ("GET", "/v1/client/fs/ls/abcd1234"),
-                 ("GET", "/v1/client/stats"),
-                 ("GET", "/v1/client/allocation/abcd1234/stats"),
-                 ("POST", "/v1/client/allocation/abcd1234/exec"),
+#: the reference's agent-client routes that wait for the `exec` driver
+#: and CSI (ROADMAP.md Queue 1 item 16b)
+CLIENT_ROUTES = [("POST", "/v1/client/allocation/abcd1234/exec"),
                  ("POST", "/v1/client/csi/plugin/ebs")]
+#: the agent-client routes the port serves
+PORTED_CLIENT_ROUTES = [("GET", "/v1/client/fs/logs/abcd1234"),
+                        ("GET", "/v1/client/fs/ls/abcd1234"),
+                        ("GET", "/v1/client/stats"),
+                        ("GET", "/v1/client/allocation/abcd1234/stats")]
 
 
 def route_table(P, acl_enabled=False):
@@ -404,10 +406,19 @@ def route_table(P, acl_enabled=False):
     return http, srv
 
 
+def has_handler(P, method, path):
+    http, srv = route_table(P)
+    try:
+        return any(p.match(path) and method in methods
+                   for p, methods in http._routes)
+    finally:
+        srv.stop()
+
+
 @pytest.mark.parametrize("method,path", CLIENT_ROUTES)
 def test_client_routes_wait_for_the_agent_client(method, path):
-    """On the port each agent-client route is an unknown route (404
-    from the dispatch, before any ACL check); the reference has a
+    """On the port each of these agent-client routes is an unknown route
+    (404 from the dispatch, before any ACL check); the reference has a
     handler for it."""
     port, ref = api_pkg("port"), api_pkg("ref")
     http, srv = route_table(port, acl_enabled=True)
@@ -418,12 +429,35 @@ def test_client_routes_wait_for_the_agent_client(method, path):
             404, f"no handler for {path}")
     finally:
         srv.stop()
-    http, srv = route_table(ref)
+    assert has_handler(ref, method, path)
+
+
+def dispatch_answer(P, method, path, acl_enabled):
+    """(code, message) of the dispatch of one request on an agent with no
+    node agent and an empty store."""
+    http, srv = route_table(P, acl_enabled=acl_enabled)
     try:
-        assert any(p.match(path) and method in methods
-                   for p, methods in http._routes)
+        http.dispatch(method, path, None, "")
+    except P.http_server.HTTPError as e:
+        return e.code, e.msg
     finally:
         srv.stop()
+    return 200, ""
+
+
+@pytest.mark.parametrize("method,path", PORTED_CLIENT_ROUTES)
+def test_ported_client_routes_answer_as_the_reference(method, path):
+    """Each agent-client route the port serves has a handler on both
+    packages, and both answer the same on an unknown alloc (or, for the
+    host stats, on an agent with no node agent), with ACLs off and on."""
+    port, ref = api_pkg("port"), api_pkg("ref")
+    assert has_handler(port, method, path) and has_handler(ref, method,
+                                                           path)
+    for acl in (False, True):
+        got = dispatch_answer(port, method, path, acl)
+        assert got == dispatch_answer(ref, method, path, acl)
+        assert got[0] == (403 if acl else
+                          400 if path == "/v1/client/stats" else 404)
 
 
 def test_client_exposes_no_environment_knobs(monkeypatch):

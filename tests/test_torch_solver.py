@@ -308,7 +308,20 @@ PORT_MODULES = ["nomad_tpu_torch.solver.solve",
                 "nomad_tpu_torch.server.search",
                 "nomad_tpu_torch.utils.tracing",
                 "nomad_tpu_torch.utils.metrics",
-                "nomad_tpu_torch.telemetry.series"]
+                "nomad_tpu_torch.telemetry.series",
+                "nomad_tpu_torch.plugins.base",
+                "nomad_tpu_torch.plugins.drivers",
+                "nomad_tpu_torch.plugins.device",
+                "nomad_tpu_torch.drivers.executor",
+                "nomad_tpu_torch.drivers.mock",
+                "nomad_tpu_torch.drivers.rawexec",
+                "nomad_tpu_torch.client.allocdir",
+                "nomad_tpu_torch.client.taskenv",
+                "nomad_tpu_torch.client.taskrunner",
+                "nomad_tpu_torch.client.allocrunner",
+                "nomad_tpu_torch.client.state",
+                "nomad_tpu_torch.client.fingerprint",
+                "nomad_tpu_torch.client.fs"]
 
 
 def test_import_pulls_in_no_jax():
@@ -317,7 +330,8 @@ def test_import_pulls_in_no_jax():
     state store, raft, the server plane, telemetry, ACLs, the mesh
     tiers, the wire RPC with TLS, the agent's server interface, the
     simulated node agent, gossip membership, the lifecycle watchers and
-    the HCL jobspec parser, the chaos plane and the solve watchdog) loads
+    the HCL jobspec parser, the chaos plane and the solve watchdog, the
+    node agent with its runners, drivers and device plugins) loads
     neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
