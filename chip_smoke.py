@@ -4,9 +4,12 @@
     python3 chip_smoke.py [--baseline DIR]
 
 Phases, one JSON line each; any failed phase exits nonzero.  They run
-in the order 1-7, 13, 15, 16, then 8-11 in this process while phase 12
-runs in a process of its own (`--phase-12`), then 14.  After each, a
-`timeline` line gives the seconds since the script started.
+in the order 1-7, 13, 15, 16, 17, then 8-11 in this process while phase
+12 runs in a process of its own (`--phase-12`), then 14.  After each, a
+`timeline` line gives the seconds since the script started, and the
+last one the whole script's against its 1,200 s limit.  The script
+refuses to start (exit 2) when a `NOMAD_TPU_*` variable is set in its
+environment: every phase but 17's children runs at the defaults.
 
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
   2. build   — nvcc builds the fused wave kernels from
@@ -492,13 +495,48 @@ runs in a process of its own (`--phase-12`), then 14.  After each, a
                /sys/fs/cgroup (`private_mounts`): the jails' mounts and
                the CSI binds never reach the machine's mounts, and no
                executor writes a cgroup of the machine.
+ 17. knobs   — the `NOMAD_TPU_*` environment layer and lockdep, on
+               phase 7's server after phase 16.  Leg E: two child
+               processes of this script (`--phase-17-child`), each a
+               `Server` on `cuda` at full width (bench.py's config-3
+               cluster, 10,000 nodes; its resident allocs cut to
+               KNOBS_RESIDENT = 10,000 so that the phase fits its 45 s,
+               printed as a cut), 8 config-3 jobs registered one at a
+               time, then a `ResidentSolver` stream solve and an RPC call
+               to a closed port.  The first child sets
+               NOMAD_TPU_BROKER_SHARDS=4, _NUM_WORKERS=3, _MAX_BATCH=7,
+               _EVICT_E=0, _SHORTLIST_C=1024, _RESIDENT_MIN_NODES=1,
+               _RPC_RETRIES=0, _TRACE=1 and _TRACE_SINK; the second
+               passes the same values as `serving_config` and
+               constructor arguments with a clean environment.  Checks:
+               4 broker shards, 3 workers, the batch bound 7, no
+               eviction planes in any resident world, the shortlist
+               width, the import-time constants, one RPC attempt, every
+               solve span `backend` "device" (in the sink file for the
+               first), `topk` and merge launches, and placements by
+               (alloc name, node index) identical in the two children.
+               Leg L, beside it: the workers paused, the broker shards',
+               broker's, plan queue's and coordinator's locks put under
+               `lockdep.InstrumentedLock` (a live condition in place)
+               and the attributes that the port's
+               `race_pass.infer_guards()` infers as guarded under
+               `watch_class`; 16 config-3 jobs registered from 4
+               threads, then the workers resumed on that backlog (so
+               they take it in fused batches through the coordinator).
+               Checks: every eval complete, the kernel launched, no
+               recorded write to a guarded attribute without that
+               instance's lock, every watched class with a guarded
+               attribute and at least one access checked; the accesses
+               checked and any unguarded reads printed.  Locks and classes are
+               restored afterwards.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
-16 as `launches_phase5`, `launches_phase7`, `launches_phase8`,
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16
+and 17 as `launches_phase5`, `launches_phase7`, `launches_phase8`,
 `launches_phase9`, `launches_phase10`, `launches_phase11`,
 `launches_phase12`, `launches_phase13`, `launches_phase14`,
-`launches_phase15` and `launches_phase16` beside them),
+`launches_phase15`, `launches_phase16` and `launches_phase17` beside
+them; phase 17's count both children's launches with leg L's),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -4553,6 +4591,454 @@ def phase_agent(torch, wk, srv):
     return row["launches"]
 
 
+# ----------------------------------------------------------- phase 17
+#: leg E: config-3 jobs each child registers, one at a time
+KNOBS_JOBS = 8
+#: leg E's resident allocs in each child: cut from config 3's 100,000 so
+#: that the phase fits its 45 s (each 10,000 allocs are ~4 s of raft
+#: entries on the H100 machine's host, and two children run at once)
+KNOBS_RESIDENT = 10_000
+#: a valid shortlist width other than the auto one (config 3's auto
+#: width is far narrower): a multiple of 8, >= the candidate window,
+#: within the padded node axis
+KNOBS_SHORTLIST = 1024
+KNOBS_WAIT_S = 120.0
+#: the command a leg E child runs (this script; a CPU rehearsal puts a
+#: wrapper here)
+KNOBS_CHILD_CMD = [sys.executable, os.path.abspath(__file__)]
+#: leg L: config-3 jobs on phase 7's server, from LOCKDEP_THREADS threads
+LOCKDEP_JOBS = 16
+LOCKDEP_THREADS = 4
+#: the watched classes: (module, class) -> the instance lock names the
+#: race pass's guarded-by map uses
+LOCKDEP_CLASSES = (
+    ("nomad_tpu_torch.server.eval_broker", "_Shard"),
+    ("nomad_tpu_torch.server.eval_broker", "EvalBroker"),
+    ("nomad_tpu_torch.server.plan_queue", "PlanQueue"),
+    ("nomad_tpu_torch.scheduler.fleet", "SolveCoordinator"),
+)
+
+
+def knobs_env(sink):
+    """Leg E's first child's environment settings (the second child
+    passes the same values as arguments)."""
+    return {"NOMAD_TPU_BROKER_SHARDS": "4", "NOMAD_TPU_NUM_WORKERS": "3",
+            "NOMAD_TPU_MAX_BATCH": "7", "NOMAD_TPU_EVICT_E": "0",
+            "NOMAD_TPU_SHORTLIST_C": str(KNOBS_SHORTLIST),
+            "NOMAD_TPU_RESIDENT_MIN_NODES": "1",
+            "NOMAD_TPU_RPC_RETRIES": "0", "NOMAD_TPU_TRACE": "1",
+            "NOMAD_TPU_TRACE_SINK": sink}
+
+
+def knob_names():
+    """The NOMAD_TPU_* variables set in this process's environment."""
+    return sorted(k for k in os.environ if k.startswith("NOMAD_TPU_"))
+
+
+def knobs_child(torch, wk, mode, sink):
+    """Leg E's child (`--phase-17-child MODE SINK`): a config-3 server at
+    full width on the card, its knobs from the environment (`env`) or
+    from `serving_config` and constructor arguments (`args`, a clean
+    environment).  Registers KNOBS_JOBS config-3 jobs one at a time,
+    then runs one stream solve on a `ResidentSolver` and one RPC call to
+    a closed port.  Returns what each knob did, the placements by (alloc
+    name, node index), the solve spans' backends and the launches."""
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.rpc import client as rpc_client
+    from nomad_tpu_torch.server.server import Server
+    from nomad_tpu_torch.solver import solve as solve_mod
+    from nomad_tpu_torch.solver.resident import ResidentSolver
+    from nomad_tpu_torch.utils.tracing import global_tracer
+    t0 = time.perf_counter()
+    env = mode == "env"
+    check(bool(knob_names()) == env,
+          f"knobs child {mode}: environment {knob_names()}")
+    wk._load()
+    if env:
+        srv = Server(device=DEVICE)
+    else:
+        srv = Server(device=DEVICE, serving_config={
+            "broker_shards": 4, "num_workers": 3, "max_batch": 7,
+            "evict_e": 0})
+        for w in srv.workers:
+            with w._solver_lock:
+                w._solver = solve_mod.Solver(
+                    device=srv.device, store=srv.store,
+                    resident_min_nodes=1, evict_e=0)
+    out = {"mode": mode, "resident_allocs": KNOBS_RESIDENT,
+           "resident_allocs_cut_from": RESIDENT}
+    try:
+        nodes, setup = server_cluster(srv, mock, structs, N_NODES,
+                                      KNOBS_RESIDENT)
+        index_of = {n.id: i for i, n in enumerate(nodes)}
+        srv.start()
+        zero_launches(torch, wk)
+        evals, walls = [], []
+        for i in range(KNOBS_JOBS):
+            job = make_job(mock, structs, i, COUNT)
+            t = time.perf_counter()
+            ev = srv.register_job(job)
+            wait_evals(srv, [ev.id], KNOBS_WAIT_S)
+            walls.append(1e3 * (time.perf_counter() - t))
+            done = srv.store.eval_by_id(ev.id)
+            check(done.status == structs.EVAL_STATUS_COMPLETE,
+                  f"knobs {mode}: eval of {job.id} {done.status}")
+            evals.append(ev.id)
+        torch.cuda.synchronize()
+        out["launches"] = dict(wk.fused_wave.mode_launches)
+        out["placements"] = sorted(
+            (a.name, index_of[a.node_id]) for a in srv.store.allocs()
+            if a.job_id.startswith("job-3-") and not a.terminal_status())
+        worlds = [w._solver._world for w in srv.workers
+                  if w._solver is not None
+                  and w._solver._world is not None]
+        out.update(
+            broker_shards=srv.broker.num_shards,
+            workers=len(srv.workers),
+            max_batch=[srv.serving.max_batch,
+                       srv.serving.batch_controller.max_batch],
+            evict_e=[w._solver.evict_e for w in srv.workers
+                     if w._solver is not None],
+            eviction_planes=[t.template.ev_prio is not None
+                             for t in worlds],
+            resident_min_nodes=[w._solver._resident_min_nodes
+                                for w in srv.workers
+                                if w._solver is not None],
+            resident_worlds=len(worlds),
+            eval_p50_ms=pct(walls, 0.5), eval_p99_ms=pct(walls, 0.99),
+            setup_s=setup)
+        if env:
+            global_tracer.flush()
+            with open(sink) as f:
+                rows = [json.loads(line) for line in f if line.strip()]
+            spans = [r for r in rows if r.get("name") == "solve"
+                     and r.get("trace_id") in evals]
+            out["sink_rows"] = len(rows)
+        else:
+            spans = [s for e in evals for s in global_tracer.get(e) or []
+                     if s.get("name") == "solve"]
+        out["solve_backends"] = sorted(
+            {(s.get("attrs") or {}).get("backend") for s in spans},
+            key=str)
+        out["solve_spans"] = len(spans)
+    finally:
+        srv.stop()
+    # the stream solver's shortlist width
+    asks = asks_for(make_job(mock, structs, 0, COUNT))
+    kw = {} if env else {"shortlist_c": KNOBS_SHORTLIST}
+    rs = ResidentSolver(nodes, asks, device=DEVICE, **kw)
+    pb = rs.pack_batch(asks)
+    rs.solve_stream([pb])
+    torch.cuda.synchronize()
+    out["shortlist_c"] = [rs.shortlist_c,
+                          rs.wave_traffic([pb])["shortlist_c"]]
+    # the RPC client's retries, against a closed port
+    cli = rpc_client.RpcClient(("127.0.0.1", free_port()))
+    attempts = [0]
+    once = cli._call_once
+
+    def counted(*a, **k):
+        attempts[0] += 1
+        return once(*a, **k)
+
+    cli._call_once = counted
+    try:
+        cli.call("Status.Ping", [], timeout=2.0,
+                 **({} if env else {"retries": 0}))
+    except ConnectionError:
+        pass
+    out.update(rpc_max_retries=rpc_client.MAX_RETRIES,
+               rpc_attempts=attempts[0],
+               resident_min_nodes_module=solve_mod.RESIDENT_MIN_NODES,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def start_knobs_children():
+    """Leg E's two children, started together; each prints its result as
+    one JSON line into a temporary file.  Returns [(mode, proc, file,
+    sink)]."""
+    import tempfile
+    clean = {k: v for k, v in os.environ.items()
+             if not k.startswith("NOMAD_TPU_")}
+    out = []
+    for mode in ("env", "args"):
+        fd, sink = tempfile.mkstemp(prefix=f"knobs-{mode}-",
+                                    suffix=".jsonl")
+        os.close(fd)
+        env = dict(clean, **knobs_env(sink)) if mode == "env" else clean
+        f = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            KNOBS_CHILD_CMD + ["--phase-17-child", mode, sink], stdout=f,
+            env=env, cwd=HERE)
+        out.append((mode, proc, f, sink))
+    return out
+
+
+def finish_knobs_children(children, timeout):
+    """Wait for leg E's children; their results by mode (a child that
+    failed gives its exit code and last lines)."""
+    res = {}
+    deadline = time.perf_counter() + timeout
+    for mode, proc, f, sink in children:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        f.seek(0)
+        lines = f.read().splitlines()
+        f.close()
+        os.unlink(sink)
+        got = [json.loads(ln) for ln in lines
+               if ln.startswith('{"phase": "knobs_child"')]
+        res[mode] = (got[0] if rc == 0 and got
+                     else {"rc": rc, "tail": lines[-5:]})
+    return res
+
+
+def instrument_condition(cond, name, rec, owner):
+    """Put a live `threading.Condition`'s lock under an InstrumentedLock
+    in place (threads waiting on it keep the same object); returns the
+    undo."""
+    from nomad_tpu_torch.utils.lockdep import InstrumentedLock
+    inner = cond._lock
+    il = InstrumentedLock(inner, name, rec, owner=owner)
+    saved = {k: cond.__dict__[k] for k in ("_release_save",
+                                           "_acquire_restore")
+             if k in cond.__dict__}
+    cond._lock, cond.acquire, cond.release = il, il.acquire, il.release
+    if saved:
+        # an RLock's condition waits through the lock's own save and
+        # restore (bound at construction): record them too, so a thread
+        # that waited since before the swap holds the lock on waking
+
+        def release_save():
+            rec._pop(name, owner)
+            return saved["_release_save"]()
+
+        def acquire_restore(state):
+            saved["_acquire_restore"](state)
+            rec._push(name, owner)
+
+        cond._release_save = release_save
+        cond._acquire_restore = acquire_restore
+
+    def undo():
+        cond._lock, cond.acquire, cond.release = (inner, inner.acquire,
+                                                  inner.release)
+        cond.__dict__.update(saved)
+    return il, undo
+
+
+def leg_lockdep(torch, wk, srv):
+    """Leg L on phase 7's server: the broker shards', broker's, plan
+    queue's and coordinator's locks under InstrumentedLock and the
+    attributes the race pass infers as guarded under watch_class, then
+    LOCKDEP_JOBS config-3 jobs registered from LOCKDEP_THREADS threads
+    while the workers are paused, and the workers resumed on that
+    backlog: they dequeue it in batches, and a batch of more than one
+    eval is solved through the coordinator.  Returns the leg's row."""
+    import importlib
+    import threading
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.analysis.core import AnalysisConfig, PackageIndex
+    from nomad_tpu_torch.analysis.race_pass import infer_guards
+    from nomad_tpu_torch.utils.lockdep import (InstrumentedLock,
+                                               LockdepRecorder, watch_class)
+    t_leg = time.perf_counter()
+    index = PackageIndex.build(HERE, "nomad_tpu_torch")
+    guards = infer_guards(index, AnalysisConfig())
+    static_s = time.perf_counter() - t_leg
+    broker, pq = srv.broker, srv.plan_queue
+    coord = srv.solve_coordinator
+    check(coord is not None, "L: phase 7's server has no coordinator")
+    owners = {"_Shard": [id(s) for s in broker._shards],
+              "EvalBroker": [id(broker)], "PlanQueue": [id(pq)],
+              "SolveCoordinator": [id(coord)]}
+    watched = {}
+    for mod, cls in LOCKDEP_CLASSES:
+        key = f"{mod}:{cls}"
+        watched[cls] = (getattr(importlib.import_module(mod), cls),
+                        {a: set(locks) for (ck, a), locks in guards.items()
+                         if ck == key})
+    paused0 = [w.paused.is_set() for w in srv.workers]
+    for w in srv.workers:
+        w.paused.set()
+    wait_for(lambda: broker.stats()["total_unacked"] == 0,
+             "L: the workers idle", KNOBS_WAIT_S)
+    rec = LockdepRecorder()
+    undo = []
+    for sh in broker._shards:
+        sh._lock = InstrumentedLock(sh._lock, "_Shard._lock", rec,
+                                    owner=id(sh))
+        undo.append(lambda sh=sh: setattr(sh, "_lock", sh._lock._inner))
+    broker._export_lock = InstrumentedLock(
+        broker._export_lock, "EvalBroker._export_lock", rec,
+        owner=id(broker))
+    undo.append(lambda: setattr(broker, "_export_lock",
+                                broker._export_lock._inner))
+    undo.append(instrument_condition(broker._ready_cv,
+                                     "EvalBroker._ready_cv", rec,
+                                     id(broker))[1])
+    undo.append(instrument_condition(pq._lock, "PlanQueue._lock", rec,
+                                     id(pq))[1])
+    # the coordinator's submission condition shares its lock
+    il, undo_sub = instrument_condition(coord._submitted,
+                                        "SolveCoordinator._lock", rec,
+                                        id(coord))
+    coord_lock = coord._lock
+    coord._lock = il
+    undo.append(undo_sub)
+    undo.append(lambda: setattr(coord, "_lock", coord_lock))
+    unwatch = [watch_class(cls, sorted(attrs), rec)
+               for cls, attrs in watched.values() if attrs]
+    row = {"leg": "L", "jobs": LOCKDEP_JOBS, "threads": LOCKDEP_THREADS,
+           "static_guards": len(guards), "static_s": static_s}
+    errors = []
+    evals = []
+    ev_lock = threading.Lock()
+    try:
+        zero_launches(torch, wk)
+        t = time.perf_counter()
+
+        def register(k):
+            try:
+                for i in range(k, LOCKDEP_JOBS, LOCKDEP_THREADS):
+                    ev = srv.register_job(
+                        make_job(mock, structs, f"lockdep-{i}", COUNT))
+                    with ev_lock:
+                        evals.append(ev.id)
+            except Exception as e:      # reported by the leg's check
+                errors.append(f"thread {k}: {e!r}")
+
+        threads = [threading.Thread(target=register, args=(k,))
+                   for k in range(LOCKDEP_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for w, was in zip(srv.workers, paused0):
+            if not was:
+                w.paused.clear()
+        if not errors:
+            wait_evals(srv, evals, KNOBS_WAIT_S)
+        row["wall_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        row["launches"] = dict(wk.fused_wave.mode_launches)
+    finally:
+        for u in unwatch:
+            u()
+        for u in reversed(undo):
+            u()
+    check(not errors, f"L: {errors[:2]}")
+    statuses = collections.Counter(srv.store.eval_by_id(e).status
+                                   for e in evals)
+    row["evals"] = dict(statuses)
+    check(statuses == {structs.EVAL_STATUS_COMPLETE: LOCKDEP_JOBS},
+          f"L: evals {dict(statuses)}")
+    check(row["launches"]["topk"] + row["launches"]["score"] > 0,
+          f"L: no wave kernel launch {row['launches']}")
+    # the cross-check: each recorded access to an attribute the static
+    # map says is guarded, by one of this server's instances, against
+    # the accessing thread's held set (the lock of THAT instance)
+    per_class = {}
+    for cls, (_c, attrs) in watched.items():
+        mine = set(owners[cls])
+        checked = bad_w = bad_r = 0
+        examples = []
+        for ev in rec.events:
+            if (ev.cls_name != cls or ev.attr not in attrs
+                    or ev.owner not in mine):
+                continue
+            checked += 1
+            if not any((lk, ev.owner) in ev.held for lk in attrs[ev.attr]):
+                if ev.kind == "write":
+                    bad_w += 1
+                    examples.append(f"{ev.attr} by {ev.thread}")
+                else:
+                    bad_r += 1
+        per_class[cls] = {"guarded_attrs": len(attrs), "checked": checked,
+                          "unguarded_writes": bad_w,
+                          "unguarded_reads": bad_r,
+                          "examples": examples[:3]}
+    row["classes"] = per_class
+    row["accesses_checked"] = sum(c["checked"] for c in per_class.values())
+    for cls, c in per_class.items():
+        check(c["unguarded_writes"] == 0,
+              f"L: {c['unguarded_writes']} unguarded writes to {cls} "
+              f"({c['examples']})")
+        check(c["guarded_attrs"] > 0 and c["checked"] > 0,
+              f"L: {c['checked']} accesses to {cls} checked, "
+              f"{c['guarded_attrs']} guarded attributes")
+    row["seconds"] = time.perf_counter() - t_leg
+    return row
+
+
+def phase_knobs(torch, wk, srv):
+    """Phase 17 on phase 7's server after phase 16: leg E (the
+    NOMAD_TPU_* environment layer, two children) beside leg L (lockdep
+    on the live server).  Returns the launch counts (leg L's and the
+    children's)."""
+    t_phase = time.perf_counter()
+    children = start_knobs_children()
+    try:
+        row_l = leg_lockdep(torch, wk, srv)
+    finally:
+        res = finish_knobs_children(children, KNOBS_WAIT_S)
+    emit({"phase": "knobs", **row_l})
+    for mode, r in res.items():
+        emit({**{k: v for k, v in r.items()
+                  if k not in ("phase", "placements")},
+              "phase": "knobs", "leg": "E",
+              "placements": len(r.get("placements", ()))})
+    e, a = res["env"], res["args"]
+    for mode, r in res.items():
+        check("rc" not in r, f"E: child {mode} failed: {r}")
+        check(r["broker_shards"] == 4, f"E {mode}: shards {r}")
+        check(r["workers"] == 3, f"E {mode}: workers {r['workers']}")
+        check(r["max_batch"] == [7, 7], f"E {mode}: {r['max_batch']}")
+        check(set(r["evict_e"]) == {0} and r["resident_worlds"] > 0
+              and not any(r["eviction_planes"]),
+              f"E {mode}: evict_e {r['evict_e']}, worlds "
+              f"{r['resident_worlds']}, planes {r['eviction_planes']}")
+        check(set(r["resident_min_nodes"]) == {1},
+              f"E {mode}: resident_min_nodes {r['resident_min_nodes']}")
+        check(r["shortlist_c"] == [KNOBS_SHORTLIST] * 2,
+              f"E {mode}: shortlist {r['shortlist_c']}")
+        check(r["rpc_attempts"] == 1, f"E {mode}: {r['rpc_attempts']} "
+              "rpc attempts with no retry")
+        check(r["solve_spans"] >= KNOBS_JOBS
+              and r["solve_backends"] == ["device"],
+              f"E {mode}: {r['solve_spans']} solve spans, backends "
+              f"{r['solve_backends']}")
+        check(r["launches"]["topk"] > 0 and r["launches"]["merge"] > 0,
+              f"E {mode}: launches {r['launches']}")
+        check(len(r["placements"]) == KNOBS_JOBS * COUNT,
+              f"E {mode}: {len(r['placements'])} placements")
+    check(e["rpc_max_retries"] == 0 and a["rpc_max_retries"] == 2,
+          f"E: MAX_RETRIES {e['rpc_max_retries']} / "
+          f"{a['rpc_max_retries']}")
+    check(e["resident_min_nodes_module"] == 1
+          and a["resident_min_nodes_module"] == 512,
+          "E: RESIDENT_MIN_NODES read at import "
+          f"{e['resident_min_nodes_module']} / "
+          f"{a['resident_min_nodes_module']}")
+    check(e["sink_rows"] > 0, "E env: nothing in the trace sink")
+    check(e["placements"] == a["placements"],
+          "E: the two children placed differently")
+    counts = collections.Counter(row_l["launches"])
+    for r in res.values():
+        counts.update(r["launches"])
+    row = {"phase": "knobs", "seconds": time.perf_counter() - t_phase,
+           "placements_identical": True,
+           "accesses_checked": row_l["accesses_checked"],
+           "launches": {m: counts[m] for m in ("score", "topk", "merge")}}
+    emit(row)
+    return row["launches"]
+
+
 # ------------------------------------------------------------ phase 8
 #: the fill tier (bench.py _oc_fill_job): alloc cpu in MHz (memory the
 #: same figure in MB, disk FILL_DISK MB) and job priorities
@@ -4735,13 +5221,15 @@ def phase_preempt(torch, wk, n_nodes, n_serial, n_burst):
     from nomad_tpu_torch.solver import kernel as kmod
     from nomad_tpu_torch.solver.kernel import MAX_WAVES
     from nomad_tpu_torch.solver.solve import Solver, _run_kernel, _to_host
+    from nomad_tpu_torch.solver.tensorize import evict_width
     from nomad_tpu_torch.utils.metrics import global_metrics
     from nomad_tpu_torch.utils.tracing import global_tracer
     on_card = DEVICE == "cuda"
     wk._load()
     srv = Server(device=DEVICE)
-    check(srv.serving.evict_e == 8 and len(srv.workers) == 2
-          and srv.solve_coordinator is not None,
+    # the default tier leaves the width to each world build
+    check(srv.serving.evict_e is None and evict_width() == 8
+          and len(srv.workers) == 2 and srv.solve_coordinator is not None,
           "not phase 7's serving tier with eviction planes of width 8")
     t0 = time.perf_counter()
     nodes = make_nodes(mock, n_nodes)
@@ -6565,8 +7053,9 @@ def leg_join(torch, wk, structs, mock, servers, live, leader, probe, kw,
     for s in sorted(live(), key=lambda s: s is lead):
         t = time.perf_counter()
         index = s.raft.snapshot_now()
-        snaps[s.raft.id] = {"index": index,
-                            "bytes": len(s.raft._read_snapshot()),
+        with s.raft._lock:
+            nbytes = len(s.raft._read_snapshot_locked())
+        snaps[s.raft.id] = {"index": index, "bytes": nbytes,
                             "s": time.perf_counter() - t}
         check(snaps[s.raft.id]["bytes"] > wire.MAX_FRAME,
               f"W5: {s.raft.id}'s snapshot ({snaps[s.raft.id]}) fits one "
@@ -7164,6 +7653,8 @@ def watchdog_quiet(what):
 #: the script's start (main; wall clock, which phase 12's process
 #: shares), for the timeline lines
 SCRIPT_T0 = [None]
+#: the time the script must end within, its kernels' build included
+SCRIPT_LIMIT_S = 1200
 #: the longest wait for phase 12's process once phase 11 has ended
 PHASE_12_WAIT_S = 600
 
@@ -7655,11 +8146,19 @@ def phase_chaos(torch, wk, n_nodes=N_NODES, resident=RESIDENT):
 
 
 def main() -> int:
+    import argparse
+    child = "--phase-17-child" in sys.argv
+    if not child and knob_names():
+        # the phases run at the defaults: a NOMAD_TPU_* variable in the
+        # script's own environment would change what they measure
+        print(f"chip_smoke: NOMAD_TPU_* variables are set "
+              f"({', '.join(knob_names())}); unset them: only phase 17's "
+              "child sets them", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="also time the fused wave kernel of the checkout "
@@ -7669,7 +8168,16 @@ def main() -> int:
                     help="run phase 12 alone, its timeline from T0 (the "
                     "script's start, wall clock): the script's own "
                     "process for it")
+    ap.add_argument("--phase-17-child", nargs=2, metavar=("MODE", "SINK"),
+                    help="run one of phase 17's leg E children (MODE env "
+                    "or args; SINK the trace sink path of the env child)")
     args = ap.parse_args()
+    if args.phase_17_child:
+        from nomad_tpu_torch.solver import wave_kernel as wk
+        mode, sink = args.phase_17_child
+        emit({"phase": "knobs_child", **knobs_child(torch, wk, mode, sink)})
+        sys.stdout.flush()
+        os._exit(0)
     SCRIPT_T0[0] = time.time() if args.phase_12 is None else args.phase_12
     sys.path.insert(0, HERE)
     if args.phase_12 is None:
@@ -7709,12 +8217,15 @@ def main() -> int:
         phase_done("phases 7 and 13")
         counts15 = phase_api(torch, wk, srv, row7["leg_a"])
         phase_done("phase 15")
-        return counts13, counts15, phase_agent(torch, wk, srv)
+        counts16 = phase_agent(torch, wk, srv)
+        phase_done("phase 16")
+        return counts13, counts15, counts16, phase_knobs(torch, wk, srv)
 
-    counts7, calls7, _row7, (counts13, counts15, counts16) = phase_server(
+    counts7, calls7, _row7, (counts13, counts15, counts16,
+                             counts17) = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
         BATCH_COUNT, phase6=row6["service"], then=lifecycle_api_agent)
-    phase_done("phase 16")
+    phase_done("phase 17")
     proc12, out12 = start_phase_12()
     try:
         counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
@@ -7780,6 +8291,7 @@ def main() -> int:
             "launches_phase14": counts14[mode],
             "launches_phase15": counts15[mode],
             "launches_phase16": counts16[mode],
+            "launches_phase17": counts17[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -7802,6 +8314,8 @@ def main() -> int:
             kernels[-1]["stream"] = {k: kern[s_case][k] for k in keys
                                      if k in kern[s_case]}
     timeline("the kernels on the phases' arguments")
+    emit({"phase": "timeline", "after": "the whole script",
+          "t_s": time.time() - SCRIPT_T0[0], "limit_s": SCRIPT_LIMIT_S})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

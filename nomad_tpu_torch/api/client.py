@@ -5,13 +5,14 @@ deployments.go, operator.go).
 Talks to the agent's HTTP /v1 surface; no imports from the server
 packages — this is the external-consumer boundary the CLI uses.
 
-The counterpart of `nomad_tpu.api.client`.  It reads no environment:
-the address, token and TLS settings are constructor arguments.  The
-port's CLI (`cli/main.py`) reads the reference's `NOMAD_ADDR`,
-`NOMAD_TOKEN` and `NOMAD_CACERT` / `NOMAD_CLIENT_CERT` /
-`NOMAD_CLIENT_KEY` and passes them here.  `allocations.exec_stream` runs
-an interactive exec over a websocket; `text` reads a route that answers
-plain text (the Prometheus exposition).
+The counterpart of `nomad_tpu.api.client`.  The address, token and TLS
+settings are constructor arguments; without them the client reads
+Nomad's `NOMAD_ADDR`, `NOMAD_TOKEN` and `NOMAD_CACERT` /
+`NOMAD_CLIENT_CERT` / `NOMAD_CLIENT_KEY`, as the reference's does (the
+port's CLI, `cli/main.py`, passes only its `-address`).
+`allocations.exec_stream` runs an interactive exec over a websocket;
+`text` reads a route that answers plain text (the Prometheus
+exposition).
 """
 from __future__ import annotations
 
@@ -41,12 +42,20 @@ class ApiClient:
     def __init__(self, address: Optional[str] = None,
                  timeout: float = 330.0, token: Optional[str] = None,
                  tls=None):
-        """`tls`: a utils.tlsutil.TLSConfig — mutual TLS to an https
-        agent address."""
-        self.address = (address or "http://127.0.0.1:4646").rstrip("/")
-        # reference: api.Config.SecretID (api/api.go)
-        self.token = token or ""
+        """`tls`: a utils.tlsutil.TLSConfig (or env NOMAD_CACERT /
+        NOMAD_CLIENT_CERT / NOMAD_CLIENT_KEY, like the reference api
+        client) — mutual TLS to an https agent address."""
+        self.address = (address or os.environ.get("NOMAD_ADDR")
+                        or "http://127.0.0.1:4646").rstrip("/")
+        # reference: api.Config.SecretID / NOMAD_TOKEN (api/api.go)
+        self.token = token or os.environ.get("NOMAD_TOKEN", "")
         self.timeout = timeout
+        if tls is None and os.environ.get("NOMAD_CACERT"):
+            from ..utils.tlsutil import TLSConfig
+            tls = TLSConfig(
+                ca_file=os.environ.get("NOMAD_CACERT", ""),
+                cert_file=os.environ.get("NOMAD_CLIENT_CERT", ""),
+                key_file=os.environ.get("NOMAD_CLIENT_KEY", ""))
         self.ssl_context = None
         if tls is not None and getattr(tls, "enabled", lambda: False)():
             from ..utils.tlsutil import client_context

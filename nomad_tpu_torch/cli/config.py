@@ -50,7 +50,7 @@ class AgentConfig:
     #: serving-tier overrides (server/serving.py ServingTier.KNOBS:
     #: slo_budget_s, max_batch, max_pending, bypass_priority, brownout
     #: thresholds, adaptive), handed to `Server(serving_config=)`;
-    #: config wins over defaults
+    #: config wins over the environment and the defaults
     serving: Dict[str, object] = field(default_factory=dict)
     client_enabled: bool = True
     datacenter: str = "dc1"

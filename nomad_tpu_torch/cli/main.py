@@ -41,17 +41,9 @@ def _short(id_: str) -> str:
 
 
 def _client(args) -> ApiClient:
-    """The API client of a command: `-address`, else `NOMAD_ADDR`; the
-    token and mutual TLS from Nomad's client variables (reference:
-    api.DefaultConfig, api/api.go)."""
-    tls = None
-    if os.environ.get("NOMAD_CACERT"):
-        from ..utils.tlsutil import TLSConfig
-        tls = TLSConfig(ca_file=os.environ.get("NOMAD_CACERT", ""),
-                        cert_file=os.environ.get("NOMAD_CLIENT_CERT", ""),
-                        key_file=os.environ.get("NOMAD_CLIENT_KEY", ""))
-    return ApiClient(address=args.address or os.environ.get("NOMAD_ADDR"),
-                     token=os.environ.get("NOMAD_TOKEN", ""), tls=tls)
+    """The API client of a command: `-address`, else the client's own
+    reading of Nomad's `NOMAD_ADDR`, `NOMAD_TOKEN` and TLS variables."""
+    return ApiClient(address=args.address)
 
 
 # ---------------------------------------------------------------- agent

@@ -27,9 +27,11 @@ solve's.
     the reference's per-wave interconnect byte models (pure numpy), read
     by `wave_traffic`.
 
-The reference's environment knobs (`NOMAD_TPU_MESH_HOSTS`,
-`NOMAD_TPU_MESH_REGIONS`, `NOMAD_TPU_RESHARD_SLACK`) are constructor
-arguments here.
+`NOMAD_TPU_MESH_HOSTS` and `NOMAD_TPU_MESH_REGIONS` default the host and
+region counts of the mesh constructors and a solver built without a mesh;
+`NOMAD_TPU_SHARD_TILE` and `NOMAD_TPU_RESHARD_SLACK` the elastic
+solver's tile width and slack.  Each is read when the call that uses it
+is made, and an argument wins.
 """
 from __future__ import annotations
 
@@ -175,12 +177,53 @@ def make_node_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(_grid(devs, (len(devs),)), (MESH_NODE_AXIS,))
 
 
-def make_two_tier_mesh(n_hosts: int = 1, n_devices: Optional[int] = None,
+def env_mesh_hosts() -> Optional[int]:
+    """NOMAD_TPU_MESH_HOSTS: host-group count for the two-tier mesh
+    (unset/empty/0 -> None: flat single-tier)."""
+    import os
+    raw = os.environ.get("NOMAD_TPU_MESH_HOSTS", "").strip()
+    if not raw or raw == "0":
+        return None
+    try:
+        h = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"NOMAD_TPU_MESH_HOSTS={raw!r} invalid: use a positive "
+            "host-group count (0/unset = flat mesh)") from None
+    if h <= 0:
+        raise ValueError(
+            f"NOMAD_TPU_MESH_HOSTS={h} invalid: must be positive")
+    return h
+
+
+def env_mesh_regions() -> Optional[int]:
+    """NOMAD_TPU_MESH_REGIONS: region count for the three-tier mesh
+    (unset/empty/0 -> None: no WAN tier)."""
+    import os
+    raw = os.environ.get("NOMAD_TPU_MESH_REGIONS", "").strip()
+    if not raw or raw == "0":
+        return None
+    try:
+        r = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"NOMAD_TPU_MESH_REGIONS={raw!r} invalid: use a positive "
+            "region count (0/unset = no WAN tier)") from None
+    if r <= 0:
+        raise ValueError(
+            f"NOMAD_TPU_MESH_REGIONS={r} invalid: must be positive")
+    return r
+
+
+def make_two_tier_mesh(n_hosts: Optional[int] = None,
+                       n_devices: Optional[int] = None,
                        devices=None) -> Mesh:
     """A ("hosts", "chips") mesh: the shards factored into n_hosts
-    contiguous groups."""
+    contiguous groups.  n_hosts defaults to NOMAD_TPU_MESH_HOSTS."""
     devs = _device_list(n_devices, devices)
     n = len(devs)
+    if n_hosts is None:
+        n_hosts = env_mesh_hosts() or 1
     if n_hosts <= 0 or n % n_hosts:
         raise ValueError(
             f"{n} devices do not factor into {n_hosts} hosts x "
@@ -190,14 +233,20 @@ def make_two_tier_mesh(n_hosts: int = 1, n_devices: Optional[int] = None,
                 (MESH_HOST_AXIS, MESH_CHIP_AXIS))
 
 
-def make_three_tier_mesh(n_regions: int = 1, n_hosts: int = 1,
+def make_three_tier_mesh(n_regions: Optional[int] = None,
+                         n_hosts: Optional[int] = None,
                          n_devices: Optional[int] = None,
                          devices=None) -> Mesh:
     """A ("regions", "hosts", "chips") mesh: the shards factored into
     n_regions contiguous region groups of n_hosts hosts each (n_hosts is
-    hosts PER REGION)."""
+    hosts PER REGION).  Defaults come from NOMAD_TPU_MESH_REGIONS /
+    NOMAD_TPU_MESH_HOSTS."""
     devs = _device_list(n_devices, devices)
     n = len(devs)
+    if n_regions is None:
+        n_regions = env_mesh_regions() or 1
+    if n_hosts is None:
+        n_hosts = env_mesh_hosts() or 1
     if (n_regions <= 0 or n_hosts <= 0 or n % n_regions
             or (n // n_regions) % n_hosts):
         raise ValueError(
@@ -586,8 +635,9 @@ class ShardedResidentSolver(ResidentSolver):
 
     `mesh` (from make_node_mesh, make_two_tier_mesh or
     make_three_tier_mesh) shapes the solver: three tiers, two, or the
-    flat mesh.  The reference's `NOMAD_TPU_MESH_REGIONS` and
-    `NOMAD_TPU_MESH_HOSTS` are those builders' arguments here.
+    flat mesh.  Without one, NOMAD_TPU_MESH_REGIONS > 1 builds the
+    three-tier mesh, NOMAD_TPU_MESH_HOSTS > 1 the two-tier one, and
+    otherwise the flat mesh, over `n_devices` of every CUDA device.
     """
 
     _pack_bool_planes = False
@@ -595,7 +645,19 @@ class ShardedResidentSolver(ResidentSolver):
     #: remap instead of contiguous blocks
     _elastic = False
 
-    def __init__(self, nodes, probe_asks, *args, mesh: Mesh, **kw):
+    def __init__(self, nodes, probe_asks, *args,
+                 mesh: Optional[Mesh] = None,
+                 n_devices: Optional[int] = None, **kw):
+        if mesh is None:
+            regions = env_mesh_regions()
+            hosts = env_mesh_hosts()
+            if regions and regions > 1:
+                mesh = make_three_tier_mesh(regions, hosts or 1,
+                                            n_devices)
+            elif hosts and hosts > 1:
+                mesh = make_two_tier_mesh(hosts, n_devices)
+            else:
+                mesh = make_node_mesh(n_devices)
         kw["device"] = mesh.flat_devices()[0]
         self._set_mesh(mesh)
         super().__init__(nodes, probe_asks, *args, **kw)
@@ -839,8 +901,8 @@ class ShardedResidentSolver(ResidentSolver):
 #: dead-slot fill per node plane (the tensorizer's padding)
 _LAYOUT_FILLS = {"valid": False, "attr_rank": -1, "ev_prio": -1}
 
-#: free tile slots a shard keeps for grow / move / recover (the
-#: reference's NOMAD_TPU_RESHARD_SLACK default)
+#: free tile slots a shard keeps for grow / move / recover by default
+#: (NOMAD_TPU_RESHARD_SLACK overrides)
 RESHARD_SLACK_TILES = 1
 
 
@@ -864,17 +926,25 @@ class ElasticShardedResidentSolver(ShardedResidentSolver):
     live nodes through any interleaving: candidate keys carry global node
     ids and every extraction and merge orders them by (score desc,
     global id asc) wherever a tile lives (solve_steps `tile_np`).
-    The tile width is pick_tile_np's default and each shard keeps
-    RESHARD_SLACK_TILES free tile slots: the reference's
-    `NOMAD_TPU_SHARD_TILE` and `NOMAD_TPU_RESHARD_SLACK` left unset.
+    The tile width is `tile_np`, else pick_tile_np's (which reads
+    NOMAD_TPU_SHARD_TILE); each shard keeps `slack_tiles` free tile
+    slots, else NOMAD_TPU_RESHARD_SLACK, else RESHARD_SLACK_TILES.
     """
 
     _elastic = True
     _fresh_layout = True
 
-    def __init__(self, nodes, probe_asks, *args, mesh: Mesh,
-                 event_log=None, **kw):
+    def __init__(self, nodes, probe_asks, *args,
+                 mesh: Optional[Mesh] = None, event_log=None,
+                 tile_np: Optional[int] = None,
+                 slack_tiles: Optional[int] = None, **kw):
+        import os
         from ..utils.tracing import global_mesh_events
+        self._tile_np_req = tile_np
+        self._slack_tiles = (
+            slack_tiles if slack_tiles is not None
+            else int(os.environ.get("NOMAD_TPU_RESHARD_SLACK",
+                                    str(RESHARD_SLACK_TILES))))
         #: reshard / recovery counters
         self.reshard_counters = {
             "tiles_grown": 0, "tiles_moved": 0, "tiles_shrunk": 0,
@@ -894,9 +964,9 @@ class ElasticShardedResidentSolver(ShardedResidentSolver):
         from ..solver.tensorize import TileLayout, pick_tile_np
         if self._fresh_layout:
             NT = self.template.avail.shape[0]
-            tile = pick_tile_np(NT, self.n_shards)
+            tile = pick_tile_np(NT, self.n_shards, self._tile_np_req or 0)
             self._layout = TileLayout(NT // tile, self.n_shards, tile,
-                                      slack_tiles=RESHARD_SLACK_TILES)
+                                      slack_tiles=self._slack_tiles)
             self.mesh_state = "healthy"
             self._lost_tiles: List[int] = []
             self._orig_mesh = self._mesh
@@ -1142,8 +1212,9 @@ class ElasticShardedResidentSolver(ShardedResidentSolver):
                 self._layout.assign(t, shard if shard is not None
                                     else self._layout.least_loaded())
         except ValueError:
-            raise ValueError("no free tile slots left on any shard; "
-                             "repack") from None
+            raise ValueError(
+                "no free tile slots left on any shard; increase "
+                "slack_tiles/NOMAD_TPU_RESHARD_SLACK or repack") from None
         extend_template_rows(self.template, n * tile)
         NT = self.template.avail.shape[0]
         self._src_cache = self._layout.dev_src()

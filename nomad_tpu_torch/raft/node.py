@@ -670,7 +670,7 @@ class RaftNode:
             if nxt <= self.snapshot_index:
                 term = self.term
                 key = (self.snapshot_index, self.snapshot_term)
-                snap = self._read_snapshot()
+                snap = self._read_snapshot_locked()
             else:
                 snap = None
                 prev = nxt - 1
@@ -766,8 +766,12 @@ class RaftNode:
             total += e.encoded_bytes() + (1 if k else 0)
             if total > cap:
                 if k == 0:
-                    if self._oversized != e.index:
+                    # replicators of several peers meet here: the
+                    # once-per-entry mark is taken under the lock
+                    with self._lock:
+                        first = self._oversized != e.index
                         self._oversized = e.index
+                    if first:
                         _log.error(
                             "raft %s: entry %d (%d bytes) exceeds the "
                             "transport's %d-byte append limit; %s cannot "
@@ -1012,7 +1016,7 @@ class RaftNode:
             os.replace(tmp, self._snap_path)
         self._snap_data = data
 
-    def _read_snapshot(self) -> bytes:
+    def _read_snapshot_locked(self) -> bytes:
         """The snapshot at snapshot_index, read once and kept while it
         ships (a node restarted from disk reads its snapshot file)."""
         if self._snap_data is None:

@@ -4,9 +4,8 @@ Reference: helper/pool ConnPool — persistent connections per server,
 reused across requests. One in-flight request per pooled connection;
 concurrent callers draw distinct sockets.
 
-The counterpart of `nomad_tpu.rpc.client`, less the
-`NOMAD_TPU_RPC_RETRIES` environment override of the retry count, which
-waits for the environment layer (ROADMAP.md Queue 1 item 15b).  Each
+The counterpart of `nomad_tpu.rpc.client`; `NOMAD_TPU_RPC_RETRIES`
+sets the retry count at import, and `RpcClient(retries=)` wins.  Each
 attempt consults the chaos site "rpc_transport" (one dict lookup while
 nothing is armed): an armed injection fires and the attempt fails as a
 transport fault, which the retry loop treats as any other.  A request
@@ -16,6 +15,7 @@ retries it as a transport fault (ROADMAP.md Queue 3, the frame fault).
 from __future__ import annotations
 
 import itertools
+import os
 import random
 import socket
 import threading
@@ -31,7 +31,7 @@ CALL_TIMEOUT_S = 30.0           # > blocking-query timeouts
 # jittered exponential backoff between them, all inside the per-call
 # deadline (default: the call timeout, so existing callers' worst-case
 # latency is unchanged)
-MAX_RETRIES = 2
+MAX_RETRIES = int(os.environ.get("NOMAD_TPU_RPC_RETRIES", "2"))
 RETRY_BASE_S = 0.02
 RETRY_CAP_S = 0.25
 

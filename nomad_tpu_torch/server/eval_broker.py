@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import heapq
 import itertools
+import os
 import threading
 import time as _time
 import zlib
@@ -46,8 +47,17 @@ DEFAULT_NACK_DELAY_S = 5.0
 DEFAULT_INITIAL_NACK_DELAY_S = 1.0
 DEFAULT_MAX_NACK_DELAY_S = 60.0
 DEFAULT_DELIVERY_LIMIT = 3
-#: 1 keeps the reference (pre-shard) behavior bit-identical
+#: shard count when neither the ctor nor NOMAD_TPU_BROKER_SHARDS says
+#: otherwise — 1 keeps the reference (pre-shard) behavior bit-identical
 DEFAULT_BROKER_SHARDS = 1
+
+
+def _default_shards() -> int:
+    try:
+        return max(1, int(os.environ.get("NOMAD_TPU_BROKER_SHARDS",
+                                         str(DEFAULT_BROKER_SHARDS))))
+    except ValueError:
+        return DEFAULT_BROKER_SHARDS
 
 
 class _Heap:
@@ -469,7 +479,7 @@ class EvalBroker:
                  delivery_limit: int = DEFAULT_DELIVERY_LIMIT,
                  max_nack_delay_s: float = DEFAULT_MAX_NACK_DELAY_S,
                  nack_jitter_seed: int = 0xACED,
-                 shards: int = DEFAULT_BROKER_SHARDS):
+                 shards: Optional[int] = None):
         # shared ready condition: blocked dequeuers wait here; shards
         # notify through notify_ready().  A generation counter closes
         # the scan-then-wait race (an enqueue landing between a dry
@@ -482,7 +492,8 @@ class EvalBroker:
         self.initial_nack_delay_s = initial_nack_delay_s
         self.max_nack_delay_s = max_nack_delay_s
         self.delivery_limit = delivery_limit
-        self.num_shards = max(1, int(shards))
+        n = shards if shards is not None else _default_shards()
+        self.num_shards = max(1, int(n))
         self._shards = [_Shard(self, i, nack_jitter_seed)
                         for i in range(self.num_shards)]
         self._rr = itertools.count()

@@ -12,17 +12,20 @@ plan_apply_pool.go (per-node verify fan-out over NumCPU/2 workers).
 
 PIPELINING: plan N's raft consensus round trip overlaps plan N+1's
 evaluation — the applier evaluates N+1 against plan N's KNOWN result
-overlaid on the snapshot (`_OverlaySnapshot`), then waits/responds for
-N, and only then dispatches N+1's raft apply (the reference overlaps
-the same region via applyPlan's async raft future + asyncPlanWait,
-which answers N as soon as it commits; it re-snapshots at min-index
-instead of overlaying, trading the extra wait for a narrower optimism
-window — both designs accept the same hazard class, writes landing
-between evaluate and apply).  N is answered before N+1 is dispatched
-because the single-server raft applies an entry inside the dispatch:
-answering after it would hold N's worker for the whole of N+1's apply.
-A plan is only held outstanding while another is ALREADY queued, so a
-singleton plan keeps today's latency.
+overlaid on the snapshot (`_OverlaySnapshot`), dispatches N+1's raft
+apply, and waits/responds for N before it takes N+2 (the reference
+overlaps the same region via applyPlan's async raft future +
+asyncPlanWait; it re-snapshots at min-index instead of overlaying,
+trading the extra wait for a narrower optimism window — both designs
+accept the same hazard class, writes landing between evaluate and
+apply).  N's wait and answer run on the applier's finisher thread
+while the loop dispatches N+1: the single-server raft applies an entry
+inside the dispatch, and answering N after it would hold N's worker
+for the whole of N+1's apply.  The loop joins the finisher before it
+evaluates N+2, so N+2 is evaluated against a store that holds N plus
+N+1's overlay, and at most one plan is answered (and its CSI volumes
+claimed) at a time.  A plan is only held outstanding while another is
+ALREADY queued, so a singleton plan keeps today's latency.
 
 The counterpart of `nomad_tpu.server.plan_apply`.  The port's applier
 waits for a dispatched apply with no deadline (raft answers it, or
@@ -186,12 +189,13 @@ class _Outstanding:
     """A dispatched-but-unacknowledged apply: one plan, or a
     group-commit batch of K plans riding a single raft entry (one
     fsync); each member keeps its own future + result."""
-    __slots__ = ("items", "finish", "done")
+    __slots__ = ("items", "finish", "done", "lock")
 
     def __init__(self, items, finish):
         self.items = items            # [(pending, plan, result), ...]
         self.finish = finish          # blocks until raft-applied
         self.done = False             # set by the one _finalize
+        self.lock = threading.Lock()  # makes that claim atomic
 
 
 class PlanApplier:
@@ -220,11 +224,16 @@ class PlanApplier:
         # ones are pruned as new ones come): stop() answers them
         self._held_lock = threading.Lock()
         self._held: List[PendingPlan] = []
+        # answers dispatched applies while the loop dispatches the next
+        # (the loop's own; None outside it: apply_one answers in line)
+        self._finisher: Optional[ThreadPoolExecutor] = None
 
     def start(self) -> None:
         self._stop.clear()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        thread = threading.Thread(target=self._run, daemon=True)
+        with self._held_lock:
+            self._thread = thread
+        thread.start()
 
     def stop(self) -> None:
         """Stop the loop and answer every plan it holds with an error, so
@@ -252,6 +261,17 @@ class PlanApplier:
         return True
 
     def _run(self) -> None:
+        finisher = ThreadPoolExecutor(1, thread_name_prefix="plan-finish")
+        with self._held_lock:
+            self._finisher = finisher
+        try:
+            self._loop()
+        finally:
+            with self._held_lock:
+                self._finisher = None
+            finisher.shutdown(wait=True)
+
+    def _loop(self) -> None:
         out: Optional[_Outstanding] = None
         while not self._stop.is_set():
             # only hold a plan outstanding while another is already
@@ -332,10 +352,32 @@ class PlanApplier:
             # intra-batch conflicts surface as partial commits exactly
             # as they would pipelined one by one
             snapshot = _OverlaySnapshot(snapshot, result)
+        answered = None
         if out is not None:
-            # N+1 is evaluated: answer N before N+1's dispatch (see the
-            # module docstring)
-            self._finalize(out)
+            # N+1 is evaluated: N is answered beside N+1's async dispatch
+            # (in line when there is none), and before N+2 is evaluated
+            # (see the module docstring)
+            finisher = self._finisher
+            if finisher is None or not self._dispatches_async(items):
+                self._finalize(out)
+            else:
+                answered = finisher.submit(self._finalize, out)
+        try:
+            return self._dispatch(items)
+        finally:
+            if answered is not None:
+                answered.result()
+
+    def _dispatches_async(self, items) -> bool:
+        if len(items) > 1:
+            return self.apply_batch_async_fn is not None
+        return len(items) == 1 and self.apply_async_fn is not None
+
+    def _dispatch(self, items) -> Optional[_Outstanding]:
+        """Start the apply of this round's evaluated plans: the
+        outstanding apply when raft is asynchronous, else apply and
+        answer them in line (None)."""
+        from ..utils.metrics import global_metrics as _m
         if not items:
             return None
         if len(items) > 1 and self.apply_batch_async_fn is not None:
@@ -370,9 +412,10 @@ class PlanApplier:
         _account_and_respond that already delivered the result cannot
         be overwritten by the trailing error)."""
         from ..utils.metrics import global_metrics as _m
-        if out.done:
-            return None
-        out.done = True
+        with out.lock:
+            if out.done:
+                return None
+            out.done = True
         try:
             with _m.timed("plan.apply"):
                 index = out.finish()

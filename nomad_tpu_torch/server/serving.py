@@ -28,9 +28,9 @@ under it.
 
 The counterpart of `nomad_tpu.server.serving`, with the cross-region
 admission tier (`RegionServingState`, `WanLatencyModel`,
-`SpilloverRouter`); as `ServingTier`, the router takes its knobs from
-`overrides` only (the reference's `NOMAD_TPU_*` environment layer is
-ROADMAP.md Queue 1 item 15b).  The four lane knobs
+`SpilloverRouter`); as `ServingTier`, the router takes each knob from
+`overrides`, then its `NOMAD_TPU_*` environment variable, then the
+default, read when the object is built.  The four lane knobs
 (`fused_lanes`, `max_lanes`, `lane_widen_below`, `lane_narrow_above`)
 are the reference's, with its defaults; as there, the server builds no
 lane former yet (item 21), so their one reader is `lane_controller()`,
@@ -39,6 +39,7 @@ the `LaneWidthController` they configure for the lane stream of
 """
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time as _time
@@ -62,6 +63,20 @@ DEFAULT_MAX_PENDING = 4096
 #: load, so a lone tenant may use the whole queue)
 DEFAULT_NS_RATE = 512.0
 DEFAULT_NS_BURST = 1024.0
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, ""))
+    except ValueError:
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, ""))
+    except ValueError:
+        return default
 
 
 class EwmaSolveModel:
@@ -338,63 +353,71 @@ class AdmissionController:
 class ServingTier:
     """Bundle of the serving-tier controllers plus their knobs, hung off
     the Server and shared by every worker.  `overrides` (agent config
-    `server { serving { ... } }` stanza) win over the defaults below.
-    The reference also reads each knob from a `NOMAD_TPU_*` environment
-    variable; the port has no agent config loader yet (ROADMAP.md
-    Queue 1), so its only configuration path is `overrides`."""
+    `server { serving { ... } }` stanza) win over env vars win over
+    defaults; a variable that does not parse keeps the default.
+    `evict_e` (the eviction-plane width of every worker's resident
+    world) is an override only: without one, each world reads
+    `NOMAD_TPU_EVICT_E` when it is built (`tensorize.evict_width`)."""
 
-    #: knob -> default (an override is cast to the default's type)
+    #: knob -> (env var, type, default)
     KNOBS = {
-        "slo_budget_s": DEFAULT_SLO_BUDGET_S,
-        "max_batch": DEFAULT_MAX_BATCH,
-        "bypass_priority": DEFAULT_BYPASS_PRIORITY,
-        "max_pending": DEFAULT_MAX_PENDING,
-        "ns_rate": DEFAULT_NS_RATE,
-        "ns_burst": DEFAULT_NS_BURST,
-        "brownout_high": 0.75,
-        "brownout_low": 0.25,
-        "brownout_after_s": 1.0,
-        "margin": 0.6,
+        "slo_budget_s": ("NOMAD_TPU_SLO_BUDGET_S", float,
+                         DEFAULT_SLO_BUDGET_S),
+        "max_batch": ("NOMAD_TPU_MAX_BATCH", int, DEFAULT_MAX_BATCH),
+        "bypass_priority": ("NOMAD_TPU_BYPASS_PRIORITY", int,
+                            DEFAULT_BYPASS_PRIORITY),
+        "max_pending": ("NOMAD_TPU_ADMIT_MAX_PENDING", int,
+                        DEFAULT_MAX_PENDING),
+        "ns_rate": ("NOMAD_TPU_NS_RATE", float, DEFAULT_NS_RATE),
+        "ns_burst": ("NOMAD_TPU_NS_BURST", float, DEFAULT_NS_BURST),
+        "brownout_high": ("NOMAD_TPU_BROWNOUT_HIGH", float, 0.75),
+        "brownout_low": ("NOMAD_TPU_BROWNOUT_LOW", float, 0.25),
+        "brownout_after_s": ("NOMAD_TPU_BROWNOUT_AFTER_S", float, 1.0),
+        "margin": ("NOMAD_TPU_SLO_MARGIN", float, 0.6),
         # SLO burn-rate accounting: the availability
         # objective over "batch met the p99 latency target", and the
         # SRE-workbook fast/slow window pair
-        "slo_objective": 0.999,
-        "slo_fast_window_s": 60.0,
-        "slo_fast_burn": 14.0,
-        "slo_slow_window_s": 600.0,
-        "slo_slow_burn": 2.0,
+        "slo_objective": ("NOMAD_TPU_SLO_OBJECTIVE", float, 0.999),
+        "slo_fast_window_s": ("NOMAD_TPU_SLO_FAST_WINDOW_S", float, 60.0),
+        "slo_fast_burn": ("NOMAD_TPU_SLO_FAST_BURN", float, 14.0),
+        "slo_slow_window_s": ("NOMAD_TPU_SLO_SLOW_WINDOW_S", float, 600.0),
+        "slo_slow_burn": ("NOMAD_TPU_SLO_SLOW_BURN", float, 2.0),
         # scale-out plane: broker sharding, dequeue worker
         # count, raft group-commit width, cross-worker solve fusion
-        "broker_shards": 1,
-        "num_workers": 2,
-        "group_commit": 8,
-        "coordinator": 1,
+        "broker_shards": ("NOMAD_TPU_BROKER_SHARDS", int, 1),
+        "num_workers": ("NOMAD_TPU_NUM_WORKERS", int, 2),
+        "group_commit": ("NOMAD_TPU_GROUP_COMMIT", int, 8),
+        "coordinator": ("NOMAD_TPU_COORDINATOR", int, 1),
         # double-buffered coordinator pipelining: dispatch
         # round b+1 while round b's device solve is in flight
-        "pipeline": 1,
+        "pipeline": ("NOMAD_TPU_PIPELINE", int, 1),
         # leader soft-pause fraction of workers; -1 = auto (0 once the
         # broker is sharded — pausing dequeue parallelism defeats shard
         # homing — else the reference's 3/4)
-        "worker_pause_fraction": -1.0,
+        "worker_pause_fraction": ("NOMAD_TPU_WORKER_PAUSE_FRACTION", float,
+                                  -1.0),
         # lane-parallel stream solve: the starting lane width (1 = the
         # serial stream), the width controller's pow2 ceiling, and its
         # widen / narrow bounce-rate thresholds (fractions of lane
         # placements the cross-lane revalidation bounced to a retry)
-        "fused_lanes": 1,
-        "max_lanes": 8,
-        "lane_widen_below": 0.05,
-        "lane_narrow_above": 0.25,
-        # eviction-plane width of every worker's resident world (slots
-        # per node for the in-kernel preemption pass; 0 = none, and
-        # preemption takes the scheduler's host walk)
-        "evict_e": 8,
+        "fused_lanes": ("NOMAD_TPU_FUSED_LANES", int, 1),
+        "max_lanes": ("NOMAD_TPU_MAX_LANES", int, 8),
+        "lane_widen_below": ("NOMAD_TPU_LANE_WIDEN_BELOW", float, 0.05),
+        "lane_narrow_above": ("NOMAD_TPU_LANE_NARROW_ABOVE", float, 0.25),
     }
 
     def __init__(self, adaptive: bool = True,
                  overrides: Optional[dict] = None):
         o = overrides or {}
-        k = {name: (type(default)(o[name]) if name in o else default)
-             for name, default in self.KNOBS.items()}
+        k = {}
+        for name, (env, typ, default) in self.KNOBS.items():
+            if name in o:
+                k[name] = typ(o[name])
+            elif env in os.environ:
+                k[name] = (_env_float(env, default) if typ is float
+                           else _env_int(env, default))
+            else:
+                k[name] = default
         self.adaptive = bool(o.get("adaptive", adaptive))
         self.bypass_priority = k["bypass_priority"]
         self.slo_budget_s = k["slo_budget_s"]
@@ -409,7 +432,12 @@ class ServingTier:
         self.max_lanes = max(1, k["max_lanes"])
         self.lane_widen_below = k["lane_widen_below"]
         self.lane_narrow_above = k["lane_narrow_above"]
-        self.evict_e = max(0, k["evict_e"])
+        #: eviction-plane width (slots per node for the in-kernel
+        #: preemption pass; 0 = none, and preemption takes the
+        #: scheduler's host walk); None leaves it to NOMAD_TPU_EVICT_E
+        #: and its default, read at each world build
+        self.evict_e = (max(0, int(o["evict_e"])) if "evict_e" in o
+                        else None)
         self.solve_model = EwmaSolveModel()
         self.batch_controller = BatchController(
             self.solve_model, slo_budget_s=k["slo_budget_s"],
@@ -610,22 +638,33 @@ class SpilloverRouter:
     into the serf WAN pool (membership.gossip.GossipAgent); they feed
     the optional RegionDirectory (the federation membership table) and
     flip region liveness here.  Knobs follow the ServingTier pattern:
-    `overrides` win over the defaults (no environment)."""
+    overrides > NOMAD_TPU_* env > defaults."""
 
-    #: knob -> default (an override is cast to the default's type)
+    #: knob -> (env var, type, default)
     KNOBS = {
-        "slo_budget_s": DEFAULT_SLO_BUDGET_S,
-        "spill_margin": DEFAULT_SPILL_MARGIN,
-        "region_cost": DEFAULT_REGION_COST,
-        "max_pending": DEFAULT_MAX_PENDING,
+        "slo_budget_s": ("NOMAD_TPU_SLO_BUDGET_S", float,
+                         DEFAULT_SLO_BUDGET_S),
+        "spill_margin": ("NOMAD_TPU_SPILL_MARGIN", float,
+                         DEFAULT_SPILL_MARGIN),
+        "region_cost": ("NOMAD_TPU_REGION_COST", float,
+                        DEFAULT_REGION_COST),
+        "max_pending": ("NOMAD_TPU_MAX_PENDING", int,
+                        DEFAULT_MAX_PENDING),
     }
 
     def __init__(self, regions: Optional[Dict[str, float]] = None,
                  overrides: Optional[dict] = None,
                  directory=None, event_log=None, wan_model=None):
         o = overrides or {}
-        k = {name: (type(default)(o[name]) if name in o else default)
-             for name, default in self.KNOBS.items()}
+        k = {}
+        for name, (env, typ, default) in self.KNOBS.items():
+            if name in o:
+                k[name] = typ(o[name])
+            elif env in os.environ:
+                k[name] = (_env_int(env, default) if typ is int
+                           else _env_float(env, default))
+            else:
+                k[name] = default
         self.slo_budget_s = k["slo_budget_s"]
         self.spill_margin = k["spill_margin"]
         self.default_cost = k["region_cost"]

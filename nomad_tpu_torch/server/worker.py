@@ -16,10 +16,13 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Optional, Tuple
+from typing import TYPE_CHECKING, List, Optional, Tuple
 
 from ..scheduler.base import new_scheduler
 from ..structs import Evaluation, Plan, PlanResult
+
+if TYPE_CHECKING:
+    from ..scheduler.fleet import SolveCoordinator
 
 DEQUEUE_TIMEOUT_S = 0.2
 
@@ -48,14 +51,16 @@ class Worker(threading.Thread):
         resident cluster world advances by changesets (plan-apply feed
         below + the store change log) instead of re-packing the world
         per eval.  It solves on the server's device, with the serving
-        tier's eviction-plane width (`evict_e`).  Locked: the
+        tier's eviction-plane width (`evict_e`) when the tier sets one
+        (else the world reads `NOMAD_TPU_EVICT_E`).  Locked: the
         coordinator's drain leader reaches in from another worker's
         thread."""
         with self._solver_lock:
             if self._solver is None:
                 from ..solver.solve import Solver
                 serving = getattr(self.server, "serving", None)
-                kw = {} if serving is None else {"evict_e": serving.evict_e}
+                kw = ({} if getattr(serving, "evict_e", None) is None
+                      else {"evict_e": serving.evict_e})
                 self._solver = Solver(device=self.server.device,
                                       store=self.server.store, **kw)
             return self._solver
@@ -185,7 +190,8 @@ class Worker(threading.Thread):
             self._process(*bulk[0])
             return False
         elif bulk:
-            coordinator = getattr(self.server, "solve_coordinator", None)
+            coordinator: Optional[SolveCoordinator] = getattr(
+                self.server, "solve_coordinator", None)
             if coordinator is not None:
                 # cross-worker fusion: park on the coordinator so this
                 # batch rides one combined device wave with whatever the

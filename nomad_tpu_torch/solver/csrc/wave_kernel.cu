@@ -92,7 +92,7 @@ struct WaveArgs {
 // (maxc - minc) / max(minc, 1e-9)), which depends on the group alone.
 struct SpreadParams {
   bool has, targeted, anyp;
-  float w, minc, even_at_min;
+  float w, minc, even;
   const float* used;              // sp_used row [V]
 };
 
@@ -106,8 +106,8 @@ __device__ __forceinline__ SpreadParams spread_params(const WaveArgs& a,
   p.w = a.sp_w[gs];
   p.minc = a.minc[gs];
   const float maxc = a.maxc[gs];
-  p.even_at_min = p.minc == maxc ? -1.0f
-                                 : (maxc - p.minc) / fmaxf(p.minc, 1e-9f);
+  p.even = p.minc == maxc ? -1.0f
+                          : (maxc - p.minc) / fmaxf(p.minc, 1e-9f);
   p.used = a.sp_used + (size_t)gs * a.V;
   return p;
 }
@@ -131,7 +131,7 @@ __device__ __forceinline__ float spread_contrib(const SpreadParams& p,
   }
   if (!p.anyp) return 0.0f;
   const float delta = (p.minc - cur) / fmaxf(p.minc, 1e-9f);
-  return !has_v ? -1.0f : (cur != p.minc ? delta : p.even_at_min);
+  return !has_v ? -1.0f : (cur != p.minc ? delta : p.even);
 }
 
 __device__ __forceinline__ bool dev_fit_at(const WaveArgs& a, int g, int n) {

@@ -195,7 +195,8 @@ def resolve_shortlist_c(Np: int, TK: int, requested: int = 0) -> int:
     """Shortlist width C for a solve (0 = path disabled): 0 auto-sizes to
     the candidate window TK rounded up to the next _SHORTLIST_TILE
     multiple (clamped to the node axis), -1 disables, explicit values
-    are validated and never clamped (the reference's rule)."""
+    are validated and never clamped (the reference's rule).
+    NOMAD_TPU_SHORTLIST_C feeds this via ResidentSolver."""
     if requested == -1:
         return 0
     if requested in (0, None):
@@ -924,9 +925,10 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         if seed != 0:
             total = (torch.floor(total / _score_spec.SCORE_BIN)
                      * _score_spec.SCORE_BIN)
-            total = total + _jitter(_l2g(idx) if in_mesh else idx, gs, seed)
+            jit_sl = _jitter(_l2g(idx) if in_mesh else idx, gs, seed)
         else:
-            total = total + 0.0
+            jit_sl = 0.0
+        total = total + jit_sl
         score = torch.where(placeable, total, NEG_INF)
         exh = sl.feas & ~(fit & dev_fit)
         dim_ind = sl.feas[:, :, None] & ~fit_dims
@@ -1340,16 +1342,16 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             des_eff = torch.where(des_s < 0, sp_implicit[:, s][:, None],
                                   des_s)
             present = use_s > 0
-            maxc = torch.where(present, use_s, 0.0).amax(dim=1)[:, None]
-            minc = torch.where(
+            maxc_q = torch.where(present, use_s, 0.0).amax(dim=1)[:, None]
+            minc_q = torch.where(
                 present, use_s,
                 torch.where(present.any(dim=1)[:, None], float("inf"),
                             0.0)).amin(dim=1)[:, None]
-            minc = torch.where(torch.isfinite(minc), minc, 0.0)
+            minc_q = torch.where(torch.isfinite(minc_q), minc_q, 0.0)
             # even spread: values may grow to a common level for the
             # first half of the wave budget, unbounded after it
             share = torch.ceil(act_g.to(f32) / V)[:, None]
-            level = torch.maximum(maxc, minc + share)
+            level = torch.maximum(maxc_q, minc_q + share)
             if wave < max(max_waves // 2, 1):
                 even_q = torch.clamp(level - use_s, min=1.0)
             else:

@@ -38,7 +38,10 @@ kernel or raises.
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
 one through its four placement hooks and `_solve_one(..., mesh=)`.  The
-reference's environment knobs are constructor arguments here.
+knobs `shortlist_c`, `fused_lanes` and `delta_threshold` are constructor
+arguments that default, when None, to `NOMAD_TPU_SHORTLIST_C`,
+`NOMAD_TPU_FUSED_LANES` and `NOMAD_TPU_DELTA_THRESHOLD`, read at
+construction.
 `apply_delta` consults the chaos site "delta_row" (one dict lookup while
 nothing is armed): an armed "mutate" corrupts the first `rows` node rows
 bound for the card after the host template took the clean apply, so
@@ -48,6 +51,7 @@ re-apply of those rows or a repack.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -103,6 +107,39 @@ def unpack_stream(out) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
     status = out[..., -1].astype(np.int32)
     ok = score > NEG_INF / 2
     return choice, ok, score, status
+
+
+def _env_shortlist_c() -> int:
+    """NOMAD_TPU_SHORTLIST_C: unset/'auto' -> 0 (auto), 'off'/-1 ->
+    disabled, else an int handed to kernel.resolve_shortlist_c (which
+    validates it against the problem shape at solve time)."""
+    raw = os.environ.get("NOMAD_TPU_SHORTLIST_C", "").strip().lower()
+    if raw in ("", "auto"):
+        return 0
+    if raw in ("off", "-1"):
+        return -1
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(
+            f"NOMAD_TPU_SHORTLIST_C={raw!r} invalid: use 'auto', 'off' "
+            "or an integer shortlist width") from None
+
+
+def _env_fused_lanes() -> int:
+    """NOMAD_TPU_FUSED_LANES: unset/'1'/'serial' -> 1 (the serial
+    stream); an integer > 1 opts solve_stream into chunks of that many
+    lanes.  Callers that widen per round (the lane-width controller)
+    pass `lanes=` per call instead."""
+    raw = os.environ.get("NOMAD_TPU_FUSED_LANES", "").strip().lower()
+    if raw in ("", "1", "serial"):
+        return 1
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        raise ValueError(
+            f"NOMAD_TPU_FUSED_LANES={raw!r} invalid: pass an integer "
+            "lane width (1 = serial scan)") from None
 
 
 def pack_out_compact(choice, score, status) -> torch.Tensor:
@@ -413,8 +450,8 @@ class ResidentSolver:
     `shortlist_c` (0 auto-sizes, -1 disables), `fused_lanes` (1: the
     serial stream; L > 1: chunks of L lanes) and `delta_threshold` (the
     touched share of real node slots above which `apply_delta` repacks)
-    are the reference's `NOMAD_TPU_SHORTLIST_C`, `NOMAD_TPU_FUSED_LANES`
-    and `NOMAD_TPU_DELTA_THRESHOLD`, with their defaults.  `evict_e` > 0
+    take, when None, `NOMAD_TPU_SHORTLIST_C`, `NOMAD_TPU_FUSED_LANES` and
+    `NOMAD_TPU_DELTA_THRESHOLD` (defaults 0, 1 and 0.25).  `evict_e` > 0
     packs top-E evictable-alloc planes from `allocs_by_node` and runs
     the eviction pass for groups with nothing placeable.  The pass
     frees each victim's resources from the carried usage itself; the
@@ -430,8 +467,10 @@ class ResidentSolver:
                  gp: Optional[int] = None, kp: Optional[int] = None,
                  max_waves: int = 0, wave_mode: str = "scan",
                  stack_commit: bool = False, pallas: str = "auto",
-                 delta_threshold: float = 0.25, shortlist_c: int = 0,
-                 evict_e: int = 0, fused_lanes: int = 1, device=None):
+                 delta_threshold: Optional[float] = None,
+                 shortlist_c: Optional[int] = None,
+                 evict_e: int = 0, fused_lanes: Optional[int] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.nodes = list(nodes)
         self.evict_e = int(evict_e)
@@ -441,9 +480,15 @@ class ResidentSolver:
         #: "auto" picks the fused wave kernel's mode from the shape on
         #: CUDA ("off" on the CPU); "off" / "score" / "topk" pin it
         self.pallas = pallas
-        self.shortlist_c = int(shortlist_c)
-        self.fused_lanes = max(1, int(fused_lanes))
-        self.delta_threshold = float(delta_threshold)
+        self.shortlist_c = (int(shortlist_c) if shortlist_c is not None
+                            else _env_shortlist_c())
+        self.fused_lanes = (max(1, int(fused_lanes))
+                            if fused_lanes is not None
+                            else _env_fused_lanes())
+        self.delta_threshold = (
+            float(delta_threshold) if delta_threshold is not None
+            else float(os.environ.get("NOMAD_TPU_DELTA_THRESHOLD",
+                                      "0.25")))
         #: revalidation counters of the last lane stream (None after a
         #: serial stream); fetch with lane_counters()
         self.last_lane_counters = None

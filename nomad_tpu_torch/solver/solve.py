@@ -17,10 +17,11 @@ scheduler then reads allocs by node through `LazyAllocsView` instead of
 walking the cluster.
 
 The resident world also carries the in-kernel preemption planes
-(`Solver(evict_e=)`, `EVICT_E` = 8 slots per node by default, 0 for
-none).  A solve with `preempt=True` on such a world runs the kernel's
-eviction pass, with a doubled wave budget, and a placement it commits
-that way comes back with the victims' alloc ids in `Placement.evicted`.
+(`Solver(evict_e=)`; without it `NOMAD_TPU_EVICT_E`, read at each world
+build, or `EVICT_E` = 8 slots per node; 0 for none).  A solve with
+`preempt=True` on such a world runs the kernel's eviction pass, with a
+doubled wave budget, and a placement it commits that way comes back with
+the victims' alloc ids in `Placement.evicted`.
 
 The device solve runs on the solver's device, `cuda` unless the caller
 asks for the CPU; with no GPU present a default `Solver()` raises instead
@@ -53,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -68,17 +70,20 @@ from ..chaos.injection import global_injections
 from ..utils.metrics import global_metrics
 from .host import host_solve_kernel, prefer_host
 from .kernel import MAX_WAVES, TOP_K, solve_kernel
-from .tensorize import (EVICT_E, NUM_R, ClusterDelta, PackedBatch,
+from .tensorize import (NUM_R, ClusterDelta, PackedBatch,
                         PlacementAsk, Tensorizer, _evict_row,
                         alloc_device_usage, alloc_usage_vector,
-                        apply_node_delta_host, R_CPU, R_DISK, R_MEM, R_NET)
+                        apply_node_delta_host, evict_width,
+                        R_CPU, R_DISK, R_MEM, R_NET)
 from .watchdog import global_watchdog
 
 _DIM_NAMES = {R_CPU: "cpu", R_MEM: "memory", R_DISK: "disk", R_NET: "network"}
 
 #: clusters below this size full-pack per eval (the walk is cheap); at or
-#: above it a store-attached Solver keeps a delta-updated resident world
-RESIDENT_MIN_NODES = 512
+#: above it a store-attached Solver keeps a delta-updated resident world.
+#: NOMAD_TPU_RESIDENT_MIN_NODES overrides, read at import
+RESIDENT_MIN_NODES = int(os.environ.get("NOMAD_TPU_RESIDENT_MIN_NODES",
+                                        "512"))
 #: a change-log sync whose delta touches more than this share of the
 #: nodes rebuilds the resident world instead of applying the delta
 DELTA_THRESHOLD = 0.25
@@ -88,8 +93,10 @@ HOST_MODES = ("auto", "never", "always")
 #: admission controller flips workers into degraded mode and solves run
 #: with this reduced budget — undecided placements come back retryable
 #: and follow the normal blocked/requeue path, trading per-eval
-#: completeness for queue drain
-BROWNOUT_MAX_WAVES = 6
+#: completeness for queue drain.  NOMAD_TPU_BROWNOUT_MAX_WAVES
+#: overrides, read at import
+BROWNOUT_MAX_WAVES = int(os.environ.get("NOMAD_TPU_BROWNOUT_MAX_WAVES",
+                                        "6"))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -189,9 +196,11 @@ class _ResidentWorld:
     the nodes."""
 
     def __init__(self, tz: Tensorizer, store, snapshot,
-                 probe_asks: Sequence[PlacementAsk], evict_e: int = EVICT_E):
+                 probe_asks: Sequence[PlacementAsk],
+                 evict_e: Optional[int] = None):
         self._tz = tz
         self.store = store
+        #: None: tensorize.evict_width() at each rebuild
         self.evict_e = evict_e
         # probe asks define the ask universe; grown (dedup by spec
         # signature, capped) when an ask escapes it
@@ -227,8 +236,10 @@ class _ResidentWorld:
                 self.live[a.id] = (a.node_id, a)
         # the eviction planes ride on the template and are delta-
         # maintained with every other node plane
-        self.template = self._tz.pack(self.nodes, self.probe_asks, by_node,
-                                      evict_e=self.evict_e)
+        self.template = self._tz.pack(
+            self.nodes, self.probe_asks, by_node,
+            evict_e=(evict_width() if self.evict_e is None
+                     else self.evict_e))
         # the template packs EVERY node; readiness (status, drain,
         # eligibility) lives in the valid mask instead of list filtering
         for i, n in enumerate(self.nodes):
@@ -491,7 +502,8 @@ class Solver:
     nodes rebuilds it instead.  A store-less Solver always full-packs.
     `evict_e` is the width of the world's eviction planes (slots per
     node; 0 packs none, so preemption stays with the scheduler's host
-    walk).
+    walk); None reads `NOMAD_TPU_EVICT_E` (default `EVICT_E`) at each
+    world build.
 
     `host` picks the compute route: "auto" (default) solves small
     problems with the numpy twin of the device solve (`host.py`, the
@@ -500,8 +512,10 @@ class Solver:
 
     def __init__(self, device=None, store=None,
                  resident_min_nodes: Optional[int] = None,
-                 evict_e: int = EVICT_E, host: str = "auto") -> None:
-        if not isinstance(evict_e, int) or evict_e < 0:
+                 evict_e: Optional[int] = None,
+                 host: str = "auto") -> None:
+        if evict_e is not None and (not isinstance(evict_e, int)
+                                    or evict_e < 0):
             raise ValueError(f"evict_e={evict_e!r}: use a non-negative "
                              "slot width (0 packs no eviction planes)")
         if host not in HOST_MODES:
@@ -527,7 +541,7 @@ class Solver:
 
     @property
     def evict_e(self) -> int:
-        return self._evict_e
+        return evict_width() if self._evict_e is None else self._evict_e
 
     # ---------------------------------------------------------- brownout
     def set_degraded(self, degraded: bool) -> None:

@@ -71,6 +71,23 @@ NUM_R = 4
 EVICT_E = 8
 
 
+def evict_width() -> int:
+    """Top-E evictable-alloc slots per node for the in-kernel
+    preemption planes: `EVICT_E`, or NOMAD_TPU_EVICT_E, read at each
+    resident-world build; 0 disables packing the planes entirely
+    (solves fall back to the host-side preemption walk)."""
+    import os
+    raw = os.environ.get("NOMAD_TPU_EVICT_E", "").strip()
+    if not raw:
+        return EVICT_E
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        raise ValueError(
+            f"NOMAD_TPU_EVICT_E={raw!r} invalid: use a non-negative "
+            "integer slot width (0 disables)") from None
+
+
 def _evict_sort_key(prio: int, create_index: int, alloc_id: str):
     """Canonical evictable-candidate order: lowest priority first, then
     create_index, then id (scheduler/preemption.preemptible_allocs'
@@ -484,9 +501,24 @@ def template_checksum(template: PackedBatch) -> int:
 
 def pick_tile_np(np_pad: int, n_shards: int, tile_np: int = 0) -> int:
     """Shard-tile width: `tile_np` when given (a positive power of two
-    dividing the padded node axis), else ~4 tiles a shard, a power of two
-    so that it divides the padded node axis (pow2 <= 4096 or a multiple
-    of 1024, see _pad_nodes), floor 8, cap 1024."""
+    dividing the padded node axis), else NOMAD_TPU_SHARD_TILE when set
+    (the same rule), else ~4 tiles a shard, a power of two so that it
+    divides the padded node axis (pow2 <= 4096 or a multiple of 1024,
+    see _pad_nodes), floor 8, cap 1024."""
+    import os
+    raw = os.environ.get("NOMAD_TPU_SHARD_TILE", "").strip()
+    if not tile_np and raw:
+        try:
+            t = int(raw)
+        except ValueError:
+            raise ValueError(
+                f"NOMAD_TPU_SHARD_TILE={raw!r} invalid: use a positive "
+                "power-of-two slot width") from None
+        if t <= 0 or t & (t - 1) or np_pad % t:
+            raise ValueError(
+                f"NOMAD_TPU_SHARD_TILE={t} invalid: must be a positive "
+                f"power of two dividing the padded node axis {np_pad}")
+        return t
     if tile_np:
         t = int(tile_np)
         if t <= 0 or t & (t - 1) or np_pad % t:

@@ -6,12 +6,13 @@ The counterpart of `nomad_tpu.utils.metrics`: counters, gauges, timing
 samples (`measure_since`, the MeasureSince analog; `timed` the
 context-manager sugar) and explicit-bucket histograms, read back with
 `dump` or as Prometheus text (`prometheus`), surfaced at /v1/metrics.
-The per-namespace key cap is a constructor argument (`max_keys_per_ns`,
-the reference's default); the port reads no `NOMAD_TPU_METRICS_MAX_KEYS`
-(the environment layer, ROADMAP.md item 15b, would pass it).
+The per-namespace key cap is `MetricsRegistry(max_keys_per_ns=)`, else
+`NOMAD_TPU_METRICS_MAX_KEYS` read at construction (the process-wide
+`global_metrics` at import), else 512.
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
 import time as _time
@@ -26,7 +27,7 @@ _RESERVOIR = 2048
 #: dot-segment).  A runaway label (per-eval ids, per-node gauges from a
 #: buggy caller) must not grow the registry without bound: past the cap
 #: new keys are dropped and the `metrics.overflow` counter ticks.
-#: `MetricsRegistry(max_keys_per_ns=)` overrides.
+#: NOMAD_TPU_METRICS_MAX_KEYS overrides.
 DEFAULT_MAX_KEYS_PER_NS = 512
 OVERFLOW_KEY = "metrics.overflow"
 
@@ -106,12 +107,19 @@ class _Histogram:
 
 
 class MetricsRegistry:
-    def __init__(self, max_keys_per_ns: int = DEFAULT_MAX_KEYS_PER_NS):
+    def __init__(self, max_keys_per_ns: Optional[int] = None):
         self._lock = threading.Lock()
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._samples: Dict[str, _Summary] = {}
         self._hists: Dict[str, _Histogram] = {}
+        if max_keys_per_ns is None:
+            try:
+                max_keys_per_ns = int(os.environ.get(
+                    "NOMAD_TPU_METRICS_MAX_KEYS",
+                    str(DEFAULT_MAX_KEYS_PER_NS)))
+            except ValueError:
+                max_keys_per_ns = DEFAULT_MAX_KEYS_PER_NS
         self.max_keys_per_ns = max(int(max_keys_per_ns), 1)
         self._ns_keys: Dict[str, int] = {}   # namespace -> distinct keys
 

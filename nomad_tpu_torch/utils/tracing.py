@@ -26,24 +26,27 @@ The counterpart of `nomad_tpu.utils.tracing`.  Design constraints:
     call returns immediately when off (no allocation, no lock); cheap
     when on — one dict append per stage under a leaf lock.
 
-Knobs, constructor arguments with the reference's defaults (the port
-reads no environment variable; the environment layer, ROADMAP.md
-item 15b, would pass the reference's `NOMAD_TPU_TRACE*` and
-`NOMAD_TPU_MESH_EVENT_LOG`):
-  FlightRecorder(enabled=True)   False disables recording
-  FlightRecorder(depth=512)      ring depth in traces
-  FlightRecorder(sink_path=None) JSONL path; completed spans append here
-  FlightRecorder(sample=1.0)     sampling rate 0.0-1.0 (1.0 = every
-                                 trace).  DETERMINISTIC per trace id
-                                 (crc32 threshold), so a sampled eval
-                                 keeps its whole timeline and reruns
-                                 sample identically
-  FlightRecorder(spill=8192)     the bound of the record spill
-  MeshEventLog(sink_path=None)   JSONL path for the mesh event log
+Knobs: a constructor argument, else the environment variable, read
+when the object is built (the process-wide `global_tracer` and
+`global_mesh_events` at import), else the default:
+  enabled    NOMAD_TPU_TRACE        "0" disables recording (default on)
+  depth      NOMAD_TPU_TRACE_DEPTH  ring depth in traces (default 512)
+  sink_path  NOMAD_TPU_TRACE_SINK   JSONL path; completed spans append
+  sample     NOMAD_TPU_TRACE_SAMPLE sampling rate 0.0-1.0 (default 1.0 =
+                                    every trace).  DETERMINISTIC per
+                                    trace id (crc32 threshold), so a
+                                    sampled eval keeps its whole
+                                    timeline and reruns sample
+                                    identically
+  spill      NOMAD_TPU_TRACE_SPILL  the bound of the record spill (8192)
+  MeshEventLog(sink_path=)  NOMAD_TPU_MESH_EVENT_LOG  JSONL path for
+                                    the mesh event log
+A value that does not parse keeps the default.
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time as _time
 import zlib
@@ -58,6 +61,13 @@ DEFAULT_MESH_EVENTS = 4096
 #: drainer thread does the ring insert + JSONL sink write, so the solve
 #: hot path never takes the recorder's main lock
 DEFAULT_TRACE_SPILL = 8192
+
+
+def _env_on(name: str, default: bool = True) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() not in ("0", "false", "off", "no", "")
 
 
 class Span:
@@ -133,20 +143,34 @@ class FlightRecorder:
     The ring evicts whole traces, oldest first, once `depth` distinct
     trace ids are held."""
 
-    def __init__(self, depth: int = DEFAULT_TRACE_DEPTH,
-                 enabled: bool = True,
+    def __init__(self, depth: Optional[int] = None,
+                 enabled: Optional[bool] = None,
                  sink_path: Optional[str] = None,
-                 sample: float = 1.0,
-                 spill: int = DEFAULT_TRACE_SPILL):
+                 sample: Optional[float] = None,
+                 spill: Optional[int] = None):
         self._lock = threading.Lock()
+        if sample is None:
+            try:
+                sample = float(os.environ.get(
+                    "NOMAD_TPU_TRACE_SAMPLE", "1.0"))
+            except ValueError:
+                sample = 1.0
         self.sample = min(max(float(sample), 0.0), 1.0)
         # crc32 threshold over [0, 2^32): trace ids at or above it are
         # dropped whole — per-ID determinism keeps every sampled
         # timeline complete and reruns reproducible
         self._sample_cut = int(self.sample * (1 << 32))
+        if depth is None:
+            try:
+                depth = int(os.environ.get("NOMAD_TPU_TRACE_DEPTH",
+                                           str(DEFAULT_TRACE_DEPTH)))
+            except ValueError:
+                depth = DEFAULT_TRACE_DEPTH
         self.depth_limit = max(int(depth), 1)
-        self.enabled = bool(enabled)
-        self._sink_path = sink_path
+        self.enabled = (_env_on("NOMAD_TPU_TRACE") if enabled is None
+                        else bool(enabled))
+        self._sink_path = (sink_path if sink_path is not None
+                           else os.environ.get("NOMAD_TPU_TRACE_SINK"))
         self._sink = None
         # trace id -> list of completed span row dicts; insertion order
         # is the eviction order (a later span on an old trace does NOT
@@ -164,6 +188,12 @@ class FlightRecorder:
         # query, whichever comes first) moves it into the ring + sink
         # under `self._lock`.  Lock order is `_lock` outer, `_tail_lock`
         # inner, and the record path takes only the leaf.
+        if spill is None:
+            try:
+                spill = int(os.environ.get("NOMAD_TPU_TRACE_SPILL",
+                                           str(DEFAULT_TRACE_SPILL)))
+            except ValueError:
+                spill = DEFAULT_TRACE_SPILL
         self.spill_limit = max(int(spill), 1)
         self._spill: deque = deque()
         self._spill_dropped = 0
@@ -410,7 +440,8 @@ class MeshEventLog:
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=max(int(depth), 1))
         self._seq = 0
-        self._sink_path = sink_path
+        self._sink_path = (sink_path if sink_path is not None
+                           else os.environ.get("NOMAD_TPU_MESH_EVENT_LOG"))
         self._sink = None
 
     def record(self, kind: str, **attrs) -> dict:

@@ -1,0 +1,10 @@
+"""The reference's tests/test_advice_r2.py on both packages: the broker,
+deployment and fused-solve cases of the second review round.
+
+Each reference case runs once on the JAX package and once on the port
+(`pkg` = "ref" / "port"; tests/torch_twin.py), with the port's default
+solver device pinned to the CPU.
+"""
+from tests.torch_twin import pin_port_to_cpu, twin_cases  # noqa: F401
+
+globals().update(twin_cases("tests.test_advice_r2"))

@@ -1,0 +1,11 @@
+"""The reference's tests/test_core_gc.py on both packages:
+`CoreScheduler`'s garbage collection of evals, allocs, jobs, nodes and
+deployments.
+
+Each reference case runs once on the JAX package and once on the port
+(`pkg` = "ref" / "port"; tests/torch_twin.py), with the port's default
+solver device pinned to the CPU.
+"""
+from tests.torch_twin import pin_port_to_cpu, twin_cases  # noqa: F401
+
+globals().update(twin_cases("tests.test_core_gc"))

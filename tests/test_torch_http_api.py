@@ -464,10 +464,19 @@ def test_ported_client_routes_answer_as_the_reference(method, path):
 
 
 def test_client_exposes_no_environment_knobs(monkeypatch):
-    """The port's ApiClient takes its address and token as arguments
-    only: the reference's NOMAD_ADDR / NOMAD_TOKEN do not change it."""
-    monkeypatch.setenv("NOMAD_ADDR", "http://10.9.9.9:1")
+    """Both packages' ApiClient read NOMAD_ADDR / NOMAD_TOKEN when no
+    argument is given, and an argument wins (the name is kept from when
+    the port's client read no environment)."""
+    monkeypatch.setenv("NOMAD_ADDR", "http://10.9.9.9:1/")
     monkeypatch.setenv("NOMAD_TOKEN", "from-env")
-    c = api_pkg("port").client.ApiClient()
-    assert c.address == "http://127.0.0.1:4646" and c.token == ""
-    assert api_pkg("ref").client.ApiClient().token == "from-env"
+    monkeypatch.delenv("NOMAD_CACERT", raising=False)
+
+    def seen(pkg, **kw):
+        c = api_pkg(pkg).client.ApiClient(**kw)
+        return c.address, c.token, c.ssl_context is None
+
+    for kw in ({}, {"address": "http://127.0.0.1:9", "token": "arg"}):
+        assert seen("port", **kw) == seen("ref", **kw)
+    assert seen("port") == ("http://10.9.9.9:1", "from-env", True)
+    assert seen("port", address="http://127.0.0.1:9", token="arg") == (
+        "http://127.0.0.1:9", "arg", True)

@@ -343,8 +343,8 @@ LANE_KNOBS = {"fused_lanes": ("NOMAD_TPU_FUSED_LANES", 1, 2),
 
 def test_serving_lane_knobs_match_reference(monkeypatch):
     """The serving tier's four lane knobs: the reference's defaults and
-    overrides, in `stats()` as there; the port reads them from
-    `serving_config` only, and its `lane_controller()` is the width
+    overrides, in `stats()` as there, and the same `NOMAD_TPU_*`
+    variables under `overrides`; its `lane_controller()` is the width
     controller they configure, stepping as the reference's controller
     with the same arguments."""
     from nomad_tpu.server.serving import ServingTier as RefTier
@@ -370,6 +370,11 @@ def test_serving_lane_knobs_match_reference(monkeypatch):
             assert ctrl.record(rate) == ref_ctrl.record(rate)
     for env, _default, override in LANE_KNOBS.values():
         monkeypatch.setenv(env, str(override))
-    port = ServingTier()
-    assert {k: getattr(port, k) for k in LANE_KNOBS} == {
-        k: v[1] for k, v in LANE_KNOBS.items()}
+    ref, port = RefTier(), ServingTier()
+    assert ({k: getattr(port, k) for k in LANE_KNOBS}
+            == {k: getattr(ref, k) for k in LANE_KNOBS} == over)
+    over2 = {"fused_lanes": 1, "max_lanes": 16}
+    ref, port = RefTier(overrides=over2), ServingTier(overrides=over2)
+    assert ({k: getattr(port, k) for k in LANE_KNOBS}
+            == {k: getattr(ref, k) for k in LANE_KNOBS}
+            == dict(over, **over2))

@@ -401,7 +401,8 @@ def test_snapshot_ships_in_chunks_and_resumes_a_refused_chunk(monkeypatch):
         last = leader.raft.log.last_index()
         assert wait_until(lambda: leader.raft.snapshot_index >= last - 16,
                           timeout=15)
-        assert len(leader.raft._read_snapshot()) > 8 * 2048
+        with leader.raft._lock:
+            assert len(leader.raft._read_snapshot_locked()) > 8 * 2048
         with victim.raft._lock:
             victim.raft.cfg.election_timeout_s = timeouts
             victim.raft._deadline = time.monotonic() + 2.0
@@ -512,7 +513,8 @@ def test_snapshot_now_compacts_at_the_applied_entry():
         index = leader.raft.snapshot_now()
         assert index == leader.raft.last_applied == leader.raft.log.offset
         restored = StateStore()
-        StateFSM(restored).restore(leader.raft._read_snapshot())
+        with leader.raft._lock:
+            StateFSM(restored).restore(leader.raft._read_snapshot_locked())
         assert canon(dump(restored), {}) == canon(dump(leader.store), {})
     finally:
         for s in servers:

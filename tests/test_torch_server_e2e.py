@@ -181,40 +181,47 @@ def test_system_job_matches_reference():
 
 
 def test_serving_tier_reads_no_environment(monkeypatch):
-    """The port's serving tier and broker take their knobs from
-    `serving_config` only: an environment set for the reference does
-    not change them."""
+    """The serving tier and broker read the reference's `NOMAD_TPU_*`
+    variables when the server is built, and `serving_config` wins over
+    them: both packages under the same setting resolve the same knobs
+    (the name is kept from when the port read no environment)."""
     for name, value in (("NOMAD_TPU_BROKER_SHARDS", "4"),
                         ("NOMAD_TPU_NUM_WORKERS", "3"),
                         ("NOMAD_TPU_GROUP_COMMIT", "2"),
                         ("NOMAD_TPU_MAX_BATCH", "7")):
         monkeypatch.setenv(name, value)
-    s = Server(device="cpu")
-    try:
-        assert len(s.workers) == 2
-        assert s.broker.num_shards == 1
-        assert s.serving.group_commit == 8
-        assert s.serving.max_batch == 64
-    finally:
-        s.stop()
-    s = Server(device="cpu", serving_config={"broker_shards": 2,
-                                             "max_batch": "16"})
-    try:
-        assert s.broker.num_shards == 2
-        assert s.serving.max_batch == 16
-    finally:
-        s.stop()
+
+    def knobs(pkg, cfg):
+        ServerCls = PKGS[pkg][2]
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        s = ServerCls(serving_config=cfg, **kw)
+        try:
+            return (len(s.workers), s.broker.num_shards,
+                    s.serving.group_commit, s.serving.max_batch)
+        finally:
+            s.stop()
+
+    for cfg, want in ((None, (3, 4, 2, 7)),
+                      ({"broker_shards": 2, "max_batch": "16"},
+                       (3, 2, 2, 16))):
+        out = {pkg: knobs(pkg, cfg) for pkg in ("ref", "port")}
+        assert out["port"] == out["ref"] == want
 
 
 def test_eviction_width_from_serving_config(monkeypatch):
     """The workers' solvers take the eviction-plane width from
-    `serving_config` (8, the reference's default, when it is absent);
-    the reference's environment variable does not set it."""
-    monkeypatch.setenv("NOMAD_TPU_EVICT_E", "3")
-    for cfg, want in ((None, 8), ({"evict_e": 0}, 0), ({"evict_e": "4"}, 4)):
+    `serving_config`; without it each resident world reads
+    `NOMAD_TPU_EVICT_E` when it is built, else 8 (the reference's
+    `tensorize.evict_width`)."""
+    monkeypatch.delenv("NOMAD_TPU_EVICT_E", raising=False)
+    for env, cfg, want in ((None, None, 8), ("3", None, 3),
+                           ("3", {"evict_e": 0}, 0),
+                           ("3", {"evict_e": "4"}, 4)):
+        if env is not None:
+            monkeypatch.setenv("NOMAD_TPU_EVICT_E", env)
         s = Server(num_workers=1, device="cpu", serving_config=cfg)
         try:
-            assert s.serving.evict_e == want
+            assert s.serving.evict_e == (None if cfg is None else want)
             assert s.workers[0].fleet_solver().evict_e == want
         finally:
             s.stop()

@@ -1,0 +1,12 @@
+"""The reference's tests/test_serving.py on both packages: the serving
+tier: `EwmaSolveModel`, `BatchController`, `AdmissionController`, the
+SLO burn split, brownout, shedding into blocked evals and the worker's
+express lane.
+
+Each reference case runs once on the JAX package and once on the port
+(`pkg` = "ref" / "port"; tests/torch_twin.py), with the port's default
+solver device pinned to the CPU.
+"""
+from tests.torch_twin import pin_port_to_cpu, twin_cases  # noqa: F401
+
+globals().update(twin_cases("tests.test_serving"))

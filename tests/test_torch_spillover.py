@@ -250,21 +250,26 @@ def test_spillover_membership_follows_gossip():
 
 
 def test_spillover_reads_no_environment(monkeypatch):
-    """The reference's router reads NOMAD_TPU_SPILL_MARGIN and friends;
-    the port's takes `overrides` only (the environment layer joins the
-    agent configuration)."""
+    """Both routers read NOMAD_TPU_SPILL_MARGIN and friends when built,
+    and `overrides` win over them (the name is kept from when the port's
+    router read no environment)."""
     monkeypatch.setenv("NOMAD_TPU_SPILL_MARGIN", "0.5")
     monkeypatch.setenv("NOMAD_TPU_MAX_PENDING", "128")
-    ref = ref_serving.SpilloverRouter(regions={"us": 1.0})
-    assert ref.spill_margin == 0.5 and ref.max_pending == 128
-    r = SpilloverRouter(regions={"us": 1.0})
-    assert r.spill_margin == port_serving.DEFAULT_SPILL_MARGIN
-    assert r.max_pending == port_serving.DEFAULT_MAX_PENDING
-    assert r.region("us").admission.max_pending == r.max_pending
-    r2 = SpilloverRouter(regions={"us": 1.0},
-                         overrides={"spill_margin": 0.9,
-                                    "max_pending": 32})
-    assert r2.spill_margin == 0.9 and r2.max_pending == 32
+    monkeypatch.setenv("NOMAD_TPU_REGION_COST", "not-a-number")
+
+    def knobs(cls, **kw):
+        r = cls(regions={"us": 1.0}, **kw)
+        return (r.spill_margin, r.max_pending, r.default_cost,
+                r.slo_budget_s, r.region("us").admission.max_pending)
+
+    ref = knobs(ref_serving.SpilloverRouter)
+    assert knobs(SpilloverRouter) == ref
+    assert ref == (0.5, 128, port_serving.DEFAULT_REGION_COST,
+                   port_serving.DEFAULT_SLO_BUDGET_S, 128)
+    over = {"spill_margin": 0.9, "max_pending": 32}
+    assert (knobs(SpilloverRouter, overrides=over)
+            == knobs(ref_serving.SpilloverRouter, overrides=over))
+    assert knobs(SpilloverRouter, overrides=over)[:2] == (0.9, 32)
 
 
 # ------------------------------------------------ chip_smoke phase 11 L5

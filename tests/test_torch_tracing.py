@@ -541,32 +541,41 @@ def test_mesh_event_log_truthiness_regression(pkg):
 
 
 def test_port_reads_no_tracing_or_metrics_environment(monkeypatch):
-    """The reference's recorder, registry and event log read
+    """Both packages' recorder, registry and event log read
     NOMAD_TPU_TRACE*, NOMAD_TPU_METRICS_MAX_KEYS and
-    NOMAD_TPU_MESH_EVENT_LOG; the port's take the same knobs as
-    constructor arguments only (the agent configuration will pass
-    them)."""
-    ref, port = api_pkg("ref"), api_pkg("port")
+    NOMAD_TPU_MESH_EVENT_LOG when built, and an argument wins (the name
+    is kept from when the port read no environment)."""
     with tempfile.TemporaryDirectory() as d:
         for name, value in (("NOMAD_TPU_TRACE", "0"),
                             ("NOMAD_TPU_TRACE_DEPTH", "3"),
                             ("NOMAD_TPU_TRACE_SAMPLE", "0.0"),
                             ("NOMAD_TPU_TRACE_SPILL", "2"),
-                            ("NOMAD_TPU_TRACE_SINK",
-                             os.path.join(d, "t.jsonl")),
-                            ("NOMAD_TPU_MESH_EVENT_LOG",
-                             os.path.join(d, "m.jsonl")),
                             ("NOMAD_TPU_METRICS_MAX_KEYS", "2")):
             monkeypatch.setenv(name, value)
-        ref_rec = ref.tracing.FlightRecorder()
-        assert not ref_rec.enabled and ref_rec.depth_limit == 3
-        assert ref.metrics.MetricsRegistry().max_keys_per_ns == 2
-        rec = port.tracing.FlightRecorder()
-        assert rec.enabled and rec.depth_limit == 512
-        assert rec.sample == 1.0 and rec.spill_limit == 8192
-        rec.event("t", "create")
-        rec.flush()
-        assert rec.get("t") is not None
-        assert port.metrics.MetricsRegistry().max_keys_per_ns == 512
-        port.tracing.MeshEventLog().record("grow", tiles=[1])
-        assert sorted(os.listdir(d)) == []
+
+        def seen(pkg, tag, **kw):
+            P = api_pkg(pkg)
+            monkeypatch.setenv("NOMAD_TPU_TRACE_SINK",
+                               os.path.join(d, f"{pkg}-{tag}-t.jsonl"))
+            monkeypatch.setenv("NOMAD_TPU_MESH_EVENT_LOG",
+                               os.path.join(d, f"{pkg}-{tag}-m.jsonl"))
+            rec = P.tracing.FlightRecorder(**kw)
+            out = [rec.enabled, rec.depth_limit, rec.sample,
+                   rec.spill_limit,
+                   P.metrics.MetricsRegistry().max_keys_per_ns]
+            rec.event("t", "create")
+            rec.flush()
+            out.append(rec.get("t") is not None)
+            P.tracing.MeshEventLog().record("grow", tiles=[1])
+            return out
+
+        env = {pkg: seen(pkg, "env") for pkg in ("ref", "port")}
+        assert env["port"] == env["ref"] == [False, 3, 0.0, 2, 2, False]
+        kw = dict(enabled=True, depth=5, sample=1.0)
+        arg = {pkg: seen(pkg, "arg", **kw) for pkg in ("ref", "port")}
+        assert arg["port"] == arg["ref"] == [True, 5, 1.0, 2, 2, True]
+        files = sorted(os.listdir(d))
+        assert files == sorted(f"{pkg}-{tag}-{k}.jsonl"
+                               for pkg in ("ref", "port")
+                               for tag, k in (("env", "m"), ("arg", "m"),
+                                              ("arg", "t")))
