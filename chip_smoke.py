@@ -5,7 +5,8 @@
 
 Phases, one JSON line each; any failed phase exits nonzero.  They run
 in the order 1-7, 13, 15, 16, 17, then 8-11 in this process while phase
-12 runs in a process of its own (`--phase-12`), then 14.  After each, a
+12 runs in a process of its own (`--phase-12`), then 14 and 18 (whose
+analyzer children run from the start, beside phases 1-6).  After each, a
 `timeline` line gives the seconds since the script started, and the
 last one the whole script's against its 1,200 s limit.  The script
 refuses to start (exit 2) when a `NOMAD_TPU_*` variable is set in its
@@ -529,14 +530,44 @@ environment: every phase but 17's children runs at the defaults.
                attribute and at least one access checked; the accesses
                checked and any unguarded reads printed.  Locks and classes are
                restored afterwards.
+ 18. witness — the analyzer's device passes against the card, after
+               phase 14.  Leg A: `python -m nomad_tpu_torch.analysis
+               --json --no-baseline` over this tree and this script with
+               `--phase-18-reach` (every function of the tree, the
+               device roots' reach marked; the analyzer's own index and
+               registry), two child processes started with the script
+               so that they run beside phases 1-6 and collected here:
+               the analyzer must exit 0 with no unsuppressed finding
+               and no stale baseline entry; its findings and
+               suppressions per rule and its seconds are printed.  Leg
+               S, the sync witness: four solves run again on this
+               thread, once as a warm-up and reference and once under
+               `torch.cuda.set_sync_debug_mode("warn")` — phase 6's
+               last service eval's resident batch through the Solver's
+               dispatch (`solve._run_kernel`, topk), phase 7's first
+               fused score round's arguments (Gp 256) through
+               `fused_wave`, a phase 9 config-3 chunk through
+               `ResidentSolver.solve_stream` from the seeded usage, and
+               one phase 11 L1 batch through the 8-shard
+               `ShardedResidentSolver` — each sync warning recorded at
+               the innermost `nomad_tpu_torch` frame on the stack.
+               Checks: every sync inside a function the device roots
+               reach is at a line the jit pass reports under JIT203
+               (suppressed or not: the static set holds the dynamic
+               one); placements, counters and launches equal with and
+               without debug mode; topk and merge launches in the
+               worker eval and the mesh solve, one score launch in the
+               fused round.  Syncs per solve, per wave and per site are
+               printed, in the reach and outside it.
 
 The line before the last lists every kernel with its launches on the
-worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16
-and 17 as `launches_phase5`, `launches_phase7`, `launches_phase8`,
+worker's path (phase 6; phases 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
+17 and 18 as `launches_phase5`, `launches_phase7`, `launches_phase8`,
 `launches_phase9`, `launches_phase10`, `launches_phase11`,
 `launches_phase12`, `launches_phase13`, `launches_phase14`,
-`launches_phase15`, `launches_phase16` and `launches_phase17` beside
-them; phase 17's count both children's launches with leg L's),
+`launches_phase15`, `launches_phase16`, `launches_phase17` and
+`launches_phase18` beside them; phase 17's count both children's
+launches with leg L's, phase 18's its debug-mode runs),
 and its error against the plain version, times (`ms` is the kernel-only
 cold time) and bound on phase 6's own arguments; the score kernel also
 on the first fused score round's arguments (`fused_round`), each kernel
@@ -1820,6 +1851,10 @@ def phase_worker(torch, wk, n_nodes, resident, n_evals, batch_count):
     calls = kernel_vs_plain(wk, (("last service eval", svc[-1]["pb"],
                                   "topk"),
                                  ("batch eval", bat["pb"], "score")))
+    # phase 18's witness re-solves the last service eval's batch (a
+    # private copy: the world's template may change under the original)
+    from nomad_tpu_torch.solver.solve import _private_planes
+    LEG_S["worker"] = _private_planes(svc[-1]["pb"])
     # the card's busy share of one more service eval (after the checks:
     # the profiled eval is not part of the measured window)
     clock = EvalClock(h, resident=True)
@@ -5870,6 +5905,8 @@ def phase_stream(torch, wk, n_nodes, resident, n_evals, epc=STREAM_EPC,
         torch.cuda.synchronize()
     counts = dict(wk.fused_wave.mode_launches)
     peak = torch.cuda.max_memory_allocated() if on_card else None
+    # phase 18's witness re-solves the first chunk from the seeded usage
+    LEG_S["stream"] = {"rs": rs, "pb": batches[0], "used0": used0}
 
     total = n_evals * COUNT
     row = {
@@ -6684,6 +6721,8 @@ def phase_mesh(torch, wk, n_nodes=MESH_NODES, n_evals=MESH_EVALS,
               <= wt["ici"]["bound_candidate_keys"],
               "L1: modeled key bytes above the candidate-keys bound")
         emit({"phase": "mesh", "leg": "L1", **legs["L1"]})
+        # phase 18's witness re-solves one batch of this stream
+        LEG_S["mesh"] = {"rs": rs, "batches": batches[:1]}
         del rs
 
         # ---- L2: two tiers, then three tiers (cross-region) ----
@@ -7608,6 +7647,302 @@ def phase_cluster(torch, wk, n_nodes, resident):
     return {m: total[m] for m in ("score", "topk", "merge")}
 
 
+# ------------------------------------------------------------ phase 18
+#: leg S's solves, stashed by the phases that run them (6, 9, 11; the
+#: fused round's arguments come from phase 7's return)
+LEG_S = {}
+#: leg A's children: started by main at the script's start, collected by
+#: phase 18 (main kills any still running when the script ends)
+LEG_A_PROCS = []
+#: the sync-debug warning's text (c10's warn_or_error_on_sync)
+SYNC_WARNING = "synchronizing CUDA operation"
+#: the analyzer's child must end within this once phase 18 asks
+LEG_A_WAIT_S = 120
+
+
+def start_phase_18():
+    """Leg A's children, started at the script's start so that they
+    overlap phases 1-6: `python -m nomad_tpu_torch.analysis --json
+    --no-baseline` over this tree (the baseline still decides the exit
+    code; the flag lists the baselined findings too), and this script with `--phase-18-reach` (the functions of
+    the tree with the device roots' reach marked).  Each writes to a
+    temporary file; a thread each notes the time it exited."""
+    import tempfile
+    import threading
+    for name, argv in (
+            ("analyzer", [sys.executable, "-m", "nomad_tpu_torch.analysis",
+                          "--json", "--no-baseline"]),
+            ("reach", [sys.executable, os.path.abspath(__file__),
+                       "--phase-18-reach"])):
+        out = tempfile.TemporaryFile("w+")
+        err = tempfile.TemporaryFile("w+")
+        t0 = time.time()
+        proc = subprocess.Popen(argv, stdout=out, stderr=err, cwd=HERE)
+        ended = []
+        threading.Thread(target=lambda p=proc, e=ended: (
+            p.wait(), e.append(time.time())), daemon=True).start()
+        LEG_A_PROCS.append({"name": name, "proc": proc, "out": out,
+                            "err": err, "t0": t0, "ended": ended})
+
+
+def stop_phase_18_children():
+    for c in LEG_A_PROCS:
+        if c["proc"].poll() is None:
+            c["proc"].kill()
+            c["proc"].wait()
+
+
+def phase_18_reach():
+    """`--phase-18-reach`: every function of the tree with its span and
+    whether a device root reaches it (the analyzer's own index and
+    registry; no torch)."""
+    sys.path.insert(0, HERE)
+    from nomad_tpu_torch.analysis import AnalysisConfig
+    from nomad_tpu_torch.analysis.core import PackageIndex
+    from nomad_tpu_torch.analysis.jit_pass import find_jit_roots
+    idx = PackageIndex.build(HERE, "nomad_tpu_torch")
+    reach = idx.reachable([r.fkey for r in find_jit_roots(
+        idx, AnalysisConfig())])
+    emit({"phase": "reach", "functions": [
+        [fi.path, fi.qual, fi.node.lineno, fi.node.end_lineno, k in reach]
+        for k, fi in sorted(idx.functions.items())]})
+    return 0
+
+
+def collect_leg_a():
+    """Wait for leg A's children: the analyzer must exit 0 (no
+    unsuppressed finding, no stale baseline entry) and the reach child
+    must print its spans.  Returns (the analyzer's row, its JIT203 lines
+    by file, the reach spans)."""
+    got = {}
+    for c in LEG_A_PROCS:
+        try:
+            rc = c["proc"].wait(timeout=LEG_A_WAIT_S)
+        except subprocess.TimeoutExpired:
+            c["proc"].kill()
+            c["proc"].wait()
+            rc = None
+        c["out"].seek(0)
+        c["err"].seek(0)
+        got[c["name"]] = (rc, c["out"].read(), c["err"].read(),
+                          (c["ended"][0] if c["ended"] else time.time())
+                          - c["t0"])
+        c["out"].close()
+        c["err"].close()
+    rc, out, err, secs = got["analyzer"]
+    check(rc == 0, f"leg A: the analyzer exited {rc}: {out[-2000:]} "
+          f"{err[-2000:]}")
+    rep = json.loads(out)
+    shown = rep["unsuppressed"]
+    supp = collections.Counter(f["rule"] for f in shown if f["baselined"])
+    check(not rep["by_rule"] and not rep["stale_baseline_keys"]
+          and sum(supp.values()) == rep["suppressed"],
+          f"leg A: findings {rep['by_rule']}, stale "
+          f"{rep['stale_baseline_keys']}")
+    row = {"exit": rc, "seconds": secs, "version": rep["version"],
+           "findings_by_rule": rep["by_rule"],
+           "suppressed_by_rule": dict(sorted(supp.items())),
+           "suppressed_by_pass": dict(sorted(collections.Counter(
+               f["pass"] for f in shown if f["baselined"]).items()))}
+    jit203 = collections.defaultdict(set)
+    for f in shown:
+        if f["rule"] == "JIT203":
+            jit203[f["path"]].add(f["line"])
+    rc_r, out_r, err_r, secs_r = got["reach"]
+    spans = None
+    for line in out_r.splitlines():
+        if line.startswith('{"phase": "reach"'):
+            spans = json.loads(line)["functions"]
+    check(rc_r == 0 and spans, f"leg A: the reach child exited {rc_r}: "
+          f"{err_r[-2000:]}")
+    row["reach_seconds"] = secs_r
+    row["reach_functions"] = sum(1 for s in spans if s[4])
+    return row, jit203, spans
+
+
+def innermost(spans, path, line):
+    """The innermost function of `path` whose span holds `line`: (qual,
+    in the device roots' reach), else None."""
+    best = None
+    for p, qual, first, last, in_reach in spans:
+        if p == path and first <= line <= last and (
+                best is None or last - first < best[1] - best[0]):
+            best = (first, last, qual, in_reach)
+    return None if best is None else (best[2], best[3])
+
+
+def sync_sites(torch, fn):
+    """fn() on this thread under torch.cuda.set_sync_debug_mode("warn"):
+    its result and one (file, line, function) a sync warning, the
+    innermost nomad_tpu_torch frame on the stack when torch raised it
+    (the warning's own location where no frame of the port is on the
+    stack)."""
+    import warnings
+    sites = []
+    pkg = os.sep + "nomad_tpu_torch" + os.sep
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return
+        f = sys._getframe(1)
+        while f is not None and pkg not in f.f_code.co_filename:
+            f = f.f_back
+        if f is None:
+            sites.append((filename, lineno, "?"))
+        else:
+            sites.append((os.path.relpath(f.f_code.co_filename, HERE),
+                          f.f_lineno, f.f_code.co_name))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def witness_solve(torch, wk, what, reset, run, jit203, spans):
+    """One leg S solve: run() once as a warm-up and reference, then once
+    under sync debug mode, each after `reset()` (outside the debug
+    window: only the solve is witnessed).  Checks: the two runs'
+    placements and counters (their `state` and the launch counts) are
+    identical, and every sync in a function within the device roots'
+    reach is at a line the jit pass reports under JIT203.  Returns the
+    solve's row and its debug run's launches."""
+    if reset is not None:
+        reset()
+    torch.cuda.synchronize()
+    before = dict(wk.fused_wave.mode_launches)
+    ref_state, ref_waves = run()
+    torch.cuda.synchronize()
+    ref_launch = launch_delta(wk, before)
+    if reset is not None:
+        reset()
+    torch.cuda.synchronize()
+    before = dict(wk.fused_wave.mode_launches)
+    t0 = time.perf_counter()
+    (state, waves), sites = sync_sites(torch, run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch = launch_delta(wk, before)
+    check(launch == ref_launch, f"leg S {what}: launches {launch} under "
+          f"sync debug mode, {ref_launch} without")
+    check(waves == ref_waves and len(state) == len(ref_state) and all(
+        np.array_equal(a, b) for a, b in zip(state, ref_state)),
+          f"leg S {what}: placements or counters differ under sync debug "
+          "mode")
+    per_site = collections.Counter()
+    unmatched = []
+    outside = 0
+    for path, line, func in sites:
+        where = innermost(spans, path, line)
+        per_site[f"{path}:{line}:{func}"] += 1
+        if where is None or not where[1]:
+            outside += 1
+            continue
+        if line not in jit203.get(path, ()):
+            unmatched.append(f"{path}:{line} ({where[0]})")
+    check(not unmatched, f"leg S {what}: syncs in the device roots' reach "
+          f"at lines the jit pass does not report: {sorted(set(unmatched))}")
+    n_waves = int(np.sum(waves))
+    row = {"solve": what, "syncs": len(sites),
+           "syncs_in_reach": len(sites) - outside,
+           "syncs_outside_reach": outside, "waves": n_waves,
+           "syncs_per_wave": len(sites) / n_waves if n_waves else None,
+           "wall_ms_debug": 1e3 * wall, "launches": launch,
+           "per_site": dict(per_site.most_common())}
+    return row, launch
+
+
+def phase_witness(torch, wk, calls7):
+    """Phase 18: the device passes.  Leg A collects the analyzer run over
+    this tree (started at the script's start) and the device roots'
+    reach; leg S runs four solves of the earlier phases again on this
+    thread under sync debug mode — phase 6's last service eval (its
+    resident batch through the store-attached Solver's dispatch,
+    `solve._run_kernel`, topk), phase 7's first fused score round's
+    arguments (the wave wrapper, score), a phase 9 config-3 chunk through
+    `ResidentSolver.solve_stream` and a phase 11 L1 batch through the
+    8-shard `ShardedResidentSolver` — and holds every sync the card
+    reports within the reach to the jit pass's JIT203 sites.  Returns
+    the launch counts of the debug runs."""
+    from nomad_tpu_torch.solver.solve import _run_kernel, _to_host
+    t_phase = time.perf_counter()
+    leg_a, jit203, spans = collect_leg_a()
+    emit({"phase": "witness", "leg": "A", **leg_a})
+
+    worker_pb = LEG_S["worker"]
+
+    def worker():
+        r = _to_host(_run_kernel(worker_pb, DEVICE))
+        return ((r.choice, r.choice_ok, r.score, r.n_feasible,
+                 r.n_exhausted, r.unfinished, r.used_final,
+                 np.asarray([r.n_rescore])), [r.n_waves])
+
+    def fused():
+        out = wk.fused_wave(**calls7)
+        return (tuple(np.asarray(out[k].cpu()) for k in sorted(out)), [1])
+
+    stream = LEG_S["stream"]
+    mesh = LEG_S["mesh"]
+
+    def run_stream(rs, batches, seeds):
+        out = rs.solve_stream(batches, seeds=seeds)
+        return (tuple(out) + (rs.usage()[0],
+                              np.asarray(rs.last_rescore_waves)),
+                np.asarray(rs.last_waves).tolist())
+
+    # (what, reset before each run, outside the debug window; the solve)
+    solves = (
+        ("worker eval (phase 6, topk)", None, worker),
+        ("fused round (phase 7, score)", None, fused),
+        ("stream chunk (phase 9)",
+         lambda: stream["rs"].reset_usage(used0=stream["used0"]),
+         lambda: run_stream(stream["rs"], [stream["pb"]], [1])),
+        ("mesh solve (phase 11 L1, 8 shards)",
+         lambda: mesh["rs"].reset_usage(),
+         lambda: run_stream(mesh["rs"], mesh["batches"][:1], None)))
+    rows, total = [], {"score": 0, "topk": 0, "merge": 0}
+    shapes = {"fused round (phase 7, score)": wave_shape(calls7),
+              "mesh solve (phase 11 L1, 8 shards)": {
+                  "shards": mesh["rs"].n_shards,
+                  "Np": int(mesh["rs"].template.avail.shape[0])},
+              "stream chunk (phase 9)": {
+                  "placements": int(stream["pb"].n_place),
+                  "Np": int(stream["rs"].template.avail.shape[0])},
+              "worker eval (phase 6, topk)": {
+                  "placements": int(worker_pb.n_place),
+                  "Np": int(worker_pb.avail.shape[0])}}
+    for what, reset, solve in solves:
+        row, launch = witness_solve(torch, wk, what, reset, solve, jit203,
+                                    spans)
+        if what in shapes:
+            row["shape"] = shapes[what]
+        rows.append(row)
+        emit({"phase": "witness", "leg": "S", **row})
+        for k in total:
+            total[k] += launch.get(k, 0)
+    w, f, s, m = rows
+    check(w["launches"]["topk"] > 0 and w["launches"]["merge"]
+          == w["launches"]["topk"] and w["launches"]["score"] == 0,
+          f"leg S: the worker eval launched {w['launches']}")
+    check(f["launches"]["score"] == 1 and f["launches"]["topk"] == 0,
+          f"leg S: the fused round launched {f['launches']}")
+    check(m["launches"]["topk"] > 0 and m["launches"]["merge"]
+          == m["launches"]["topk"],
+          f"leg S: the mesh solve launched {m['launches']}")
+    emit({"phase": "witness", "seconds": time.perf_counter() - t_phase,
+          "static_contains_dynamic": "passed",
+          "syncs_per_solve": {r["solve"]: r["syncs"] for r in rows},
+          "syncs_per_wave": {r["solve"]: r["syncs_per_wave"]
+                             for r in rows},
+          "launches": total})
+    return total
+
+
 # ------------------------------------------------------------ phase 14
 #: bench.py run_chaos (:1162): the storm's seed, horizon, rates, regions,
 #: shards, and the fleet solves and evals a step
@@ -8147,6 +8482,8 @@ def phase_chaos(torch, wk, n_nodes=N_NODES, resident=RESIDENT):
 
 def main() -> int:
     import argparse
+    if "--phase-18-reach" in sys.argv:
+        return phase_18_reach()
     child = "--phase-17-child" in sys.argv
     if not child and knob_names():
         # the phases run at the defaults: a NOMAD_TPU_* variable in the
@@ -8196,7 +8533,15 @@ def main() -> int:
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(0)
+    start_phase_18()
+    try:
+        return run_phases(torch, wk, args)
+    finally:
+        stop_phase_18_children()
 
+
+def run_phases(torch, wk, args) -> int:
+    """Phases 1-18 in this process (phase 12 in its own)."""
     card = phase_device(torch)
     phase_build(wk)
     base_wk = load_baseline(args.baseline) if args.baseline else None
@@ -8246,6 +8591,9 @@ def main() -> int:
             proc12.wait()
     counts14 = phase_chaos(torch, wk)
     timeline("phase 14")
+    counts18 = phase_witness(torch, wk, calls7["score"])
+    # after phase 14 the watchdog's counters have moved by design
+    timeline("phase 18")
     # the kernels on the main path's own arguments (phase 6), and the
     # score kernel on the first fused score round's (phase 7)
     kern.update(kernel_case(torch, wk, "score (batch eval)",
@@ -8292,6 +8640,7 @@ def main() -> int:
             "launches_phase15": counts15[mode],
             "launches_phase16": counts16[mode],
             "launches_phase17": counts17[mode],
+            "launches_phase18": counts18[mode],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

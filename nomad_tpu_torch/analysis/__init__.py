@@ -1,21 +1,48 @@
 """nomadlint: static invariant analyzer for the nomad_tpu_torch package.
 
-The counterpart of `nomad_tpu.analysis`, with its host passes: six
-passes over a module-level call graph (core.py), beside which
-dataflow.py keeps the def-use and buffer-provenance layer.  No
-analyzed module is ever imported: everything is `ast` on source text
-(and, for the CUDA and C++ scorers, regex over their source), so the
-analyzer runs without torch, a GPU or a compiler.
+The counterpart of `nomad_tpu.analysis`: nine passes over a
+module-level call graph (core.py) plus a dataflow layer (def-use
+chains, buffer-identity provenance, interprocedural summaries — see
+dataflow.py).  No analyzed module is ever imported: everything is `ast`
+on source text (and, for the CUDA and C++ scorers, regex over their
+source), so the analyzer runs without torch, a GPU or a compiler.
 
   * FSM determinism (fsm_pass):   the raft apply path must be
     bit-deterministic across replicas — no wall clock, no randomness
     (python, numpy or torch), no unordered-set iteration feeding state
     writes, and no StateStore mutation reachable from outside the
     apply path.
+  * device-program purity and host syncs (jit_pass): the port's
+    device roots (a registry, `jit_pass.DEFAULT_DEVICE_ROOTS`, with
+    the reference's static_argnames; JIT200 when one no longer
+    resolves) are what a CUDA graph capture would take, so their reach
+    must stay free of host effects and torch's global RNG (JIT201) and
+    of global writes (JIT202); every place a device tensor's value
+    reaches the host there — `bool()` / `int()`, `.item()`, a tensor
+    as a Python test, `nonzero`, a host copy onto the card — is a
+    JIT203 site, baselined with the reference predicate it stands for;
+    a name bound to the same storage as another must not be read after
+    an in-place op on the other (JIT204, the counterpart of a donated
+    read); a collective request (`yield ("psum", ...)`) needs a
+    per-shard root, a generator handed to `kernel.solve_shards`, and an
+    axis its mesh carries (JIT205).
   * lock discipline (lock_pass):  shared attributes of the threaded
     server plane must be written under their class lock; racy getters,
     unlocked module-global mutation and lock-ordering cycles are
     flagged.
+  * partition safety (shard_pass): a plane split one tensor a shard
+    (`ShardedResidentSolver._split_rows` / `_split_cols`) takes global
+    rows only through the owner-routed scatter (SHARD401); a scatter in
+    a per-shard root pins non-owned rows to a dropped slot (SHARD402,
+    `kernel._add_drop`, the reference's mode="drop"); block-layout
+    `//` / `%` ownership arithmetic there is a warning (SHARD403).
+  * buffer aliasing and in-place lifetime (alias_pass): on `cpu`
+    `torch.as_tensor` / `torch.from_numpy` share the numpy buffer, so a
+    host in-place write after an uncopied hand-over reaches the tensor
+    there and not on the card (ALIAS501); a snapshot read after an
+    in-place op reached through wrappers of wrappers (ALIAS502, what
+    JIT204's one hop cannot see); `self.attr = torch.as_tensor(param)`
+    without a copy (ALIAS503, warn).
   * scoring-spec conformance (score_pass): solver/score_spec.py is
     the single declarative scoring spec; the spec-driven backends
     (host twin, torch wave scorer) must defer every float op to it,
@@ -41,10 +68,6 @@ analyzer runs without torch, a GPU or a compiler.
     windows are flagged (RACE903, warn), and no hot-path lock may be
     held across a blocking call — device solve, fsync, RPC, waits
     (LOCK305).  `utils/lockdep.py` is its runtime witness.
-
-The reference's device passes (jit purity, SPMD partition safety,
-buffer aliasing) check `jax.jit`, `shard_map` and donation; their rule
-families (JIT, SHARD, ALIAS) are not part of this analyzer.
 
 Checked-in suppressions live in baseline.toml next to this file; every
 entry must carry a non-empty justification. Run `python -m
@@ -88,15 +111,20 @@ def analyze(package_dir: Optional[str] = None,
     like mesh-root reachability and spec reference fingerprints need
     the full call graph, so a partial index would manufacture false
     positives — but findings are limited to the named files, and the
-    registry-rot/coverage rules (SCORE603/SCORE604) are muted because
-    judging them is a whole-package statement, not a per-file one.
+    registry-rot/coverage rules (SCORE603/SCORE604, JIT200) are muted
+    because judging them is a whole-package statement, not a per-file
+    one.
     CI must keep running without `paths`."""
     from .fsm_pass import run_fsm_pass
+    from .jit_pass import run_jit_pass
     from .lock_pass import run_lock_pass
     from .score_pass import run_score_pass
     from .robust_pass import run_robust_pass
     from .obs_pass import run_obs_pass
     from .race_pass import run_race_pass
+    from .shard_pass import run_shard_pass
+    from .alias_pass import run_alias_pass
+    from .dataflow import DataflowEngine
 
     package_dir = package_dir or _PKG_DIR
     cfg = config or AnalysisConfig()
@@ -108,9 +136,15 @@ def analyze(package_dir: Optional[str] = None,
             for p in paths}
     index = PackageIndex.build(package_dir, package_name,
                                cache_dir=cache_dir)
+    engine = DataflowEngine(index, cfg)
     findings: List[Finding] = []
     findings += run_fsm_pass(index, cfg)
+    findings += run_jit_pass(index, cfg, engine)
     findings += run_lock_pass(index, cfg)
+    findings += run_shard_pass(index, cfg, engine)
+    # alias pass sees prior findings so ALIAS502 never double-reports
+    # a read JIT204 already covers
+    findings += run_alias_pass(index, cfg, engine, prior=findings)
     findings += run_score_pass(index, cfg, package_dir=package_dir)
     findings += run_robust_pass(index, cfg)
     findings += run_obs_pass(index, cfg)
@@ -119,7 +153,7 @@ def analyze(package_dir: Optional[str] = None,
     findings += run_race_pass(index, cfg, prior=findings)
     if only_files is not None:
         findings = [f for f in findings
-                    if f.rule not in ("SCORE603", "SCORE604")
+                    if f.rule not in ("SCORE603", "SCORE604", "JIT200")
                     and os.path.normpath(f.path) in only_files]
     findings.sort(key=lambda f: (f.path, f.line, f.rule))
 

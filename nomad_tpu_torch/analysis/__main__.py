@@ -6,7 +6,7 @@ Exit-code contract (stable, scripted against by CI):
   1  at least one unsuppressed ERROR-tier finding
   2  baseline/config error (unjustified entry, unreadable file)
   3  unsuppressed WARN-tier findings only (advisory heuristics:
-     LOCK302 / OBS802 / RACE903)
+     LOCK302 / SHARD403 / ALIAS503 / OBS802 / RACE903)
 
 `--no-baseline` is a REPORTING mode, not a gating mode: it lists every
 finding (each tagged with whether the checked-in baseline would
@@ -15,11 +15,11 @@ baseline-aware verdict — so `--no-baseline --json` in a CI pipeline
 does not fail a clean tree just because accepted findings exist.
 
 `--paths FILE...` is file-scoped INCREMENTAL mode for pre-commit
-hooks: the whole package is still indexed (cross-file facts — thread
+hooks: the whole package is still indexed (cross-file facts — mesh
 reachability, spec reference fingerprints — need the full call
 graph), but only findings in the named files are reported, and the
-registry-rot/coverage rules (SCORE603/SCORE604) are muted because a
-per-file view cannot judge them.  CI must keep running WITHOUT
+registry-rot/coverage rules (SCORE603/SCORE604, JIT200) are muted
+because a per-file view cannot judge them.  CI must keep running WITHOUT
 `--paths` so the whole-package invariants stay enforced.
 
 `--diff` resolves the changed-file set from `git diff --name-only
@@ -80,9 +80,11 @@ def _diff_paths() -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m nomad_tpu_torch.analysis",
-        description="nomadlint: FSM determinism / lock discipline / "
-                    "lockset races / swallowed exceptions / metric "
-                    "hygiene / scoring drift analyzer",
+        description="nomadlint: FSM determinism / device-program "
+                    "purity and host syncs / lock discipline / partition "
+                    "safety / buffer aliasing / scoring drift / "
+                    "swallowed exceptions / metric hygiene / lockset "
+                    "races analyzer",
         epilog="exit codes: 0 clean, 1 unsuppressed errors, "
                "2 baseline error, 3 unsuppressed warnings only")
     ap.add_argument("--no-baseline", action="store_true",
@@ -100,8 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", nargs="+", metavar="FILE", default=None,
                     help="file-scoped incremental mode: report ONLY "
                          "findings in these files (pre-commit); "
-                         "SCORE603/SCORE604 are muted — CI must run "
-                         "without --paths")
+                         "SCORE603/SCORE604/JIT200 are muted — CI must "
+                         "run without --paths")
     ap.add_argument("--diff", action="store_true",
                     help="pre-commit mode: resolve changed files from "
                          "`git diff --name-only HEAD` (plus untracked) "

@@ -24,12 +24,14 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 # severity tiers: "error" findings gate CI (exit 1); "warn" findings
 # are advisory heuristics (exit 3 when they are the only findings).
 # Everything not listed here is an error.
-WARN_RULES = frozenset({"LOCK302", "OBS802", "RACE903"})
+WARN_RULES = frozenset({"LOCK302", "SHARD403", "ALIAS503", "OBS802",
+                        "RACE903"})
 
 # rule-id prefix -> pass name (used by --json/by_pass and bench's
 # lint_summary so BENCH_DETAIL records per-pass lint state)
 RULE_PASSES: Tuple[Tuple[str, str], ...] = (
-    ("FSM", "fsm"), ("LOCK", "lock"), ("SCORE", "score"),
+    ("FSM", "fsm"), ("JIT", "jit"), ("LOCK", "lock"),
+    ("SHARD", "shard"), ("ALIAS", "alias"), ("SCORE", "score"),
     ("ROBUST", "robust"), ("OBS", "obs"), ("RACE", "race"),
 )
 
@@ -162,6 +164,17 @@ class AnalysisConfig:
         "nomad_tpu_torch.server", "nomad_tpu_torch.state",
         "nomad_tpu_torch.rpc", "nomad_tpu_torch.raft",
         "nomad_tpu_torch.solver",
+    )
+    # JIT2xx: override of the device-root registry (None = the package
+    # registry in jit_pass.DEFAULT_DEVICE_ROOTS); torch marks no device
+    # program the way `jax.jit` does, so the roots are named here.
+    device_roots: Optional[Tuple] = None
+    # SHARD401: row-scatter helpers, as "module:qualname@param_pos" —
+    # passing a plane split per shard at that position outside the
+    # owner-routed path writes global rows into one shard's tensor.
+    scatter_helpers: Tuple[str, ...] = (
+        "nomad_tpu_torch.solver.kernel:delta_scatter_set@0",
+        "nomad_tpu_torch.solver.kernel:delta_scatter_add@0",
     )
     # SCORE6xx: override of the scoring-site registry (None = the
     # package registry in score_pass.DEFAULT_SCORER_SITES); tests
@@ -318,6 +331,11 @@ class PackageIndex:
         self.classes: Dict[str, ClassInfo] = {}
         self._edges: Dict[str, Set[str]] = {}
         self._externals: Dict[str, List[Tuple[str, int]]] = {}
+        # per-function walks, kept because every pass walks every body
+        self._own_cache: Dict[str, List[ast.AST]] = {}
+        self._linear_cache: Dict[str, List[ast.AST]] = {}
+        # the device passes' generator drivers (jit_pass._scan_drivers)
+        self._driver_cache: Dict[str, Dict] = {}
 
     # ------------------------------------------------------------ build
     @classmethod
@@ -760,16 +778,24 @@ class PackageIndex:
 
     def _own_nodes(self, fi: FuncInfo):
         """Walk a function body EXCLUDING nested function/class bodies
-        (nested defs have their own FuncInfo)."""
-        stack: List[ast.AST] = [fi.node]
-        while stack:
-            node = stack.pop()
-            if node is not fi.node and isinstance(
-                    node, (ast.FunctionDef, ast.AsyncFunctionDef,
-                           ast.ClassDef)):
-                continue
-            yield node
-            stack.extend(ast.iter_child_nodes(node))
+        (nested defs have their own FuncInfo).  The walk is computed
+        once per function: every pass walks every body, several
+        times."""
+        cache = self._own_cache
+        nodes = cache.get(fi.key)
+        if nodes is None:
+            nodes = []
+            stack: List[ast.AST] = [fi.node]
+            while stack:
+                node = stack.pop()
+                if node is not fi.node and isinstance(
+                        node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                               ast.ClassDef)):
+                    continue
+                nodes.append(node)
+                stack.extend(ast.iter_child_nodes(node))
+            cache[fi.key] = nodes
+        return iter(nodes)
 
     def external_calls(self, fkey: str) -> List[Tuple[str, int]]:
         """(dotted-name, lineno) for every call whose base resolves

@@ -1,45 +1,52 @@
 """Dataflow layer for nomadlint v2.
 
 The v1 passes are pure AST pattern matches over a call graph; every
-bug class we have actually shipped and later caught by hand — the
+bug class the reference shipped and later caught by hand — the
 zero-copy `device_put` aliasing double-charge, the GSPMD double-applied
 scatter on a NamedSharding-sharded operand, the donated-carry
 read-after-dispatch — is a *dataflow* property: where a buffer came
-from, whether a copy intervened, which call killed it. This module
+from, whether a copy intervened, which call changed it.  This module
 adds exactly that layer, still pure `ast` (nothing analyzed is ever
 imported):
 
   * per-function linear def-use scanning with buffer-identity
     provenance: a `BufferValue` tracks the identity sources of a value
-    (parameters, `self` attributes), whether it crossed `device_put`,
-    whether a NamedSharding was pinned, and whether a genuine copy
-    (`np.array`, `.copy()`, fresh allocation) intervened —
-    `np.asarray`/`ascontiguousarray` and dtype casts are
-    identity-PRESERVING and propagate provenance unchanged;
+    (parameters, `self` attributes), whether it crossed onto the device
+    (`torch.as_tensor` / `torch.from_numpy`, with or without
+    `.to(device)`: on `cpu` the tensor IS the numpy buffer), whether it
+    is split per shard, and whether a genuine copy (`np.array`,
+    `.copy()`, `.clone()`, `torch.tensor`, fresh allocation)
+    intervened — `np.asarray`/`ascontiguousarray`, dtype casts, views
+    and `.to(...)` are identity-PRESERVING and propagate provenance
+    unchanged;
   * interprocedural summaries (fixpoint with a recursion guard):
     return-value provenance (`_put_node`-style hooks advertise
-    "returns a device buffer, copied, sharded"), transitive donation
-    positions (a wrapper passing its parameter into a donated slot
-    donates that parameter too, to any depth), and scatter positions
-    (a parameter that flows into an `x.at[...].set/add` scatter);
+    "returns a device buffer, copied, split"), uncopied-put positions
+    (a parameter that reaches `torch.as_tensor` without a copy), the
+    transitive IN-PLACE map (a wrapper passing its parameter into a
+    position some callee mutates in place mutates that parameter too,
+    to any depth) and scatter positions (a parameter that receives a
+    row scatter);
   * class-level buffer facts with subclass-bound dispatch: methods are
     analyzed against the *concrete* class so an inherited
     `_put_node_side` picks up the subclass's `_put_node` override —
-    this is what lets SHARD401 distinguish `ResidentSolver` (plain
-    device buffers, plain jit scatter: fine) from a subclass that pins
-    NamedSharding but forgets to reroute its delta scatters (the GSPMD
-    double-apply).
+    this is what lets SHARD401 tell `ResidentSolver` (one plane a
+    device, plain scatters: fine) from a subclass that splits its
+    planes per shard but inherits the plain delta scatter.
 
-The three v2 passes (shard_pass, alias_pass, score_pass) are queries
-over this engine; the v1 passes keep their original machinery.
+A plane is split per shard when it comes from a comprehension that
+moves one piece to each device (`[x[i].to(d) for i, d in ...]`, the
+shape of `ShardedResidentSolver._split_rows` / `_split_cols`), or from
+a function that returns one.  The per-shard roots are the generators
+handed to `kernel.solve_shards` (`jit_pass.find_mesh_roots`).  The
+in-place map's base case is every function whose own body mutates a
+parameter in place (`index_put_` and the other `*_` methods, a
+subscript store or augmented assignment through it, `out=`): the
+kernel's `delta_scatter_set` / `delta_scatter_add` at position 0 and
+`tensorize.apply_node_delta_host` on the numpy template.
 
-The counterpart of `nomad_tpu.analysis.dataflow`.  In this package no
-pass queries the engine yet: its queries are the reference's device
-passes (jit, shard and alias), whose torch counterparts are ROADMAP.md
-Queue 1 item 19b.  Their root sets are the two hooks below: torch has
-no `donate_argnums`, so the donation map starts empty, and the
-per-shard roots (the generators `kernel.solve_shards` drives) are named
-by those passes when they come.
+The device passes (jit, shard, alias) query this engine; the other
+passes keep their original machinery.
 """
 from __future__ import annotations
 
@@ -51,27 +58,59 @@ from .core import AnalysisConfig, FuncInfo, PackageIndex, _dotted
 
 # -- call classification ------------------------------------------------
 # identity-preserving wrappers: the result aliases the argument's buffer
+# (numpy's and torch's views, casts that may return the input, and
+# `.to(...)`, which on `cpu` returns the tensor itself)
 PASSTHROUGH_SUFFIXES = (
     "asarray", "ascontiguousarray", "asanyarray", "atleast_1d",
     "atleast_2d", "ravel", "reshape", "view", "squeeze", "astype",
+    "to", "detach", "contiguous", "expand", "expand_as", "narrow",
+    "unsqueeze", "flatten", "view_as", "reshape_as", "cuda", "permute",
+    "transpose", "movedim", "unflatten",
 )
 # genuine copies / fresh allocations: the result owns its buffer
 COPY_SUFFIXES = (
     "array", "copy", "deepcopy", "zeros", "ones", "empty", "full",
     "zeros_like", "ones_like", "full_like", "empty_like", "arange",
     "stack", "concatenate", "vstack", "hstack", "tile", "repeat",
-    "frombuffer", "fromiter", "linspace",
+    "frombuffer", "fromiter", "linspace", "tensor", "clone", "cat",
 )
+# calls that hand a host buffer to torch WITHOUT a copy: on `cpu` the
+# tensor shares the numpy buffer (and `.to("cpu")` returns it as is)
+PUT_SUFFIXES = ("as_tensor", "from_numpy")
 # single-argument cast wrappers that merely relabel a value
 CAST_NAMES = {"f32", "i32", "u32", "float32", "float64", "int32",
               "int16", "int8", "uint32", "bool_", "int", "float"}
 # in-place ndarray mutators (host-side writes through the buffer)
 INPLACE_METHODS = {"fill", "sort", "put", "partition", "setfield",
                    "itemset", "resize", "setflags", "byteswap"}
+# row scatters: the receiver takes rows at an index operand
+SCATTER_METHODS = {"index_put", "index_put_", "index_add", "index_add_",
+                   "index_copy", "index_copy_", "index_fill",
+                   "index_fill_", "scatter", "scatter_", "scatter_add",
+                   "scatter_add_", "scatter_reduce", "scatter_reduce_",
+                   "put_", "masked_scatter", "masked_scatter_"}
+# attributes that describe a buffer rather than alias it
+META_ATTRS = {"shape", "dtype", "device", "ndim", "size", "nbytes",
+              "itemsize", "is_cuda", "layout"}
 
 
 def _last(name: str) -> str:
     return name.rsplit(".", 1)[-1]
+
+
+def is_inplace_method(attr: str) -> bool:
+    """torch's in-place spelling: a trailing underscore (`add_`,
+    `index_put_`), not a dunder."""
+    return attr.endswith("_") and not attr.endswith("__") \
+        and not attr.startswith("_")
+
+
+def root_name(node) -> Optional[str]:
+    """The Name under a chain of subscripts/attributes (`a` of
+    `a.b[0].c`), else None."""
+    while isinstance(node, (ast.Subscript, ast.Attribute)):
+        node = node.value
+    return node.id if isinstance(node, ast.Name) else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +120,9 @@ class BufferValue:
     atoms   identity sources still aliased by the value:
             "param:<name>" / "attr:<name>" (a `self` attribute).
             Empty for fresh/copied/opaque values.
-    device  the value is (or contains) a device_put result
-    sharded a NamedSharding was pinned somewhere on the way
+    device  the value is (or contains) a torch tensor made from a host
+            buffer (`torch.as_tensor` / `torch.from_numpy`)
+    sharded the value is a plane split per shard (one tensor a device)
     copied  a genuine copy separates the value from its atoms
     key     linear-scan expression key of the SOURCE buffer at the
             point of use ("t", "self._template") — used for
@@ -111,10 +151,11 @@ class BufferValue:
 @dataclasses.dataclass
 class PutEvent:
     line: int
-    src: BufferValue          # provenance of the device_put ARGUMENT
-    sharded: bool             # NamedSharding pinned at this call
-    stored_attr: Optional[str]   # `self.<a> = device_put(...)` target
-    stored_name: Optional[str]   # `x = device_put(...)` target
+    src: BufferValue          # provenance of the host buffer handed over
+    sharded: bool             # split per shard at this call
+    stored_attr: Optional[str]   # `self.<a> = torch.as_tensor(...)`
+    stored_name: Optional[str]   # `x = torch.as_tensor(...)`
+    via_call: bool = False    # made by a callee on its parameter
 
 
 @dataclasses.dataclass
@@ -135,15 +176,16 @@ class FuncDataflow:
 @dataclasses.dataclass
 class Summary:
     returns: BufferValue
-    donates: Tuple[int, ...] = ()      # positional params donated
+    mutates: Tuple[int, ...] = ()      # positional params changed in place
     scatter: Tuple[int, ...] = ()      # positional params scattered
+    puts: Tuple[int, ...] = ()         # params handed to torch uncopied
 
 
 @dataclasses.dataclass
 class AttrFact:
     sharded: bool = False
     uncopied_puts: List[Tuple[str, int]] = dataclasses.field(
-        default_factory=list)          # (fkey, line) device_put sites
+        default_factory=list)          # (fkey, line) put sites
     mutations: List[Tuple[str, int, str]] = dataclasses.field(
         default_factory=list)          # (fkey, line, desc)
     holds_param: bool = False          # aliases a caller-owned buffer
@@ -161,21 +203,25 @@ class DataflowEngine:
         self._class_facts: Dict[str, Dict[str, AttrFact]] = {}
         self._mesh_roots: Optional[Set[str]] = None
         self._shard_safe: Optional[Set[str]] = None
-        self._donation: Optional[Dict[str, Tuple[int, ...]]] = None
+        self._inplace: Optional[Dict[str, Tuple[int, ...]]] = None
+        self._inplace_base: Optional[Dict[str, Tuple[int, ...]]] = None
         self._scatter_map: Optional[Dict[str, Tuple[int, ...]]] = None
+        self._calls_cache: Dict[str, List[Tuple[ast.Call, str]]] = {}
 
     # ------------------------------------------------- mesh membership
     def mesh_roots(self) -> Set[str]:
-        """Functions that run per shard: none named until the device
-        passes define the port's per-shard roots."""
+        """Functions that run per shard: the generators handed to
+        `kernel.solve_shards` (the counterpart of the reference's
+        shard_map bodies)."""
         if self._mesh_roots is None:
-            self._mesh_roots = set()
+            from .jit_pass import find_mesh_roots
+            self._mesh_roots = set(find_mesh_roots(self.index))
         return self._mesh_roots
 
     def shard_safe(self) -> Set[str]:
-        """Functions running under a shard_map/pmap context (roots plus
-        everything reachable from them): scatters here see per-shard
-        local blocks, not the global sharded operand."""
+        """Functions running per shard (roots plus everything reachable
+        from them): scatters here see one shard's local rows, not a
+        plane split across shards."""
         if self._shard_safe is None:
             self._shard_safe = self.index.reachable(self.mesh_roots())
             self._shard_safe |= self.mesh_roots()
@@ -192,25 +238,18 @@ class DataflowEngine:
         target = la.get(head) or mi.aliases.get(head)
         return (target + d[len(head):]) if target else d
 
-    def _is_device_put(self, fi: FuncInfo, call: ast.Call) -> bool:
-        return self._full_name(fi, call.func).endswith("device_put")
+    def _is_put(self, fi: FuncInfo, call: ast.Call) -> bool:
+        full = self._full_name(fi, call.func)
+        return _last(full) in PUT_SUFFIXES or full == "torch.asarray"
 
-    def _sharding_arg(self, fi: FuncInfo, call: ast.Call,
-                      env: Dict[str, BufferValue],
-                      shardy: Set[str]) -> bool:
-        """Does this device_put pin a NamedSharding? (second positional
-        arg or device=/sharding= kwarg that is a NamedSharding(...)
-        call or a local bound to one)."""
-        cands = list(call.args[1:]) + [
-            kw.value for kw in call.keywords
-            if kw.arg in ("device", "sharding", "out_shardings")]
-        for c in cands:
-            if isinstance(c, ast.Call) and self._full_name(
-                    fi, c.func).endswith("NamedSharding"):
-                return True
-            if isinstance(c, ast.Name) and c.id in shardy:
-                return True
-        return False
+    def _module_head(self, fi: FuncInfo, node) -> bool:
+        """Is the call's receiver a module (np.asarray(x)) rather than a
+        value (x.astype(...))?"""
+        based = _dotted(node)
+        head = based.split(".")[0] if based else ""
+        la = self.index._local_imports(fi)
+        mi = self.index.modules[fi.module]
+        return bool(head) and (head in mi.aliases or head in la)
 
     # ----------------------------------------------- expression values
     def _eval(self, fi: FuncInfo, node, env: Dict[str, BufferValue],
@@ -230,15 +269,23 @@ class DataflowEngine:
             return BufferValue(key=node.id)
         if isinstance(node, ast.Attribute):
             d = _dotted(node)
+            if node.attr in META_ATTRS:
+                return BufferValue()
             if d and d.startswith("self."):
                 attr = d.split(".")[1]
                 return BufferValue(atoms=frozenset({f"attr:{attr}"}),
                                    key=d)
+            # a field of a tracked object shares its identity (`t.used0`
+            # of `t = self.template`)
+            base = self._eval(fi, node.value, env, bound_cls, depth + 1)
+            if base.atoms:
+                return dataclasses.replace(base, key=d)
             return BufferValue(key=d)
         if isinstance(node, ast.Subscript):
-            # a subscript VIEW aliases the base buffer (numpy slicing)
+            # a subscript VIEW aliases the base buffer (numpy slicing);
+            # one element of a split plane is one shard's tensor
             base = self._eval(fi, node.value, env, bound_cls, depth + 1)
-            return dataclasses.replace(base, key=None)
+            return dataclasses.replace(base, key=None, sharded=False)
         if isinstance(node, (ast.Tuple, ast.List)):
             return BufferValue.merge([
                 self._eval(fi, e, env, bound_cls, depth + 1)
@@ -247,6 +294,12 @@ class DataflowEngine:
             return BufferValue.merge([
                 self._eval(fi, v, env, bound_cls, depth + 1)
                 for v in node.values])
+        if isinstance(node, (ast.ListComp, ast.GeneratorExp, ast.DictComp)):
+            elt = node.value if isinstance(node, ast.DictComp) else node.elt
+            if _splits_over_devices(node, elt):
+                return BufferValue(device=True, sharded=True, copied=True)
+            inner = self._eval(fi, elt, env, bound_cls, depth + 1)
+            return dataclasses.replace(inner, key=None)
         if isinstance(node, ast.IfExp):
             return BufferValue.merge([
                 self._eval(fi, node.body, env, bound_cls, depth + 1),
@@ -264,19 +317,24 @@ class DataflowEngine:
                    bound_cls: Optional[str], depth: int) -> BufferValue:
         full = self._full_name(fi, call.func)
         last = _last(full)
-        # x.copy() / x.astype(...) method forms
+        # x.copy() / x.clone() method forms
         if isinstance(call.func, ast.Attribute) and not call.args \
-                and call.func.attr == "copy":
+                and call.func.attr in ("copy", "clone"):
             return BufferValue(copied=True)
+        if full == "getattr" and call.args:
+            return self._eval(fi, call.args[0], env, bound_cls, depth + 1)
+        if self._is_put(fi, call):
+            src = (self._eval(fi, call.args[0], env, bound_cls,
+                              depth + 1) if call.args else BufferValue())
+            return BufferValue(atoms=src.atoms if not src.copied
+                               else frozenset(),
+                               device=True, sharded=src.sharded,
+                               copied=src.copied)
         if isinstance(call.func, ast.Attribute) \
                 and call.func.attr in PASSTHROUGH_SUFFIXES:
             # `x.astype(...)` (method: descend the receiver) vs
             # `np.asarray(x)` (module function: descend the argument)
-            based = _dotted(call.func.value)
-            head = based.split(".")[0] if based else ""
-            la = self.index._local_imports(fi)
-            mi = self.index.modules[fi.module]
-            if head and (head in mi.aliases or head in la):
+            if self._module_head(fi, call.func.value):
                 if call.args:
                     return self._eval(fi, call.args[0], env, bound_cls,
                                       depth + 1)
@@ -286,14 +344,6 @@ class DataflowEngine:
         if last in CAST_NAMES and len(call.args) == 1:
             return self._eval(fi, call.args[0], env, bound_cls,
                               depth + 1)
-        if full.endswith("device_put"):
-            src = (self._eval(fi, call.args[0], env, bound_cls,
-                              depth + 1) if call.args else BufferValue())
-            sharded = self._sharding_arg(fi, call, env, set())
-            return BufferValue(atoms=src.atoms if not src.copied
-                               else frozenset(),
-                               device=True, sharded=sharded,
-                               copied=src.copied)
         if last in PASSTHROUGH_SUFFIXES and call.args:
             return self._eval(fi, call.args[0], env, bound_cls,
                               depth + 1)
@@ -312,22 +362,9 @@ class DataflowEngine:
                 # a self-call (same object)
                 mapped: List[BufferValue] = []
                 rest: Set[str] = set()
-                pnames = _param_list(tfi)
-                off = 1 if (tfi.cls is not None and pnames
-                            and pnames[0] == "self") else 0
                 for atom in ret.atoms:
                     if atom.startswith("param:"):
-                        pname = atom[6:]
-                        try:
-                            pos = pnames.index(pname) - off
-                        except ValueError:
-                            pos = -1
-                        arg = None
-                        if 0 <= pos < len(call.args):
-                            arg = call.args[pos]
-                        for kw in call.keywords:
-                            if kw.arg == pname:
-                                arg = kw.value
+                        arg = _arg_for(tfi, call, atom[6:])
                         if arg is not None:
                             mapped.append(self._eval(
                                 fi, arg, env, bound_cls, depth + 1))
@@ -365,24 +402,33 @@ class DataflowEngine:
             return cached
         fi = self.index.functions[fkey]
         env: Dict[str, BufferValue] = {}
-        shardy: Set[str] = set()     # locals bound to NamedSharding(...)
         assigns: List[Tuple[int, str, str]] = []
         out = FuncDataflow([], [], {}, [])
         for node in _linear_nodes(self.index, fi):
-            if isinstance(node, ast.Assign) and isinstance(
-                    node.value, ast.Call) and self._full_name(
-                    fi, node.value.func).endswith("NamedSharding"):
-                for t in node.targets:
-                    if isinstance(t, ast.Name):
-                        shardy.add(t.id)
-            if isinstance(node, ast.Call) and self._is_device_put(
-                    fi, node):
+            if isinstance(node, ast.Call) and self._is_put(fi, node):
                 src = (self._eval(fi, node.args[0], env, bound_cls)
                        if node.args else BufferValue())
                 out.puts.append(PutEvent(
-                    line=node.lineno, src=src,
-                    sharded=self._sharding_arg(fi, node, env, shardy),
+                    line=node.lineno, src=src, sharded=src.sharded,
                     stored_attr=None, stored_name=None))
+            elif isinstance(node, ast.Call):
+                # a callee that hands one of its parameters to torch
+                # uncopied puts the argument at this call
+                target = self._resolve(fi, node, bound_cls)
+                if target is not None:
+                    tfi = self.index.functions[target]
+                    pnames = _param_list(tfi)
+                    for pos in self._summary_for_call(
+                            target, node, bound_cls).puts:
+                        arg = _arg_for(tfi, node, pnames[pos])
+                        if arg is None:
+                            continue
+                        src = self._eval(fi, arg, env, bound_cls)
+                        if src.atoms and not src.copied:
+                            out.puts.append(PutEvent(
+                                line=node.lineno, src=src, sharded=False,
+                                stored_attr=None, stored_name=None,
+                                via_call=True))
             mut = self._mutation(fi, node, env, bound_cls)
             if mut is not None:
                 out.mutations.append(mut)
@@ -412,9 +458,9 @@ class DataflowEngine:
             if isinstance(node, ast.Return) and node.value is not None:
                 out.returns.append(
                     self._eval(fi, node.value, env, bound_cls))
-        # attach `x = device_put(...)` / `self.a = device_put(...)`
-        # storage targets (the Assign statement and the Call expression
-        # are visited separately; match them up by line)
+        # attach `x = torch.as_tensor(...)` / `self.a = ...` storage
+        # targets (the Assign statement and the Call expression are
+        # visited separately; match them up by line)
         for put in out.puts:
             for line, kind, name in assigns:
                 if line == put.line:
@@ -425,28 +471,53 @@ class DataflowEngine:
         self._flow_cache[ck] = out
         return out
 
+    def _summary_for_call(self, target: str, call: ast.Call,
+                          bound_cls: Optional[str]) -> Summary:
+        tfi = self.index.functions[target]
+        tcls = (bound_cls if _is_self_call(call) and bound_cls
+                else (f"{tfi.module}:{tfi.cls}" if tfi.cls else None))
+        return self.summary(target, tcls)
+
     def _mutation(self, fi: FuncInfo, node, env, bound_cls
                   ) -> Optional[MutEvent]:
-        """In-place HOST mutation through a buffer: subscript stores,
-        augmented assigns, and the in-place ndarray method calls."""
+        """In-place mutation through a buffer: subscript stores,
+        augmented assigns, numpy's in-place methods, torch's `*_`
+        methods, `out=` and calls into the in-place map."""
         targets: List = []
         if isinstance(node, ast.Assign):
             targets = [t for t in node.targets
                        if isinstance(t, ast.Subscript)]
         elif isinstance(node, ast.AugAssign):
             targets = [node.target]
-        elif isinstance(node, ast.Call) and isinstance(
-                node.func, ast.Attribute) \
-                and node.func.attr in INPLACE_METHODS:
-            base = self._eval(fi, node.func.value, env, bound_cls)
-            if base.atoms or base.key:
-                return MutEvent(node.lineno, base,
-                                f".{node.func.attr}()")
-        elif isinstance(node, ast.Call) and self._full_name(
-                fi, node.func).endswith("copyto") and node.args:
-            base = self._eval(fi, node.args[0], env, bound_cls)
-            if base.atoms or base.key:
-                return MutEvent(node.lineno, base, "np.copyto")
+        elif isinstance(node, ast.Call):
+            f = node.func
+            if isinstance(f, ast.Attribute) and (
+                    f.attr in INPLACE_METHODS or is_inplace_method(f.attr)) \
+                    and not self._module_head(fi, f.value):
+                base = self._eval(fi, f.value, env, bound_cls)
+                if base.atoms or base.key:
+                    return MutEvent(node.lineno, base, f".{f.attr}()")
+            if self._full_name(fi, f).endswith("copyto") and node.args:
+                base = self._eval(fi, node.args[0], env, bound_cls)
+                if base.atoms or base.key:
+                    return MutEvent(node.lineno, base, "np.copyto")
+            for kw in node.keywords:
+                if kw.arg == "out":
+                    base = self._eval(fi, kw.value, env, bound_cls)
+                    if base.atoms or base.key:
+                        return MutEvent(node.lineno, base, "out=")
+            target = self._resolve(fi, node, bound_cls)
+            if target is not None:
+                tfi = self.index.functions[target]
+                pnames = _param_list(tfi)
+                for pos in self.inplace_map().get(target, ()):
+                    arg = _arg_for(tfi, node, pnames[pos])
+                    if arg is None:
+                        continue
+                    base = self._eval(fi, arg, env, bound_cls)
+                    if base.atoms or base.key:
+                        return MutEvent(node.lineno, base,
+                                        f"{tfi.qual}() in place")
         for t in targets:
             base = t
             while isinstance(base, ast.Subscript):
@@ -472,24 +543,80 @@ class DataflowEngine:
             fl = self.flow(fkey, bound_cls)
             ret = BufferValue.merge(fl.returns) if fl.returns \
                 else BufferValue()
+            pnames = _param_list(self.index.functions[fkey])
+            puts = sorted({pnames.index(a[6:]) for p in fl.puts
+                           if not p.src.copied for a in p.src.atoms
+                           if a.startswith("param:")
+                           and a[6:] in pnames})
             summ = Summary(returns=ret,
-                           donates=self.donation_map().get(fkey, ()),
-                           scatter=self.scatter_map().get(fkey, ()))
+                           mutates=self.inplace_map().get(fkey, ()),
+                           scatter=self.scatter_map().get(fkey, ()),
+                           puts=tuple(puts))
         finally:
             self._in_progress.discard(ck)
         self._summary_cache[ck] = summ
         return summ
 
-    # --------------------------------------------- donation (fixpoint)
-    def donation_map(self) -> Dict[str, Tuple[int, ...]]:
-        """fkey -> positional parameter indices whose buffers are dead
-        after the call, to ANY wrapper depth: base case is the
-        donate_argnums jit roots; a function passing its own parameter
-        into a donated position donates that parameter too."""
-        if self._donation is not None:
-            return self._donation
-        # torch donates no buffer: no base case, so nothing propagates
-        donation: Dict[str, Set[int]] = {}
+    # --------------------------------------------- in place (fixpoint)
+    def inplace_base(self) -> Dict[str, Tuple[int, ...]]:
+        """fkey -> positional parameter indices its OWN body changes in
+        place (a `*_` method, a subscript store or augmented assignment
+        through the parameter, `out=`, numpy's in-place methods).  A
+        method's `self` is never listed: changing the receiver's state
+        is what methods are for."""
+        if self._inplace_base is not None:
+            return self._inplace_base
+        base: Dict[str, Set[int]] = {}
+        for fkey, fi in self.index.functions.items():
+            pnames = _param_list(fi)
+            if fi.cls is not None and pnames and pnames[0] == "self":
+                pnames = [None] + pnames[1:]
+            if not any(pnames):
+                continue
+            hit: Set[int] = set()
+
+            def mark(expr):
+                r = root_name(expr)
+                if r is not None and r in pnames:
+                    hit.add(pnames.index(r))
+
+            for node in self.index._own_nodes(fi):
+                if isinstance(node, ast.Assign):
+                    for t in node.targets:
+                        if isinstance(t, ast.Subscript):
+                            mark(t)
+                elif isinstance(node, ast.AugAssign) and isinstance(
+                        node.target, (ast.Subscript, ast.Attribute)):
+                    mark(node.target)
+                elif isinstance(node, ast.Call):
+                    f = node.func
+                    if isinstance(f, ast.Attribute) and (
+                            is_inplace_method(f.attr)
+                            or f.attr in INPLACE_METHODS) \
+                            and not self._module_head(fi, f.value):
+                        mark(f.value)
+                    for kw in node.keywords:
+                        if kw.arg == "out":
+                            mark(kw.value)
+                    if _last(self._full_name(fi, f)) == "copyto" \
+                            and node.args:
+                        mark(node.args[0])
+            if hit:
+                base[fkey] = hit
+        self._inplace_base = {k: tuple(sorted(v)) for k, v in base.items()}
+        return self._inplace_base
+
+    def inplace_map(self) -> Dict[str, Tuple[int, ...]]:
+        """fkey -> positional parameter indices whose buffers the call
+        changes in place, to ANY wrapper depth: the base case is
+        `inplace_base`; a function passing its own parameter into a
+        position its callee changes in place changes that parameter
+        too (the reference's donation map, where torch's hazard is the
+        opposite one: the buffer lives on, changed)."""
+        if self._inplace is not None:
+            return self._inplace
+        mutates: Dict[str, Set[int]] = {
+            k: set(v) for k, v in self.inplace_base().items()}
         changed = True
         while changed:
             changed = False
@@ -498,7 +625,7 @@ class DataflowEngine:
                 if not pnames:
                     continue
                 for call, target in self._resolved_calls(fkey):
-                    tpos = donation.get(target)
+                    tpos = mutates.get(target)
                     if not tpos:
                         continue
                     off = _self_offset(self.index, target, call)
@@ -508,29 +635,29 @@ class DataflowEngine:
                             continue
                         arg = call.args[apos]
                         if isinstance(arg, ast.Name) \
-                                and arg.id in pnames:
+                                and arg.id in pnames and not (
+                                    fi.cls is not None
+                                    and arg.id == "self"):
                             ppos = pnames.index(arg.id)
-                            cur = donation.setdefault(fkey, set())
+                            cur = mutates.setdefault(fkey, set())
                             if ppos not in cur:
                                 cur.add(ppos)
                                 changed = True
-        self._donation = {k: tuple(sorted(v))
-                          for k, v in donation.items()}
-        return self._donation
+        self._inplace = {k: tuple(sorted(v)) for k, v in mutates.items()}
+        return self._inplace
 
     # ---------------------------------------------- scatter (fixpoint)
     def scatter_map(self) -> Dict[str, Tuple[int, ...]]:
-        """fkey -> positional parameter indices that receive an
-        `x.at[...].set/add` scatter (directly or transitively) OUTSIDE
-        a shard_map context. Mesh-rooted functions are excluded: their
-        scatters act on per-shard local blocks and are partition-safe
-        by construction."""
+        """fkey -> positional parameter indices that receive a row
+        scatter (`index_put(_)`, `index_add(_)`, `scatter_add(_)` ...),
+        directly or transitively, OUTSIDE a per-shard context.  Per-shard
+        functions are excluded: their scatters act on one shard's local
+        rows."""
         if self._scatter_map is not None:
             return self._scatter_map
         safe = self.shard_safe()
         scatter: Dict[str, Set[int]] = {}
-        # config-registered helpers (e.g. kernel.delta_scatter_set
-        # whose jit body is built dynamically and defeats resolution)
+        # config-registered helpers (kernel.delta_scatter_set / _add)
         for spec in getattr(self.cfg, "scatter_helpers", ()):
             name, _, pos = spec.partition("@")
             if name in self.index.functions:
@@ -541,7 +668,7 @@ class DataflowEngine:
                 continue
             pnames = _param_list(fi)
             for node in self.index._own_nodes(fi):
-                tgt = _at_scatter_base(node)
+                tgt = scatter_base(node)
                 if tgt is not None and isinstance(tgt, ast.Name) \
                         and tgt.id in pnames:
                     scatter.setdefault(fkey, set()).add(
@@ -577,14 +704,19 @@ class DataflowEngine:
         return self._scatter_map
 
     def _resolved_calls(self, fkey: str):
-        fi = self.index.functions[fkey]
-        la = self.index._local_imports(fi)
-        lt = self.index._local_var_types(fi)
-        for node in self.index._own_nodes(fi):
-            if isinstance(node, ast.Call):
-                r = self.index.resolve_call(fi, node, la, lt)
-                if r is not None:
-                    yield node, r
+        out = self._calls_cache.get(fkey)
+        if out is None:
+            fi = self.index.functions[fkey]
+            la = self.index._local_imports(fi)
+            lt = self.index._local_var_types(fi)
+            out = []
+            for node in self.index._own_nodes(fi):
+                if isinstance(node, ast.Call):
+                    r = self.index.resolve_call(fi, node, la, lt)
+                    if r is not None:
+                        out.append((node, r))
+            self._calls_cache[fkey] = out
+        return iter(out)
 
     # ------------------------------------------------- class buffers
     def class_facts(self, ckey: str) -> Dict[str, AttrFact]:
@@ -607,7 +739,7 @@ class DataflowEngine:
                         fact.holds_param = True
             for put in fl.puts:
                 if put.sharded:
-                    continue        # sharded puts are SHARD territory
+                    continue        # split planes are SHARD territory
                 if put.src.copied:
                     continue
                 for atom in put.src.atoms:
@@ -621,7 +753,7 @@ class DataflowEngine:
                         facts.setdefault(
                             atom[5:], AttrFact()).mutations.append(
                             (fkey, mut.line, mut.desc))
-        # one propagation round: `self.b = self.a` shardedness
+        # one propagation round: `self.b = self.a` splitness
         for mname, fkey in self._mro_methods(ckey).items():
             fl = self.flow(fkey, bound_cls=ckey)
             for attr, vals in fl.attr_assigns.items():
@@ -676,6 +808,25 @@ def _param_list(fi: FuncInfo) -> List[str]:
             list(args.posonlyargs) + list(args.args)]
 
 
+def _arg_for(tfi: FuncInfo, call: ast.Call, pname: str):
+    """The argument expression a call passes for the callee's parameter
+    `pname` (positional or keyword), else None."""
+    pnames = _param_list(tfi)
+    off = 1 if (tfi.cls is not None and pnames and pnames[0] == "self"
+                and isinstance(call.func, ast.Attribute)) else 0
+    for kw in call.keywords:
+        if kw.arg == pname:
+            return kw.value
+    try:
+        pos = pnames.index(pname) - off
+    except ValueError:
+        return None
+    if 0 <= pos < len(call.args) and not any(
+            isinstance(a, ast.Starred) for a in call.args[:pos + 1]):
+        return call.args[pos]
+    return None
+
+
 def _self_offset(index: PackageIndex, target: str,
                  call: ast.Call) -> int:
     """Positional shift between the callee's def params and the call's
@@ -698,32 +849,59 @@ def _linear_nodes(index: PackageIndex, fi: FuncInfo):
     """Own statements + expressions in source-line order (excludes
     nested def/class bodies, like PackageIndex._own_nodes, but sorted
     so the env scan sees defs before uses)."""
-    nodes = list(index._own_nodes(fi))
-    nodes.sort(key=lambda n: (getattr(n, "lineno", 0),
-                              getattr(n, "col_offset", 0)))
+    cache = index._linear_cache
+    nodes = cache.get(fi.key)
+    if nodes is None:
+        nodes = list(index._own_nodes(fi))
+        nodes.sort(key=lambda n: (getattr(n, "lineno", 0),
+                                  getattr(n, "col_offset", 0)))
+        cache[fi.key] = nodes
     return nodes
 
 
-def _at_scatter_base(node) -> Optional[ast.AST]:
-    """`X.at[idx].set/add/...(rows)` -> the X expression, else None."""
+def _comp_targets(node) -> Set[str]:
+    out: Set[str] = set()
+    for gen in node.generators:
+        for n in ast.walk(gen.target):
+            if isinstance(n, ast.Name):
+                out.add(n.id)
+    return out
+
+
+def _splits_over_devices(comp, elt) -> bool:
+    """A comprehension that moves one piece to each device: its element
+    is `<x>.to(d)` (or carries `device=d`) with `d` a comprehension
+    variable — the shape of `_split_rows` / `_split_cols`."""
+    names = _comp_targets(comp)
+    if not isinstance(elt, ast.Call):
+        return False
+    cands = [kw.value for kw in elt.keywords if kw.arg == "device"]
+    if isinstance(elt.func, ast.Attribute) and elt.func.attr == "to" \
+            and elt.args:
+        cands.append(elt.args[0])
+    return any(isinstance(c, ast.Name) and c.id in names for c in cands)
+
+
+def scatter_base(node) -> Optional[ast.AST]:
+    """`X.index_put(...)` / `X.index_add_(...)` / `X.scatter_add(...)`
+    ... -> the X expression, else None."""
     if not isinstance(node, ast.Call):
         return None
     f = node.func
-    if not isinstance(f, ast.Attribute) or f.attr not in (
-            "set", "add", "mul", "min", "max", "apply", "get"):
-        return None
-    sub = f.value
-    if not isinstance(sub, ast.Subscript):
-        return None
-    at = sub.value
-    if isinstance(at, ast.Attribute) and at.attr == "at":
-        return at.value
+    if isinstance(f, ast.Attribute) and f.attr in SCATTER_METHODS:
+        return f.value
     return None
 
 
-def scatter_call_has_drop_mode(node: ast.Call) -> bool:
+def scatter_index(node: ast.Call) -> Optional[ast.AST]:
+    """The index operand of a scatter call: the `indices` tuple of
+    `index_put(_)`, the `index` of `index_add(_)` / `scatter*`."""
+    attr = node.func.attr
+    if attr.startswith("index_put") or attr in ("put_",):
+        return node.args[0] if node.args else None
+    if attr.startswith("masked_scatter"):
+        return node.args[0] if node.args else None
     for kw in node.keywords:
-        if kw.arg == "mode" and isinstance(kw.value, ast.Constant) \
-                and kw.value.value == "drop":
-            return True
-    return False
+        if kw.arg == "index":
+            return kw.value
+    return node.args[1] if len(node.args) > 1 else None

@@ -1192,8 +1192,13 @@ def _run_kernel_routed(pb: PackedBatch, device, max_waves: int = 0,
 
 
 def _to_device(planes, device):
-    """Planes as tensors on `device` (numpy planes are copied there;
-    tensors are moved)."""
+    """Planes as tensors on `device`: tensors are moved, numpy planes
+    are copied onto a CUDA device.  On `cpu` nothing is copied: a
+    contiguous numpy plane comes back as a tensor over its own buffer
+    (`torch.as_tensor` shares it and `.to("cpu")` returns it as is), and
+    a tensor already there is returned itself.  Safe for the solve,
+    which writes into none of its arguments; a caller that changes a
+    plane in place while a result still holds it must copy first."""
     def t(x):
         if isinstance(x, torch.Tensor):
             return x.to(device)
@@ -1217,5 +1222,6 @@ def _plane_args(pb: PackedBatch):
 
 def _kernel_args(pb: PackedBatch, device="cpu"):
     """The solve_kernel argument tuple for `pb`, planes as tensors on
-    `device` (numpy planes are copied there; tensors are moved)."""
+    `device` (`_to_device`: copies onto a CUDA device, the planes'
+    own buffers on `cpu`)."""
     return _to_device(_plane_args(pb), device) + (pb.n_place,)
