@@ -149,7 +149,9 @@ _SOLVE_STATIC = ("has_spread", "group_count_hint", "max_waves",
                  "wave_mode", "has_distinct", "has_devices",
                  "stack_commit", "pallas_mode", "shortlist_c", "mesh_axis",
                  "mesh_shards", "has_preempt", "mesh_hosts", "mesh_nt",
-                 "tile_np", "mesh_regions", "lane_axis")
+                 "tile_np", "mesh_regions", "lane_axis",
+                 # the port's own: whether the solve opens profiler ranges
+                 "wave_ranges")
 _P = "nomad_tpu_torch."
 
 DEFAULT_DEVICE_ROOTS: Tuple[DeviceRoot, ...] = (

@@ -1044,9 +1044,14 @@ class HTTPAgentServer:
         trace (`SOLVER_TRACE` in the answered artifact directory).  It
         records the card's kernels (`ProfilerActivity.CUDA`) whenever
         the worker solver's device is `cuda`, chosen by the device and
-        never by probing what the build offers.  With ?job_id= the
-        window is driven by repeated what-if plan solves of that job
-        through the worker's read-only plan view (zero writes);
+        never by probing what the build offers.  The trace carries the
+        solver's `nomad.` ranges (`utils.tracing.device_range`) on the
+        kernels' clock, each wave and each host sync of the solves that
+        take the device route on the profiler's own thread: the ?job_id=
+        what-if solves (torch records host ops of that thread only).
+        With ?job_id= the window is driven by repeated what-if plan
+        solves of that job through the worker's read-only plan view
+        (zero writes);
         without, the window passively captures whatever the live
         workers solve.  500 when the profiler fails."""
         import tempfile

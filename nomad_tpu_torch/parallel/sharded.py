@@ -50,7 +50,7 @@ from ..solver.kernel import (MERGED_GP_MAX, TOP_K, WAVE_K, SolveResult,
                              solve_kernel, solve_shards, solve_steps)
 from ..solver.resident import (ResidentSolver, _host, _pack_out,
                                _solve_one, _status, model_wave_bytes)
-from ..solver.solve import resolve_device
+from ..solver.solve import count_dispatch, resolve_device
 from ..solver.tensorize import PackedBatch
 
 MESH_NODE_AXIS = "nodes"
@@ -588,11 +588,12 @@ def _sharded_stream(nodes, used0, dev_used0, stacked, n_places, seeds, *,
     shard's usage, `stacked` each shard's [B, ...] ask planes.  B solves
     in turn, usage threading from batch to batch.  Returns (used,
     dev_used (lists a shard), out [B, K, 2*TOP_K+1], evict, waves,
-    rescores), the packed results on shard 0's device."""
+    rescores, syncs (over all shards)), the packed results on shard 0's
+    device."""
     kw.update(_mesh_kw(mesh))
     S = len(nodes)
     used, dev_used = list(used0), list(dev_used0)
-    outs, evicts, waves, rescores = [], [], [], []
+    outs, evicts, waves, rescores, syncs = [], [], [], [], []
     for b, (n_place, seed) in enumerate(zip(n_places, seeds)):
         batch = [{k: v[i][b] for k, v in stacked.items()} for i in range(S)]
         res = _solve_one(nodes, used, dev_used, batch, int(n_place),
@@ -605,10 +606,12 @@ def _sharded_stream(nodes, used0, dev_used0, stacked, n_places, seeds, *,
             device=r0.choice.device))
         waves.append(r0.n_waves)
         rescores.append(r0.n_rescore)
+        syncs.append(sum(r.n_syncs for r in res))
         used = [r.used_final for r in res]
         dev_used = [r.dev_used_final for r in res]
     return (used, dev_used, torch.stack(outs), torch.stack(evicts),
-            np.asarray(waves, np.int32), np.asarray(rescores, np.int32))
+            np.asarray(waves, np.int32), np.asarray(rescores, np.int32),
+            np.asarray(syncs, np.int32))
 
 
 class ShardedResidentSolver(ResidentSolver):
@@ -769,11 +772,13 @@ class ShardedResidentSolver(ResidentSolver):
         preempt = self._preempt_on(has_distinct)
         self.last_lane_counters = None
         (self._used, self._dev_used, out, self.last_evict, self.last_waves,
-         self.last_rescore_waves) = _sharded_stream(
+         self.last_rescore_waves, self.last_syncs) = _sharded_stream(
             self._shard_nodes(), self._used, self._dev_used, stacked,
             n_places, seed_list, mesh=self._mesh, compact=self._compact,
             has_preempt=preempt, **self._solve_kw(batches, has_distinct),
             **self._elastic_kw())
+        count_dispatch(self.last_waves, self.last_rescore_waves,
+                       self.last_syncs)
         return out
 
     def solve_parallel(self, batches):

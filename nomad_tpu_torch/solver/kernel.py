@@ -68,6 +68,8 @@ import torch
 
 from . import score_spec as _score_spec
 from . import wave_kernel as _wk
+from ..utils.tracing import (NULL_SPAN, WAVE_CARRIED, WAVE_FULL, WAVE_SYNC,
+                             device_range)
 from .masks import pack_bool_u32
 from .tensorize import (OP_EQ, OP_GE, OP_GT, OP_IS_SET, OP_LE, OP_LT, OP_NE,
                         OP_NOT_SET, R_CPU, R_MEM)
@@ -163,6 +165,41 @@ class SolveResult(NamedTuple):
     commit_wave: torch.Tensor = None  # [K] wave each placement committed
     #  on, -1 = none (None without has_preempt): evictions make usage
     #  non-monotone, so the host fixup replays commits in wave order
+    n_syncs: int = 0            # times the wave loop waited for the card
+
+
+class _WaveRanges:
+    """A wave solve's profiler ranges (`utils.tracing.device_range`) and
+    its count of host syncs.  `sync()` counts one sync and returns its
+    `nomad.wave.sync` range, to be held around the blocking call alone;
+    `step(carried)` ends the open wave range and opens the next one at a
+    wave's carried-window decision, `nomad.wave.carried` for a
+    carried-shortlist wave and `nomad.wave.full` for a full pass; `close()`
+    ends the last.  A wave's range so runs from its decision to the next
+    wave's, and holds the next wave's entry test.  With `on` False
+    nothing opens; syncs still count."""
+
+    __slots__ = ("on", "syncs", "_open")
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.syncs = 0
+        self._open = NULL_SPAN
+
+    def sync(self):
+        self.syncs += 1
+        return device_range(WAVE_SYNC) if self.on else NULL_SPAN
+
+    def step(self, carried: bool) -> None:
+        self.close()
+        if self.on:
+            self._open = device_range(WAVE_CARRIED if carried
+                                      else WAVE_FULL)
+            self._open.__enter__()
+
+    def close(self) -> None:
+        self._open.__exit__(None, None, None)
+        self._open = NULL_SPAN
 
 
 class _SLState(NamedTuple):
@@ -230,16 +267,20 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
 
 
-def _jitter(gid: torch.Tensor, gs: torch.Tensor, seed: int) -> torch.Tensor:
+def _jitter(gid: torch.Tensor, gs: torch.Tensor, seed: int,
+            syncs: _WaveRanges) -> torch.Tensor:
     """Seeded tie-break jitter for node ids `gid` [Gp, *] of groups `gs`
-    [Gp]: the reference's uint32 hash, (h & 1023) * SCORE_BIN / 1023."""
+    [Gp]: the reference's uint32 hash, (h & 1023) * SCORE_BIN / 1023.
+    `syncs` (the solve's `_WaveRanges`) counts and ranges the host copy
+    of the step onto the card."""
     s32 = seed & _U32
     gsalt = (_mul32(gs, 7919) + s32) & _U32
     h = (_mul32(gid & _U32, 2654435761)
          + _mul32(gsalt, 40503)[:, None]) & _U32
     h = _mul32(h ^ (h >> 16), 2246822519)
-    step = torch.tensor(_score_spec.SCORE_BIN / 1023.0, dtype=torch.float32,
-                        device=gid.device)
+    with syncs.sync():
+        step = torch.tensor(_score_spec.SCORE_BIN / 1023.0,
+                            dtype=torch.float32, device=gid.device)
     return (h & 1023).to(torch.float32) * step
 
 
@@ -309,7 +350,7 @@ def static_feas(valid, node_dc, attr_rank, dc_ok, host_ok, c_op, c_col,
 
 
 def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
-               ev_slot_ok, ev_res, ev_prio, dev=None, ids=None):
+               ev_slot_ok, ev_res, ev_prio, dev=None, ids=None, syncs):
     """The eviction pass of one wave, against post-commit usage `used`
     [Np, R], for the groups in `want_g` [Gp] (the rest keep no option):
     per (group, node) a greedy min-cost victim set over the node's free
@@ -323,7 +364,8 @@ def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
     to the lower global id and the returned node is that id, while the
     freed vector and victim mask are the local best row's.  Returns per
     group (score [Gp], node [Gp], freed [Gp, R], victim mask [Gp, E]); a
-    group without an option scores NEG_INF."""
+    group without an option scores NEG_INF.  `syncs` (the caller's
+    `_WaveRanges`) counts and ranges the pass's one host sync."""
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     device = used.device
     Gp, (Np, R), EV = want_g.shape[0], used.shape, ev_prio.shape[1]
@@ -331,7 +373,9 @@ def evict_pass(used, evt, want_g, *, ask_res, avail, reserved, feas,
     nv_i = torch.zeros(Gp, dtype=i64, device=device)
     sel_freed = torch.zeros((Gp, R), dtype=f32, device=device)
     sel_mask = torch.zeros((Gp, EV), dtype=torch.bool, device=device)
-    wg = torch.nonzero(want_g).flatten()                   # groups to solve
+    with syncs.sync():
+        wg = torch.nonzero(want_g)
+    wg = wg.flatten()                                      # groups to solve
     Gw = wg.shape[0]
     es = torch.arange(EV, device=device)
     rows = torch.arange(Np, device=device)[None, :]
@@ -440,9 +484,17 @@ def solve_lanes(lanes) -> list:
     a padding lane) counts as one without, since its last wave left
     nothing active and so no window.  At each wave's end all rerank when
     any lane asks to.  A finished lane is frozen, so its waves and
-    rescores stop counting."""
+    rescores stop counting.
+
+    One lane opens its own profiler ranges.  Several lanes open none
+    (their `solve_steps` run with `wave_ranges=False`): ranges held
+    across a yield would interleave on this thread, so `solve_lanes`
+    opens one wave range for each lock-stepped wave, from its
+    carried-window decision to the next one.  Without the shortlist no
+    request marks a wave, and no wave range opens."""
     lanes = list(lanes)
     msgs, results = {}, [None] * len(lanes)
+    ranges = _WaveRanges(len(lanes) > 1)
 
     def advance(ln, value):
         try:
@@ -465,10 +517,12 @@ def solve_lanes(lanes) -> list:
         if kind == "carried":
             take = (len(msgs) == len(lanes)
                     and all(p for _, p in msgs.values()))
+            ranges.step(take)
         else:
             take = any(p for _, p in msgs.values())
         for ln in list(msgs):
             advance(ln, take)
+    ranges.close()
     return results
 
 
@@ -528,7 +582,11 @@ def solve_shards(shards, mesh) -> list:
                             reference takes these decisions per shard.
 
     A result's replicated fields (choices, counters) are equal on every
-    shard; `feas` and the usage planes are each shard's own."""
+    shard; `feas` and the usage planes are each shard's own.  The shards
+    open no profiler ranges (mesh mode turns them off): `solve_shards`
+    opens one wave range for each lock-stepped wave at the carried
+    decisions, as `solve_lanes` does, full when any shard runs its full
+    pass."""
     shards = list(shards)
     devices, sizes = _mesh_tiers(mesh)
     S = len(shards)
@@ -551,6 +609,7 @@ def solve_shards(shards, mesh) -> list:
             total = total + p
         return total
 
+    ranges = _WaveRanges(True)
     for i in range(S):
         advance(i, None, first=True)
     while msgs:
@@ -565,6 +624,8 @@ def solve_shards(shards, mesh) -> list:
             answers = list(range(S))
         elif kind in ("carried", "rerank"):
             answers = [msgs[i][1] for i in range(S)]
+            if kind == "carried":
+                ranges.step(all(answers))
         elif kind == "psum":
             if msgs[0][1].is_floating_point():
                 # every sum of the reference's mesh path is of integers,
@@ -590,6 +651,7 @@ def solve_shards(shards, mesh) -> list:
             raise RuntimeError(f"solve_shards: unknown request {kind!r}")
         for i in range(S):
             advance(i, answers[i])
+    ranges.close()
     return results
 
 
@@ -620,7 +682,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 has_preempt=False, ev_res=None, ev_prio=None, ask_prio=None,
                 mesh_hosts=0, mesh_nt=0, tile_np=0, node_gid=None,
                 owner_map=None, slot_map=None, learned=None, mesh_regions=0,
-                region_bias=None):
+                region_bias=None, wave_ranges=True):
     """The wave solve as a generator.  With the shortlist on it yields
     ("carried", ok) at each wave's start and ("rerank", pre_ok) at each
     wave's end, and takes the decision sent back; it returns the
@@ -641,7 +703,17 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     layout, where `node_gid` [Np] maps local slots to global ids and
     `owner_map` / `slot_map` [T + 1] (a -1 sentinel row last) map a
     global id's tile to its shard and local tile slot; `mesh_nt` is the
-    global padded node axis (default Np * mesh_shards)."""
+    global padded node axis (default Np * mesh_shards).
+
+    The result's `n_syncs` counts the points where the host waits for
+    the card: the truth tests of the wave loop and the rerank, the host
+    copies of the seed's constants onto the card, the eviction pass's
+    `nonzero` and, in mesh mode, the rescore count's sum.  Under a torch
+    profiler each is a `nomad.wave.sync` range around the blocking call
+    alone and each wave a `nomad.wave.full` or `nomad.wave.carried`
+    range from its kind's decision to the next wave's (`_WaveRanges`).
+    `wave_ranges` False (solves in lock-step) and mesh mode open no
+    range: `solve_lanes` or `solve_shards` opens the waves."""
     if wave_mode not in ("scan", "while"):
         raise ValueError(f"solve_kernel: unknown wave_mode {wave_mode!r}")
     device = avail.device
@@ -658,6 +730,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     # ---------- mesh mode: this shard's place on the node axis ----------
     in_mesh = mesh_axis is not None
     elastic = in_mesh and tile_np > 0
+    rg = _WaveRanges(wave_ranges and not in_mesh)
     if in_mesh:
         if mesh_shards < 1:
             raise ValueError("mesh_axis requires mesh_shards")
@@ -797,7 +870,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     if seed == 0:
         jitter = torch.zeros((Gp, Np), dtype=f32, device=device)
     else:
-        jitter = _jitter(node_ids[None, :], gs, seed)
+        jitter = _jitter(node_ids[None, :], gs, seed, rg)
 
     # ---------- fused wave kernel path (mode pick) ----------
     if planes:
@@ -925,7 +998,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         if seed != 0:
             total = (torch.floor(total / _score_spec.SCORE_BIN)
                      * _score_spec.SCORE_BIN)
-            jit_sl = _jitter(_l2g(idx) if in_mesh else idx, gs, seed)
+            jit_sl = _jitter(_l2g(idx) if in_mesh else idx, gs, seed, rg)
         else:
             jit_sl = 0.0
         total = total + jit_sl
@@ -1135,7 +1208,9 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         else:
             tab_s, tab_i = no_tab_s, no_tab_i
         gany_next = torch.where(sl.comp, f_place.any(dim=1), True)
-        ok_next = bool(((tr3_g | sl.comp) | ~act_next_g).all())
+        ok_next_t = ((tr3_g | sl.comp) | ~act_next_g).all()
+        with rg.sync():
+            ok_next = bool(ok_next_t)
         if in_mesh and not elastic:
             w_i = w_i + off
         return (w_s, w_i, tab_s, tab_i, nexh_next, ndim_next, gany_next,
@@ -1160,11 +1235,15 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     offs_k = torch.arange(TOP_K, device=device)
     for _ in range(max_waves):
         active = ~done & in_batch
-        if not bool(active.any()):
+        active_any_t = active.any()
+        with rg.sync():
+            go = bool(active_any_t)
+        if not go:
             break
         used_pre, dev_used_pre = used, dev_used
 
         take_carried = (yield ("carried", SL.ok)) if use_sl else False
+        rg.step(take_carried)
         if take_carried:
             # shortlist wave: window and counters were pre-computed at
             # the end of the previous wave — no [Gp, Np] plane is read
@@ -1220,8 +1299,9 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         if seed == 0 or stack_commit:
             g_off = torch.zeros(Gp, dtype=i64, device=device)
         else:
-            g_hash = _mul32(gs, 2654435761) ^ _mul32(
-                torch.tensor(seed & _U32, device=device), 2246822519)
+            with rg.sync():
+                g_seed = torch.tensor(seed & _U32, device=device)
+            g_hash = _mul32(gs, 2654435761) ^ _mul32(g_seed, 2246822519)
             g_off = (g_hash >> 8) % W
         rot = 0 if seed == 0 else wave
         if stack_commit:
@@ -1396,13 +1476,17 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             want = active & ~commit & ~grp_any[g_idx]
             want_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
                 0, g_idx, want.to(i32)) > 0
-            if bool(want.any()):
+            want_any_t = want.any()
+            with rg.sync():
+                any_want = bool(want_any_t)
+            if any_want:
                 nv_s, nv_i, sel_freed, sel_mask = evict_pass(
                     used, EVT, want_g, ask_res=ask_res, avail=avail,
                     reserved=reserved, feas=feas, ev_slot_ok=ev_slot_ok,
                     ev_res=ev_res_f, ev_prio=ev_prio_i,
                     dev=(dev_used, dev_cap, dev_ask) if has_devices
-                    else None, ids=g_of_local if in_mesh else None)
+                    else None, ids=g_of_local if in_mesh else None,
+                    syncs=rg)
             else:
                 nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
                 nv_i = torch.zeros(Gp, dtype=i64, device=device)
@@ -1501,7 +1585,9 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             active_next = active & ~newly
             act_next_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
                 0, g_idx, active_next.to(i32)) > 0
-            any_next = bool(active_next.any())
+            next_any_t = active_next.any()
+            with rg.sync():
+                any_next = bool(next_any_t)
             cf = commit.to(f32)
             # TR1: every commit this wave landed inside the group's
             # shortlist (otherwise an outsider's score moved)
@@ -1528,12 +1614,18 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             if want_tables:
                 sp_gate = sp_gate | (sp_col[:, 0] >= 0)
             ok_pre_g = SL.comp | (tr1_g & ~sp_gate)
-            pre_ok = any_next and bool((ok_pre_g | ~act_next_g).all())
+            pre_ok = False
+            if any_next:
+                pre_ok_t = (ok_pre_g | ~act_next_g).all()
+                with rg.sync():
+                    pre_ok = bool(pre_ok_t)
             if has_preempt and pre_ok:
                 # an eviction lowers usage, which voids the monotone-
                 # usage argument behind the carried window: any eviction
                 # commit sends the next wave to a full rescore
-                pre_ok = not bool(ev_commit.any())
+                ev_any_t = ev_commit.any()
+                with rg.sync():
+                    pre_ok = not bool(ev_any_t)
 
             # own-group commit counts fold into the carried coll; window
             # entries outside the shortlist land in a dropped column
@@ -1573,13 +1665,20 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                              nexh=n_nexh, ndim=n_ndim, gany=n_gany,
                              ok=pre_ok and sl_ok)
         wave += 1
+    rg.close()
 
     unfinished = ~done & in_batch
     if in_mesh:
         # per-shard full passes summed over the mesh (the byte model
-        # charges a per-shard plane walk for each)
-        n_resc = (int((yield ("psum", torch.tensor(n_resc, device=device))))
-                  if use_sl else wave * mesh_shards)
+        # charges a per-shard plane walk for each); two syncs, the
+        # count's host copy onto the card and its sum's fetch
+        if use_sl:
+            with rg.sync():
+                n_resc_t = torch.tensor(n_resc, device=device)
+            with rg.sync():
+                n_resc = int((yield ("psum", n_resc_t)))
+        else:
+            n_resc = wave * mesh_shards
     return SolveResult(choice=out_idx, choice_ok=out_ok, score=out_score,
                        n_feasible=out_nfeas, n_exhausted=out_nexh,
                        dim_exhausted=out_dimexh, feas=feas,
@@ -1588,4 +1687,5 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                        unfinished=unfinished,
                        n_rescore=n_resc if (use_sl or in_mesh) else wave,
                        evict=out_evict if has_preempt else None,
-                       commit_wave=out_wave if has_preempt else None)
+                       commit_wave=out_wave if has_preempt else None,
+                       n_syncs=rg.syncs)

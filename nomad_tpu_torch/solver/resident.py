@@ -31,10 +31,13 @@ carrying usage, with the eviction pass when the planes are resident),
 revalidation that bounces what no longer fits) and
 `_lane_stream_kernel` (chunks of L solves in lock-step through
 `kernel.solve_lanes`, then a cross-lane revalidation).  The wave loop
-syncs with the host once per wave, so a dispatch returns only when its
-solves are done; nothing here is asynchronous.  Every wave call on CUDA
-tensors goes through `wave_kernel.fused_wave`, which launches the
-kernel or raises.
+waits for the card several times a wave, so a dispatch returns only when
+its solves are done; nothing here is asynchronous.  Every wave call on
+CUDA tensors goes through `wave_kernel.fused_wave`, which launches the
+kernel or raises.  The solves' waves, full passes and host syncs come
+back per batch (`last_waves`, `last_rescore_waves`, `last_syncs`) and
+each dispatch folds them into the process registry
+(`solve.count_dispatch`).
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
 one through its four placement hooks and `_solve_one(..., mesh=)`.  The
@@ -65,7 +68,7 @@ from .kernel import (MERGED_GP_MAX, NEG_INF, TOP_K, WAVE_K, _MERGED_W_CAP,
                      resolve_shortlist_c, solve_lanes, solve_shards,
                      solve_steps)
 from .masks import np_pack_bool_u32, unpack_bool_u32
-from .solve import resolve_device
+from .solve import count_dispatch, resolve_device
 from .tensorize import PackedBatch, PlacementAsk, Tensorizer
 
 # per-placement outcome in the packed result's last column
@@ -158,6 +161,14 @@ def _pack_out(choice, score, status, compact: bool) -> torch.Tensor:
         return pack_out_compact(choice, score, status)
     return torch.cat([choice.to(torch.float32), score,
                       status.to(torch.float32)[..., None]], dim=-1)
+
+
+def _total(counts) -> int:
+    """The sum of a stream's per-batch counts (an array, or a list of
+    them from a pipelined stream)."""
+    if isinstance(counts, list):
+        return int(sum(int(np.asarray(c).sum()) for c in counts))
+    return int(np.asarray(counts).sum())
 
 
 def _status(commit, retry) -> torch.Tensor:
@@ -342,9 +353,10 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
                    compact=True, has_preempt=False, **kw):
     """B solves in turn, threading usage from batch to batch.  Returns
     (used, dev_used, out [B, K, 2*TOP_K+1], evict [B, K, E] (zeros
-    [B, K, 1] without the eviction pass), waves [B], rescores [B])."""
+    [B, K, 1] without the eviction pass), waves [B], rescores [B],
+    syncs [B])."""
     used, dev_used = used0, dev_used0
-    outs, evicts, waves, rescores = [], [], [], []
+    outs, evicts, waves, rescores, syncs = [], [], [], [], []
     for b, (n_place, seed) in enumerate(zip(n_places, seeds)):
         batch = _batch(stacked, b)
         res = _solve_one(node, used, dev_used, batch, int(n_place),
@@ -356,9 +368,11 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
             device=res.choice.device))
         waves.append(res.n_waves)
         rescores.append(res.n_rescore)
+        syncs.append(res.n_syncs)
         used, dev_used = res.used_final, res.dev_used_final
     return (used, dev_used, torch.stack(outs), torch.stack(evicts),
-            np.asarray(waves, np.int32), np.asarray(rescores, np.int32))
+            np.asarray(waves, np.int32), np.asarray(rescores, np.int32),
+            np.asarray(syncs, np.int32))
 
 
 def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -370,7 +384,8 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     one, which scores the same within the ulp bound), then every
     batch's slot-0 placements revalidated in batch order against the
     cumulative usage, bouncing what no longer fits.  Returns (used,
-    dev_used, out [B, K, 2*TOP_K+1] f32)."""
+    dev_used, out [B, K, 2*TOP_K+1] f32, waves [B], rescores [B],
+    syncs [B])."""
     kw["shortlist_c"] = -1
     res = [_solve_one(node, used0, dev_used0, _batch(stacked, b), int(n),
                       int(s), **kw)
@@ -390,7 +405,10 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
         score = torch.where(commit[:, None], r.score, NEG_INF)
         outs.append(_pack_out(r.choice, score,
                               _status(commit, ok | r.unfinished), False))
-    return used, dev_used, torch.stack(outs)
+    return (used, dev_used, torch.stack(outs),
+            np.asarray([r.n_waves for r in res], np.int32),
+            np.asarray([r.n_rescore for r in res], np.int32),
+            np.asarray([r.n_syncs for r in res], np.int32))
 
 
 def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -402,16 +420,19 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     placements a sibling lane beat to a node bounce to STATUS_RETRY with
     every score slot nulled.  B must be a multiple of `lanes` (the host
     pads with n_place = 0 rows).  Returns (used, dev_used, out, waves,
-    rescores, bounced, committed), each per batch."""
+    rescores, syncs, bounced, committed), each per batch.  Lanes in
+    lock-step open no profiler ranges: `solve_lanes` opens the waves."""
     L = lanes
     used, dev_used = used0, dev_used0
-    outs, waves, rescores, bounced, committed = [], [], [], [], []
+    outs, waves, rescores, syncs = [], [], [], []
+    bounced, committed = [], []
     for c in range(len(n_places) // L):
         bs = range(c * L, (c + 1) * L)
         batches = [_batch(stacked, b) for b in bs]
         res = solve_lanes(
             _solve_steps(node, used, dev_used, batches[i],
-                         int(n_places[b]), int(seeds[b]), **kw)
+                         int(n_places[b]), int(seeds[b]),
+                         wave_ranges=L == 1, **kw)
             for i, b in enumerate(bs))
         K = res[0].choice.shape[0]
         ks = torch.arange(K, device=res[0].choice.device)
@@ -429,11 +450,12 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
         outs.append(_pack_out(choice, score, status, compact))
         waves += [r.n_waves for r in res]
         rescores += [r.n_rescore for r in res]
+        syncs += [r.n_syncs for r in res]
         bounced.append((okf & ~commit).reshape(L, K).sum(dim=1))
         committed.append(commit.reshape(L, K).sum(dim=1))
     return (used, dev_used, torch.cat(outs), np.asarray(waves, np.int32),
-            np.asarray(rescores, np.int32), torch.cat(bounced),
-            torch.cat(committed))
+            np.asarray(rescores, np.int32), np.asarray(syncs, np.int32),
+            torch.cat(bounced), torch.cat(committed))
 
 
 class ResidentSolver:
@@ -492,9 +514,11 @@ class ResidentSolver:
         #: revalidation counters of the last lane stream (None after a
         #: serial stream); fetch with lane_counters()
         self.last_lane_counters = None
-        #: per-batch wave and full-rescore wave counts of the last stream
+        #: per-batch wave, full-rescore wave and host-sync counts of the
+        #: last stream
         self.last_waves = None
         self.last_rescore_waves = None
+        self.last_syncs = None
         self.delta_counters = {
             "delta_applies": 0, "repack_fallbacks": 0,
             "last_delta_ratio": 0.0,
@@ -512,8 +536,6 @@ class ResidentSolver:
         self._ev_epoch = 0
         #: host bytes the last dispatch shipped (0 on a cached one)
         self.last_dispatch_bytes = 0
-        #: wall of the last synchronous stream solve, by batch count
-        self.last_solve_stats = None
         self.last_pipeline_stats = None
         #: [B, K, E] eviction-slot masks of the last stream (a list when
         #: pipelined); None until a preempt-enabled stream ran
@@ -869,11 +891,7 @@ class ResidentSolver:
         should be resubmitted in a later stream.  A job may appear in at
         most ONE batch per stream.  `seeds`: optional per-batch
         tie-break seeds (None keeps exact deterministic scoring)."""
-        t0 = time.perf_counter()
-        out = unpack_stream(self.solve_stream_async(batches, seeds))
-        self.last_solve_stats = {"n_batches": len(batches),
-                                 "wall_s": time.perf_counter() - t0}
-        return out
+        return unpack_stream(self.solve_stream_async(batches, seeds))
 
     def solve_stream_async(self, batches: Sequence[PackedBatch],
                            seeds: Optional[Sequence[int]] = None,
@@ -887,7 +905,9 @@ class ResidentSolver:
         `lanes` overrides `fused_lanes` for this call: > 1 routes a
         multi-batch stream to the lane stream (L batches a step against
         the carried usage, revalidated cross-lane, conflicts bounced to
-        STATUS_RETRY).  Preemption streams always stay serial."""
+        STATUS_RETRY).  Preemption streams always stay serial.  Each
+        dispatch folds its waves, full passes and host syncs into the
+        process registry (`solve.count_dispatch`)."""
         self._check_stream_jobs(batches)
         self._check_batch_axis(batches)
         has_distinct = self._has_distinct(batches)
@@ -900,10 +920,13 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches]
         seed_list = [0] * len(batches) if seeds is None else list(seeds)
         (self._used, self._dev_used, out, self.last_evict,
-         self.last_waves, self.last_rescore_waves) = _stream_kernel(
+         self.last_waves, self.last_rescore_waves,
+         self.last_syncs) = _stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, compact=self._compact, has_preempt=preempt,
             **self._solve_kw(batches, has_distinct))
+        count_dispatch(self.last_waves, self.last_rescore_waves,
+                       self.last_syncs)
         return out
 
     def _solve_lanes(self, batches: Sequence[PackedBatch], seeds,
@@ -919,13 +942,15 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches] + [0] * pad
         seed_list = ([0] * B if seeds is None else list(seeds)) + [0] * pad
         kw = self._solve_kw(batches, has_distinct)
-        (self._used, self._dev_used, out, waves, rescores, bounced,
+        (self._used, self._dev_used, out, waves, rescores, syncs, bounced,
          committed) = _lane_stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, lanes=L, compact=self._compact, **kw)
+        count_dispatch(waves, rescores, syncs)      # padding lanes' too
         self.last_evict = None
         self.last_waves = waves[:B]
         self.last_rescore_waves = rescores[:B]
+        self.last_syncs = syncs[:B]
         self.last_lane_counters = {
             "lanes": L, "chunks": (B + pad) // L,
             "bounced": bounced[:B], "committed": committed[:B]}
@@ -971,12 +996,13 @@ class ResidentSolver:
         a dispatch returns when its solve is done, so the host packs the
         next chunk after it, not under it.  Returns the solve_stream
         tuple; per-phase times land in last_pipeline_stats (with the
-        delta apply and the bytes each dispatch shipped) and per-call
-        wave counts in last_waves (a list)."""
+        delta apply, the bytes each dispatch shipped and the stream's
+        waves and host syncs) and per-call wave counts in last_waves (a
+        list)."""
         chunks = list(chunks)
         if not chunks:
             raise ValueError("solve_stream_pipelined needs >= 1 chunk")
-        outs, waves, rescores, evicts = [], [], [], []
+        outs, waves, rescores, syncs, evicts = [], [], [], [], []
         pack_s = dispatch_s = delta_s = 0.0
         bytes_shipped = 0
 
@@ -1004,6 +1030,7 @@ class ResidentSolver:
                 [pb], seeds=None if seeds is None else [seeds[b]]))
             waves.append(self.last_waves)
             rescores.append(self.last_rescore_waves)
+            syncs.append(self.last_syncs)
             evicts.append(self.last_evict)
             bytes_shipped += self.last_dispatch_bytes
             t1 = time.perf_counter()
@@ -1016,15 +1043,14 @@ class ResidentSolver:
         fetch_s = time.perf_counter() - t3
         self.last_waves = waves
         self.last_rescore_waves = rescores
+        self.last_syncs = syncs
         self.last_evict = evicts
         self.last_pipeline_stats = {
             "pack_s": pack_s, "dispatch_s": dispatch_s,
             "delta_apply_s": delta_s,
             "fetch_s": fetch_s, "n_dispatches": len(outs),
-            "bytes_dispatched": bytes_shipped}
-        self.last_solve_stats = {
-            "n_batches": len(chunks),
-            "wall_s": pack_s + dispatch_s + delta_s + fetch_s}
+            "bytes_dispatched": bytes_shipped,
+            "waves": _total(waves), "syncs": _total(syncs)}
         return unpack_stream(packed)
 
     def solve_parallel(self, batches: Sequence[PackedBatch]
@@ -1041,9 +1067,11 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches]
         kw = self._solve_kw(batches, self._has_distinct(batches))
         kw.pop("stack_commit")
-        self._used, self._dev_used, out = _parallel_kernel(
+        (self._used, self._dev_used, out, waves, rescores,
+         syncs) = _parallel_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             range(1, len(batches) + 1), **kw)
+        count_dispatch(waves, rescores, syncs)
         return unpack_stream(out)
 
     # -------------------------------------------------------- reporting
@@ -1093,21 +1121,21 @@ class ResidentSolver:
     def trace_attrs(self, batches: Optional[Sequence[PackedBatch]] = None
                     ) -> Dict:
         """Solve-span attributes of the last dispatched stream: the
-        measured wave/rescore/shortlist counters, the eviction-commit
-        count, the resident-delta counters and, when the solved batches
-        are passed, the two-tier byte model."""
+        measured wave/rescore/shortlist counters and host syncs, the
+        eviction-commit count, the resident-delta counters and, when the
+        solved batches are passed, the two-tier byte model."""
         attrs: Dict = {"delta": dict(self.delta_counters)}
         m = self.measured_wave_counters()
         if m is not None:
             attrs.update(m)
+        if self.last_syncs is not None:
+            attrs["syncs_total"] = _total(self.last_syncs)
         ev = self.last_evict
         if ev is not None:
             evs = ev if isinstance(ev, list) else [ev]
             attrs["evict_commits"] = int(sum(
                 int(_host(e).any(axis=-1).sum())
                 for e in evs if e is not None))
-        if self.last_solve_stats is not None:
-            attrs["solve"] = dict(self.last_solve_stats)
         if batches:
             wt = self.wave_traffic(batches)
             attrs["wave_traffic"] = {k: v for k, v in wt.items()
@@ -1120,13 +1148,8 @@ class ResidentSolver:
         shortlist-resident."""
         if self.last_waves is None:
             return None
-
-        def _tot(x):
-            if isinstance(x, list):
-                return int(sum(int(np.asarray(w).sum()) for w in x))
-            return int(np.asarray(x).sum())
-        waves = _tot(self.last_waves)
-        resc = (_tot(self.last_rescore_waves)
+        waves = _total(self.last_waves)
+        resc = (_total(self.last_rescore_waves)
                 if self.last_rescore_waves is not None else waves)
         return {"waves_total": waves, "rescore_waves": resc,
                 "shortlist_waves": waves - resc}

@@ -752,6 +752,10 @@ class Solver:
         fetched (numpy) result and builds the SolveOutput."""
         trace_attrs = solve_trace_attrs(pb, res, self._device,
                                         backend=backend)
+        if backend == "device":
+            count_dispatch(trace_attrs["waves"],
+                           trace_attrs["rescore_waves"],
+                           trace_attrs["syncs"])
         trace_attrs["kernel_wall_s"] = round(
             time.perf_counter() - _solve_t0, 6)
         trace_attrs["resident"] = used_resident
@@ -1077,8 +1081,9 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
                       lane_counters: Optional[Dict] = None,
                       backend: str = "device") -> Dict:
     """Solve-span attributes of one kernel run (fetched result): the
-    batch shape, the wave / rescore counters and the placements the
-    eviction pass committed, and which route ran it (`backend`: "host"
+    batch shape, the wave / rescore counters, the times the wave loop
+    waited for the card (`syncs`, 0 on the host routes), the placements
+    the eviction pass committed, and which route ran it (`backend`: "host"
     for the numpy twin, "device" for the device solve, "host_failover" /
     "host_quarantine" for the twin answering under the watchdog).
     `lane_counters` (a lane stream's `ResidentSolver.lane_counters()`)
@@ -1093,6 +1098,7 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
              "backend": backend,
              "waves": waves, "rescore_waves": rescore,
              "shortlist_waves": waves - rescore,
+             "syncs": int(res.n_syncs),
              "evict_commits": evicted,
              "unfinished": int(np.asarray(res.unfinished).sum())}
     if lane_counters is not None:
@@ -1103,6 +1109,19 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
         attrs["lane_bounce_rate"] = float(
             lane_counters.get("bounce_rate", 0.0))
     return attrs
+
+
+def count_dispatch(waves, rescores, syncs) -> None:
+    """Fold one device dispatch's counts (ints, or per-batch arrays)
+    into the process registry, served at /v1/metrics: `solver.waves`,
+    `solver.waves_full` (the waves that ran the full pass over the node
+    planes; on a mesh, per shard) and `solver.syncs` (the times the wave
+    loops waited for the card).  A worker's device solve folds once it
+    is fetched, a `ResidentSolver` once a dispatch; host-twin solves
+    fold nothing."""
+    global_metrics.incr_counter("solver.waves", float(np.sum(waves)))
+    global_metrics.incr_counter("solver.waves_full", float(np.sum(rescores)))
+    global_metrics.incr_counter("solver.syncs", float(np.sum(syncs)))
 
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,

@@ -26,6 +26,11 @@ The counterpart of `nomad_tpu.utils.tracing`.  Design constraints:
     call returns immediately when off (no allocation, no lock); cheap
     when on — one dict append per stage under a leaf lock.
 
+Beside the recorder, `device_range` opens the solver's named ranges in
+a running `torch.profiler` session (nothing otherwise), so that a
+profiler trace shows which program step the card's kernels and idle
+gaps belong to.
+
 Knobs: a constructor argument, else the environment variable, read
 when the object is built (the process-wide `global_tracer` and
 `global_mesh_events` at import), else the default:
@@ -133,6 +138,30 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+#: the solver's profiler ranges (`device_range`): a wave of the solve
+#: by kind (a full pass over the node planes or the carried shortlist)
+#: and a host sync inside the wave loop
+WAVE_FULL = "nomad.wave.full"
+WAVE_CARRIED = "nomad.wave.carried"
+WAVE_SYNC = "nomad.wave.sync"
+
+
+def device_range(name: str):
+    """A profiler range named `name` while a torch profiler is
+    recording, else `NULL_SPAN` (one flag read, no allocation).  The
+    range is an event of the profiler's own timeline, on the clock of
+    the card's kernels, so it lands in any trace the profiler exports
+    (the solver profile's Chrome trace).  It is recorded as a host op
+    (torch's `_RecordFunctionFast`), not as a `record_function` user
+    annotation, for which the profiler would add a device-side event
+    spanning the range's kernels and so count the range as device time.
+    Ranges must nest on their thread: never hold one open across a yield
+    to a driver that runs other generators which open ranges."""
+    import torch        # loaded already by every caller
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return NULL_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 class FlightRecorder:

@@ -511,7 +511,9 @@ def test_resident_solver_raises_without_gpu(monkeypatch):
 def test_wave_traffic_and_trace_attrs_match_reference():
     """The byte model, the measured wave counters and the trace
     attributes of a stream equal the reference's (the port's `tile` is
-    its kernel's node width, not the Pallas tile)."""
+    its kernel's node width, not the Pallas tile).  The reference's
+    attributes also carry the stream's wall (`solve`), the port's its
+    host syncs (`syncs_total`): more than one a wave."""
     def run(side):
         rs = side.solver(make_nodes(side, 320), probes(side), gp=4, kp=64)
         bs = mixed_batches(side, rs, 2)
@@ -519,10 +521,13 @@ def test_wave_traffic_and_trace_attrs_match_reference():
         wt = rs.wave_traffic(bs)
         wt.pop("tile")
         attrs = rs.trace_attrs(bs)
-        attrs.pop("solve")
         attrs["wave_traffic"].pop("tile")
         return wt, attrs
     (rwt, rat), (pwt, pat) = both(run)
     assert rwt == pwt
+    assert set(rat.pop("solve")) == {"n_batches", "wall_s"}
+    assert "solve" not in pat
+    syncs = pat.pop("syncs_total")
     assert rat == pat
     assert pwt["measured"]["waves_total"] >= 2
+    assert syncs > pat["waves_total"]
