@@ -1213,7 +1213,9 @@ def capture_wave(wk, mode, into):
 
     def wave(**kw):
         if "kw" not in into and kw["mode"] == mode:
-            into["kw"] = {k: copy(v) for k, v in kw.items()}
+            # not `out`: a graphed wave writes into its plan's buffers,
+            # and a timed copy allocates its own, as any checkout's does
+            into["kw"] = {k: copy(v) for k, v in kw.items() if k != "out"}
         return real(**kw)
     # the wrapper counts its launches on the module's `fused_wave`
     wave.launches, wave.mode_launches = real.launches, real.mode_launches

@@ -150,8 +150,9 @@ _SOLVE_STATIC = ("has_spread", "group_count_hint", "max_waves",
                  "stack_commit", "pallas_mode", "shortlist_c", "mesh_axis",
                  "mesh_shards", "has_preempt", "mesh_hosts", "mesh_nt",
                  "tile_np", "mesh_regions", "lane_axis",
-                 # the port's own: whether the solve opens profiler ranges
-                 "wave_ranges")
+                 # the port's own: whether the solve opens profiler ranges,
+                 # and whether it is one lane (its waves may be graphs)
+                 "wave_ranges", "single_lane")
 _P = "nomad_tpu_torch."
 
 DEFAULT_DEVICE_ROOTS: Tuple[DeviceRoot, ...] = (
@@ -920,14 +921,18 @@ class Provenance:
                     work.append(nk)
 
     def packed_field(self, fi, name: str, attr: str) -> bool:
-        """`name.attr` is a PackedBatch array field (`name` annotated or
-        constructed as a PackedBatch)."""
+        """`name.attr` is a tensor field: a PackedBatch array field, or
+        a field annotated `torch.Tensor` (bare or Optional) of a
+        NamedTuple class of the package (the wave loop's carries), with
+        `name` annotated or constructed as that class."""
         lt = self.index._local_var_types(fi)
         anns = self.index._param_annotations(fi)
         cls = lt.get(name) or anns.get(name)
-        if not cls or not cls.endswith(":PackedBatch"):
+        if not cls or ":" not in cls:
             return False
         mod = cls.split(":")[0]
+        if not cls.endswith(":PackedBatch"):
+            return attr in self._tensor_fields(cls)
         fields = self._packed.get(mod)
         if fields is None:
             fields = set()
@@ -942,6 +947,29 @@ class Provenance:
                                if isinstance(e, ast.Constant)}
             self._packed[mod] = fields
         return attr in fields
+
+    def _tensor_fields(self, cls: str) -> Set[str]:
+        """The fields of the NamedTuple class `cls` ("module:Class")
+        annotated `torch.Tensor` or `Optional[torch.Tensor]`."""
+        fields = self._packed.get(cls)
+        if fields is None:
+            fields = set()
+            mod, name = cls.split(":", 1)
+            mi = self.index.modules.get(mod)
+            for node in (mi.tree.body if mi else ()):
+                if not (isinstance(node, ast.ClassDef) and node.name == name
+                        and any(_dotted(b) in ("NamedTuple",
+                                               "typing.NamedTuple")
+                                for b in node.bases)):
+                    continue
+                for st in node.body:
+                    if isinstance(st, ast.AnnAssign) and isinstance(
+                            st.target, ast.Name) and any(
+                            _dotted(n) == "torch.Tensor"
+                            for n in ast.walk(st.annotation)):
+                        fields.add(st.target.id)
+            self._packed[cls] = fields
+        return fields
 
 
 # ------------------------------------------------------------ the pass

@@ -7,7 +7,7 @@ declarative source of truth: each term carries its exact float-op
 sequence, constants and combine order, and the backends split in two:
 
   * DRIVEN — the host twin (`host.host_solve_kernel.group_scores`)
-    and the jit wave scorer (`kernel.solve_kernel.group_scores`) call
+    and the jit wave scorer (`kernel._wave_scores`) call
     `score_spec.evaluate_wave`; they are bit-identical to the spec by
     construction and must contain NO scoring arithmetic of their own.
   * HAND, SPEC-VERIFIED — the shortlist VMEM twin
@@ -102,9 +102,9 @@ DEFAULT_SCORER_SITES: Tuple[ScorerSite, ...] = (
     ScorerSite("host", "driven",
                "nomad_tpu_torch.solver.host:host_solve_kernel.group_scores"),
     ScorerSite("kernel", "driven",
-               "nomad_tpu_torch.solver.kernel:solve_steps.group_scores"),
+               "nomad_tpu_torch.solver.kernel:_wave_scores"),
     ScorerSite("shortlist", "python",
-               "nomad_tpu_torch.solver.kernel:solve_steps._sl_eval"),
+               "nomad_tpu_torch.solver.kernel:_sl_eval"),
     # the fused wave kernel ("pallas" in score_spec.TERMS): its one copy
     # of the scoring, the CUDA device functions that score a pair
     ScorerSite("pallas", "python",

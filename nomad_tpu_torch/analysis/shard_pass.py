@@ -58,6 +58,8 @@ _AXIS_SIZE_NAMES = {"n_shards", "num_shards", "nshards", "n_shard",
 _MASK_CALLS = {"where", "masked_fill", "masked_fill_"}
 # the drop-mode helper: its index pins non-owned rows to a dropped slot
 _DROP_HELPERS = {"_add_drop"}
+# the attribute of a solve's options that says the mesh is on
+_IN_MESH = "in_mesh"
 
 
 def run_shard_pass(index: PackageIndex, cfg: AnalysisConfig,
@@ -173,18 +175,28 @@ def _shard402_403(index: PackageIndex, cfg: AnalysisConfig,
         if fi is None:
             continue
         flags = _mesh_flags(index, fi)
-        # the body itself plus the defs nested in it (they run inline)
+        # the body itself, the defs nested in it and the module's own
+        # functions it calls (they run inline, on the shard's planes;
+        # the drop helper is the masked path itself)
         stack = [root]
         bodies = []
         while stack:
             k = stack.pop()
+            if k in bodies:
+                continue
             bodies.append(k)
             stack.extend(index.functions[k].nested)
+            stack.extend(
+                c for c in sorted(index.callees(k))
+                if c in index.functions
+                and index.functions[c].module == fi.module
+                and index.functions[c].parent is None
+                and index.functions[c].qual not in _DROP_HELPERS)
         for fkey in bodies:
             sfi = index.functions[fkey]
             sizeish = _axis_size_locals(index, sfi)
             masked = _masked_names(index, sfi)
-            off = _mesh_off_nodes(sfi, flags)
+            off = _mesh_off_nodes(sfi, flags | _mesh_flags(index, sfi))
             for node in index._own_nodes(sfi):
                 if id(node) in off:
                     continue
@@ -302,13 +314,20 @@ def _is_masked(node, masked: Set[str], target: Set[str] = frozenset()
 
 
 def _mesh_flags(index: PackageIndex, fi) -> Set[str]:
-    """Names that say the mesh is on: a mesh-axis parameter and locals
-    bound to `<it> is not None`."""
+    """Names that say the mesh is on: a mesh-axis parameter, locals
+    bound to `<it> is not None`, and the `.in_mesh` attribute of a
+    solve's options (a test of `<x>.in_mesh`, or a local bound to
+    it)."""
     params = [p for p in _param_list(fi)] + [
         a.arg for a in fi.node.args.kwonlyargs]
     axis = {p for p in params if "mesh_axis" in p}
-    flags: Set[str] = set()
+    flags: Set[str] = {_IN_MESH}
     for node in index._own_nodes(fi):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and isinstance(node.value, ast.Attribute) \
+                and node.value.attr == _IN_MESH:
+            flags.add(node.targets[0].id)
         if isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name) \
                 and isinstance(node.value, ast.Compare) \
@@ -332,7 +351,8 @@ def _mesh_off_nodes(fi, flags: Set[str]) -> Set[int]:
         neg = isinstance(t, ast.UnaryOp) and isinstance(t.op, ast.Not)
         if neg:
             t = t.operand
-        if not (isinstance(t, ast.Name) and t.id in flags):
+        if not ((isinstance(t, ast.Name) and t.id in flags)
+                or (isinstance(t, ast.Attribute) and t.attr in flags)):
             continue
         off = node.body if neg else node.orelse
         for st in (off if isinstance(off, list) else [off]):

@@ -777,6 +777,9 @@ class ShardedResidentSolver(ResidentSolver):
             n_places, seed_list, mesh=self._mesh, compact=self._compact,
             has_preempt=preempt, **self._solve_kw(batches, has_distinct),
             **self._elastic_kw())
+        # a mesh solve's waves run op by op (collectives mid-wave)
+        self.last_graphed = self.last_captures = np.zeros(len(batches),
+                                                          np.int32)
         count_dispatch(self.last_waves, self.last_rescore_waves,
                        self.last_syncs)
         return out

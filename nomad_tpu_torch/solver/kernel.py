@@ -58,15 +58,27 @@ integer sum over the mesh and ("merge", s, i, k) for the exact
 (score desc, global id asc) top-k of every shard's window.
 `solve_shards` drives the S generators in lock-step and answers them,
 the counterpart of the reference's `shard_map`.
+
+The wave body is a chain of segment functions over explicit inputs
+(`_Inputs`, `_Carry`): `_wave_prep`, the fused kernel (`_wave_scores`),
+`_wave_body` up to the rerank decision, and `_wave_rerank`.  A solve
+driven alone (`single_lane`) on a CUDA device, with the fused kernel and
+without the eviction pass or a mesh, replays them as CUDA graphs once
+its signature repeats (`_GraphWaves`, `wave_graph`): the kernel itself
+is still called each full pass, and the host waits once a wave, for the
+wave's flags (its next entry test and the carried window's premise),
+and once more after a rerank.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import types
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import score_spec as _score_spec
+from . import wave_graph
 from . import wave_kernel as _wk
 from ..utils.tracing import (NULL_SPAN, WAVE_CARRIED, WAVE_FULL, WAVE_SYNC,
                              device_range)
@@ -166,6 +178,8 @@ class SolveResult(NamedTuple):
     #  on, -1 = none (None without has_preempt): evictions make usage
     #  non-monotone, so the host fixup replays commits in wave order
     n_syncs: int = 0            # times the wave loop waited for the card
+    n_graphed: int = 0          # waves whose body replayed a CUDA graph
+    n_captures: int = 0         # CUDA graphs the solve captured
 
 
 class _WaveRanges:
@@ -206,7 +220,8 @@ class _SLState(NamedTuple):
     """Wave-loop carry for the shortlist-resident contention path (the
     reference's `_SLState`): per-entry planes gathered at the last full
     wave, the era cutoff key, and the next wave's pre-computed window,
-    tables and counters, which `ok` allows the next wave to use."""
+    tables and counters, which the loop's host flag (the reference's
+    `ok`) allows the next wave to use."""
     idx: torch.Tensor           # [Gp, C] node ids, ascending
     feas: torch.Tensor          # [Gp, C] static feasibility
     pen: torch.Tensor           # [Gp, C] penalty flag
@@ -225,7 +240,6 @@ class _SLState(NamedTuple):
     tb_s: torch.Tensor          # [Gp, V+1, TW] next wave's value tables
     tb_i: torch.Tensor          # ([Gp, 1, 1] dummies when tables off)
     gany: torch.Tensor          # [Gp] next wave's grp_any
-    ok: bool                    # next wave may skip the full pass
 
 
 def resolve_shortlist_c(Np: int, TK: int, requested: int = 0) -> int:
@@ -267,20 +281,22 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
 
 
-def _jitter(gid: torch.Tensor, gs: torch.Tensor, seed: int,
-            syncs: _WaveRanges) -> torch.Tensor:
-    """Seeded tie-break jitter for node ids `gid` [Gp, *] of groups `gs`
-    [Gp]: the reference's uint32 hash, (h & 1023) * SCORE_BIN / 1023.
-    `syncs` (the solve's `_WaveRanges`) counts and ranges the host copy
-    of the step onto the card."""
-    s32 = seed & _U32
-    gsalt = (_mul32(gs, 7919) + s32) & _U32
+def _jitter_salt(gs: torch.Tensor, seed: int) -> torch.Tensor:
+    """The jitter's per-group salt [Gp] for groups `gs`: the seed hashed
+    into each group's id, on the card."""
+    return (_mul32(gs, 7919) + (seed & _U32)) & _U32
+
+
+def _jitter(gid: torch.Tensor, gsalt: torch.Tensor) -> torch.Tensor:
+    """Seeded tie-break jitter for node ids `gid` [Gp, *] under the
+    per-group salts `gsalt` [Gp] (`_jitter_salt`): the reference's
+    uint32 hash, (h & 1023) * SCORE_BIN / 1023.  The step is an f32
+    filled on the card, as the reference folds its literal in."""
     h = (_mul32(gid & _U32, 2654435761)
          + _mul32(gsalt, 40503)[:, None]) & _U32
     h = _mul32(h ^ (h >> 16), 2246822519)
-    with syncs.sync():
-        step = torch.tensor(_score_spec.SCORE_BIN / 1023.0,
-                            dtype=torch.float32, device=gid.device)
+    step = torch.full((), _score_spec.SCORE_BIN / 1023.0,
+                      dtype=torch.float32, device=gid.device)
     return (h & 1023).to(torch.float32) * step
 
 
@@ -472,7 +488,7 @@ def solve_kernel(*args, lane_axis=None, **kw) -> SolveResult:
     if kw.get("mesh_axis") is not None:
         raise ValueError("solve_kernel: a mesh-mode solve (mesh_axis) is "
                          "driven by solve_shards")
-    return solve_lanes([solve_steps(*args, **kw)])[0]
+    return solve_lanes([solve_steps(*args, single_lane=True, **kw)])[0]
 
 
 def solve_lanes(lanes) -> list:
@@ -669,6 +685,1037 @@ class _MergeKeys(NamedTuple):
         return _MergeKeys(self.s.to(device), self.i.to(device))
 
 
+class _Inputs(NamedTuple):
+    """A solve's wave-invariant tensors, as the wave segments read them
+    (None where the solve's options leave one out)."""
+    avail: torch.Tensor             # [Np, R]
+    reserved: torch.Tensor          # [Np, R]
+    valid: torch.Tensor             # [Np]
+    attr_rank: torch.Tensor         # [Np, A]
+    attr_rank_l: torch.Tensor       # the same, int64
+    ask_res: torch.Tensor           # [Gp, R]
+    ask_desired: torch.Tensor       # [Gp]
+    distinct: torch.Tensor          # [Gp]
+    coll0: torch.Tensor             # [Gp, Np]
+    penalty: torch.Tensor           # [Gp, Np]
+    feas: torch.Tensor              # [Gp, Np] static feasibility
+    aff_score: torch.Tensor         # [Gp, Np]
+    sp_col: torch.Tensor            # [Gp, S]
+    sp_weight: torch.Tensor         # [Gp, S]
+    sp_targeted: torch.Tensor       # [Gp, S]
+    sp_desired: torch.Tensor        # [Gp, S, V]
+    sp_implicit: torch.Tensor       # [Gp, S]
+    sp_vnode: Optional[torch.Tensor]    # [S, Gp, Np] value ranks
+    sp_des: Optional[torch.Tensor]      # [S, Gp, Np] desired counts
+    dev_cap: torch.Tensor           # [Np, D]
+    dev_ask: torch.Tensor           # [Gp, D]
+    g_idx: torch.Tensor             # [K] each placement's group
+    in_batch: torch.Tensor          # [K] ks < n_place
+    g_off: torch.Tensor             # [Gp] rank-wrap rotation offsets
+    gsalt: torch.Tensor             # [Gp] jitter salts
+    jitter: torch.Tensor            # [Gp, Np]
+    pk_feas: Optional[torch.Tensor]     # fused kernel: packed planes
+    pk_pen: Optional[torch.Tensor]
+    pk_sp_has: Optional[torch.Tensor]
+    pk_vnode: Optional[torch.Tensor]
+    learned: Optional[torch.Tensor]     # [Gp, Np] extra scorers
+    region_bias: Optional[torch.Tensor]
+    ev_slot_ok: Optional[torch.Tensor]  # has_preempt: eviction planes
+    ev_res_f: Optional[torch.Tensor]
+    ev_prio_i: Optional[torch.Tensor]
+    ks: torch.Tensor                # [K] arange
+    gs: torch.Tensor                # [Gp] arange
+    offs_k: torch.Tensor            # [TOP_K] arange
+    no_tab_s: torch.Tensor          # [Gp, 1, 1] empty value tables
+    no_tab_i: torch.Tensor
+
+
+class _Carry(NamedTuple):
+    """The wave loop's carried state: usage, the committed outputs, the
+    shortlist's carry (`_SLState`, None with the shortlist off) and, with
+    has_preempt, the taken eviction slots and the eviction outputs."""
+    used: torch.Tensor          # [Np, R]
+    dev_used: torch.Tensor      # [Np, D]
+    sp_used: torch.Tensor       # [Gp, S, V]
+    done: torch.Tensor          # [K] decided
+    out_idx: torch.Tensor       # [K, TOP_K]
+    out_ok: torch.Tensor        # [K, TOP_K]
+    out_score: torch.Tensor     # [K, TOP_K]
+    out_nfeas: torch.Tensor     # [K]
+    out_nexh: torch.Tensor      # [K]
+    out_dimexh: torch.Tensor    # [K, R]
+    sl: Optional[_SLState] = None
+    evt: Optional[torch.Tensor] = None        # [Np, E] slots taken
+    out_evict: Optional[torch.Tensor] = None  # [K, E]
+    out_wave: Optional[torch.Tensor] = None   # [K]
+
+
+class _Mid(NamedTuple):
+    """What a wave's rerank reads of its wave body: the usage before the
+    wave's commits and the full pass's counters."""
+    used_pre: torch.Tensor
+    dev_used_pre: torch.Tensor
+    n_feas_g: torch.Tensor
+    n_exh_g: torch.Tensor
+    dim_exh_g: torch.Tensor
+    act_next_g: torch.Tensor    # [Gp] groups with a placement left
+
+
+class _Prep(NamedTuple):
+    """A full pass's inputs rebuilt from the committed outputs."""
+    coll: torch.Tensor          # [Gp, Np] own-group collocation counts
+    blocked: Optional[torch.Tensor]     # [Gp, Np] distinct_hosts blocks
+    pk_blocked: Optional[torch.Tensor]  # the same, bit-packed
+    spread: Optional[tuple]     # the fused kernel's spread pack
+
+
+#: the per-solve tensors (`c`) that no captured stretch reads: the fused
+#: kernel's own inputs (it runs outside the graphs), the spec-driven
+#: scorer's and the mesh's
+_GRAPH_SKIP = frozenset(("pk_feas", "pk_pen", "jitter", "valid", "learned",
+                         "region_bias", "attr_rank", "ev_slot_ok", "ev_res_f",
+                         "ev_prio_i"))
+#: the per-solve tensors that depend on the signature alone, copied into
+#: a plan's buffers once
+_GRAPH_CONST = frozenset(("ks", "gs", "offs_k", "no_tab_s", "no_tab_i"))
+
+
+def _init_carry(k, c: _Inputs, used0, dev_used0, sp_used0) -> _Carry:
+    """The carry before the first wave."""
+    f32, i32, device = torch.float32, torch.int32, k.device
+    Gp, C, K, R, TKl = k.Gp, k.C, k.K, k.R, k.TKl
+    sl = None
+    if k.use_sl:
+        vshape = (k.S, Gp, C) if k.has_spread else (1, 1, 1)
+        tshape = (Gp, k.Vs + 1, k.TW) if k.want_tables else (Gp, 1, 1)
+        sl = _SLState(
+            idx=torch.zeros((Gp, C), dtype=i32, device=device),
+            feas=torch.zeros((Gp, C), dtype=torch.bool, device=device),
+            pen=torch.zeros((Gp, C), dtype=torch.bool, device=device),
+            aff=torch.zeros((Gp, C), dtype=f32, device=device),
+            vn=torch.zeros(vshape, dtype=i32, device=device),
+            de=torch.zeros(vshape, dtype=f32, device=device),
+            coll=torch.zeros((Gp, C), dtype=f32, device=device),
+            cut_s=torch.zeros(Gp, dtype=f32, device=device),
+            cut_i=torch.zeros(Gp, dtype=i32, device=device),
+            comp=torch.zeros(Gp, dtype=torch.bool, device=device),
+            nfeas=torch.zeros(Gp, dtype=i32, device=device),
+            nexh=torch.zeros(Gp, dtype=i32, device=device),
+            ndim=torch.zeros((Gp, R), dtype=i32, device=device),
+            win_s=torch.full((Gp, TKl), NEG_INF, dtype=f32, device=device),
+            win_i=torch.zeros((Gp, TKl), dtype=i32, device=device),
+            tb_s=torch.full(tshape, NEG_INF, dtype=f32, device=device),
+            tb_i=torch.zeros(tshape, dtype=i32, device=device),
+            gany=torch.zeros(Gp, dtype=torch.bool, device=device))
+    evt = out_evict = out_wave = None
+    if k.has_preempt:
+        evt = torch.zeros((k.Np, k.EV), dtype=torch.bool, device=device)
+        out_evict = torch.zeros((K, k.EV), dtype=torch.bool, device=device)
+        out_wave = torch.full((K,), -1, dtype=i32, device=device)
+    return _Carry(
+        used=used0, dev_used=dev_used0, sp_used=sp_used0,
+        done=torch.zeros(K, dtype=torch.bool, device=device),
+        out_idx=torch.zeros((K, TOP_K), dtype=i32, device=device),
+        out_ok=torch.zeros((K, TOP_K), dtype=torch.bool, device=device),
+        out_score=torch.full((K, TOP_K), NEG_INF, dtype=f32, device=device),
+        out_nfeas=torch.zeros(K, dtype=i32, device=device),
+        out_nexh=torch.zeros(K, dtype=i32, device=device),
+        out_dimexh=torch.zeros((K, R), dtype=i32, device=device),
+        sl=sl, evt=evt, out_evict=out_evict, out_wave=out_wave)
+
+
+def _wave_prep(k, c: _Inputs, st: _Carry) -> _Prep:
+    """The full pass's inputs from the committed outputs: the own-group
+    collocation counts, the distinct_hosts block plane (the torch scorer
+    takes it whole, the fused kernel bit-packed) and the kernel's
+    spread pack."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    committed = st.done & st.out_ok[:, 0]
+    chosen = torch.where(committed, st.out_idx[:, 0], 0).to(i64)
+    if k.in_mesh:
+        # out_idx holds GLOBAL ids: rows of other shards drop
+        chosen = k.g2l(chosen)[1]
+        coll = _add_drop(c.coll0, (c.g_idx, chosen), committed.to(f32), 1)
+    else:
+        coll = c.coll0.index_put((c.g_idx, chosen), committed.to(f32),
+                                 accumulate=True)
+    blocked = pk_blocked = spread = None
+    if k.has_distinct:
+        dg_all = c.distinct[c.g_idx].to(i64)
+        hit = _add_drop(
+            torch.zeros((k.Gp, k.Np), dtype=i32, device=k.device),
+            (dg_all.clamp(min=0), chosen),
+            (committed & (dg_all >= 0)).to(i32), 1) > 0
+        blocked = (hit[c.distinct.to(i64).clamp(min=0)]
+                   & (c.distinct >= 0)[:, None])
+        if k.use_pk:
+            pk_blocked = pack_bool_u32(blocked)
+    elif not k.use_pk:
+        blocked = torch.zeros((k.Gp, k.Np), dtype=torch.bool,
+                              device=k.device)
+    if k.use_pk and k.has_spread:
+        sp_used = st.sp_used
+        pres = sp_used > 0                                  # [Gp, S, V]
+        anyp = pres.any(dim=2)
+        minc_w = torch.where(pres, sp_used, float("inf")).amin(2)
+        maxc_w = torch.where(pres, sp_used, float("-inf")).amax(2)
+        # rows with nothing present are pinned finite: their
+        # contribution is masked to 0 either way
+        spread = (c.pk_vnode, c.sp_des, sp_used, c.sp_weight,
+                  c.sp_targeted, c.pk_sp_has,
+                  torch.where(anyp, minc_w, 0.0),
+                  torch.where(anyp, maxc_w, 0.0), anyp.to(torch.int8))
+    return _Prep(coll, blocked, pk_blocked, spread)
+
+
+def _wave_scores(k, c: _Inputs, st: _Carry, prep: _Prep, out=None) -> dict:
+    """Score every (group, node) pair against the carried usage: the
+    fused wave kernel (into `out`, `wave_kernel.out_buffers`, when
+    given) or the spec-driven torch scorer.  Returns the kernel's result
+    dict (counters, and the score plane or its extraction)."""
+    i32 = torch.int32
+    if k.use_pk:
+        return _wk.fused_wave(
+            mode=k.pallas_mode, feas=c.pk_feas, blocked=prep.pk_blocked,
+            aff=c.aff_score, pen=c.pk_pen, jitter=c.jitter, coll=prep.coll,
+            used=st.used, avail=c.avail, reserved=c.reserved,
+            ask_res=c.ask_res, ask_desired=c.ask_desired,
+            dev=(st.dev_used, c.dev_cap, c.dev_ask) if k.has_devices
+            else None,
+            spread=prep.spread, seed=k.seed, TK=k.TK, n_extract=k.NE,
+            tables_v=k.Vs if (k.want_tables and k.pallas_mode == "topk")
+            else 0, out=out)
+    pen_score, pen_counts = _score_spec.static_terms(_TORCH_OPS, c.penalty)
+    ctx = dict(
+        used=st.used, dev_used=st.dev_used, coll=prep.coll,
+        sp_used=st.sp_used, blocked=prep.blocked, avail=c.avail,
+        reserved=c.reserved, ask_res=c.ask_res, ask_desired=c.ask_desired,
+        dev_cap=c.dev_cap, dev_ask=c.dev_ask, feas=c.feas,
+        pen_score=pen_score, pen_counts=pen_counts,
+        aff_score=c.aff_score, has_devices=k.has_devices,
+        has_spread=k.has_spread, sp_col=c.sp_col, sp_weight=c.sp_weight,
+        sp_targeted=c.sp_targeted, vnode=c.sp_vnode, des=c.sp_des, S=k.S,
+        V=k.V, shape=(k.Gp, k.Np), seed=k.seed, jitter=c.jitter,
+        learned=c.learned, region_bias=c.region_bias)
+    score, placeable, feas_b, fit, fit_dims, dev_fit = \
+        _score_spec.evaluate_wave(_TORCH_OPS, ctx)
+    fv = feas_b & c.valid[None, :]
+    return {"score": score, "grp_any": placeable.any(dim=1),
+            "n_feas": fv.sum(dim=1).to(i32),
+            "n_exh": (fv & ~(fit & dev_fit)).sum(dim=1).to(i32),
+            "dim_exh": (fv[:, :, None] & ~fit_dims).sum(dim=1).to(i32)}
+
+
+def _full_tables(k, c: _Inputs, score: torch.Tensor):
+    """Per-value candidate tables from a full score plane: one class
+    per value plus the missing-value class."""
+    vnode = c.sp_vnode[0]
+    tabs_s, tabs_i = [], []
+    for v in range(k.Vs + 1):
+        vmask = (vnode == v) if v < k.Vs else (vnode < 0)
+        sv = torch.where(vmask, score, NEG_INF)
+        if k.elastic:
+            # gid-ordered ties; the ids leave GLOBAL
+            ts, ti, _ = _gid_top(sv, k.g_of_local, k.TW)
+            ti = ti.to(torch.int32)
+        else:
+            ts, ti = _top_rows(sv, k.TW)
+        tabs_s.append(ts)
+        tabs_i.append(ti)
+    return torch.stack(tabs_s, dim=1), torch.stack(tabs_i, dim=1)
+
+
+def _full_extract(k, c: _Inputs, st: _Carry, prep: _Prep, sc: dict):
+    """The full pass after scoring: extract the top-NE, window the
+    first TK, and with the shortlist on rebuild the carried shortlist
+    from the same extraction."""
+    i32, i64 = torch.int32, torch.int64
+    n_feas_g, n_exh_g = sc["n_feas"], sc["n_exh"]
+    dim_exh_g, grp_any = sc["dim_exh"], sc["grp_any"]
+    score = sc.get("score")              # None in "topk" mode
+    TKl, NE, C = k.TKl, k.NE, k.C
+    topk = k.use_pk and k.pallas_mode == "topk"
+    if k.elastic:
+        # under a tile remap local slot order is not global-id order:
+        # extract by (score desc, GLOBAL id asc), carrying the local slot
+        ext_s, ext_g, ext_i = _gid_top(score, k.g_of_local, NE)
+        ext_g, ext_i = ext_g.to(i32), ext_i.to(i32)
+    elif topk:
+        ext_s, ext_i = sc["top_score"], sc["top_idx"]
+    else:
+        ext_s, ext_i = _top_rows(score, NE)                # [Gp, NE]
+    top_score, top_idx = ext_s[:, :TKl], ext_i[:, :TKl]
+    if k.elastic:
+        top_idx = ext_g[:, :TKl]           # window keys are GLOBAL
+
+    if k.want_tables:
+        if topk:
+            tab_s, tab_i = sc["tab_s"], sc["tab_i"]
+        else:
+            tab_s, tab_i = _full_tables(k, c, score)
+        if k.in_mesh and not k.elastic:
+            tab_i = tab_i + k.off
+    else:
+        tab_s, tab_i = c.no_tab_s, c.no_tab_i
+    if k.in_mesh and not k.elastic:
+        # window keys leave the shard with GLOBAL node ids
+        top_idx = top_idx + k.off
+
+    SL = st.sl
+    if k.use_sl:
+        # rebuild the carried shortlist from this extraction (node-
+        # ascending, so commit positions resolve by bisection); the
+        # cutoff key freezes the best possible outsider for the era
+        sl_i = torch.sort(ext_i, dim=1).values
+        sl_l = sl_i.to(i64)
+        if k.has_spread:
+            bidx = sl_l.expand(k.S, k.Gp, C)
+            vn = torch.gather(c.sp_vnode, 2, bidx)
+            de = torch.gather(c.sp_des, 2, bidx)
+        else:
+            vn, de = SL.vn, SL.de
+        SL = _SLState(
+            idx=sl_i, feas=torch.gather(c.feas, 1, sl_l),
+            pen=torch.gather(c.penalty, 1, sl_l),
+            aff=torch.gather(c.aff_score, 1, sl_l), vn=vn, de=de,
+            coll=torch.gather(prep.coll, 1, sl_l),
+            # the cutoff's tie-break key: the GLOBAL id under the elastic
+            # remap (its extraction order), else the local slot (the
+            # block map is monotonic)
+            cut_s=ext_s[:, NE - 1],
+            cut_i=(ext_g if k.elastic else ext_i)[:, NE - 1],
+            comp=(n_feas_g - n_exh_g) <= C,
+            nfeas=n_feas_g, nexh=n_exh_g, ndim=dim_exh_g,
+            win_s=top_score, win_i=top_idx, tb_s=tab_s, tb_i=tab_i,
+            gany=grp_any)
+    return (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
+            dim_exh_g, grp_any, SL)
+
+
+def _seg_conflicts(k, c: _Inputs, cand_ok, cand):
+    """The same-wave conflict helpers (prior_sum_node, prior_rank_any,
+    prior_rank): [K, K] masks up to K = 2048, a stable sort a key
+    above."""
+    f32, i64 = torch.float32, torch.int64
+    K, ks, device = k.K, c.ks, k.device
+    if K <= 2048 and not _FORCE_SORT_CONFLICTS:
+        earlier = ks[None, :] < ks[:, None]                # [K, K]
+        both_ok = cand_ok[None, :] & cand_ok[:, None]
+        same_node = ((cand[None, :] == cand[:, None]) & both_ok
+                     & earlier)
+        same_f = same_node.to(f32)
+
+        def prior_sum_node(vals):
+            return same_f @ vals
+
+        def prior_rank_any(key, m):
+            # exclusive count of earlier members with an equal key
+            # under any membership mask (the eviction pass ranks
+            # placements whose cand_ok is False)
+            same = ((key[None, :] == key[:, None]) & m[None, :]
+                    & m[:, None] & earlier)
+            return same.sum(dim=1)
+
+        def prior_rank(key, member):
+            return prior_rank_any(key, member & cand_ok)
+        return prior_sum_node, prior_rank_any, prior_rank
+
+    def _seg(key, ok):
+        """Stable sort of `ok` members by key: per-element exclusive
+        segment rank and a segmented exclusive-prefix summer (the
+        reference's two-key (key, index) sort)."""
+        keyc = torch.where(ok, key, 0x7FFFFFF0)
+        s_key, s_ix = torch.sort(keyc, stable=True)
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool,
+                                         device=device),
+                              s_key[1:] != s_key[:-1]])
+        start_pos = torch.cummax(torch.where(is_start, ks, 0),
+                                 dim=0).values
+
+        def summer(vals):
+            v = vals[s_ix]
+            cum = torch.cumsum(v, dim=0) - v               # exclusive
+            return torch.zeros_like(vals).index_put(
+                (s_ix,), cum - cum[start_pos])
+
+        rank_s = torch.zeros(K, dtype=i64, device=device).index_put(
+            (s_ix,), ks - start_pos)
+        return rank_s, summer
+
+    _, prior_sum_node = _seg(cand, cand_ok)
+
+    def prior_rank_any(key, m):
+        rank_s, _ = _seg(key, m)
+        return torch.where(m, rank_s, 0)
+
+    def prior_rank(key, member):
+        keyc = torch.where(member, key, 0x3FFFFFF0)
+        rank_s, _ = _seg(keyc, cand_ok)
+        return torch.where(member, rank_s, 0)
+    return prior_sum_node, prior_rank_any, prior_rank
+
+
+def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
+               early: bool, rot, wave: int):
+    """One wave from its carried-window decision to its rerank decision:
+    the window (the carried shortlist's, or the full pass's from the
+    scores `sc`), the rank-wrap, the same-wave conflict checks, the
+    commits, the eviction pass, the results, and the shortlist's
+    maintenance.  A generator only for the mesh's collectives (it yields
+    them; anywhere else it yields nothing).  Returns (carry, `_Mid` for
+    the rerank or None without the shortlist, flags): `flags` [1..3]
+    holds the wave's host decisions on the card, `active_next.any()`
+    (the next wave's entry test), and with the shortlist the carried
+    window's premise `(ok_pre_g | ~act_next_g).all()` and with
+    has_preempt `ev_commit.any()`, so that one sync reads them all.
+
+    `early` is the first half of the wave budget (spread's even quota);
+    `rot` the rotation of the rank-wrap (0 without a seed, the wave
+    index otherwise; a device scalar in a captured wave); `wave` the
+    wave index the eviction outputs record."""
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    device, Gp, Np, K, S, V = k.device, k.Gp, k.Np, k.K, k.S, k.V
+    TK, W, C = k.TK, k.W, k.C
+    in_mesh, has_spread = k.in_mesh, k.has_spread
+    ks, gs, g_idx = c.ks, c.gs, c.g_idx
+    used, dev_used, sp_used = st.used, st.dev_used, st.sp_used
+    used_pre, dev_used_pre = used, dev_used
+    active = ~st.done & c.in_batch
+    SL = st.sl
+    if take_carried:
+        # shortlist wave: window and counters were pre-computed at the
+        # end of the previous wave — no [Gp, Np] plane is read
+        (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
+         dim_exh_g, grp_any) = (SL.win_s, SL.win_i, SL.tb_s, SL.tb_i,
+                                SL.nfeas, SL.nexh, SL.ndim, SL.gany)
+    else:
+        (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
+         dim_exh_g, grp_any, SL) = _full_extract(k, c, st, prep, sc)
+
+    # ---- cross-shard candidate-key merge (mesh mode): each shard's
+    # window keys (and value-table keys) merge into the exact top-TK of
+    # the whole node axis; the counters sum over the mesh ----
+    if in_mesh:
+        top_score, top_idx = yield ("merge", top_score, top_idx, TK)
+        if k.want_tables:
+            tab_s, tab_i = yield ("merge", tab_s, tab_i, k.TKv)
+        n_feas_out = yield ("psum", n_feas_g)
+        n_exh_out = yield ("psum", n_exh_g)
+        dim_exh_out = yield ("psum", dim_exh_g)
+        grp_any = (yield ("psum", grp_any.to(i32))) > 0
+    else:
+        n_feas_out, n_exh_out, dim_exh_out = n_feas_g, n_exh_g, dim_exh_g
+
+    # spread-aware candidate interleaving (slot 0): slot j of the window
+    # draws from value class j mod (V+1), classes visited in each
+    # group's preference order; holes compact to the tail
+    if k.want_tables:
+        Vs = k.Vs
+        has0 = c.sp_col[:, 0] >= 0                         # [Gp]
+        vord = torch.argsort(0.0 - tab_s[:, :, 0], dim=1, stable=True)
+        j = torch.arange(TK, device=device)
+        vj = vord[:, j % (Vs + 1)]                         # [Gp, TK]
+        jj = (j // (Vs + 1))[None, :]
+        inter_i = tab_i[gs[:, None], vj, jj]
+        inter_s = tab_s[gs[:, None], vj, jj]
+        order = torch.argsort((inter_s <= NEG_INF / 2).to(i32), dim=1,
+                              stable=True)
+        inter_i = torch.gather(inter_i, 1, order)
+        inter_s = torch.gather(inter_s, 1, order)
+        top_idx = torch.where(has0[:, None], inter_i, top_idx)
+        top_score = torch.where(has0[:, None], inter_s, top_score)
+
+    # rank each active placement within its group; the r-th takes the
+    # group's (r mod M)-th best candidate (rank-wrap)
+    grp_onehot = ((g_idx[None, :] == gs[:, None])
+                  & active[None, :]).to(i32)                # [Gp, K]
+    act_g = grp_onehot.sum(dim=1)
+    rank = (torch.cumsum(grp_onehot, dim=1) - grp_onehot)[g_idx, ks]
+    n_cand = (top_score > NEG_INF / 2).sum(dim=1)
+    M = torch.clamp(torch.clamp(n_cand, max=W), 1, W)
+    if k.stack_commit:
+        cr = torch.zeros_like(rank)
+    else:
+        cr = (rank + c.g_off[g_idx] + rot) % M[g_idx]
+    cand = top_idx[g_idx, cr].to(i64)                      # [K]
+    cand_score = top_score[g_idx, cr]
+    cand_ok = active & (cand_score > NEG_INF / 2)
+    fail_now = active & ~grp_any[g_idx]
+
+    # -- same-wave conflict checks over shared nodes --
+    prior_sum_node, prior_rank_any, prior_rank = _seg_conflicts(
+        k, c, cand_ok, cand)
+
+    ask_k = c.ask_res[g_idx]
+    prior = prior_sum_node(ask_k * cand_ok[:, None])       # [K, R]
+    if in_mesh:
+        # each shard checks the fit of the candidates it owns; the
+        # K-sized votes sum over the mesh (the [Np, R] planes stay)
+        inb, loc, locc = k.g2l(cand)
+        fits_l = ((used[locc] + prior + ask_k)
+                  <= c.avail[locc]).all(dim=-1) & inb
+        fits = (yield ("psum", fits_l.to(i32))) > 0
+    else:
+        loc = cand
+        fits = ((used[cand] + prior + ask_k) <= c.avail[cand]).all(dim=-1)
+    if k.has_devices:
+        dev_k = c.dev_ask[g_idx]
+        prior_dev = prior_sum_node(dev_k * cand_ok[:, None])
+        if in_mesh:
+            dev_fits_l = ((dev_used[locc] + prior_dev + dev_k)
+                          <= c.dev_cap[locc]).all(dim=-1) & inb
+            dev_fits = (yield ("psum", dev_fits_l.to(i32))) > 0
+        else:
+            dev_fits = ((dev_used[cand] + prior_dev + dev_k)
+                        <= c.dev_cap[cand]).all(dim=-1)
+    else:
+        dev_fits = torch.ones(K, dtype=torch.bool, device=device)
+    if in_mesh and has_spread:
+        # one [K, A] sum of the candidates' attribute rows serves the
+        # spread quota and the commit below
+        ar_cand = (yield ("psum", torch.where(
+            inb[:, None], c.attr_rank[locc].to(i32), 0))).to(i64)
+
+    # distinct_hosts: one commit per (node, distinct group) per wave
+    if k.has_distinct:
+        dg = c.distinct[g_idx].to(i64)
+        dg_ok = prior_rank(cand * Gp + dg.clamp(min=0), dg >= 0) == 0
+    else:
+        dg_ok = torch.ones(K, dtype=torch.bool, device=device)
+
+    # spread quota per (group, slot, value) for this wave
+    sp_ok = torch.ones(K, dtype=torch.bool, device=device)
+    for s in (range(S) if has_spread else range(0)):
+        cols = c.sp_col[g_idx, s].to(i64)
+        if in_mesh:
+            vs = torch.gather(ar_cand, 1, cols.clamp(min=0)[:, None])[:, 0]
+        else:
+            vs = c.attr_rank_l[cand, cols.clamp(min=0)]
+        has_s = (cols >= 0) & (vs >= 0)
+        # non-members read some in-range slot (the reference's clamped
+        # gather); members' ranks are < V by construction
+        vsc = vs.clamp(0, V - 1)
+        des_s = c.sp_desired[:, s]                         # [Gp, V]
+        use_s = sp_used[:, s]
+        des_eff = torch.where(des_s < 0, c.sp_implicit[:, s][:, None],
+                              des_s)
+        present = use_s > 0
+        maxc_q = torch.where(present, use_s, 0.0).amax(dim=1)[:, None]
+        minc_q = torch.where(
+            present, use_s,
+            torch.where(present.any(dim=1)[:, None], float("inf"),
+                        0.0)).amin(dim=1)[:, None]
+        minc_q = torch.where(torch.isfinite(minc_q), minc_q, 0.0)
+        # even spread: values may grow to a common level for the first
+        # half of the wave budget, unbounded after it
+        share = torch.ceil(act_g.to(f32) / V)[:, None]
+        level = torch.maximum(maxc_q, minc_q + share)
+        if early:
+            even_q = torch.clamp(level - use_s, min=1.0)
+        else:
+            even_q = torch.full_like(use_s, float("inf"))
+        quota = torch.where(c.sp_targeted[:, s][:, None],
+                            torch.clamp(des_eff - use_s, min=1.0),
+                            even_q)                        # [Gp, V]
+        gv_key = (g_idx * V + vsc) * 2 + 1
+        gv_rank = prior_rank(gv_key, has_s).to(f32)
+        sp_ok = sp_ok & (~has_s | (gv_rank < quota[g_idx, vsc]))
+
+    commit = cand_ok & fits & dev_fits & dg_ok & sp_ok
+    cm = commit[:, None]
+
+    # -- apply this wave's commits (duplicate nodes accumulate; in mesh
+    # mode each shard adds only the rows it owns) --
+    if in_mesh:
+        used = _add_drop(used, (loc,), ask_k * cm)
+        if k.has_devices:
+            dev_used = _add_drop(dev_used, (loc,), c.dev_ask[g_idx] * cm)
+    else:
+        used = used.index_put((cand,), ask_k * cm, accumulate=True)
+        if k.has_devices:
+            dev_used = dev_used.index_put((cand,), c.dev_ask[g_idx] * cm,
+                                          accumulate=True)
+    if has_spread:
+        scol = c.sp_col[g_idx].to(i64)                     # [K, S]
+        if in_mesh:
+            svals = torch.gather(ar_cand, 1, scol.clamp(min=0))
+        else:
+            svals = c.attr_rank_l[cand[:, None], scol.clamp(min=0)]
+        okslot = (scol >= 0) & (svals >= 0) & cm
+        # rows without a spread slot add 0 at an in-range position (the
+        # reference's scatter drops them)
+        sp_used = sp_used.index_put(
+            (g_idx[:, None], torch.arange(S, device=device)[None, :],
+             svals.clamp(0, V - 1)), okslot.to(f32), accumulate=True)
+
+    # -- eviction pass: after the normal commits, against post-commit
+    # usage, for placements whose group has nothing placeable --
+    evt, out_evict, out_wave = st.evt, st.out_evict, st.out_wave
+    if k.has_preempt:
+        EV = k.EV
+        want = active & ~commit & ~grp_any[g_idx]
+        want_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
+            0, g_idx, want.to(i32)) > 0
+        want_any_t = want.any()
+        with k.rg.sync():
+            any_want = bool(want_any_t)
+        if any_want:
+            nv_s, nv_i, sel_freed, sel_mask = evict_pass(
+                used, evt, want_g, ask_res=c.ask_res, avail=c.avail,
+                reserved=c.reserved, feas=c.feas, ev_slot_ok=c.ev_slot_ok,
+                ev_res=c.ev_res_f, ev_prio=c.ev_prio_i,
+                dev=(dev_used, c.dev_cap, c.dev_ask) if k.has_devices
+                else None, ids=k.g_of_local if in_mesh else None,
+                syncs=k.rg)
+        else:
+            nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
+            nv_i = torch.zeros(Gp, dtype=i64, device=device)
+            sel_freed = torch.zeros((Gp, k.R), dtype=f32, device=device)
+            sel_mask = torch.zeros((Gp, EV), dtype=torch.bool,
+                                   device=device)
+        if in_mesh:
+            # each group's best eviction key (score, global id) from
+            # every shard; the owner holds its victim set
+            win_s, win_i = yield ("merge", nv_s[:, None], nv_i[:, None], 1)
+            win_s, win_i = win_s[:, 0], win_i[:, 0]
+        else:
+            win_s, win_i = nv_s, nv_i
+        ev_any_g = win_s > NEG_INF / 2
+        e_cand = win_i[g_idx]                              # [K] global
+        p_ok = want & ev_any_g[g_idx]
+        # one eviction commit per node per wave, across groups: two
+        # victim sets chosen apart must never both apply to one node
+        ev_commit = p_ok & (prior_rank_any(e_cand, p_ok) == 0)
+        ecm = ev_commit[:, None]
+        ev_val = (c.ask_res[g_idx] - sel_freed[g_idx]) * ecm
+        if in_mesh:
+            e_inb, e_loc, e_locc = k.g2l(e_cand)
+            own = (e_inb & ev_commit)[:, None]
+            # victims leave and the placement lands in one add
+            used = _add_drop(used, (e_loc,), ev_val)
+            if k.has_devices:
+                dev_used = _add_drop(dev_used, (e_loc,),
+                                     c.dev_ask[g_idx] * ecm)
+            em_l = sel_mask[g_idx] & own                   # [K, EV]
+            evt = evt | (_add_drop(
+                torch.zeros((Np, EV), dtype=i32, device=device),
+                (e_loc,), em_l.to(i32)) > 0)
+            em = (yield ("psum", em_l.to(i32))) > 0
+        else:
+            used = used.index_put((e_cand,), ev_val, accumulate=True)
+            if k.has_devices:
+                dev_used = dev_used.index_put(
+                    (e_cand,), c.dev_ask[g_idx] * ecm, accumulate=True)
+            em = sel_mask[g_idx] & ecm                     # [K, EV]
+            evt = evt | (torch.zeros((Np, EV), dtype=i32, device=device)
+                         .index_put((e_cand,), em.to(i32),
+                                    accumulate=True) > 0)
+        if has_spread:
+            scol = c.sp_col[g_idx].to(i64)
+            if in_mesh:
+                ar_ev = (yield ("psum", torch.where(
+                    own, c.attr_rank[e_locc].to(i32), 0))).to(i64)
+                evals_ = torch.gather(ar_ev, 1, scol.clamp(min=0))
+            else:
+                evals_ = c.attr_rank_l[e_cand[:, None], scol.clamp(min=0)]
+            ok_es = (scol >= 0) & (evals_ >= 0) & ecm
+            sp_used = sp_used.index_put(
+                (g_idx[:, None], torch.arange(S, device=device)[None, :],
+                 evals_.clamp(0, V - 1)), ok_es.to(f32), accumulate=True)
+        # a group with no placeable node and no eviction option fails;
+        # one with an option keeps retrying
+        fail_now = fail_now & ~ev_any_g[g_idx]
+    else:
+        ev_commit = torch.zeros(K, dtype=torch.bool, device=device)
+
+    # -- record results: a committed placement's fall-through top-K is
+    # its group's candidate list starting at its own rank --
+    offs = cr[:, None] + c.offs_k[None, :]                 # < TK
+    pk_idx = top_idx[g_idx[:, None], offs]
+    pk_score = top_score[g_idx[:, None], offs]
+    ok_row = (pk_score > NEG_INF / 2) & cm
+    if k.has_preempt:
+        # an eviction commit records its one node in slot 0 (the victim
+        # set is node-specific: no fall-through) with the post-eviction
+        # bin-pack score
+        ecol = (c.offs_k == 0)[None, :]
+        pk_idx = torch.where(ecm, torch.where(
+            ecol, e_cand[:, None].to(i32), 0), pk_idx)
+        pk_score = torch.where(ecm, torch.where(
+            ecol, win_s[g_idx][:, None], NEG_INF), pk_score)
+        ok_row = torch.where(ecm, ecol, ok_row)
+    newly = commit | ev_commit | fail_now
+    upd = newly[:, None]
+    if k.has_preempt:
+        out_evict = torch.where(upd, em & ecm, out_evict)
+        out_wave = torch.where(commit | ev_commit, wave, out_wave)
+    st = st._replace(
+        used=used, dev_used=dev_used, sp_used=sp_used,
+        done=st.done | newly,
+        out_idx=torch.where(upd, pk_idx, st.out_idx),
+        out_ok=torch.where(upd, ok_row, st.out_ok),
+        out_score=torch.where(upd, pk_score, st.out_score),
+        out_nfeas=torch.where(newly, n_feas_out[g_idx], st.out_nfeas),
+        out_nexh=torch.where(newly, n_exh_out[g_idx], st.out_nexh),
+        out_dimexh=torch.where(upd, dim_exh_out[g_idx], st.out_dimexh),
+        evt=evt, out_evict=out_evict, out_wave=out_wave)
+
+    # the next wave's active placements are this wave's less the decided
+    active_next = active & ~newly
+    flags = [active_next.any()]
+    if not k.use_sl:
+        return st, None, torch.stack(flags)
+
+    # ---- end-of-wave shortlist maintenance: the premise of the next
+    # wave's carried window ----
+    act_next_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
+        0, g_idx, active_next.to(i32)) > 0
+    cf = commit.to(f32)
+    # TR1: every commit this wave landed inside the group's shortlist
+    # (otherwise an outsider's score moved) (in mesh mode only commits
+    # to this shard's nodes move its scores: owned commits against the
+    # local shortlist)
+    if in_mesh:
+        tot = (cf * inb.to(f32)).sum()
+        mark = _add_drop(torch.zeros(Np, dtype=f32, device=device),
+                         (loc,), cf)
+    else:
+        tot = cf.sum()
+        mark = torch.zeros(Np, dtype=f32, device=device).index_put(
+            (cand,), cf, accumulate=True)
+    tr1_g = mark[SL.idx.to(i64)].sum(dim=1) == tot
+    g_committed = torch.zeros(Gp, dtype=f32, device=device
+                              ).index_add(0, g_idx, cf) > 0
+    if has_spread:
+        has_sp_g = (c.sp_col >= 0).any(dim=1)
+    else:
+        has_sp_g = torch.zeros(Gp, dtype=torch.bool, device=device)
+    # spread groups shift all their node scores when they commit;
+    # interleaved groups additionally need a complete shortlist
+    sp_gate = has_sp_g & g_committed
+    if k.want_tables:
+        sp_gate = sp_gate | (c.sp_col[:, 0] >= 0)
+    ok_pre_g = SL.comp | (tr1_g & ~sp_gate)
+    flags.append((ok_pre_g | ~act_next_g).all())
+    if k.has_preempt:
+        # an eviction lowers usage, which voids the monotone-usage
+        # argument behind the carried window: any eviction commit sends
+        # the next wave to a full rescore
+        flags.append(ev_commit.any())
+
+    # own-group commit counts fold into the carried coll; window entries
+    # outside the shortlist land in a dropped column
+    sl_idx = SL.idx.to(i64)
+    tloc = k.g2l(top_idx)[1] if in_mesh else top_idx.to(i64)
+    win_pos = torch.searchsorted(sl_idx, tloc)
+    pos_hit = torch.gather(sl_idx, 1, win_pos.clamp(max=C - 1)) == tloc
+    win_pos = torch.where(pos_hit, win_pos, C)
+    cand_pos = win_pos[g_idx, cr]
+    coll_pad = torch.cat([SL.coll, torch.zeros(
+        (Gp, 1), dtype=f32, device=device)], dim=1)
+    coll_pad = coll_pad.index_put((g_idx, cand_pos), cf, accumulate=True)
+    st = st._replace(sl=SL._replace(coll=coll_pad[:, :C]))
+    mid = _Mid(used_pre=used_pre, dev_used_pre=dev_used_pre,
+               n_feas_g=n_feas_g, n_exh_g=n_exh_g, dim_exh_g=dim_exh_g,
+               act_next_g=act_next_g)
+    return st, mid, torch.stack(flags)
+
+
+def _sl_eval(k, c: _Inputs, sl: _SLState, used_x, dev_used_x, sp_used_x):
+    """Exact score/indicator recompute for the <= C shortlist entries
+    from gathered live state, term for term the full rescore restricted
+    to these nodes.  Returns (score, placeable, exh_ind, dim_ind)."""
+    f32, i64 = torch.float32, torch.int64
+    Gp, C, R, device = k.Gp, k.C, k.R, k.device
+    idx = sl.idx.to(i64)
+    u = used_x[idx]                                        # [Gp, C, R]
+    av = c.avail[idx]
+    rsv = c.reserved[idx]
+    after = u + c.ask_res[:, None, :]
+    fit_dims = after <= av
+    fit = fit_dims.all(dim=-1)
+    if k.has_devices:
+        dev_fit = (dev_used_x[idx] + c.dev_ask[:, None, :]
+                   <= c.dev_cap[idx]).all(dim=-1)
+    else:
+        dev_fit = torch.ones((Gp, C), dtype=torch.bool, device=device)
+    placeable = sl.feas & fit & dev_fit
+
+    denom_cpu = av[:, :, R_CPU]
+    denom_mem = av[:, :, R_MEM]
+    util_cpu = after[:, :, R_CPU] + rsv[:, :, R_CPU]
+    util_mem = after[:, :, R_MEM] + rsv[:, :, R_MEM]
+    ok_denoms = (denom_cpu > 0) & (denom_mem > 0)
+    free_cpu = 1.0 - util_cpu / torch.clamp(denom_cpu, min=1.0)
+    free_mem = 1.0 - util_mem / torch.clamp(denom_mem, min=1.0)
+    raw = 20.0 - (10.0 ** free_cpu + 10.0 ** free_mem)
+    binpack = torch.where(ok_denoms,
+                          torch.clamp(raw, 0.0, 18.0) / 18.0, 0.0)
+
+    anti = torch.where(sl.coll > 0,
+                       -(sl.coll + 1.0) / c.ask_desired[:, None], 0.0)
+    anti_counts = sl.coll > 0
+
+    if k.has_spread:
+        spread_total = torch.zeros((Gp, C), dtype=f32, device=device)
+        inf = float("inf")
+        for s in range(k.S):
+            has = c.sp_col[:, s] >= 0
+            v = sl.vn[s]
+            has_v = v >= 0
+            used_vec = sp_used_x[:, s]
+            cur = torch.where(v >= 0, torch.gather(
+                used_vec, 1, v.clamp(min=0).to(i64)), 0.0)
+            desired = sl.de[s]
+            boost = ((desired - (cur + 1.0))
+                     / torch.clamp(desired, min=1e-9)
+                     ) * c.sp_weight[:, s][:, None]
+            targeted = torch.where(~has_v, -1.0,
+                                   torch.where(desired <= 0, -1.0, boost))
+            present = used_vec > 0
+            any_present = present.any(dim=1)[:, None]
+            minc = torch.where(present, used_vec, inf).amin(dim=1)[:, None]
+            maxc = torch.where(present, used_vec, -inf).amax(dim=1)[:, None]
+            delta_boost = (minc - cur) / torch.clamp(minc, min=1e-9)
+            even = torch.where(cur != minc, delta_boost,
+                               torch.where(minc == maxc, -1.0,
+                                           (maxc - minc)
+                                           / torch.clamp(minc, min=1e-9)))
+            even = torch.where(~has_v, -1.0, even)
+            even = torch.where(any_present, even, 0.0)
+            contrib = torch.where(c.sp_targeted[:, s][:, None], targeted,
+                                  even)
+            spread_total = spread_total + torch.where(
+                has[:, None], contrib, 0.0)
+        spread_counts = spread_total != 0.0
+    else:
+        spread_total = 0.0
+        spread_counts = False
+
+    aff_counts = sl.aff != 0.0
+    pen_sc = torch.where(sl.pen, -1.0, 0.0)
+    n_scorers = (1.0 + anti_counts + sl.pen + aff_counts + spread_counts)
+    total = (binpack + anti + pen_sc + sl.aff + spread_total) / n_scorers
+    if k.seed_nz:
+        total = (torch.floor(total / _score_spec.SCORE_BIN)
+                 * _score_spec.SCORE_BIN)
+        jit_sl = _jitter(k.l2g(idx) if k.in_mesh else idx, c.gsalt)
+    else:
+        jit_sl = 0.0
+    total = total + jit_sl
+    score = torch.where(placeable, total, NEG_INF)
+    exh = sl.feas & ~(fit & dev_fit)
+    dim_ind = sl.feas[:, :, None] & ~fit_dims
+    return score, placeable, exh, dim_ind
+
+
+def _rerank(k, c: _Inputs, st: _Carry, mid: _Mid):
+    """Fresh re-rank of the shortlist against post-commit state, the
+    cutoff audit (TR3) and the incremental counters.  Returns the next
+    wave's window, tables and counters, and `ok_next` on the card."""
+    i32 = torch.int32
+    sl, TKl = st.sl, k.TKl
+    _, _, exh_pre, dim_pre = _sl_eval(k, c, sl, mid.used_pre,
+                                      mid.dev_used_pre, st.sp_used)
+    f_score, f_place, exh_post, dim_post = _sl_eval(k, c, sl, st.used,
+                                                    st.dev_used, st.sp_used)
+    # only shortlist nodes changed (TR1-guarded), so the full-N counters
+    # advance by the shortlist delta
+    d_exh = (exh_post.to(i32) - exh_pre.to(i32)).sum(dim=1)
+    d_dim = (dim_post.to(i32) - dim_pre.to(i32)).sum(dim=1)
+    nexh_next = (mid.n_exh_g + d_exh).to(i32)
+    ndim_next = (mid.dim_exh_g + d_dim).to(i32)
+    # the lex tie-break key: GLOBAL ids under the elastic remap (as the
+    # building extraction and cut_i), local slots otherwise
+    sl_key = k.l2g(sl.idx).to(i32) if k.elastic else sl.idx
+    w_s, w_i = _lex_topk(f_score, sl_key, TKl)
+    # TR3: the re-ranked TKl-th key must still dominate the era cutoff
+    ls, li = w_s[:, TKl - 1], w_i[:, TKl - 1]
+    tr3_g = (ls > sl.cut_s) | ((ls == sl.cut_s) & (li <= sl.cut_i))
+    if k.want_tables:
+        vnode0 = sl.vn[0]
+        tabs_s, tabs_i = [], []
+        for v in range(k.Vs + 1):
+            vmask = (vnode0 == v) if v < k.Vs else (vnode0 < 0)
+            ts, ti = _lex_topk(torch.where(vmask, f_score, NEG_INF),
+                               sl_key, k.TW)
+            tabs_s.append(ts)
+            tabs_i.append(ti)
+        tab_s = torch.stack(tabs_s, dim=1)
+        tab_i = torch.stack(tabs_i, dim=1)
+        if k.in_mesh and not k.elastic:
+            tab_i = tab_i + k.off
+    else:
+        tab_s, tab_i = c.no_tab_s, c.no_tab_i
+    gany_next = torch.where(sl.comp, f_place.any(dim=1), True)
+    ok_next = ((tr3_g | sl.comp) | ~mid.act_next_g).all()
+    if k.in_mesh and not k.elastic:
+        w_i = w_i + k.off
+    return (w_s, w_i, tab_s, tab_i, nexh_next, ndim_next, gany_next,
+            ok_next)
+
+
+def _wave_rerank(k, c: _Inputs, st: _Carry, mid: _Mid, do: bool):
+    """The wave's end after its rerank decision: with `do` the rerank
+    (`_rerank`), else an empty window; the shortlist's carry takes the
+    next wave's window, tables and counters.  Returns (carry, ok_next on
+    the card, None without the rerank)."""
+    f32, i32, device = torch.float32, torch.int32, k.device
+    SL = st.sl
+    if do:
+        (nw_s, nw_i, ntb_s, ntb_i, n_nexh, n_ndim, n_gany,
+         ok_next) = _rerank(k, c, st, mid)
+    else:
+        nw_s = torch.full((k.Gp, k.TKl), NEG_INF, dtype=f32, device=device)
+        nw_i = torch.zeros((k.Gp, k.TKl), dtype=i32, device=device)
+        ntb_s = torch.full(SL.tb_s.shape, NEG_INF, dtype=f32, device=device)
+        ntb_i = torch.zeros(SL.tb_i.shape, dtype=i32, device=device)
+        n_nexh, n_ndim = SL.nexh, SL.ndim
+        n_gany = torch.zeros(k.Gp, dtype=torch.bool, device=device)
+        ok_next = None
+    sl = SL._replace(win_s=nw_s, win_i=nw_i.to(i32), tb_s=ntb_s,
+                     tb_i=ntb_i.to(i32), nfeas=mid.n_feas_g, nexh=n_nexh,
+                     ndim=n_ndim, gany=n_gany)
+    return st._replace(sl=sl), ok_next
+
+
+def _drain(gen):
+    """The return value of a wave generator that asks for nothing (a
+    solve off the mesh)."""
+    try:
+        req = next(gen)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError(f"a captured wave asked for {req[0]!r}")
+
+
+def _eager_body(k, c: _Inputs, st: _Carry, take_carried, early, rot, wave):
+    """A wave body op by op (`_wave_body`, after the full pass's
+    scoring)."""
+    prep = sc = None
+    if not take_carried:
+        prep = _wave_prep(k, c, st)
+        sc = _wave_scores(k, c, st, prep)
+    return (yield from _wave_body(k, c, st, sc, prep, take_carried, early,
+                                  rot, wave))
+
+
+class _GraphWaves:
+    """A single-lane solve's waves as replays of its plan's graphs
+    (`wave_graph`).  The plan's buffers (`_graph_bufs`) hold the solve's
+    inputs (`c`), the carry, what a wave body hands its rerank (`mid`),
+    the fused kernel's outputs (`kout`) and the wave index.  Each wave
+    replays the full pass's prep ("prep"), calls the fused kernel
+    eagerly through `wave_kernel.fused_wave` into `kout`, replays the
+    body ("body", by carried window and spread's early half) and, after
+    the rerank decision, the wave's end ("rerank", by the decision).  A
+    stretch is captured where a solve of the plan first needs it;
+    `captures` counts this solve's."""
+
+    def __init__(self, k, c, plan):
+        self.k, self.c, self.plan, self.b = k, c, plan, plan.bufs
+        self.captures = 0
+
+    def _run(self, key, pure, commit):
+        seg, captured = self.plan.segment(key, pure, commit)
+        self.captures += captured
+        return seg.replay()
+
+    def start(self, used0, dev_used0, sp_used0) -> _Carry:
+        k, b = self.k, self.b
+        names = b.per_solve
+        torch._foreach_copy_(
+            [getattr(b.c, n) for n in names]
+            + [b.st.used, b.st.dev_used, b.st.sp_used],
+            [getattr(self.c, n) for n in names]
+            + [used0, dev_used0, sp_used0])
+
+        def pure():
+            return _init_carry(k, b.c, b.st.used, b.st.dev_used,
+                               b.st.sp_used)
+
+        def commit(out):
+            wave_graph.copy_nest(b.st, out)
+            b.wave_t.zero_()
+        self._run("init", pure, commit)
+        return b.st
+
+    def body(self, take_carried: bool, early: bool):
+        k, b = self.k, self.b
+        prep = None
+        if not take_carried:
+            prep = self._run("prep", lambda: _wave_prep(k, b.c, b.st),
+                             lambda out: None)
+            _wave_scores(k, self.c, b.st, prep, out=b.kout)
+        rot = b.wave_t if k.seed_nz else 0
+
+        def pure():
+            sc = None if take_carried else _wk.results(b.kout, k.R)
+            return _drain(_wave_body(k, b.c, b.st, sc, prep, take_carried,
+                                     early, rot, 0))
+
+        def commit(out):
+            st, mid, _ = out
+            if mid is not None:
+                wave_graph.copy_nest(b.mid, mid)
+            wave_graph.copy_nest(b.st, st)
+            b.wave_t.add_(1)
+        _, mid, flags = self._run(("body", take_carried, early), pure,
+                                  commit)
+        return b.st, (None if mid is None else b.mid), flags
+
+    def rerank(self, do: bool):
+        k, b = self.k, self.b
+
+        def pure():
+            return _wave_rerank(k, b.c, b.st, b.mid, do)
+        _, ok_next = self._run(("rerank", do), pure,
+                               lambda out: wave_graph.copy_nest(b.st,
+                                                                out[0]))
+        return b.st, ok_next
+
+    def finish(self, st: _Carry) -> _Carry:
+        """The carry's results as tensors of their own: the next solve
+        of the plan rewrites the buffers."""
+        return st._replace(**{f: getattr(st, f).clone() for f in (
+            "used", "dev_used", "out_idx", "out_ok", "out_score",
+            "out_nfeas", "out_nexh", "out_dimexh")})
+
+
+def _graph_bufs(k, c: _Inputs, st: _Carry):
+    """A new plan's buffers, shaped as the solve's tensors: `c` (its
+    per-solve fields copied at each solve's start, the signature's
+    constants once), the carry (`st` the first solve's initial carry),
+    what a body hands its rerank, the fused kernel's outputs and the
+    wave index."""
+    def like(t):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=k.device)
+    names = [n for n, t in c._asdict().items()
+             if isinstance(t, torch.Tensor) and n not in _GRAPH_SKIP]
+    i32 = torch.int32
+    mid = None
+    if k.use_sl:
+        mid = _Mid(used_pre=like(st.used), dev_used_pre=like(st.dev_used),
+                   n_feas_g=empty(k.Gp, i32), n_exh_g=empty(k.Gp, i32),
+                   dim_exh_g=empty((k.Gp, k.R), i32),
+                   act_next_g=empty(k.Gp, torch.bool))
+    return types.SimpleNamespace(
+        c=_Inputs(**({n: None for n in c._fields} | {
+            n: (getattr(c, n).clone() if n in _GRAPH_CONST
+                else like(getattr(c, n))) for n in names})),
+        per_solve=[n for n in names if n not in _GRAPH_CONST],
+        st=_Carry(*(None if x is None else x._make(like(y) for y in x)
+                    if isinstance(x, tuple) else like(x) for x in st)),
+        mid=mid,
+        kout=_wk.out_buffers(
+            k.pallas_mode, k.Gp, k.Np, k.R, k.device, k.TK, k.NE,
+            k.Vs if (k.want_tables and k.pallas_mode == "topk") else 0),
+        wave_t=torch.zeros((), dtype=torch.int64, device=k.device))
+
+
 def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 ask_res, ask_desired, distinct, dc_ok, host_ok, coll0,
                 penalty,
@@ -682,7 +1729,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 has_preempt=False, ev_res=None, ev_prio=None, ask_prio=None,
                 mesh_hosts=0, mesh_nt=0, tile_np=0, node_gid=None,
                 owner_map=None, slot_map=None, learned=None, mesh_regions=0,
-                region_bias=None, wave_ranges=True):
+                region_bias=None, wave_ranges=True, single_lane=False):
     """The wave solve as a generator.  With the shortlist on it yields
     ("carried", ok) at each wave's start and ("rerank", pre_ok) at each
     wave's end, and takes the decision sent back; it returns the
@@ -705,12 +1752,22 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     global id's tile to its shard and local tile slot; `mesh_nt` is the
     global padded node axis (default Np * mesh_shards).
 
+    `single_lane` (set by the drivers of one solve, `solve_kernel` and
+    `solve_lanes` with one lane) lets the waves run as CUDA graphs
+    (`wave_graph`): on a CUDA device, with the fused wave kernel, and
+    without the eviction pass or a mesh, a solve whose signature (shapes
+    and options, `_graph_sig`) was seen before replays the wave's
+    fixed-shape stretches captured from it; the kernel itself is called
+    eagerly each wave.  The answers are those of the eager waves.
+
     The result's `n_syncs` counts the points where the host waits for
-    the card: the truth tests of the wave loop and the rerank, the host
-    copies of the seed's constants onto the card, the eviction pass's
-    `nonzero` and, in mesh mode, the rescore count's sum.  Under a torch
-    profiler each is a `nomad.wave.sync` range around the blocking call
-    alone and each wave a `nomad.wave.full` or `nomad.wave.carried`
+    the card: one read of each wave's flags (its next entry test and
+    the carried window's premise), the rerank's test, the eviction
+    pass's gate and `nonzero` and, in mesh mode, the rescore count's
+    sum; `n_graphed` counts the waves whose body replayed a graph and
+    `n_captures` the graphs this solve captured.  Under a torch
+    profiler each sync is a `nomad.wave.sync` range around the blocking
+    call alone and each wave a `nomad.wave.full` or `nomad.wave.carried`
     range from its kind's decision to the next wave's (`_WaveRanges`).
     `wave_ranges` False (solves in lock-step) and mesh mode open no
     range: `solve_lanes` or `solve_shards` opens the waves."""
@@ -731,6 +1788,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     in_mesh = mesh_axis is not None
     elastic = in_mesh and tile_np > 0
     rg = _WaveRanges(wave_ranges and not in_mesh)
+    g_of_local = _g2l = _l2g = off = None
     if in_mesh:
         if mesh_shards < 1:
             raise ValueError("mesh_axis requires mesh_shards")
@@ -801,6 +1859,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     attr_rank_l = attr_rank.to(i64)
 
     # ---------- in-kernel preemption planes ----------
+    EV = 0
+    ev_slot_ok = ev_res_f = ev_prio_i = None
     if has_preempt:
         if has_distinct:
             raise ValueError(
@@ -831,10 +1891,9 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     match = _op_eval(vals, a_op, a_rank)
     weighted = match * a_weight[:, None, :]
     aff = torch.zeros((Gp, Np), dtype=f32, device=device)
-    for k in range(weighted.shape[2]):
-        aff = aff + weighted[:, :, k]
+    for a in range(weighted.shape[2]):
+        aff = aff + weighted[:, :, a]
     aff_score = aff + a_host
-    pen_score, pen_counts = _score_spec.static_terms(_TORCH_OPS, penalty)
 
     # ---------- hoisted spread lookups (wave-invariant) ----------
     # a gather of attr_rank[:, col] (the reference's one-hot matmul was a
@@ -862,15 +1921,23 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     else:
         sp_vnode = sp_des = None
 
-    # ---------- seeded tie-break jitter [Gp, Np] ----------
+    # ---------- seeded tie-break jitter [Gp, Np] and rotation ----------
     # (the GLOBAL id in mesh mode, so a node scores alike however the
-    # node axis is split)
+    # node axis is split); the per-group salts and the rank-wrap's
+    # rotation offsets hash the seed once, on the host and the card
+    gsalt = _jitter_salt(gs, seed)
     node_ids = (g_of_local if in_mesh
                 else torch.arange(Np, dtype=i64, device=device))
     if seed == 0:
         jitter = torch.zeros((Gp, Np), dtype=f32, device=device)
     else:
-        jitter = _jitter(node_ids[None, :], gs, seed, rg)
+        jitter = _jitter(node_ids[None, :], gsalt)
+    if seed == 0 or stack_commit:
+        g_off = torch.zeros(Gp, dtype=i64, device=device)
+    else:
+        g_hash = (_mul32(gs, 2654435761)
+                  ^ (((seed & _U32) * 2246822519) & _U32))
+        g_off = (g_hash >> 8) % W
 
     # ---------- fused wave kernel path (mode pick) ----------
     if planes:
@@ -893,6 +1960,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         # remap is not global-id order
         pallas_mode = "score"
     use_pk = pallas_mode != "off"
+    pk_feas = pk_pen = pk_sp_has = pk_vnode = None
     if use_pk:
         # bitpacked static planes and int16 value ranks, once per solve
         pk_feas = pack_bool_u32(feas)
@@ -900,774 +1968,95 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         pk_sp_has = (sp_col >= 0).to(torch.int8) if has_spread else None
         pk_vnode = sp_vnode.to(torch.int16) if has_spread else None
 
-    def group_scores(used, dev_used, coll, sp_used, blocked):
-        ctx = dict(
-            used=used, dev_used=dev_used, coll=coll, sp_used=sp_used,
-            blocked=blocked, avail=avail, reserved=reserved,
-            ask_res=ask_res, ask_desired=ask_desired, dev_cap=dev_cap,
-            dev_ask=dev_ask, feas=feas, pen_score=pen_score,
-            pen_counts=pen_counts, aff_score=aff_score,
-            has_devices=has_devices, has_spread=has_spread,
-            sp_col=sp_col, sp_weight=sp_weight, sp_targeted=sp_targeted,
-            vnode=sp_vnode, des=sp_des, S=S, V=V, shape=(Gp, Np),
-            seed=seed, jitter=jitter, learned=learned,
-            region_bias=region_bias)
-        return _score_spec.evaluate_wave(_TORCH_OPS, ctx)
+    # the wave segments' shape and options (`k`) and tensors (`c`)
+    k = types.SimpleNamespace(
+        device=device, Np=Np, R=R, Gp=Gp, S=S, K=K, V=V, Vs=Vs, TK=TK,
+        TKl=TKl, TKv=TKv, TW=TW, W=W, NE=NE, C=C, EV=EV, use_sl=use_sl,
+        use_pk=use_pk, pallas_mode=pallas_mode, has_spread=has_spread,
+        has_distinct=has_distinct, has_devices=has_devices,
+        has_preempt=has_preempt, stack_commit=stack_commit,
+        want_tables=want_tables, in_mesh=in_mesh, elastic=elastic,
+        seed=seed, seed_nz=seed != 0, rg=rg, g2l=_g2l, l2g=_l2g, off=off,
+        g_of_local=g_of_local)
+    c = _Inputs(
+        avail=avail, reserved=reserved, valid=valid, attr_rank=attr_rank,
+        attr_rank_l=attr_rank_l, ask_res=ask_res, ask_desired=ask_desired,
+        distinct=distinct, coll0=coll0, penalty=penalty, feas=feas,
+        aff_score=aff_score, sp_col=sp_col, sp_weight=sp_weight,
+        sp_targeted=sp_targeted, sp_desired=sp_desired,
+        sp_implicit=sp_implicit, sp_vnode=sp_vnode, sp_des=sp_des,
+        dev_cap=dev_cap, dev_ask=dev_ask, g_idx=g_idx,
+        in_batch=ks < n_place, g_off=g_off, gsalt=gsalt, jitter=jitter,
+        pk_feas=pk_feas, pk_pen=pk_pen, pk_sp_has=pk_sp_has,
+        pk_vnode=pk_vnode, learned=learned, region_bias=region_bias,
+        ev_slot_ok=ev_slot_ok, ev_res_f=ev_res_f, ev_prio_i=ev_prio_i,
+        ks=ks, gs=gs, offs_k=torch.arange(TOP_K, device=device),
+        no_tab_s=torch.full((Gp, 1, 1), NEG_INF, dtype=f32, device=device),
+        no_tab_i=torch.zeros((Gp, 1, 1), dtype=i32, device=device))
 
-    # ---------- shortlist scoring twin ----------
-    def _sl_eval(sl, used_x, dev_used_x, sp_used_x):
-        """Exact score/indicator recompute for the <= C shortlist
-        entries from gathered live state, term for term the full
-        rescore restricted to these nodes.  Returns (score, placeable,
-        exh_ind, dim_ind)."""
-        idx = sl.idx.to(i64)
-        u = used_x[idx]                                    # [Gp, C, R]
-        av = avail[idx]
-        rsv = reserved[idx]
-        after = u + ask_res[:, None, :]
-        fit_dims = after <= av
-        fit = fit_dims.all(dim=-1)
-        if has_devices:
-            dev_fit = (dev_used_x[idx] + dev_ask[:, None, :]
-                       <= dev_cap[idx]).all(dim=-1)
+    # ---------- the waves: replayed graphs or op by op ----------
+    gw = None
+    if (single_lane and use_pk and not (in_mesh or has_preempt)
+            and wave_graph.engages(device)):
+        def make():
+            return wave_graph.Plan(device, _graph_bufs(
+                k, c, _init_carry(k, c, used0, dev_used0, sp_used0)))
+        plan = wave_graph.PLANS.sight(_graph_sig(k, c, used0, dev_used0,
+                                                 sp_used0), make)
+        if plan is not None:
+            gw = _GraphWaves(k, c, plan)
+    try:
+        if gw is not None:
+            st = gw.start(used0, dev_used0, sp_used0)
         else:
-            dev_fit = torch.ones((Gp, C), dtype=torch.bool, device=device)
-        placeable = sl.feas & fit & dev_fit
-
-        denom_cpu = av[:, :, R_CPU]
-        denom_mem = av[:, :, R_MEM]
-        util_cpu = after[:, :, R_CPU] + rsv[:, :, R_CPU]
-        util_mem = after[:, :, R_MEM] + rsv[:, :, R_MEM]
-        ok_denoms = (denom_cpu > 0) & (denom_mem > 0)
-        free_cpu = 1.0 - util_cpu / torch.clamp(denom_cpu, min=1.0)
-        free_mem = 1.0 - util_mem / torch.clamp(denom_mem, min=1.0)
-        raw = 20.0 - (10.0 ** free_cpu + 10.0 ** free_mem)
-        binpack = torch.where(ok_denoms,
-                              torch.clamp(raw, 0.0, 18.0) / 18.0, 0.0)
-
-        anti = torch.where(sl.coll > 0,
-                           -(sl.coll + 1.0) / ask_desired[:, None], 0.0)
-        anti_counts = sl.coll > 0
-
-        if has_spread:
-            spread_total = torch.zeros((Gp, C), dtype=f32, device=device)
-            inf = float("inf")
-            for s in range(S):
-                has = sp_col[:, s] >= 0
-                v = sl.vn[s]
-                has_v = v >= 0
-                used_vec = sp_used_x[:, s]
-                cur = torch.where(v >= 0, torch.gather(
-                    used_vec, 1, v.clamp(min=0).to(i64)), 0.0)
-                desired = sl.de[s]
-                boost = ((desired - (cur + 1.0))
-                         / torch.clamp(desired, min=1e-9)
-                         ) * sp_weight[:, s][:, None]
-                targeted = torch.where(~has_v, -1.0,
-                                       torch.where(desired <= 0, -1.0,
-                                                   boost))
-                present = used_vec > 0
-                any_present = present.any(dim=1)[:, None]
-                minc = torch.where(present, used_vec, inf).amin(
-                    dim=1)[:, None]
-                maxc = torch.where(present, used_vec, -inf).amax(
-                    dim=1)[:, None]
-                delta_boost = (minc - cur) / torch.clamp(minc, min=1e-9)
-                even = torch.where(cur != minc, delta_boost,
-                                   torch.where(minc == maxc, -1.0,
-                                               (maxc - minc)
-                                               / torch.clamp(minc,
-                                                             min=1e-9)))
-                even = torch.where(~has_v, -1.0, even)
-                even = torch.where(any_present, even, 0.0)
-                contrib = torch.where(sp_targeted[:, s][:, None], targeted,
-                                      even)
-                spread_total = spread_total + torch.where(
-                    has[:, None], contrib, 0.0)
-            spread_counts = spread_total != 0.0
-        else:
-            spread_total = 0.0
-            spread_counts = False
-
-        aff_counts = sl.aff != 0.0
-        pen_sc = torch.where(sl.pen, -1.0, 0.0)
-        n_scorers = (1.0 + anti_counts + sl.pen + aff_counts
-                     + spread_counts)
-        total = (binpack + anti + pen_sc + sl.aff
-                 + spread_total) / n_scorers
-        if seed != 0:
-            total = (torch.floor(total / _score_spec.SCORE_BIN)
-                     * _score_spec.SCORE_BIN)
-            jit_sl = _jitter(_l2g(idx) if in_mesh else idx, gs, seed, rg)
-        else:
-            jit_sl = 0.0
-        total = total + jit_sl
-        score = torch.where(placeable, total, NEG_INF)
-        exh = sl.feas & ~(fit & dev_fit)
-        dim_ind = sl.feas[:, :, None] & ~fit_dims
-        return score, placeable, exh, dim_ind
-
-    def full_tables(score):
-        """Per-value candidate tables from a full score plane: one class
-        per value plus the missing-value class."""
-        vnode = sp_vnode[0]
-        tabs_s, tabs_i = [], []
-        for v in range(Vs + 1):
-            vmask = (vnode == v) if v < Vs else (vnode < 0)
-            sv = torch.where(vmask, score, NEG_INF)
-            if elastic:
-                # gid-ordered ties; the ids leave GLOBAL
-                ts, ti, _ = _gid_top(sv, g_of_local, TW)
-                ti = ti.to(i32)
+            st = _init_carry(k, c, used0, dev_used0, sp_used0)
+        # the first wave's entry test is known on the host
+        go = n_place > 0 and K > 0
+        sl_ok = False
+        wave = n_resc = n_graphed = 0
+        for _ in range(max_waves):
+            if not go:
+                break
+            take_carried = (yield ("carried", sl_ok)) if use_sl else False
+            rg.step(take_carried)
+            early = has_spread and wave < max(max_waves // 2, 1)
+            if gw is not None:
+                st, mid, flags = gw.body(take_carried, early)
+                n_graphed += 1
             else:
-                ts, ti = _top_rows(sv, TW)
-            tabs_s.append(ts)
-            tabs_i.append(ti)
-        return torch.stack(tabs_s, dim=1), torch.stack(tabs_i, dim=1)
-
-    no_tab_s = torch.full((Gp, 1, 1), NEG_INF, dtype=f32, device=device)
-    no_tab_i = torch.zeros((Gp, 1, 1), dtype=i32, device=device)
-    if use_sl:
-        vshape = (S, Gp, C) if has_spread else (1, 1, 1)
-        tshape = (Gp, Vs + 1, TW) if want_tables else (Gp, 1, 1)
-        SL = _SLState(
-            idx=torch.zeros((Gp, C), dtype=i32, device=device),
-            feas=torch.zeros((Gp, C), dtype=torch.bool, device=device),
-            pen=torch.zeros((Gp, C), dtype=torch.bool, device=device),
-            aff=torch.zeros((Gp, C), dtype=f32, device=device),
-            vn=torch.zeros(vshape, dtype=i32, device=device),
-            de=torch.zeros(vshape, dtype=f32, device=device),
-            coll=torch.zeros((Gp, C), dtype=f32, device=device),
-            cut_s=torch.zeros(Gp, dtype=f32, device=device),
-            cut_i=torch.zeros(Gp, dtype=i32, device=device),
-            comp=torch.zeros(Gp, dtype=torch.bool, device=device),
-            nfeas=torch.zeros(Gp, dtype=i32, device=device),
-            nexh=torch.zeros(Gp, dtype=i32, device=device),
-            ndim=torch.zeros((Gp, R), dtype=i32, device=device),
-            win_s=torch.full((Gp, TKl), NEG_INF, dtype=f32, device=device),
-            win_i=torch.zeros((Gp, TKl), dtype=i32, device=device),
-            tb_s=torch.full(tshape, NEG_INF, dtype=f32, device=device),
-            tb_i=torch.zeros(tshape, dtype=i32, device=device),
-            gany=torch.zeros(Gp, dtype=torch.bool, device=device),
-            ok=False)
-    else:
-        SL = None
-
-    def full_wave(SL, used, dev_used, sp_used, done, out_idx, out_ok):
-        """The full-N pass: rebuild coll/blocked from the committed
-        outputs, score every (group, node) pair (fused kernel or torch
-        scorer), extract the top-NE, window the first TK, reduce the
-        explainability counters and, with the shortlist on, rebuild the
-        carried shortlist from the same extraction."""
-        committed = done & out_ok[:, 0]
-        chosen = torch.where(committed, out_idx[:, 0], 0).to(i64)
-        if in_mesh:
-            # out_idx holds GLOBAL ids: rows of other shards drop
-            chosen = _g2l(chosen)[1]
-            coll = _add_drop(coll0, (g_idx, chosen), committed.to(f32), 1)
-        else:
-            coll = coll0.index_put((g_idx, chosen), committed.to(f32),
-                                   accumulate=True)
-        if has_distinct:
-            dg_all = distinct[g_idx].to(i64)
-            hit = _add_drop(
-                torch.zeros((Gp, Np), dtype=i32, device=device),
-                (dg_all.clamp(min=0), chosen),
-                (committed & (dg_all >= 0)).to(i32), 1) > 0
-            blocked = (hit[distinct.to(i64).clamp(min=0)]
-                       & (distinct >= 0)[:, None])
-        else:
-            blocked = torch.zeros((Gp, Np), dtype=torch.bool, device=device)
-
-        if use_pk:
-            if has_spread:
-                pres = sp_used > 0                          # [Gp, S, V]
-                anyp = pres.any(dim=2)
-                minc_w = torch.where(pres, sp_used, float("inf")).amin(2)
-                maxc_w = torch.where(pres, sp_used, float("-inf")).amax(2)
-                # rows with nothing present are pinned finite: their
-                # contribution is masked to 0 either way
-                spread_pack = (
-                    pk_vnode, sp_des, sp_used, sp_weight, sp_targeted,
-                    pk_sp_has, torch.where(anyp, minc_w, 0.0),
-                    torch.where(anyp, maxc_w, 0.0), anyp.to(torch.int8))
-            else:
-                spread_pack = None
-            pk = _wk.fused_wave(
-                mode=pallas_mode, feas=pk_feas,
-                blocked=pack_bool_u32(blocked) if has_distinct else None,
-                aff=aff_score, pen=pk_pen, jitter=jitter, coll=coll,
-                used=used, avail=avail, reserved=reserved,
-                ask_res=ask_res, ask_desired=ask_desired,
-                dev=(dev_used, dev_cap, dev_ask) if has_devices else None,
-                spread=spread_pack, seed=seed, TK=TK, n_extract=NE,
-                tables_v=Vs if (want_tables and pallas_mode == "topk")
-                else 0)
-            n_feas_g, n_exh_g = pk["n_feas"], pk["n_exh"]
-            dim_exh_g, grp_any = pk["dim_exh"], pk["grp_any"]
-            score = pk.get("score")          # None in "topk" mode
-        else:
-            score, placeable, feas_b, fit, fit_dims, dev_fit = \
-                group_scores(used, dev_used, coll, sp_used, blocked)
-            grp_any = placeable.any(dim=1)
-            fv = feas_b & valid[None, :]
-            n_feas_g = fv.sum(dim=1).to(i32)
-            n_exh_g = (fv & ~(fit & dev_fit)).sum(dim=1).to(i32)
-            dim_exh_g = (fv[:, :, None] & ~fit_dims).sum(dim=1).to(i32)
-
-        if elastic:
-            # under a tile remap local slot order is not global-id
-            # order: extract by (score desc, GLOBAL id asc), carrying
-            # the local slot
-            ext_s, ext_g, ext_i = _gid_top(score, g_of_local, NE)
-            ext_g, ext_i = ext_g.to(i32), ext_i.to(i32)
-        elif use_pk and pallas_mode == "topk":
-            ext_s, ext_i = pk["top_score"], pk["top_idx"]
-        else:
-            ext_s, ext_i = _top_rows(score, NE)            # [Gp, NE]
-        top_score, top_idx = ext_s[:, :TKl], ext_i[:, :TKl]
-        if elastic:
-            top_idx = ext_g[:, :TKl]       # window keys are GLOBAL
-
-        if want_tables:
-            if use_pk and pallas_mode == "topk":
-                tab_s, tab_i = pk["tab_s"], pk["tab_i"]
-            else:
-                tab_s, tab_i = full_tables(score)
-            if in_mesh and not elastic:
-                tab_i = tab_i + off
-        else:
-            tab_s, tab_i = no_tab_s, no_tab_i
-        if in_mesh and not elastic:
-            # window keys leave the shard with GLOBAL node ids
-            top_idx = top_idx + off
-
-        if use_sl:
-            # rebuild the carried shortlist from this extraction (node-
-            # ascending, so commit positions resolve by bisection); the
-            # cutoff key freezes the best possible outsider for the era
-            sl_i = torch.sort(ext_i, dim=1).values
-            sl_l = sl_i.to(i64)
-            if has_spread:
-                bidx = sl_l.expand(S, Gp, C)
-                vn = torch.gather(sp_vnode, 2, bidx)
-                de = torch.gather(sp_des, 2, bidx)
-            else:
-                vn, de = SL.vn, SL.de
-            SL = _SLState(
-                idx=sl_i, feas=torch.gather(feas, 1, sl_l),
-                pen=torch.gather(penalty, 1, sl_l),
-                aff=torch.gather(aff_score, 1, sl_l), vn=vn, de=de,
-                coll=torch.gather(coll, 1, sl_l),
-                # the cutoff's tie-break key: the GLOBAL id under the
-                # elastic remap (its extraction order), else the local
-                # slot (the block map is monotonic)
-                cut_s=ext_s[:, NE - 1],
-                cut_i=(ext_g if elastic else ext_i)[:, NE - 1],
-                comp=(n_feas_g - n_exh_g) <= C,
-                nfeas=n_feas_g, nexh=n_exh_g, ndim=dim_exh_g,
-                win_s=top_score, win_i=top_idx, tb_s=tab_s, tb_i=tab_i,
-                gany=grp_any, ok=False)
-        return (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
-                dim_exh_g, grp_any, SL)
-
-    def rerank(sl, used_pre, dev_used_pre, used, dev_used, sp_used,
-               n_exh_g, dim_exh_g, act_next_g):
-        """Fresh re-rank of the shortlist against post-commit state, the
-        cutoff audit (TR3) and the incremental counters."""
-        _, _, exh_pre, dim_pre = _sl_eval(sl, used_pre, dev_used_pre,
-                                          sp_used)
-        f_score, f_place, exh_post, dim_post = _sl_eval(sl, used, dev_used,
-                                                        sp_used)
-        # only shortlist nodes changed (TR1-guarded), so the full-N
-        # counters advance by the shortlist delta
-        d_exh = (exh_post.to(i32) - exh_pre.to(i32)).sum(dim=1)
-        d_dim = (dim_post.to(i32) - dim_pre.to(i32)).sum(dim=1)
-        nexh_next = (n_exh_g + d_exh).to(i32)
-        ndim_next = (dim_exh_g + d_dim).to(i32)
-        # the lex tie-break key: GLOBAL ids under the elastic remap (as
-        # the building extraction and cut_i), local slots otherwise
-        sl_key = _l2g(sl.idx).to(i32) if elastic else sl.idx
-        w_s, w_i = _lex_topk(f_score, sl_key, TKl)
-        # TR3: the re-ranked TKl-th key must still dominate the era cutoff
-        ls, li = w_s[:, TKl - 1], w_i[:, TKl - 1]
-        tr3_g = (ls > sl.cut_s) | ((ls == sl.cut_s) & (li <= sl.cut_i))
-        if want_tables:
-            vnode0 = sl.vn[0]
-            tabs_s, tabs_i = [], []
-            for v in range(Vs + 1):
-                vmask = (vnode0 == v) if v < Vs else (vnode0 < 0)
-                ts, ti = _lex_topk(torch.where(vmask, f_score, NEG_INF),
-                                   sl_key, TW)
-                tabs_s.append(ts)
-                tabs_i.append(ti)
-            tab_s = torch.stack(tabs_s, dim=1)
-            tab_i = torch.stack(tabs_i, dim=1)
-            if in_mesh and not elastic:
-                tab_i = tab_i + off
-        else:
-            tab_s, tab_i = no_tab_s, no_tab_i
-        gany_next = torch.where(sl.comp, f_place.any(dim=1), True)
-        ok_next_t = ((tr3_g | sl.comp) | ~act_next_g).all()
-        with rg.sync():
-            ok_next = bool(ok_next_t)
-        if in_mesh and not elastic:
-            w_i = w_i + off
-        return (w_s, w_i, tab_s, tab_i, nexh_next, ndim_next, gany_next,
-                ok_next)
-
-    # ---------- wave loop ----------
-    used, dev_used, sp_used = used0, dev_used0, sp_used0
-    done = torch.zeros(K, dtype=torch.bool, device=device)
-    out_idx = torch.zeros((K, TOP_K), dtype=i32, device=device)
-    out_ok = torch.zeros((K, TOP_K), dtype=torch.bool, device=device)
-    out_score = torch.full((K, TOP_K), NEG_INF, dtype=f32, device=device)
-    out_nfeas = torch.zeros(K, dtype=i32, device=device)
-    out_nexh = torch.zeros(K, dtype=i32, device=device)
-    out_dimexh = torch.zeros((K, R), dtype=i32, device=device)
-    in_batch = ks < n_place
-    if has_preempt:
-        EVT = torch.zeros((Np, EV), dtype=torch.bool, device=device)
-        out_evict = torch.zeros((K, EV), dtype=torch.bool, device=device)
-        out_wave = torch.full((K,), -1, dtype=i32, device=device)
-    wave = 0
-    n_resc = 0
-    offs_k = torch.arange(TOP_K, device=device)
-    for _ in range(max_waves):
-        active = ~done & in_batch
-        active_any_t = active.any()
-        with rg.sync():
-            go = bool(active_any_t)
-        if not go:
-            break
-        used_pre, dev_used_pre = used, dev_used
-
-        take_carried = (yield ("carried", SL.ok)) if use_sl else False
-        rg.step(take_carried)
-        if take_carried:
-            # shortlist wave: window and counters were pre-computed at
-            # the end of the previous wave — no [Gp, Np] plane is read
-            (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
-             dim_exh_g, grp_any) = (SL.win_s, SL.win_i, SL.tb_s, SL.tb_i,
-                                    SL.nfeas, SL.nexh, SL.ndim, SL.gany)
-        else:
-            (top_score, top_idx, tab_s, tab_i, n_feas_g, n_exh_g,
-             dim_exh_g, grp_any, SL) = full_wave(
-                 SL, used, dev_used, sp_used, done, out_idx, out_ok)
-            n_resc += 1
-
-        # ---- cross-shard candidate-key merge (mesh mode): each shard's
-        # window keys (and value-table keys) merge into the exact top-TK
-        # of the whole node axis; the counters sum over the mesh ----
-        if in_mesh:
-            top_score, top_idx = yield ("merge", top_score, top_idx, TK)
-            if want_tables:
-                tab_s, tab_i = yield ("merge", tab_s, tab_i, TKv)
-            n_feas_out = yield ("psum", n_feas_g)
-            n_exh_out = yield ("psum", n_exh_g)
-            dim_exh_out = yield ("psum", dim_exh_g)
-            grp_any = (yield ("psum", grp_any.to(i32))) > 0
-        else:
-            n_feas_out, n_exh_out, dim_exh_out = n_feas_g, n_exh_g, dim_exh_g
-
-        # spread-aware candidate interleaving (slot 0): slot j of the
-        # window draws from value class j mod (V+1), classes visited in
-        # each group's preference order; holes compact to the tail
-        if want_tables:
-            has0 = sp_col[:, 0] >= 0                       # [Gp]
-            vord = torch.argsort(0.0 - tab_s[:, :, 0], dim=1, stable=True)
-            j = torch.arange(TK, device=device)
-            vj = vord[:, j % (Vs + 1)]                     # [Gp, TK]
-            jj = (j // (Vs + 1))[None, :]
-            inter_i = tab_i[gs[:, None], vj, jj]
-            inter_s = tab_s[gs[:, None], vj, jj]
-            order = torch.argsort((inter_s <= NEG_INF / 2).to(i32), dim=1,
-                                  stable=True)
-            inter_i = torch.gather(inter_i, 1, order)
-            inter_s = torch.gather(inter_s, 1, order)
-            top_idx = torch.where(has0[:, None], inter_i, top_idx)
-            top_score = torch.where(has0[:, None], inter_s, top_score)
-
-        # rank each active placement within its group; the r-th takes the
-        # group's (r mod M)-th best candidate (rank-wrap)
-        grp_onehot = ((g_idx[None, :] == gs[:, None])
-                      & active[None, :]).to(i32)            # [Gp, K]
-        act_g = grp_onehot.sum(dim=1)
-        rank = (torch.cumsum(grp_onehot, dim=1) - grp_onehot)[g_idx, ks]
-        n_cand = (top_score > NEG_INF / 2).sum(dim=1)
-        M = torch.clamp(torch.clamp(n_cand, max=W), 1, W)
-        if seed == 0 or stack_commit:
-            g_off = torch.zeros(Gp, dtype=i64, device=device)
-        else:
+                st, mid, flags = yield from _eager_body(
+                    k, c, st, take_carried, early, 0 if seed == 0 else wave,
+                    wave)
+            if not take_carried:
+                n_resc += 1
+            # (as_tensor returns the flags tensor itself; it marks the
+            # value a tensor for the analyzer's map of host syncs)
             with rg.sync():
-                g_seed = torch.tensor(seed & _U32, device=device)
-            g_hash = _mul32(gs, 2654435761) ^ _mul32(g_seed, 2246822519)
-            g_off = (g_hash >> 8) % W
-        rot = 0 if seed == 0 else wave
-        if stack_commit:
-            cr = torch.zeros_like(rank)
-        else:
-            cr = (rank + g_off[g_idx] + rot) % M[g_idx]
-        cand = top_idx[g_idx, cr].to(i64)                  # [K]
-        cand_score = top_score[g_idx, cr]
-        cand_ok = active & (cand_score > NEG_INF / 2)
-        fail_now = active & ~grp_any[g_idx]
-
-        # -- same-wave conflict checks over shared nodes --
-        if K <= 2048 and not _FORCE_SORT_CONFLICTS:
-            earlier = ks[None, :] < ks[:, None]            # [K, K]
-            both_ok = cand_ok[None, :] & cand_ok[:, None]
-            same_node = ((cand[None, :] == cand[:, None]) & both_ok
-                         & earlier)
-            same_f = same_node.to(f32)
-
-            def prior_sum_node(vals):
-                return same_f @ vals
-
-            def prior_rank_any(key, m):
-                # exclusive count of earlier members with an equal key
-                # under any membership mask (the eviction pass ranks
-                # placements whose cand_ok is False)
-                same = ((key[None, :] == key[:, None]) & m[None, :]
-                        & m[:, None] & earlier)
-                return same.sum(dim=1)
-
-            def prior_rank(key, member):
-                return prior_rank_any(key, member & cand_ok)
-        else:
-            def _seg(key, ok):
-                """Stable sort of `ok` members by key: per-element
-                exclusive segment rank and a segmented exclusive-prefix
-                summer (the reference's two-key (key, index) sort)."""
-                keyc = torch.where(ok, key, 0x7FFFFFF0)
-                s_key, s_ix = torch.sort(keyc, stable=True)
-                is_start = torch.cat([torch.ones(1, dtype=torch.bool,
-                                                 device=device),
-                                      s_key[1:] != s_key[:-1]])
-                start_pos = torch.cummax(torch.where(is_start, ks, 0),
-                                         dim=0).values
-
-                def summer(vals):
-                    v = vals[s_ix]
-                    cum = torch.cumsum(v, dim=0) - v       # exclusive
-                    return torch.zeros_like(vals).index_put(
-                        (s_ix,), cum - cum[start_pos])
-
-                rank_s = torch.zeros(K, dtype=i64, device=device).index_put(
-                    (s_ix,), ks - start_pos)
-                return rank_s, summer
-
-            _, prior_sum_node = _seg(cand, cand_ok)
-
-            def prior_rank_any(key, m):
-                rank_s, _ = _seg(key, m)
-                return torch.where(m, rank_s, 0)
-
-            def prior_rank(key, member):
-                keyc = torch.where(member, key, 0x3FFFFFF0)
-                rank_s, _ = _seg(keyc, cand_ok)
-                return torch.where(member, rank_s, 0)
-
-        ask_k = ask_res[g_idx]
-        prior = prior_sum_node(ask_k * cand_ok[:, None])   # [K, R]
-        if in_mesh:
-            # each shard checks the fit of the candidates it owns; the
-            # K-sized votes sum over the mesh (the [Np, R] planes stay)
-            inb, loc, locc = _g2l(cand)
-            fits_l = ((used[locc] + prior + ask_k)
-                      <= avail[locc]).all(dim=-1) & inb
-            fits = (yield ("psum", fits_l.to(i32))) > 0
-        else:
-            loc = cand
-            fits = ((used[cand] + prior + ask_k) <= avail[cand]).all(dim=-1)
-        if has_devices:
-            dev_k = dev_ask[g_idx]
-            prior_dev = prior_sum_node(dev_k * cand_ok[:, None])
-            if in_mesh:
-                dev_fits_l = ((dev_used[locc] + prior_dev + dev_k)
-                              <= dev_cap[locc]).all(dim=-1) & inb
-                dev_fits = (yield ("psum", dev_fits_l.to(i32))) > 0
-            else:
-                dev_fits = ((dev_used[cand] + prior_dev + dev_k)
-                            <= dev_cap[cand]).all(dim=-1)
-        else:
-            dev_fits = torch.ones(K, dtype=torch.bool, device=device)
-        if in_mesh and has_spread:
-            # one [K, A] sum of the candidates' attribute rows serves the
-            # spread quota and the commit below
-            ar_cand = (yield ("psum", torch.where(
-                inb[:, None], attr_rank[locc].to(i32), 0))).to(i64)
-
-        # distinct_hosts: one commit per (node, distinct group) per wave
-        if has_distinct:
-            dg = distinct[g_idx].to(i64)
-            dg_ok = prior_rank(cand * Gp + dg.clamp(min=0), dg >= 0) == 0
-        else:
-            dg_ok = torch.ones(K, dtype=torch.bool, device=device)
-
-        # spread quota per (group, slot, value) for this wave
-        sp_ok = torch.ones(K, dtype=torch.bool, device=device)
-        for s in (range(S) if has_spread else range(0)):
-            cols = sp_col[g_idx, s].to(i64)
-            if in_mesh:
-                vs = torch.gather(ar_cand, 1, cols.clamp(min=0)[:, None])[:, 0]
-            else:
-                vs = attr_rank_l[cand, cols.clamp(min=0)]
-            has_s = (cols >= 0) & (vs >= 0)
-            # non-members read some in-range slot (the reference's
-            # clamped gather); members' ranks are < V by construction
-            vsc = vs.clamp(0, V - 1)
-            des_s = sp_desired[:, s]                       # [Gp, V]
-            use_s = sp_used[:, s]
-            des_eff = torch.where(des_s < 0, sp_implicit[:, s][:, None],
-                                  des_s)
-            present = use_s > 0
-            maxc_q = torch.where(present, use_s, 0.0).amax(dim=1)[:, None]
-            minc_q = torch.where(
-                present, use_s,
-                torch.where(present.any(dim=1)[:, None], float("inf"),
-                            0.0)).amin(dim=1)[:, None]
-            minc_q = torch.where(torch.isfinite(minc_q), minc_q, 0.0)
-            # even spread: values may grow to a common level for the
-            # first half of the wave budget, unbounded after it
-            share = torch.ceil(act_g.to(f32) / V)[:, None]
-            level = torch.maximum(maxc_q, minc_q + share)
-            if wave < max(max_waves // 2, 1):
-                even_q = torch.clamp(level - use_s, min=1.0)
-            else:
-                even_q = torch.full_like(use_s, float("inf"))
-            quota = torch.where(sp_targeted[:, s][:, None],
-                                torch.clamp(des_eff - use_s, min=1.0),
-                                even_q)                    # [Gp, V]
-            gv_key = (g_idx * V + vsc) * 2 + 1
-            gv_rank = prior_rank(gv_key, has_s).to(f32)
-            sp_ok = sp_ok & (~has_s | (gv_rank < quota[g_idx, vsc]))
-
-        commit = cand_ok & fits & dev_fits & dg_ok & sp_ok
-        cm = commit[:, None]
-
-        # -- apply this wave's commits (duplicate nodes accumulate; in
-        # mesh mode each shard adds only the rows it owns) --
-        if in_mesh:
-            used = _add_drop(used, (loc,), ask_k * cm)
-            if has_devices:
-                dev_used = _add_drop(dev_used, (loc,), dev_ask[g_idx] * cm)
-        else:
-            used = used.index_put((cand,), ask_k * cm, accumulate=True)
-            if has_devices:
-                dev_used = dev_used.index_put((cand,), dev_ask[g_idx] * cm,
-                                              accumulate=True)
-        if has_spread:
-            scol = sp_col[g_idx].to(i64)                   # [K, S]
-            if in_mesh:
-                svals = torch.gather(ar_cand, 1, scol.clamp(min=0))
-            else:
-                svals = attr_rank_l[cand[:, None], scol.clamp(min=0)]
-            okslot = (scol >= 0) & (svals >= 0) & cm
-            # rows without a spread slot add 0 at an in-range position
-            # (the reference's scatter drops them)
-            sp_used = sp_used.index_put(
-                (g_idx[:, None], torch.arange(S, device=device)[None, :],
-                 svals.clamp(0, V - 1)), okslot.to(f32), accumulate=True)
-
-        # -- eviction pass: after the normal commits, against post-commit
-        # usage, for placements whose group has nothing placeable --
-        if has_preempt:
-            want = active & ~commit & ~grp_any[g_idx]
-            want_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
-                0, g_idx, want.to(i32)) > 0
-            want_any_t = want.any()
-            with rg.sync():
-                any_want = bool(want_any_t)
-            if any_want:
-                nv_s, nv_i, sel_freed, sel_mask = evict_pass(
-                    used, EVT, want_g, ask_res=ask_res, avail=avail,
-                    reserved=reserved, feas=feas, ev_slot_ok=ev_slot_ok,
-                    ev_res=ev_res_f, ev_prio=ev_prio_i,
-                    dev=(dev_used, dev_cap, dev_ask) if has_devices
-                    else None, ids=g_of_local if in_mesh else None,
-                    syncs=rg)
-            else:
-                nv_s = torch.full((Gp,), NEG_INF, dtype=f32, device=device)
-                nv_i = torch.zeros(Gp, dtype=i64, device=device)
-                sel_freed = torch.zeros((Gp, R), dtype=f32, device=device)
-                sel_mask = torch.zeros((Gp, EV), dtype=torch.bool,
-                                       device=device)
-            if in_mesh:
-                # each group's best eviction key (score, global id) from
-                # every shard; the owner holds its victim set
-                win_s, win_i = yield ("merge", nv_s[:, None],
-                                      nv_i[:, None], 1)
-                win_s, win_i = win_s[:, 0], win_i[:, 0]
-            else:
-                win_s, win_i = nv_s, nv_i
-            ev_any_g = win_s > NEG_INF / 2
-            e_cand = win_i[g_idx]                          # [K] global
-            p_ok = want & ev_any_g[g_idx]
-            # one eviction commit per node per wave, across groups: two
-            # victim sets chosen apart must never both apply to one node
-            ev_commit = p_ok & (prior_rank_any(e_cand, p_ok) == 0)
-            ecm = ev_commit[:, None]
-            ev_val = (ask_res[g_idx] - sel_freed[g_idx]) * ecm
-            if in_mesh:
-                e_inb, e_loc, e_locc = _g2l(e_cand)
-                own = (e_inb & ev_commit)[:, None]
-                # victims leave and the placement lands in one add
-                used = _add_drop(used, (e_loc,), ev_val)
-                if has_devices:
-                    dev_used = _add_drop(dev_used, (e_loc,),
-                                         dev_ask[g_idx] * ecm)
-                em_l = sel_mask[g_idx] & own               # [K, EV]
-                EVT = EVT | (_add_drop(
-                    torch.zeros((Np, EV), dtype=i32, device=device),
-                    (e_loc,), em_l.to(i32)) > 0)
-                em = (yield ("psum", em_l.to(i32))) > 0
-            else:
-                used = used.index_put((e_cand,), ev_val, accumulate=True)
-                if has_devices:
-                    dev_used = dev_used.index_put(
-                        (e_cand,), dev_ask[g_idx] * ecm, accumulate=True)
-                em = sel_mask[g_idx] & ecm                 # [K, EV]
-                EVT = EVT | (torch.zeros((Np, EV), dtype=i32, device=device)
-                             .index_put((e_cand,), em.to(i32),
-                                        accumulate=True) > 0)
-            if has_spread:
-                scol = sp_col[g_idx].to(i64)
-                if in_mesh:
-                    ar_ev = (yield ("psum", torch.where(
-                        own, attr_rank[e_locc].to(i32), 0))).to(i64)
-                    evals_ = torch.gather(ar_ev, 1, scol.clamp(min=0))
+                flags = torch.as_tensor(flags).tolist()
+            go = flags[0]
+            if use_sl:
+                pre_ok = go and flags[1] and not (has_preempt and flags[2])
+                # under lock-step a lane may rerank on a void premise:
+                # its `ok` stays False and the next wave's full pass
+                # rebuilds the window before anything reads it
+                do = bool((yield ("rerank", pre_ok)))
+                if gw is not None:
+                    st, ok_next = gw.rerank(do)
                 else:
-                    evals_ = attr_rank_l[e_cand[:, None], scol.clamp(min=0)]
-                ok_es = (scol >= 0) & (evals_ >= 0) & ecm
-                sp_used = sp_used.index_put(
-                    (g_idx[:, None], torch.arange(S, device=device)[None, :],
-                     evals_.clamp(0, V - 1)), ok_es.to(f32),
-                    accumulate=True)
-            # a group with no placeable node and no eviction option
-            # fails; one with an option keeps retrying
-            fail_now = fail_now & ~ev_any_g[g_idx]
-        else:
-            ev_commit = torch.zeros(K, dtype=torch.bool, device=device)
-
-        # -- record results: a committed placement's fall-through top-K
-        # is its group's candidate list starting at its own rank --
-        offs = cr[:, None] + offs_k[None, :]               # < TK
-        pk_idx = top_idx[g_idx[:, None], offs]
-        pk_score = top_score[g_idx[:, None], offs]
-        ok_row = (pk_score > NEG_INF / 2) & cm
-        if has_preempt:
-            # an eviction commit records its one node in slot 0 (the
-            # victim set is node-specific: no fall-through) with the
-            # post-eviction bin-pack score
-            ecol = (offs_k == 0)[None, :]
-            pk_idx = torch.where(ecm, torch.where(
-                ecol, e_cand[:, None].to(i32), 0), pk_idx)
-            pk_score = torch.where(ecm, torch.where(
-                ecol, win_s[g_idx][:, None], NEG_INF), pk_score)
-            ok_row = torch.where(ecm, ecol, ok_row)
-        newly = commit | ev_commit | fail_now
-        upd = newly[:, None]
-        out_idx = torch.where(upd, pk_idx, out_idx)
-        out_score = torch.where(upd, pk_score, out_score)
-        out_ok = torch.where(upd, ok_row, out_ok)
-        if has_preempt:
-            out_evict = torch.where(upd, em & ecm, out_evict)
-            out_wave = torch.where(commit | ev_commit, wave, out_wave)
-        out_nfeas = torch.where(newly, n_feas_out[g_idx], out_nfeas)
-        out_nexh = torch.where(newly, n_exh_out[g_idx], out_nexh)
-        out_dimexh = torch.where(upd, dim_exh_out[g_idx], out_dimexh)
-        done = done | newly
-
-        if use_sl:
-            # ---- end-of-wave shortlist maintenance: decide whether the
-            # next wave may read the carried window ----
-            active_next = active & ~newly
-            act_next_g = torch.zeros(Gp, dtype=i32, device=device).index_add(
-                0, g_idx, active_next.to(i32)) > 0
-            next_any_t = active_next.any()
-            with rg.sync():
-                any_next = bool(next_any_t)
-            cf = commit.to(f32)
-            # TR1: every commit this wave landed inside the group's
-            # shortlist (otherwise an outsider's score moved)
-            # (in mesh mode only commits to this shard's nodes move its
-            # scores: owned commits against the local shortlist)
-            if in_mesh:
-                tot = (cf * inb.to(f32)).sum()
-                mark = _add_drop(torch.zeros(Np, dtype=f32, device=device),
-                                 (loc,), cf)
-            else:
-                tot = cf.sum()
-                mark = torch.zeros(Np, dtype=f32, device=device).index_put(
-                    (cand,), cf, accumulate=True)
-            tr1_g = mark[SL.idx.to(i64)].sum(dim=1) == tot
-            g_committed = torch.zeros(Gp, dtype=f32, device=device
-                                      ).index_add(0, g_idx, cf) > 0
-            if has_spread:
-                has_sp_g = (sp_col >= 0).any(dim=1)
-            else:
-                has_sp_g = torch.zeros(Gp, dtype=torch.bool, device=device)
-            # spread groups shift all their node scores when they commit;
-            # interleaved groups additionally need a complete shortlist
-            sp_gate = has_sp_g & g_committed
-            if want_tables:
-                sp_gate = sp_gate | (sp_col[:, 0] >= 0)
-            ok_pre_g = SL.comp | (tr1_g & ~sp_gate)
-            pre_ok = False
-            if any_next:
-                pre_ok_t = (ok_pre_g | ~act_next_g).all()
-                with rg.sync():
-                    pre_ok = bool(pre_ok_t)
-            if has_preempt and pre_ok:
-                # an eviction lowers usage, which voids the monotone-
-                # usage argument behind the carried window: any eviction
-                # commit sends the next wave to a full rescore
-                ev_any_t = ev_commit.any()
-                with rg.sync():
-                    pre_ok = not bool(ev_any_t)
-
-            # own-group commit counts fold into the carried coll; window
-            # entries outside the shortlist land in a dropped column
-            sl_idx = SL.idx.to(i64)
-            tloc = _g2l(top_idx)[1] if in_mesh else top_idx.to(i64)
-            win_pos = torch.searchsorted(sl_idx, tloc)
-            pos_hit = torch.gather(sl_idx, 1,
-                                   win_pos.clamp(max=C - 1)) == tloc
-            win_pos = torch.where(pos_hit, win_pos, C)
-            cand_pos = win_pos[g_idx, cr]
-            coll_pad = torch.cat([SL.coll, torch.zeros(
-                (Gp, 1), dtype=f32, device=device)], dim=1)
-            coll_pad = coll_pad.index_put((g_idx, cand_pos), cf,
-                                          accumulate=True)
-            SL = SL._replace(coll=coll_pad[:, :C])
-
-            # under lock-step a lane may rerank on a void premise: its
-            # `ok` stays False and the next wave's full pass rebuilds
-            # the window before anything reads it
-            if (yield ("rerank", pre_ok)):
-                (nw_s, nw_i, ntb_s, ntb_i, n_nexh, n_ndim, n_gany,
-                 sl_ok) = rerank(SL, used_pre, dev_used_pre, used, dev_used,
-                                 sp_used, n_exh_g, dim_exh_g, act_next_g)
-            else:
-                nw_s = torch.full((Gp, TKl), NEG_INF, dtype=f32,
-                                  device=device)
-                nw_i = torch.zeros((Gp, TKl), dtype=i32, device=device)
-                ntb_s = torch.full(SL.tb_s.shape, NEG_INF, dtype=f32,
-                                   device=device)
-                ntb_i = torch.zeros(SL.tb_i.shape, dtype=i32,
-                                    device=device)
-                n_nexh, n_ndim = SL.nexh, SL.ndim
-                n_gany = torch.zeros(Gp, dtype=torch.bool, device=device)
+                    st, ok_next = _wave_rerank(k, c, st, mid, do)
                 sl_ok = False
-            SL = SL._replace(win_s=nw_s, win_i=nw_i.to(i32), tb_s=ntb_s,
-                             tb_i=ntb_i.to(i32), nfeas=n_feas_g,
-                             nexh=n_nexh, ndim=n_ndim, gany=n_gany,
-                             ok=pre_ok and sl_ok)
-        wave += 1
-    rg.close()
+                if do and pre_ok:
+                    with rg.sync():
+                        sl_ok = bool(torch.as_tensor(ok_next))
+            wave += 1
+        rg.close()
+        unfinished = ~st.done & c.in_batch
+        if gw is not None:
+            st = gw.finish(st)
+    finally:
+        if gw is not None:
+            gw.plan.release()
 
-    unfinished = ~done & in_batch
     if in_mesh:
         # per-shard full passes summed over the mesh (the byte model
         # charges a per-shard plane walk for each); two syncs, the
@@ -1679,13 +2068,29 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                 n_resc = int((yield ("psum", n_resc_t)))
         else:
             n_resc = wave * mesh_shards
-    return SolveResult(choice=out_idx, choice_ok=out_ok, score=out_score,
-                       n_feasible=out_nfeas, n_exhausted=out_nexh,
-                       dim_exhausted=out_dimexh, feas=feas,
-                       cons_filtered=cons_filtered, used_final=used,
-                       dev_used_final=dev_used, n_waves=wave,
+    return SolveResult(choice=st.out_idx, choice_ok=st.out_ok,
+                       score=st.out_score, n_feasible=st.out_nfeas,
+                       n_exhausted=st.out_nexh,
+                       dim_exhausted=st.out_dimexh, feas=feas,
+                       cons_filtered=cons_filtered, used_final=st.used,
+                       dev_used_final=st.dev_used, n_waves=wave,
                        unfinished=unfinished,
                        n_rescore=n_resc if (use_sl or in_mesh) else wave,
-                       evict=out_evict if has_preempt else None,
-                       commit_wave=out_wave if has_preempt else None,
-                       n_syncs=rg.syncs)
+                       evict=st.out_evict if has_preempt else None,
+                       commit_wave=st.out_wave if has_preempt else None,
+                       n_syncs=rg.syncs, n_graphed=n_graphed,
+                       n_captures=0 if gw is None else gw.captures)
+
+
+def _graph_sig(k, c: _Inputs, used0, dev_used0, sp_used0) -> tuple:
+    """A solve's graph signature: its shapes and options, and the shape
+    and dtype of every tensor its captured stretches read."""
+    opts = (k.device, k.Np, k.R, k.Gp, k.S, k.K, k.V, k.TK, k.TKl, k.NE,
+            k.C, k.W, k.pallas_mode, k.has_spread, k.has_distinct,
+            k.has_devices, k.stack_commit, k.want_tables, k.seed_nz)
+    return opts + tuple(
+        (n, tuple(t.shape), t.dtype) for n, t in
+        [*((n, t) for n, t in c._asdict().items()
+           if isinstance(t, torch.Tensor) and n not in _GRAPH_SKIP),
+         ("used0", used0), ("dev_used0", dev_used0),
+         ("sp_used0", sp_used0)])

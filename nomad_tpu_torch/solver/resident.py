@@ -31,13 +31,14 @@ carrying usage, with the eviction pass when the planes are resident),
 revalidation that bounces what no longer fits) and
 `_lane_stream_kernel` (chunks of L solves in lock-step through
 `kernel.solve_lanes`, then a cross-lane revalidation).  The wave loop
-waits for the card several times a wave, so a dispatch returns only when
-its solves are done; nothing here is asynchronous.  Every wave call on
+waits for the card once a wave (and once more after a rerank), so a
+dispatch returns only when its solves are done; nothing here is
+asynchronous.  Every wave call on
 CUDA tensors goes through `wave_kernel.fused_wave`, which launches the
 kernel or raises.  The solves' waves, full passes and host syncs come
-back per batch (`last_waves`, `last_rescore_waves`, `last_syncs`) and
-each dispatch folds them into the process registry
-(`solve.count_dispatch`).
+back per batch (`last_waves`, `last_rescore_waves`, `last_syncs`,
+`last_graphed`, `last_captures`) and each dispatch folds them into the
+process registry (`solve.count_dispatch`).
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
 one through its four placement hooks and `_solve_one(..., mesh=)`.  The
@@ -295,7 +296,8 @@ def _solve_one(node, used, dev_used, batch, *args, mesh=None, **kw):
     SolveResults (`kernel.solve_shards`)."""
     if mesh is None:
         return solve_lanes([_solve_steps(node, used, dev_used, batch,
-                                         *args, **kw)])[0]
+                                         *args, single_lane=True,
+                                         **kw)])[0]
     return solve_shards(
         [_solve_steps(node[i], used[i], dev_used[i], batch[i], *args, **kw)
          for i in range(len(node))], mesh)
@@ -354,9 +356,10 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
     """B solves in turn, threading usage from batch to batch.  Returns
     (used, dev_used, out [B, K, 2*TOP_K+1], evict [B, K, E] (zeros
     [B, K, 1] without the eviction pass), waves [B], rescores [B],
-    syncs [B])."""
+    syncs [B], graphed [B], captures [B])."""
     used, dev_used = used0, dev_used0
     outs, evicts, waves, rescores, syncs = [], [], [], [], []
+    graphed, captures = [], []
     for b, (n_place, seed) in enumerate(zip(n_places, seeds)):
         batch = _batch(stacked, b)
         res = _solve_one(node, used, dev_used, batch, int(n_place),
@@ -369,10 +372,13 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
         waves.append(res.n_waves)
         rescores.append(res.n_rescore)
         syncs.append(res.n_syncs)
+        graphed.append(res.n_graphed)
+        captures.append(res.n_captures)
         used, dev_used = res.used_final, res.dev_used_final
     return (used, dev_used, torch.stack(outs), torch.stack(evicts),
             np.asarray(waves, np.int32), np.asarray(rescores, np.int32),
-            np.asarray(syncs, np.int32))
+            np.asarray(syncs, np.int32), np.asarray(graphed, np.int32),
+            np.asarray(captures, np.int32))
 
 
 def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -385,7 +391,7 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     batch's slot-0 placements revalidated in batch order against the
     cumulative usage, bouncing what no longer fits.  Returns (used,
     dev_used, out [B, K, 2*TOP_K+1] f32, waves [B], rescores [B],
-    syncs [B])."""
+    syncs [B], graphed [B], captures [B])."""
     kw["shortlist_c"] = -1
     res = [_solve_one(node, used0, dev_used0, _batch(stacked, b), int(n),
                       int(s), **kw)
@@ -408,7 +414,9 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     return (used, dev_used, torch.stack(outs),
             np.asarray([r.n_waves for r in res], np.int32),
             np.asarray([r.n_rescore for r in res], np.int32),
-            np.asarray([r.n_syncs for r in res], np.int32))
+            np.asarray([r.n_syncs for r in res], np.int32),
+            np.asarray([r.n_graphed for r in res], np.int32),
+            np.asarray([r.n_captures for r in res], np.int32))
 
 
 def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -432,7 +440,7 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
         res = solve_lanes(
             _solve_steps(node, used, dev_used, batches[i],
                          int(n_places[b]), int(seeds[b]),
-                         wave_ranges=L == 1, **kw)
+                         wave_ranges=L == 1, single_lane=L == 1, **kw)
             for i, b in enumerate(bs))
         K = res[0].choice.shape[0]
         ks = torch.arange(K, device=res[0].choice.device)
@@ -515,10 +523,13 @@ class ResidentSolver:
         #: serial stream); fetch with lane_counters()
         self.last_lane_counters = None
         #: per-batch wave, full-rescore wave and host-sync counts of the
-        #: last stream
+        #: last stream, and its waves replayed as CUDA graphs and graphs
+        #: captured
         self.last_waves = None
         self.last_rescore_waves = None
         self.last_syncs = None
+        self.last_graphed = None
+        self.last_captures = None
         self.delta_counters = {
             "delta_applies": 0, "repack_fallbacks": 0,
             "last_delta_ratio": 0.0,
@@ -920,13 +931,14 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches]
         seed_list = [0] * len(batches) if seeds is None else list(seeds)
         (self._used, self._dev_used, out, self.last_evict,
-         self.last_waves, self.last_rescore_waves,
-         self.last_syncs) = _stream_kernel(
+         self.last_waves, self.last_rescore_waves, self.last_syncs,
+         self.last_graphed, self.last_captures) = _stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, compact=self._compact, has_preempt=preempt,
             **self._solve_kw(batches, has_distinct))
         count_dispatch(self.last_waves, self.last_rescore_waves,
-                       self.last_syncs)
+                       self.last_syncs, self.last_graphed,
+                       self.last_captures)
         return out
 
     def _solve_lanes(self, batches: Sequence[PackedBatch], seeds,
@@ -951,6 +963,7 @@ class ResidentSolver:
         self.last_waves = waves[:B]
         self.last_rescore_waves = rescores[:B]
         self.last_syncs = syncs[:B]
+        self.last_graphed = self.last_captures = np.zeros(B, np.int32)
         self.last_lane_counters = {
             "lanes": L, "chunks": (B + pad) // L,
             "bounced": bounced[:B], "committed": committed[:B]}
@@ -1003,6 +1016,7 @@ class ResidentSolver:
         if not chunks:
             raise ValueError("solve_stream_pipelined needs >= 1 chunk")
         outs, waves, rescores, syncs, evicts = [], [], [], [], []
+        graphed, captures = [], []
         pack_s = dispatch_s = delta_s = 0.0
         bytes_shipped = 0
 
@@ -1031,6 +1045,8 @@ class ResidentSolver:
             waves.append(self.last_waves)
             rescores.append(self.last_rescore_waves)
             syncs.append(self.last_syncs)
+            graphed.append(self.last_graphed)
+            captures.append(self.last_captures)
             evicts.append(self.last_evict)
             bytes_shipped += self.last_dispatch_bytes
             t1 = time.perf_counter()
@@ -1044,13 +1060,17 @@ class ResidentSolver:
         self.last_waves = waves
         self.last_rescore_waves = rescores
         self.last_syncs = syncs
+        self.last_graphed = graphed
+        self.last_captures = captures
         self.last_evict = evicts
         self.last_pipeline_stats = {
             "pack_s": pack_s, "dispatch_s": dispatch_s,
             "delta_apply_s": delta_s,
             "fetch_s": fetch_s, "n_dispatches": len(outs),
             "bytes_dispatched": bytes_shipped,
-            "waves": _total(waves), "syncs": _total(syncs)}
+            "waves": _total(waves), "syncs": _total(syncs),
+            "waves_graphed": _total(graphed),
+            "graph_captures": _total(captures)}
         return unpack_stream(packed)
 
     def solve_parallel(self, batches: Sequence[PackedBatch]
@@ -1067,11 +1087,11 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches]
         kw = self._solve_kw(batches, self._has_distinct(batches))
         kw.pop("stack_commit")
-        (self._used, self._dev_used, out, waves, rescores,
-         syncs) = _parallel_kernel(
+        (self._used, self._dev_used, out, waves, rescores, syncs,
+         graphed, captures) = _parallel_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             range(1, len(batches) + 1), **kw)
-        count_dispatch(waves, rescores, syncs)
+        count_dispatch(waves, rescores, syncs, graphed, captures)
         return unpack_stream(out)
 
     # -------------------------------------------------------- reporting

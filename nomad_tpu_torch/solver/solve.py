@@ -755,7 +755,8 @@ class Solver:
         if backend == "device":
             count_dispatch(trace_attrs["waves"],
                            trace_attrs["rescore_waves"],
-                           trace_attrs["syncs"])
+                           trace_attrs["syncs"], trace_attrs["graphed"],
+                           trace_attrs["captures"])
         trace_attrs["kernel_wall_s"] = round(
             time.perf_counter() - _solve_t0, 6)
         trace_attrs["resident"] = used_resident
@@ -1099,6 +1100,8 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
              "waves": waves, "rescore_waves": rescore,
              "shortlist_waves": waves - rescore,
              "syncs": int(res.n_syncs),
+             "graphed": int(res.n_graphed),
+             "captures": int(res.n_captures),
              "evict_commits": evicted,
              "unfinished": int(np.asarray(res.unfinished).sum())}
     if lane_counters is not None:
@@ -1111,17 +1114,22 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
     return attrs
 
 
-def count_dispatch(waves, rescores, syncs) -> None:
+def count_dispatch(waves, rescores, syncs, graphed=0, captures=0) -> None:
     """Fold one device dispatch's counts (ints, or per-batch arrays)
     into the process registry, served at /v1/metrics: `solver.waves`,
     `solver.waves_full` (the waves that ran the full pass over the node
-    planes; on a mesh, per shard) and `solver.syncs` (the times the wave
-    loops waited for the card).  A worker's device solve folds once it
-    is fetched, a `ResidentSolver` once a dispatch; host-twin solves
-    fold nothing."""
+    planes; on a mesh, per shard), `solver.syncs` (the times the wave
+    loops waited for the card), `solver.waves_graphed` (the waves whose
+    body replayed a CUDA graph) and `solver.graph_captures` (the graphs
+    captured).  A worker's device solve folds once it is fetched, a
+    `ResidentSolver` once a dispatch; host-twin solves fold nothing."""
     global_metrics.incr_counter("solver.waves", float(np.sum(waves)))
     global_metrics.incr_counter("solver.waves_full", float(np.sum(rescores)))
     global_metrics.incr_counter("solver.syncs", float(np.sum(syncs)))
+    global_metrics.incr_counter("solver.waves_graphed",
+                                float(np.sum(graphed)))
+    global_metrics.incr_counter("solver.graph_captures",
+                                float(np.sum(captures)))
 
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,

@@ -262,13 +262,66 @@ def _counters(cnt: torch.Tensor, R: int) -> dict:
             "dim_exh": cnt[:, _CNT_HEAD:_CNT_HEAD + R]}
 
 
+def out_shapes(mode: str, Gp: int, Np: int, R: int, TK: int = 4,
+               n_extract: int = 0, tables_v: int = 0) -> dict:
+    """The tensors one `fused_wave` call writes its results into, as
+    name -> (shape, dtype): `cnt` [Gp, 3 + R] i32 (the counters), and
+    `score` [Gp, Np] f32 in "score" mode, or `top_s` / `top_i`
+    [Gp, n_extract or TK] (with `tables_v` also `tab_s` / `tab_i`
+    [Gp, tables_v + 1, ceil(TK / (tables_v + 1))]) in "topk" mode."""
+    f32, i32 = torch.float32, torch.int32
+    out = {"cnt": ((Gp, _CNT_HEAD + R), i32)}
+    if mode == "score":
+        out["score"] = ((Gp, Np), f32)
+        return out
+    NE = n_extract or TK
+    out["top_s"], out["top_i"] = ((Gp, NE), f32), ((Gp, NE), i32)
+    if tables_v > 0:
+        TKv = -(-TK // (tables_v + 1))
+        out["tab_s"] = ((Gp, tables_v + 1, TKv), f32)
+        out["tab_i"] = ((Gp, tables_v + 1, TKv), i32)
+    return out
+
+
+def out_buffers(mode: str, Gp: int, Np: int, R: int, device, TK: int = 4,
+                n_extract: int = 0, tables_v: int = 0) -> dict:
+    """`out_shapes`' tensors, allocated.  Passed back as `out=`, a call
+    writes its results into them and returns views of them, so that a
+    later reader can hold fixed addresses."""
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in out_shapes(
+                mode, Gp, Np, R, TK, n_extract, tables_v).items()}
+
+
+def results(out: dict, R: int) -> dict:
+    """`fused_wave`'s result dict over the tensors of `out`
+    (`out_buffers`): the counters as views of `cnt`, and the score plane
+    or the extraction under their result names."""
+    res = _counters(out["cnt"], R)
+    for name, key in (("score", "score"), ("top_s", "top_score"),
+                      ("top_i", "top_idx"), ("tab_s", "tab_s"),
+                      ("tab_i", "tab_i")):
+        if name in out:
+            res[key] = out[name]
+    return res
+
+
+def _into(out: Optional[dict], name: str, t: torch.Tensor) -> torch.Tensor:
+    """`t`, or its copy in `out[name]` when the caller passed buffers."""
+    if out is None:
+        return t
+    return out[name].copy_(t)
+
+
 # ------------------------------------------------------ plain version
 def fused_wave_plain(*, mode, feas, blocked, aff, pen, jitter, coll, used,
                      avail, reserved, ask_res, ask_desired, dev=None,
-                     spread=None, seed=0, TK=4, n_extract=0, tables_v=0):
+                     spread=None, seed=0, TK=4, n_extract=0, tables_v=0,
+                     out=None):
     """`fused_wave` in plain torch: the same inputs, the same outputs,
     the same float-op sequence (the reference tile kernel's), on the
-    whole [Gp, Np] plane at once."""
+    whole [Gp, Np] plane at once.  With `out` (`out_buffers`) the
+    results are copied into it."""
     f32 = torch.float32
     Gp = feas.shape[0]
     Np, R = used.shape
@@ -352,13 +405,14 @@ def fused_wave_plain(*, mode, feas, blocked, aff, pen, jitter, coll, used,
                      (feas_b & ~(fit & dev_fit)).sum(dim=1, keepdim=True),
                      placeable.sum(dim=1, keepdim=True), dim_fail],
                     dim=1).to(i32)
-    res = _counters(cnt, R)
+    res = _counters(_into(out, "cnt", cnt), R)
     if mode == "score":
-        res["score"] = score
+        res["score"] = _into(out, "score", score)
         return res
     cols = torch.arange(Np, dtype=i32, device=used.device).expand(Gp, Np)
-    res["top_score"], res["top_idx"] = _lex_topk_rows(
-        score, cols, n_extract or TK, Np)
+    top_s, top_i = _lex_topk_rows(score, cols, n_extract or TK, Np)
+    res["top_score"] = _into(out, "top_s", top_s)
+    res["top_idx"] = _into(out, "top_i", top_i)
     if tables_v > 0:
         Vs = tables_v
         TKv = -(-TK // (Vs + 1))
@@ -370,8 +424,9 @@ def fused_wave_plain(*, mode, feas, blocked, aff, pen, jitter, coll, used,
                                     cols, TKv, Np)
             tabs_s.append(ts)
             tabs_i.append(ti)
-        res["tab_s"] = torch.stack(tabs_s, dim=1)      # [Gp, Vs+1, TKv]
-        res["tab_i"] = torch.stack(tabs_i, dim=1)
+        res["tab_s"] = _into(out, "tab_s",
+                             torch.stack(tabs_s, dim=1))  # [Gp, Vs+1, TKv]
+        res["tab_i"] = _into(out, "tab_i", torch.stack(tabs_i, dim=1))
     return res
 
 
@@ -395,7 +450,7 @@ def _check(name, t, dtype, shape, device):
 
 def fused_wave(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
                reserved, ask_res, ask_desired, dev=None, spread=None,
-               seed=0, TK=4, n_extract=0, tables_v=0):
+               seed=0, TK=4, n_extract=0, tables_v=0, out=None):
     """One fused pass producing the wave's scoring outputs (the
     reference `pallas_kernel.fused_wave` contract).  Returns a dict:
 
@@ -410,7 +465,8 @@ def fused_wave(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
     (sp_vnode i16 [S,Gp,Np], sp_des [S,Gp,Np], sp_used [Gp,S,V],
     sp_weight [Gp,S], sp_targeted [Gp,S], sp_has i8 [Gp,S], minc [Gp,S],
     maxc [Gp,S], anyp i8 [Gp,S]); `dev` packs (dev_used [Np,D],
-    dev_cap [Np,D], dev_ask [Gp,D]).
+    dev_cap [Np,D], dev_ask [Gp,D]).  `out` (`out_buffers` of the same
+    shape) takes the results in place of fresh tensors.
 
     CPU tensors go to `fused_wave_plain`; CUDA tensors launch the kernel;
     anything else raises."""
@@ -418,7 +474,7 @@ def fused_wave(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
               jitter=jitter, coll=coll, used=used, avail=avail,
               reserved=reserved, ask_res=ask_res, ask_desired=ask_desired,
               dev=dev, spread=spread, seed=seed, TK=TK,
-              n_extract=n_extract, tables_v=tables_v)
+              n_extract=n_extract, tables_v=tables_v, out=out)
     if feas.device.type == "cpu":
         return fused_wave_plain(**kw)
     if feas.device.type != "cuda":
@@ -434,7 +490,7 @@ fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
 
 def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
             reserved, ask_res, ask_desired, dev, spread, seed, TK,
-            n_extract, tables_v):
+            n_extract, tables_v, out):
     if mode not in ("score", "topk"):
         raise ValueError(f"fused_wave: unknown mode {mode!r}")
     device = feas.device
@@ -491,13 +547,24 @@ def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
 
     plan = launch_plan(mode, Gp, Np, NE=n_extract or TK, TK=TK,
                        tables_v=tables_v if want_tables else 0)
+    if out is not None:
+        for name, (shape, dt) in out_shapes(
+                mode, Gp, Np, R, TK, n_extract,
+                tables_v if want_tables else 0).items():
+            _check(f"out[{name!r}]", out.get(name), dt, shape, device)
+
+    def result(name, shape, dtype):
+        """The caller's buffer `name`, or a new one."""
+        if out is not None:
+            return out[name]
+        return torch.empty(shape, dtype=dtype, device=device)
     # the launch writes every counter (score mode zeroes them first)
-    cnt = torch.empty((Gp, _CNT_HEAD + R), dtype=i32, device=device)
+    cnt = result("cnt", (Gp, _CNT_HEAD + R), i32)
     score = part = vpart = tcnt = top_s = top_i = tab_s = tab_i = None
     T = GB = NE = TKt = Vs = TKv = TKvt = batch = width = merge_smem = 0
     if mode == "score":
         GB = plan["groups_per_block"]
-        score = torch.empty((Gp, Np), dtype=f32, device=device)
+        score = result("score", (Gp, Np), f32)
     else:
         T, NE, TKt = plan["tile"], plan["NE"], plan["TKt"]
         Vs, TKv, TKvt = plan["Vs"], plan["TKv"], plan["TKvt"]
@@ -508,13 +575,13 @@ def _launch(*, mode, feas, blocked, aff, pen, jitter, coll, used, avail,
                            device=device)
         tcnt = torch.empty((Gp, n_tiles, _CNT_HEAD + R), dtype=i32,
                            device=device)
-        top_s = torch.empty((Gp, NE), dtype=f32, device=device)
-        top_i = torch.empty((Gp, NE), dtype=i32, device=device)
+        top_s = result("top_s", (Gp, NE), f32)
+        top_i = result("top_i", (Gp, NE), i32)
         if want_tables:
             vpart = torch.empty((Vs + 1, Gp, n_tiles, TKvt),
                                 dtype=torch.int64, device=device)
-            tab_s = torch.empty((Gp, Vs + 1, TKv), dtype=f32, device=device)
-            tab_i = torch.empty((Gp, Vs + 1, TKv), dtype=i32, device=device)
+            tab_s = result("tab_s", (Gp, Vs + 1, TKv), f32)
+            tab_i = result("tab_i", (Gp, Vs + 1, TKv), i32)
 
     def ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()

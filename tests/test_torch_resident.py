@@ -513,7 +513,8 @@ def test_wave_traffic_and_trace_attrs_match_reference():
     attributes of a stream equal the reference's (the port's `tile` is
     its kernel's node width, not the Pallas tile).  The reference's
     attributes also carry the stream's wall (`solve`), the port's its
-    host syncs (`syncs_total`): more than one a wave."""
+    host syncs (`syncs_total`): one read of each wave's flags, and one
+    more a rerank."""
     def run(side):
         rs = side.solver(make_nodes(side, 320), probes(side), gp=4, kp=64)
         bs = mixed_batches(side, rs, 2)
@@ -530,4 +531,4 @@ def test_wave_traffic_and_trace_attrs_match_reference():
     syncs = pat.pop("syncs_total")
     assert rat == pat
     assert pwt["measured"]["waves_total"] >= 2
-    assert syncs > pat["waves_total"]
+    assert syncs >= pat["waves_total"]

@@ -113,9 +113,10 @@ def test_device_range_is_the_null_span_without_a_profiler():
 
 def test_pipelined_stream_wave_ranges_nest_and_count_the_solve():
     """wave > sync: one wave range a wave by kind, each at the top of
-    its thread's ranges, and one sync range a counted sync, inside a
-    wave but for the first wave's entry test; the counters and the
-    pipeline's stats advance by the same amounts."""
+    its thread's ranges, and one sync range a counted sync, each inside
+    a wave (the first wave's entry test is known on the host, and the
+    seed's constants cross no more); the counters and the pipeline's
+    stats advance by the same amounts."""
     rs = solver()
     before = counters()
     _, rows = traced(lambda: pipelined(rs, "p"))
@@ -131,12 +132,13 @@ def test_pipelined_stream_wave_ranges_nest_and_count_the_solve():
     for name, parent in tree:
         assert parent in ({None} if name in WAVES else {None, *WAVES}), \
             (name, parent)
-    # a wave's range runs on to the next wave's decision, so only each
-    # solve's jitter copy and first entry test lie outside every wave
+    # a wave's range runs on to the next wave's decision, so no sync
+    # lies outside every wave
     outside = [n for n, p in tree if n == tracing.WAVE_SYNC and p is None]
-    assert len(outside) == 2 * 3
+    assert outside == []
     st = rs.last_pipeline_stats
     assert (st["waves"], st["syncs"]) == (waves, syncs)
+    assert (st["waves_graphed"], st["graph_captures"]) == (0, 0)
     assert st["n_dispatches"] == 3 and st["pack_s"] > 0
     assert moved == {"solver.waves": waves, "solver.waves_full": full,
                      "solver.syncs": syncs}
@@ -188,14 +190,16 @@ def test_parallel_stream_counts_its_waves_and_syncs():
 
 def test_solve_span_attributes_carry_the_syncs():
     """A stream's `trace_attrs` and a device solve's span attributes
-    (the server's `solve` span) carry the syncs."""
+    (the server's `solve` span) carry the syncs: one read of each
+    wave's flags at least, and no graphed wave on the CPU."""
     rs = solver()
     rs.solve_stream([rs.pack_batch(chunks("s", 1)[0])], seeds=[3])
     assert rs.trace_attrs()["syncs_total"] == int(rs.last_syncs[0]) > 0
     pb = rs.pack_batch(chunks("t", 1)[0])
     res = _to_host(_run_kernel(pb, "cpu", host_mode="never"))
     attrs = solve_trace_attrs(pb, res, "cpu")
-    assert attrs["syncs"] == res.n_syncs > attrs["waves"] > 0
+    assert attrs["syncs"] == res.n_syncs >= attrs["waves"] > 0
+    assert attrs["graphed"] == attrs["captures"] == 0
 
 
 def test_worker_solver_folds_its_device_solves_only():
@@ -213,7 +217,7 @@ def test_worker_solver_folds_its_device_solves_only():
     assert moved == {"solver.waves": t["waves"],
                      "solver.waves_full": t["rescore_waves"],
                      "solver.syncs": t["syncs"]}
-    assert t["syncs"] > t["waves"] > 0
+    assert t["syncs"] >= t["waves"] > 0
     before = counters()
     out = Solver(device="cpu", host="always").solve(nodes, asks)
     assert out.trace["backend"] == "host"
