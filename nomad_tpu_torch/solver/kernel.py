@@ -80,8 +80,8 @@ import torch
 from . import score_spec as _score_spec
 from . import wave_graph
 from . import wave_kernel as _wk
-from ..utils.tracing import (NULL_SPAN, WAVE_CARRIED, WAVE_FULL, WAVE_SYNC,
-                             device_range)
+from ..utils.tracing import (NULL_SPAN, SOLVE_PROLOGUE, WAVE_CARRIED,
+                             WAVE_FULL, WAVE_SYNC, device_range)
 from .masks import pack_bool_u32
 from .tensorize import (OP_EQ, OP_GE, OP_GT, OP_IS_SET, OP_LE, OP_LT, OP_NE,
                         OP_NOT_SET, R_CPU, R_MEM)
@@ -180,18 +180,23 @@ class SolveResult(NamedTuple):
     n_syncs: int = 0            # times the wave loop waited for the card
     n_graphed: int = 0          # waves whose body replayed a CUDA graph
     n_captures: int = 0         # CUDA graphs the solve captured
+    filtered_pairs: int = 0     # real [group, node] pairs the static
+    #  feasibility rules out (groups with placements, valid nodes; 0 in
+    #  mesh mode and without a wave)
 
 
 class _WaveRanges:
     """A wave solve's profiler ranges (`utils.tracing.device_range`) and
-    its count of host syncs.  `sync()` counts one sync and returns its
-    `nomad.wave.sync` range, to be held around the blocking call alone;
-    `step(carried)` ends the open wave range and opens the next one at a
-    wave's carried-window decision, `nomad.wave.carried` for a
-    carried-shortlist wave and `nomad.wave.full` for a full pass; `close()`
-    ends the last.  A wave's range so runs from its decision to the next
-    wave's, and holds the next wave's entry test.  With `on` False
-    nothing opens; syncs still count."""
+    its count of host syncs.  `prologue()` opens `nomad.solve.prologue`
+    at the solve's entry, for `close()` to end before the first wave;
+    `sync()` counts one sync and returns its `nomad.wave.sync` range, to
+    be held around the blocking call alone; `step(carried)` ends the
+    open wave range and opens the next one at a wave's carried-window
+    decision, `nomad.wave.carried` for a carried-shortlist wave and
+    `nomad.wave.full` for a full pass; `close()` ends the last.  A
+    wave's range so runs from its decision to the next wave's, and holds
+    the next wave's entry test.  With `on` False nothing opens; syncs
+    still count."""
 
     __slots__ = ("on", "syncs", "_open")
 
@@ -204,11 +209,16 @@ class _WaveRanges:
         self.syncs += 1
         return device_range(WAVE_SYNC) if self.on else NULL_SPAN
 
+    def prologue(self) -> None:
+        self._enter(SOLVE_PROLOGUE)
+
     def step(self, carried: bool) -> None:
         self.close()
+        self._enter(WAVE_CARRIED if carried else WAVE_FULL)
+
+    def _enter(self, name: str) -> None:
         if self.on:
-            self._open = device_range(WAVE_CARRIED if carried
-                                      else WAVE_FULL)
+            self._open = device_range(name)
             self._open.__enter__()
 
     def close(self) -> None:
@@ -1765,10 +1775,17 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     the carried window's premise), the rerank's test, the eviction
     pass's gate and `nonzero` and, in mesh mode, the rescore count's
     sum; `n_graphed` counts the waves whose body replayed a graph and
-    `n_captures` the graphs this solve captured.  Under a torch
-    profiler each sync is a `nomad.wave.sync` range around the blocking
-    call alone and each wave a `nomad.wave.full` or `nomad.wave.carried`
-    range from its kind's decision to the next wave's (`_WaveRanges`).
+    `n_captures` the graphs this solve captured.  `filtered_pairs`
+    counts the real [group, node] pairs (the groups with placements, the
+    valid nodes) that the static feasibility rules out; it is summed on
+    the card in the prologue and read with the first wave's flags, so it
+    costs no sync of its own (0 in mesh mode, and in a solve with no
+    wave).  Under a torch profiler the prologue, from the solve's entry
+    to its first wave, is a `nomad.solve.prologue` range, closed before
+    the first yield; each sync is a `nomad.wave.sync` range around the
+    blocking call alone and each wave a `nomad.wave.full` or
+    `nomad.wave.carried` range from its kind's decision to the next
+    wave's (`_WaveRanges`).
     `wave_ranges` False (solves in lock-step) and mesh mode open no
     range: `solve_lanes` or `solve_shards` opens the waves."""
     if wave_mode not in ("scan", "while"):
@@ -1788,6 +1805,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     in_mesh = mesh_axis is not None
     elastic = in_mesh and tile_np > 0
     rg = _WaveRanges(wave_ranges and not in_mesh)
+    rg.prologue()
     g_of_local = _g2l = _l2g = off = None
     if in_mesh:
         if mesh_shards < 1:
@@ -1885,6 +1903,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                                       host_ok, c_op, c_col, c_rank)
     if in_mesh:
         cons_filtered = yield ("psum", cons_filtered)
+        n_filt = None
+    else:
+        real_g = torch.zeros(Gp, dtype=torch.bool, device=device
+                             ).index_fill_(0, g_idx[:n_place], True)
+        n_filt = (real_g[:, None] & valid[None, :] & ~feas).sum()
 
     # affinity matches are placement-invariant: [Gp, Np]
     vals = attr_rank_l[:, a_col.to(i64)].permute(1, 0, 2)   # [Gp, Np, CA]
@@ -2010,10 +2033,11 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
             st = gw.start(used0, dev_used0, sp_used0)
         else:
             st = _init_carry(k, c, used0, dev_used0, sp_used0)
+        rg.close()                  # the prologue ends before any yield
         # the first wave's entry test is known on the host
         go = n_place > 0 and K > 0
         sl_ok = False
-        wave = n_resc = n_graphed = 0
+        wave = n_resc = n_graphed = filtered = 0
         for _ in range(max_waves):
             if not go:
                 break
@@ -2029,10 +2053,15 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                     wave)
             if not take_carried:
                 n_resc += 1
+            if wave == 0 and n_filt is not None:
+                # the filtered pairs ride on the first wave's flags
+                flags = torch.cat([flags.to(i64), n_filt.view(1)])
             # (as_tensor returns the flags tensor itself; it marks the
             # value a tensor for the analyzer's map of host syncs)
             with rg.sync():
                 flags = torch.as_tensor(flags).tolist()
+            if wave == 0 and n_filt is not None:
+                filtered = flags.pop()
             go = flags[0]
             if use_sl:
                 pre_ok = go and flags[1] and not (has_preempt and flags[2])
@@ -2079,7 +2108,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                        evict=st.out_evict if has_preempt else None,
                        commit_wave=st.out_wave if has_preempt else None,
                        n_syncs=rg.syncs, n_graphed=n_graphed,
-                       n_captures=0 if gw is None else gw.captures)
+                       n_captures=0 if gw is None else gw.captures,
+                       filtered_pairs=filtered)
 
 
 def _graph_sig(k, c: _Inputs, used0, dev_used0, sp_used0) -> tuple:

@@ -37,8 +37,9 @@ asynchronous.  Every wave call on
 CUDA tensors goes through `wave_kernel.fused_wave`, which launches the
 kernel or raises.  The solves' waves, full passes and host syncs come
 back per batch (`last_waves`, `last_rescore_waves`, `last_syncs`,
-`last_graphed`, `last_captures`) and each dispatch folds them into the
-process registry (`solve.count_dispatch`).
+`last_graphed`, `last_captures`, and the [group, node] pairs the static
+feasibility ruled out, `last_filtered`) and each dispatch folds them
+into the process registry (`solve.count_dispatch`).
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
 one through its four placement hooks and `_solve_one(..., mesh=)`.  The
@@ -356,10 +357,10 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
     """B solves in turn, threading usage from batch to batch.  Returns
     (used, dev_used, out [B, K, 2*TOP_K+1], evict [B, K, E] (zeros
     [B, K, 1] without the eviction pass), waves [B], rescores [B],
-    syncs [B], graphed [B], captures [B])."""
+    syncs [B], graphed [B], captures [B], filtered [B])."""
     used, dev_used = used0, dev_used0
     outs, evicts, waves, rescores, syncs = [], [], [], [], []
-    graphed, captures = [], []
+    graphed, captures, filtered = [], [], []
     for b, (n_place, seed) in enumerate(zip(n_places, seeds)):
         batch = _batch(stacked, b)
         res = _solve_one(node, used, dev_used, batch, int(n_place),
@@ -374,11 +375,12 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
         syncs.append(res.n_syncs)
         graphed.append(res.n_graphed)
         captures.append(res.n_captures)
+        filtered.append(res.filtered_pairs)
         used, dev_used = res.used_final, res.dev_used_final
     return (used, dev_used, torch.stack(outs), torch.stack(evicts),
             np.asarray(waves, np.int32), np.asarray(rescores, np.int32),
             np.asarray(syncs, np.int32), np.asarray(graphed, np.int32),
-            np.asarray(captures, np.int32))
+            np.asarray(captures, np.int32), np.asarray(filtered, np.int64))
 
 
 def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -391,7 +393,7 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     batch's slot-0 placements revalidated in batch order against the
     cumulative usage, bouncing what no longer fits.  Returns (used,
     dev_used, out [B, K, 2*TOP_K+1] f32, waves [B], rescores [B],
-    syncs [B], graphed [B], captures [B])."""
+    syncs [B], graphed [B], captures [B], filtered [B])."""
     kw["shortlist_c"] = -1
     res = [_solve_one(node, used0, dev_used0, _batch(stacked, b), int(n),
                       int(s), **kw)
@@ -416,7 +418,8 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
             np.asarray([r.n_rescore for r in res], np.int32),
             np.asarray([r.n_syncs for r in res], np.int32),
             np.asarray([r.n_graphed for r in res], np.int32),
-            np.asarray([r.n_captures for r in res], np.int32))
+            np.asarray([r.n_captures for r in res], np.int32),
+            np.asarray([r.filtered_pairs for r in res], np.int64))
 
 
 def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -428,11 +431,11 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     placements a sibling lane beat to a node bounce to STATUS_RETRY with
     every score slot nulled.  B must be a multiple of `lanes` (the host
     pads with n_place = 0 rows).  Returns (used, dev_used, out, waves,
-    rescores, syncs, bounced, committed), each per batch.  Lanes in
+    rescores, syncs, filtered, bounced, committed), each per batch.  Lanes in
     lock-step open no profiler ranges: `solve_lanes` opens the waves."""
     L = lanes
     used, dev_used = used0, dev_used0
-    outs, waves, rescores, syncs = [], [], [], []
+    outs, waves, rescores, syncs, filtered = [], [], [], [], []
     bounced, committed = [], []
     for c in range(len(n_places) // L):
         bs = range(c * L, (c + 1) * L)
@@ -459,11 +462,13 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
         waves += [r.n_waves for r in res]
         rescores += [r.n_rescore for r in res]
         syncs += [r.n_syncs for r in res]
+        filtered += [r.filtered_pairs for r in res]
         bounced.append((okf & ~commit).reshape(L, K).sum(dim=1))
         committed.append(commit.reshape(L, K).sum(dim=1))
     return (used, dev_used, torch.cat(outs), np.asarray(waves, np.int32),
             np.asarray(rescores, np.int32), np.asarray(syncs, np.int32),
-            torch.cat(bounced), torch.cat(committed))
+            np.asarray(filtered, np.int64), torch.cat(bounced),
+            torch.cat(committed))
 
 
 class ResidentSolver:
@@ -523,13 +528,15 @@ class ResidentSolver:
         #: serial stream); fetch with lane_counters()
         self.last_lane_counters = None
         #: per-batch wave, full-rescore wave and host-sync counts of the
-        #: last stream, and its waves replayed as CUDA graphs and graphs
-        #: captured
+        #: last stream, its waves replayed as CUDA graphs and graphs
+        #: captured, and the [group, node] pairs its static feasibility
+        #: ruled out
         self.last_waves = None
         self.last_rescore_waves = None
         self.last_syncs = None
         self.last_graphed = None
         self.last_captures = None
+        self.last_filtered = None
         self.delta_counters = {
             "delta_applies": 0, "repack_fallbacks": 0,
             "last_delta_ratio": 0.0,
@@ -932,13 +939,14 @@ class ResidentSolver:
         seed_list = [0] * len(batches) if seeds is None else list(seeds)
         (self._used, self._dev_used, out, self.last_evict,
          self.last_waves, self.last_rescore_waves, self.last_syncs,
-         self.last_graphed, self.last_captures) = _stream_kernel(
+         self.last_graphed, self.last_captures,
+         self.last_filtered) = _stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, compact=self._compact, has_preempt=preempt,
             **self._solve_kw(batches, has_distinct))
         count_dispatch(self.last_waves, self.last_rescore_waves,
                        self.last_syncs, self.last_graphed,
-                       self.last_captures)
+                       self.last_captures, self.last_filtered)
         return out
 
     def _solve_lanes(self, batches: Sequence[PackedBatch], seeds,
@@ -954,15 +962,17 @@ class ResidentSolver:
         n_places = [pb.n_place for pb in batches] + [0] * pad
         seed_list = ([0] * B if seeds is None else list(seeds)) + [0] * pad
         kw = self._solve_kw(batches, has_distinct)
-        (self._used, self._dev_used, out, waves, rescores, syncs, bounced,
-         committed) = _lane_stream_kernel(
+        (self._used, self._dev_used, out, waves, rescores, syncs, filtered,
+         bounced, committed) = _lane_stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, lanes=L, compact=self._compact, **kw)
-        count_dispatch(waves, rescores, syncs)      # padding lanes' too
+        # the padding lanes' waves and syncs too, but not as solves
+        count_dispatch(waves, rescores, syncs, filtered=filtered, solves=B)
         self.last_evict = None
         self.last_waves = waves[:B]
         self.last_rescore_waves = rescores[:B]
         self.last_syncs = syncs[:B]
+        self.last_filtered = filtered[:B]
         self.last_graphed = self.last_captures = np.zeros(B, np.int32)
         self.last_lane_counters = {
             "lanes": L, "chunks": (B + pad) // L,
@@ -1016,7 +1026,7 @@ class ResidentSolver:
         if not chunks:
             raise ValueError("solve_stream_pipelined needs >= 1 chunk")
         outs, waves, rescores, syncs, evicts = [], [], [], [], []
-        graphed, captures = [], []
+        graphed, captures, filtered = [], [], []
         pack_s = dispatch_s = delta_s = 0.0
         bytes_shipped = 0
 
@@ -1047,6 +1057,7 @@ class ResidentSolver:
             syncs.append(self.last_syncs)
             graphed.append(self.last_graphed)
             captures.append(self.last_captures)
+            filtered.append(self.last_filtered)
             evicts.append(self.last_evict)
             bytes_shipped += self.last_dispatch_bytes
             t1 = time.perf_counter()
@@ -1062,6 +1073,7 @@ class ResidentSolver:
         self.last_syncs = syncs
         self.last_graphed = graphed
         self.last_captures = captures
+        self.last_filtered = filtered
         self.last_evict = evicts
         self.last_pipeline_stats = {
             "pack_s": pack_s, "dispatch_s": dispatch_s,
@@ -1088,10 +1100,11 @@ class ResidentSolver:
         kw = self._solve_kw(batches, self._has_distinct(batches))
         kw.pop("stack_commit")
         (self._used, self._dev_used, out, waves, rescores, syncs,
-         graphed, captures) = _parallel_kernel(
+         graphed, captures, self.last_filtered) = _parallel_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             range(1, len(batches) + 1), **kw)
-        count_dispatch(waves, rescores, syncs, graphed, captures)
+        count_dispatch(waves, rescores, syncs, graphed, captures,
+                       self.last_filtered)
         return unpack_stream(out)
 
     # -------------------------------------------------------- reporting

@@ -756,7 +756,8 @@ class Solver:
             count_dispatch(trace_attrs["waves"],
                            trace_attrs["rescore_waves"],
                            trace_attrs["syncs"], trace_attrs["graphed"],
-                           trace_attrs["captures"])
+                           trace_attrs["captures"],
+                           trace_attrs["filtered_pairs"])
         trace_attrs["kernel_wall_s"] = round(
             time.perf_counter() - _solve_t0, 6)
         trace_attrs["resident"] = used_resident
@@ -1084,7 +1085,9 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
     """Solve-span attributes of one kernel run (fetched result): the
     batch shape, the wave / rescore counters, the times the wave loop
     waited for the card (`syncs`, 0 on the host routes), the placements
-    the eviction pass committed, and which route ran it (`backend`: "host"
+    the eviction pass committed, on the device route the real [group,
+    node] pairs its static feasibility ruled out (`filtered_pairs`), and
+    which route ran it (`backend`: "host"
     for the numpy twin, "device" for the device solve, "host_failover" /
     "host_quarantine" for the twin answering under the watchdog).
     `lane_counters` (a lane stream's `ResidentSolver.lane_counters()`)
@@ -1104,6 +1107,8 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
              "captures": int(res.n_captures),
              "evict_commits": evicted,
              "unfinished": int(np.asarray(res.unfinished).sum())}
+    if backend == "device":
+        attrs["filtered_pairs"] = int(res.filtered_pairs)
     if lane_counters is not None:
         attrs["lanes"] = int(lane_counters.get("lanes", 1))
         attrs["lane_chunks"] = int(lane_counters.get("chunks", 0))
@@ -1114,15 +1119,22 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
     return attrs
 
 
-def count_dispatch(waves, rescores, syncs, graphed=0, captures=0) -> None:
+def count_dispatch(waves, rescores, syncs, graphed=0, captures=0,
+                   filtered=0, solves=None) -> None:
     """Fold one device dispatch's counts (ints, or per-batch arrays)
-    into the process registry, served at /v1/metrics: `solver.waves`,
+    into the process registry, served at /v1/metrics: `solver.solves`
+    (the device solves: `solves`, else one a wave count), `solver.waves`,
     `solver.waves_full` (the waves that ran the full pass over the node
     planes; on a mesh, per shard), `solver.syncs` (the times the wave
     loops waited for the card), `solver.waves_graphed` (the waves whose
-    body replayed a CUDA graph) and `solver.graph_captures` (the graphs
-    captured).  A worker's device solve folds once it is fetched, a
-    `ResidentSolver` once a dispatch; host-twin solves fold nothing."""
+    body replayed a CUDA graph), `solver.graph_captures` (the graphs
+    captured) and `solver.pairs_filtered` (the real [group, node] pairs
+    that the solves' static feasibility ruled out: Nomad's
+    `NodesFiltered` summed over the groups).  A worker's device solve
+    folds once it is fetched, a `ResidentSolver` once a dispatch;
+    host-twin solves fold nothing."""
+    global_metrics.incr_counter(
+        "solver.solves", float(np.size(waves) if solves is None else solves))
     global_metrics.incr_counter("solver.waves", float(np.sum(waves)))
     global_metrics.incr_counter("solver.waves_full", float(np.sum(rescores)))
     global_metrics.incr_counter("solver.syncs", float(np.sum(syncs)))
@@ -1130,6 +1142,8 @@ def count_dispatch(waves, rescores, syncs, graphed=0, captures=0) -> None:
                                 float(np.sum(graphed)))
     global_metrics.incr_counter("solver.graph_captures",
                                 float(np.sum(captures)))
+    global_metrics.incr_counter("solver.pairs_filtered",
+                                float(np.sum(filtered)))
 
 
 def _run_kernel(pb: PackedBatch, device, max_waves: int = 0,

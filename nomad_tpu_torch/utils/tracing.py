@@ -139,9 +139,11 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
-#: the solver's profiler ranges (`device_range`): a wave of the solve
-#: by kind (a full pass over the node planes or the carried shortlist)
-#: and a host sync inside the wave loop
+#: the solver's profiler ranges (`device_range`): a solve's prologue
+#: (its entry to its first wave), a wave of the solve by kind (a full
+#: pass over the node planes or the carried shortlist) and a host sync
+#: inside the wave loop
+SOLVE_PROLOGUE = "nomad.solve.prologue"
 WAVE_FULL = "nomad.wave.full"
 WAVE_CARRIED = "nomad.wave.carried"
 WAVE_SYNC = "nomad.wave.sync"

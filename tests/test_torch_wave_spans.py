@@ -1,6 +1,7 @@
 """The port's profiler ranges and sync counters, on the CPU.
 
-Under `torch.profiler` the wave loop opens `nomad.wave.full` /
+Under `torch.profiler` a solve opens a `nomad.solve.prologue` range from
+its entry to its first wave, and the wave loop `nomad.wave.full` /
 `nomad.wave.carried` ranges and, around each host sync, a
 `nomad.wave.sync` range (`utils.tracing`).  They must nest on their
 thread, count what the solver reports (`last_waves`, `n_syncs`), leave
@@ -24,6 +25,7 @@ from nomad_tpu_torch.utils.metrics import global_metrics
 
 PORT = SIDES[1]
 WAVES = (tracing.WAVE_FULL, tracing.WAVE_CARRIED)
+PROLOGUE = tracing.SOLVE_PROLOGUE
 COUNTERS = ("solver.waves", "solver.waves_full", "solver.syncs")
 
 
@@ -112,11 +114,11 @@ def test_device_range_is_the_null_span_without_a_profiler():
 
 
 def test_pipelined_stream_wave_ranges_nest_and_count_the_solve():
-    """wave > sync: one wave range a wave by kind, each at the top of
-    its thread's ranges, and one sync range a counted sync, each inside
-    a wave (the first wave's entry test is known on the host, and the
-    seed's constants cross no more); the counters and the pipeline's
-    stats advance by the same amounts."""
+    """wave > sync: one prologue range a solve and one wave range a
+    wave by kind, each at the top of its thread's ranges, and one sync
+    range a counted sync, each inside a wave (the first wave's entry
+    test is known on the host, and the seed's constants cross no more);
+    the counters and the pipeline's stats advance by the same amounts."""
     rs = solver()
     before = counters()
     _, rows = traced(lambda: pipelined(rs, "p"))
@@ -125,13 +127,14 @@ def test_pipelined_stream_wave_ranges_nest_and_count_the_solve():
     names = [n for n, _ in tree]
     waves, syncs = total(rs.last_waves), total(rs.last_syncs)
     full = total(rs.last_rescore_waves)
-    assert set(names) <= {*WAVES, tracing.WAVE_SYNC}
+    assert set(names) <= {*WAVES, tracing.WAVE_SYNC, PROLOGUE}
+    assert names.count(PROLOGUE) == 3
     assert names.count(tracing.WAVE_FULL) == full
     assert names.count(tracing.WAVE_CARRIED) == waves - full > 0
     assert names.count(tracing.WAVE_SYNC) == syncs > waves
     for name, parent in tree:
-        assert parent in ({None} if name in WAVES else {None, *WAVES}), \
-            (name, parent)
+        assert parent in ({None} if name in (*WAVES, PROLOGUE)
+                          else {None, *WAVES}), (name, parent)
     # a wave's range runs on to the next wave's decision, so no sync
     # lies outside every wave
     outside = [n for n, p in tree if n == tracing.WAVE_SYNC and p is None]
