@@ -574,7 +574,11 @@ on the first fused score round's arguments (`fused_round`), each kernel
 on a mesh shard's (`mesh_shard`: phase 11's shard 0, L0's topk call and
 L1's pinned score call), and each
 kernel on the arguments of its first call in phase 9's re-solves
-(`stream`).  The last line is
+(`stream`).  The wave body's node-segmented kernels (`seg_scan_kernel`,
+`seg_hist_kernel`) follow with the same launch keys, each phase's own
+launches (graph replays included; phases 12 and 17 with their
+children's), and phase 3's times at the stream cells' shapes (`cases`).
+The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 nonzero before printing any result.
 """
@@ -995,18 +999,135 @@ def load_baseline(path):
     return importlib.import_module(spec.name + ".solver.wave_kernel")
 
 
+def seg_kernel_cases(torch, wk):
+    """The wave body's node-segmented kernels (`seg_kernel`,
+    csrc/seg_kernel.cu) at the stream cells' shapes: K 8,192 candidates
+    on Np 10,240 nodes, c3-stream's Gp 4, S 1, V 4 and shortlist 1,152.
+    Each wrapper call is held to its plain version on the card, bit for
+    bit, then timed: kernel-only cold and warm (`kernel_ms`, the C
+    launch repeated on fixed buffers), the wrapper call, the plain
+    version, and the bound of the bytes it must move.  A `sort` row
+    times the one torch.sort a wave keeps (the node order the kernels
+    read).  Returns the rows by case name."""
+    from nomad_tpu_torch.solver import seg_kernel as sk
+    dev = torch.device(DEVICE)
+    K, Np, Gp, S, V, C, R = 8192, 10240, 4, 1, 4, 1152, 4
+    g = torch.Generator().manual_seed(24)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g).to(dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g).to(dev)
+    cand, grp = ints(Np, K), ints(Gp, K)
+    ok = rand(K) < 0.85
+    commit = ok & (rand(K) < 0.7)
+    ask = ints(1000, K, R).float()
+    used = ints(50_000, Np, R).float()
+    cell = (grp * S) * V + ints(V, K)
+    pos = ints(C + 1, K)
+    seg = sk.sort_segments(cand, ok)
+    n_seg = int(torch.unique(seg.key[seg.key != sk.KEY_LIMIT]).numel())
+    lib = wk._load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bufs = {"out": torch.empty((K, R), device=dev),
+            "rank": torch.empty(K, dtype=torch.int64, device=dev),
+            "used": used.clone(), "mark": torch.zeros(Np, device=dev),
+            "sp": torch.zeros((Gp, S, V), device=dev),
+            "coll": torch.zeros((Gp, C), device=dev),
+            "coll0": torch.zeros((Gp, Np), device=dev)}
+
+    def scan(vals, weight, out, rank, target, nc):
+        return lambda: lib.nomad_seg_scan(
+            seg.key.data_ptr(), seg.ix.data_ptr(), K,
+            None if vals is None else vals.data_ptr(), nc,
+            None if weight is None else weight.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if rank is None else rank.data_ptr(),
+            None if target is None else target.data_ptr(), stream)
+
+    def hist(idx, w, target):
+        return lambda: lib.nomad_seg_hist(
+            idx.data_ptr(), w.data_ptr(), idx.numel(), target.numel(),
+            sk.HIST_SMEM_CELLS, target.data_ptr(), stream)
+    keyb = 12 * K                    # the sorted keys and rows, read once
+    sp_w = commit
+    coll_w = commit & (pos < C)
+    cases = {
+        "prior sums": (
+            lambda: sk.prior_sum(seg, ask),
+            lambda: sk.prior_sum_plain(seg, ask),
+            scan(ask, None, bufs["out"], None, None, R),
+            keyb + 2 * 4 * K * R),
+        "rank": (
+            lambda: sk.seg_rank(seg), lambda: sk.seg_rank_plain(seg),
+            scan(None, None, None, bufs["rank"], None, 0), keyb + 8 * K),
+        "commit usage": (
+            lambda: sk.seg_add(seg, used, ask, commit),
+            lambda: sk.seg_add_plain(seg, used, ask, commit),
+            scan(ask, commit, None, None, bufs["used"], R),
+            keyb + 4 * K * R + K + 2 * 4 * R * n_seg),
+        "commit marks": (
+            lambda: sk.seg_add(seg, bufs["mark"], None, commit),
+            lambda: sk.seg_add_plain(seg, bufs["mark"], None, commit),
+            scan(None, commit, None, None, bufs["mark"], 1),
+            keyb + K + 2 * 4 * n_seg),
+        "count spread": (
+            lambda: sk.hist_add(bufs["sp"], cell, sp_w),
+            lambda: sk.hist_add_plain(bufs["sp"], cell, sp_w),
+            hist(cell, sp_w, bufs["sp"]), 9 * K + 2 * 4 * Gp * S * V),
+        "count collocation": (
+            lambda: sk.hist_add(bufs["coll"], grp * C + pos, coll_w),
+            lambda: sk.hist_add_plain(bufs["coll"], grp * C + pos, coll_w),
+            hist(grp * C + pos, coll_w, bufs["coll"]),
+            9 * K + 2 * 4 * Gp * C),
+        "count full-pass collocation": (
+            lambda: sk.hist_add(bufs["coll0"], grp * Np + cand, commit),
+            lambda: sk.hist_add_plain(bufs["coll0"], grp * Np + cand,
+                                      commit),
+            hist(grp * Np + cand, commit, bufs["coll0"]),
+            9 * K + 2 * 4 * int(commit.sum())),
+    }
+    out = {}
+    for name, (wrapper, plain, launch, nbytes) in cases.items():
+        got, want = wrapper(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"seg kernel {name}: differs from "
+              "the plain version")
+        cold, warm = kernel_ms(torch, launch)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        row = {"phase": "kernel", "case": f"seg {name}", "K": K, "Np": Np,
+               "ms": cold, "kernel_ms_cold": cold, "kernel_ms_warm": warm,
+               "wrapper_ms": time_ms(torch, wrapper),
+               "plain_ms": time_ms(torch, plain), "bytes": nbytes,
+               "bound_ms": bound, "bound_by": "bytes",
+               "bound_share_cold": bound / cold}
+        emit(row)
+        out[row["case"]] = row
+    key = torch.where(ok, cand.to(torch.int32), sk.KEY_LIMIT)
+    row = {"phase": "kernel", "case": "seg sort", "K": K,
+           "library_ms": time_ms(torch, lambda: torch.sort(key,
+                                                           stable=True))}
+    emit(row)
+    out[row["case"]] = row
+    return out
+
+
 def phase_kernel(torch, wk, base_wk=None):
     """Each kernel against its plain version at the main path's shapes,
     then its times: kernel-only cold and warm (`kernel_ms`), the whole
-    wrapper call and the plain version.  With `base_wk` (another
-    checkout's module) both kernels are also timed kernel-only in turns,
-    baseline, this tree, this tree, baseline."""
+    wrapper call and the plain version; the fused wave's cases, then
+    the wave body's node-segmented kernels (`seg_kernel_cases`).  With
+    `base_wk` (another checkout's module) both fused kernels are also
+    timed kernel-only in turns, baseline, this tree, this tree,
+    baseline."""
     dev = torch.device(DEVICE)
     out = {}
     for i, (name, shape, call) in enumerate(KERNEL_CASES):
         kw = wave_inputs(torch, seed=100 + i, device=dev, **shape)
         kw.update(call, seed=1 + i)
         out.update(kernel_case(torch, wk, name, kw, base_wk))
+    out.update(seg_kernel_cases(torch, wk))
     return out
 
 
@@ -1550,6 +1671,24 @@ def zero_launches(torch, wk):
     wk.fused_wave.launches = 0
     wk.fused_wave.mode_launches = {"score": 0, "topk": 0, "merge": 0}
     torch.cuda.synchronize()
+
+
+#: the node-segmented kernels by their kind in `seg_kernel.LAUNCHES`
+SEG_KERNELS = {"seg_scan_kernel": "scan", "seg_hist_kernel": "hist"}
+
+
+def seg_launches():
+    """The node-segmented kernels' launches in this process so far
+    (`seg_kernel.LAUNCHES`: the calls that launched and each replay of a
+    graph that holds one), by kind."""
+    from nomad_tpu_torch.solver import seg_kernel as sk
+    return {kind: sk.LAUNCHES[kind] for kind in SEG_KERNELS.values()}
+
+
+def seg_since(before):
+    """`seg_launches()` less `before`."""
+    now = seg_launches()
+    return {kind: now[kind] - before[kind] for kind in now}
 
 
 def check_launch_split(svc_counts, bat_counts):
@@ -4723,6 +4862,7 @@ def knobs_child(torch, wk, mode, sink):
             evals.append(ev.id)
         torch.cuda.synchronize()
         out["launches"] = dict(wk.fused_wave.mode_launches)
+        out["seg_launches"] = seg_launches()
         out["placements"] = sorted(
             (a.name, index_of[a.node_id]) for a in srv.store.allocs()
             if a.job_id.startswith("job-3-") and not a.terminal_status())
@@ -5019,6 +5159,7 @@ def phase_knobs(torch, wk, srv):
     on the live server).  Returns the launch counts (leg L's and the
     children's)."""
     t_phase = time.perf_counter()
+    seg0 = seg_launches()
     children = start_knobs_children()
     try:
         row_l = leg_lockdep(torch, wk, srv)
@@ -5066,12 +5207,15 @@ def phase_knobs(torch, wk, srv):
     check(e["placements"] == a["placements"],
           "E: the two children placed differently")
     counts = collections.Counter(row_l["launches"])
+    counts.update(seg_since(seg0))
     for r in res.values():
         counts.update(r["launches"])
+        counts.update(r["seg_launches"])
     row = {"phase": "knobs", "seconds": time.perf_counter() - t_phase,
            "placements_identical": True,
            "accesses_checked": row_l["accesses_checked"],
-           "launches": {m: counts[m] for m in ("score", "topk", "merge")}}
+           "launches": {m: counts[m] for m in (
+               "score", "topk", "merge", *SEG_KERNELS.values())}}
     emit(row)
     return row["launches"]
 
@@ -8503,6 +8647,10 @@ def main() -> int:
                     help="also time the fused wave kernel of the checkout "
                     "at DIR (e.g. the parent commit), kernel-only, in "
                     "turns with this tree's")
+    ap.add_argument("--kernels", action="store_true",
+                    help="run phases 1-3 alone (the device, the build, "
+                    "the kernels against their plain versions and their "
+                    "times) and stop")
     ap.add_argument("--phase-12", type=float, metavar="T0",
                     help="run phase 12 alone, its timeline from T0 (the "
                     "script's start, wall clock): the script's own "
@@ -8526,7 +8674,8 @@ def main() -> int:
         emit({"phase": "mounts", **private_mounts()})
     from nomad_tpu_torch.solver import wave_kernel as wk
     if args.phase_12 is not None:
-        counts12 = phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT)
+        counts12 = {**phase_cluster(torch, wk, N_NODES, CLUSTER_RESIDENT),
+                    **seg_launches()}
         phase_done("phase 12")
         emit({"phase": "cluster_launches", "launches": counts12})
         # the phase stopped every server it started: the interpreter's
@@ -8549,25 +8698,45 @@ def run_phases(torch, wk, args) -> int:
     base_wk = load_baseline(args.baseline) if args.baseline else None
     kern = phase_kernel(torch, wk, base_wk)
     phase_done("phases 1-3")
+    if args.kernels:
+        return 0
     phase_solve(torch, wk, N_NODES, RESIDENT, N_EVALS)
     phase_done("phase 4")
+    # the node-segmented kernels' launches by phase (phase 6's under 6),
+    # as each phase's own difference of the process's count; phases 12
+    # and 17 add their children's
+    seg = {}
+    seg0 = seg_launches()
     counts5 = phase_schedule(torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS,
                              BATCH_COUNT)
+    seg[5] = seg_since(seg0)
     phase_done("phase 5")
+    seg0 = seg_launches()
     counts, calls, row6 = phase_worker(torch, wk, N_NODES, RESIDENT,
                                        N_SERVICE_EVALS, BATCH_COUNT)
+    seg[6] = seg_since(seg0)
     phase_done("phase 6")
     # phases 13, 15 and 16 run on phase 7's server, after phase 7's
     # checks
     def lifecycle_api_agent(srv, row7):
+        seg[7] = seg_since(seg0)
+        seg_at = seg_launches()
         counts13 = phase_lifecycle(torch, wk, srv)
+        seg[13] = seg_since(seg_at)
         phase_done("phases 7 and 13")
+        seg_at = seg_launches()
         counts15 = phase_api(torch, wk, srv, row7["leg_a"])
+        seg[15] = seg_since(seg_at)
         phase_done("phase 15")
+        seg_at = seg_launches()
         counts16 = phase_agent(torch, wk, srv)
+        seg[16] = seg_since(seg_at)
         phase_done("phase 16")
-        return counts13, counts15, counts16, phase_knobs(torch, wk, srv)
+        counts17 = phase_knobs(torch, wk, srv)
+        seg[17] = {kind: counts17[kind] for kind in SEG_KERNELS.values()}
+        return counts13, counts15, counts16, counts17
 
+    seg0 = seg_launches()
     counts7, calls7, _row7, (counts13, counts15, counts16,
                              counts17) = phase_server(
         torch, wk, N_NODES, RESIDENT, N_SERVICE_EVALS, N_BURST_JOBS,
@@ -8575,25 +8744,38 @@ def run_phases(torch, wk, args) -> int:
     phase_done("phase 17")
     proc12, out12 = start_phase_12()
     try:
+        seg0 = seg_launches()
         counts8 = phase_preempt(torch, wk, N_NODES, N_PREEMPT_JOBS,
                                 N_PREEMPT_JOBS)
+        seg[8] = seg_since(seg0)
         phase_done("phase 8")
+        seg0 = seg_launches()
         counts9, calls9, _row9 = phase_stream(torch, wk, N_NODES, RESIDENT,
                                               N_STREAM_EVALS)
+        seg[9] = seg_since(seg0)
         phase_done("phase 9")
+        seg0 = seg_launches()
         counts10 = phase_host_route(torch, wk)
+        seg[10] = seg_since(seg0)
         phase_done("phase 10")
+        seg0 = seg_launches()
         counts11, calls11, _legs11 = phase_mesh(torch, wk)
+        seg[11] = seg_since(seg0)
         phase_done("phase 11")
         counts12 = finish_phase_12(proc12, out12)
+        seg[12] = {kind: counts12[kind] for kind in SEG_KERNELS.values()}
         timeline("phase 12's process")
     finally:
         if proc12.poll() is None:
             proc12.kill()
             proc12.wait()
+    seg0 = seg_launches()
     counts14 = phase_chaos(torch, wk)
+    seg[14] = seg_since(seg0)
     timeline("phase 14")
+    seg0 = seg_launches()
     counts18 = phase_witness(torch, wk, calls7["score"])
+    seg[18] = seg_since(seg0)
     # after phase 14 the watchdog's counters have moved by design
     timeline("phase 18")
     # the kernels on the main path's own arguments (phase 6), and the
@@ -8664,6 +8846,26 @@ def run_phases(torch, wk, args) -> int:
         if s_case in kern:
             kernels[-1]["stream"] = {k: kern[s_case][k] for k in keys
                                      if k in kern[s_case]}
+    # the node-segmented kernels (phase 3's cases, at the stream cells'
+    # shapes; every case equal to its plain version bit for bit)
+    seg_src = "nomad_tpu_torch/solver/csrc/seg_kernel.cu"
+    seg_keys = ("ms", "kernel_ms_warm", "wrapper_ms", "plain_ms",
+                "bound_ms")
+    for name, kind in SEG_KERNELS.items():
+        cases = {c: {k: r[k] for k in seg_keys} for c, r in kern.items()
+                 if c.startswith("seg ") and "bound_ms" in r
+                 and (c.startswith("seg count") == (kind == "hist"))}
+        r = kern["seg prior sums" if kind == "scan" else "seg count spread"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": seg_src,
+            "replaces": None, "launches": seg[6][kind],
+            **{f"launches_phase{n}": seg[n][kind]
+               for n in (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)},
+            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "kernel_ms_cold": r["kernel_ms_cold"],
+            "kernel_ms_warm": r["kernel_ms_warm"],
+            "wrapper_ms": r["wrapper_ms"], "cases": cases})
     timeline("the kernels on the phases' arguments")
     emit({"phase": "timeline", "after": "the whole script",
           "t_s": time.time() - SCRIPT_T0[0], "limit_s": SCRIPT_LIMIT_S})

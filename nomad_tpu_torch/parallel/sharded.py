@@ -777,10 +777,12 @@ class ShardedResidentSolver(ResidentSolver):
             n_places, seed_list, mesh=self._mesh, compact=self._compact,
             has_preempt=preempt, **self._solve_kw(batches, has_distinct),
             **self._elastic_kw())
-        # a mesh solve's waves run op by op (collectives mid-wave), and
-        # its shards count no filtered pairs
+        # a mesh solve's waves run op by op (collectives mid-wave), its
+        # commits keep their scatters, and its shards count no filtered
+        # pairs
         self.last_graphed = self.last_captures = np.zeros(len(batches),
                                                           np.int32)
+        self.last_conflict_kernel = np.zeros(len(batches), np.int32)
         self.last_filtered = np.zeros(len(batches), np.int64)
         count_dispatch(self.last_waves, self.last_rescore_waves,
                        self.last_syncs)

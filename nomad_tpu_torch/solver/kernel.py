@@ -78,6 +78,7 @@ import numpy as np
 import torch
 
 from . import score_spec as _score_spec
+from . import seg_kernel as _sk
 from . import wave_graph
 from . import wave_kernel as _wk
 from ..utils.tracing import (NULL_SPAN, SOLVE_PROLOGUE, WAVE_CARRIED,
@@ -179,6 +180,8 @@ class SolveResult(NamedTuple):
     #  non-monotone, so the host fixup replays commits in wave order
     n_syncs: int = 0            # times the wave loop waited for the card
     n_graphed: int = 0          # waves whose body replayed a CUDA graph
+    n_conflict_kernel: int = 0  # waves whose conflict check and commits
+    #  ran on the node-segmented CUDA kernels (`seg_kernel`)
     n_captures: int = 0         # CUDA graphs the solve captured
     filtered_pairs: int = 0     # real [group, node] pairs the static
     #  feasibility rules out (groups with placements, valid nodes; 0 in
@@ -847,8 +850,9 @@ def _wave_prep(k, c: _Inputs, st: _Carry) -> _Prep:
         chosen = k.g2l(chosen)[1]
         coll = _add_drop(c.coll0, (c.g_idx, chosen), committed.to(f32), 1)
     else:
-        coll = c.coll0.index_put((c.g_idx, chosen), committed.to(f32),
-                                 accumulate=True)
+        # the committed rows alone count (the others, all at column 0,
+        # would add zeros to one cell)
+        coll = _sk.hist_add(c.coll0, c.g_idx * k.Np + chosen, committed)
     blocked = pk_blocked = spread = None
     if k.has_distinct:
         dg_all = c.distinct[c.g_idx].to(i64)
@@ -1002,13 +1006,33 @@ def _full_extract(k, c: _Inputs, st: _Carry, prep: _Prep, sc: dict):
             dim_exh_g, grp_any, SL)
 
 
+def _seg_path(k) -> bool:
+    """Whether a wave's conflict check (and, off the mesh, its commits
+    to usage and the node marks) runs over one sort of its candidates by
+    node (`seg_kernel`) in place of [K, K] masks: above 2,048 placements
+    a wave, or under the test hook."""
+    return k.K > 2048 or _FORCE_SORT_CONFLICTS
+
+
+def _check_sort_keys(NT: int, Gp: int, V: int) -> None:
+    """Refuse a solve whose sort keys (a node and distinct group, a
+    spread value class, a node) could reach `seg_kernel.KEY_LIMIT`: the
+    sort path sorts them as int32."""
+    if max(NT * Gp, 2 * Gp * V + 2) > _sk.KEY_LIMIT:
+        raise ValueError(f"{NT} nodes, {Gp} groups and {V} spread values "
+                         "overflow the conflict check's int32 sort keys")
+
+
 def _seg_conflicts(k, c: _Inputs, cand_ok, cand):
     """The same-wave conflict helpers (prior_sum_node, prior_rank_any,
-    prior_rank): [K, K] masks up to K = 2048, a stable sort a key
-    above."""
-    f32, i64 = torch.float32, torch.int64
-    K, ks, device = k.K, c.ks, k.device
-    if K <= 2048 and not _FORCE_SORT_CONFLICTS:
+    prior_rank) and the node order `segs`: [K, K] masks up to K = 2048
+    (`segs` None); above, one stable sort of the `cand_ok` candidates by
+    node (`segs`, which the commits reuse) for the prior sums, and a
+    sort of its own for each other key ranked (every key below
+    `seg_kernel.KEY_LIMIT`, which `solve_steps` checks)."""
+    f32 = torch.float32
+    ks = c.ks
+    if not _seg_path(k):
         earlier = ks[None, :] < ks[:, None]                # [K, K]
         both_ok = cand_ok[None, :] & cand_ok[:, None]
         same_node = ((cand[None, :] == cand[:, None]) & both_ok
@@ -1028,41 +1052,19 @@ def _seg_conflicts(k, c: _Inputs, cand_ok, cand):
 
         def prior_rank(key, member):
             return prior_rank_any(key, member & cand_ok)
-        return prior_sum_node, prior_rank_any, prior_rank
+        return prior_sum_node, prior_rank_any, prior_rank, None
 
-    def _seg(key, ok):
-        """Stable sort of `ok` members by key: per-element exclusive
-        segment rank and a segmented exclusive-prefix summer (the
-        reference's two-key (key, index) sort)."""
-        keyc = torch.where(ok, key, 0x7FFFFFF0)
-        s_key, s_ix = torch.sort(keyc, stable=True)
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool,
-                                         device=device),
-                              s_key[1:] != s_key[:-1]])
-        start_pos = torch.cummax(torch.where(is_start, ks, 0),
-                                 dim=0).values
+    segs = _sk.sort_segments(cand, cand_ok)
 
-        def summer(vals):
-            v = vals[s_ix]
-            cum = torch.cumsum(v, dim=0) - v               # exclusive
-            return torch.zeros_like(vals).index_put(
-                (s_ix,), cum - cum[start_pos])
-
-        rank_s = torch.zeros(K, dtype=i64, device=device).index_put(
-            (s_ix,), ks - start_pos)
-        return rank_s, summer
-
-    _, prior_sum_node = _seg(cand, cand_ok)
+    def prior_sum_node(vals):
+        return _sk.prior_sum(segs, vals)
 
     def prior_rank_any(key, m):
-        rank_s, _ = _seg(key, m)
-        return torch.where(m, rank_s, 0)
+        return _sk.seg_rank(_sk.sort_segments(key, m))
 
     def prior_rank(key, member):
-        keyc = torch.where(member, key, 0x3FFFFFF0)
-        rank_s, _ = _seg(keyc, cand_ok)
-        return torch.where(member, rank_s, 0)
-    return prior_sum_node, prior_rank_any, prior_rank
+        return prior_rank_any(key, member & cand_ok)
+    return prior_sum_node, prior_rank_any, prior_rank, segs
 
 
 def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
@@ -1153,8 +1155,10 @@ def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
     fail_now = active & ~grp_any[g_idx]
 
     # -- same-wave conflict checks over shared nodes --
-    prior_sum_node, prior_rank_any, prior_rank = _seg_conflicts(
+    prior_sum_node, prior_rank_any, prior_rank, segs = _seg_conflicts(
         k, c, cand_ok, cand)
+    # off the mesh the sort path's commits reuse its node order
+    seg_commit = segs is not None and not in_mesh
 
     ask_k = c.ask_res[g_idx]
     prior = prior_sum_node(ask_k * cand_ok[:, None])       # [K, R]
@@ -1240,6 +1244,11 @@ def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
         used = _add_drop(used, (loc,), ask_k * cm)
         if k.has_devices:
             dev_used = _add_drop(dev_used, (loc,), c.dev_ask[g_idx] * cm)
+    elif seg_commit:
+        # one write a node, of its segment's committed asks
+        used = _sk.seg_add(segs, used, ask_k, commit)
+        if k.has_devices:
+            dev_used = _sk.seg_add(segs, dev_used, c.dev_ask[g_idx], commit)
     else:
         used = used.index_put((cand,), ask_k * cm, accumulate=True)
         if k.has_devices:
@@ -1252,11 +1261,12 @@ def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
         else:
             svals = c.attr_rank_l[cand[:, None], scol.clamp(min=0)]
         okslot = (scol >= 0) & (svals >= 0) & cm
-        # rows without a spread slot add 0 at an in-range position (the
-        # reference's scatter drops them)
-        sp_used = sp_used.index_put(
-            (g_idx[:, None], torch.arange(S, device=device)[None, :],
-             svals.clamp(0, V - 1)), okslot.to(f32), accumulate=True)
+        # a replicated plane every shard counts alike (the mesh's
+        # candidate attributes are psum'd)
+        cell = ((g_idx[:, None] * S
+                 + torch.arange(S, device=device)[None, :]) * V
+                + svals.clamp(0, V - 1))
+        sp_used = _sk.hist_add(sp_used, cell, okslot)
 
     # -- eviction pass: after the normal commits, against post-commit
     # usage, for placements whose group has nothing placeable --
@@ -1389,6 +1399,10 @@ def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
         tot = (cf * inb.to(f32)).sum()
         mark = _add_drop(torch.zeros(Np, dtype=f32, device=device),
                          (loc,), cf)
+    elif seg_commit:
+        tot = cf.sum()
+        mark = _sk.seg_add(segs, torch.zeros(Np, dtype=f32, device=device),
+                           None, commit)
     else:
         tot = cf.sum()
         mark = torch.zeros(Np, dtype=f32, device=device).index_put(
@@ -1421,10 +1435,9 @@ def _wave_body(k, c: _Inputs, st: _Carry, sc, prep, take_carried: bool,
     pos_hit = torch.gather(sl_idx, 1, win_pos.clamp(max=C - 1)) == tloc
     win_pos = torch.where(pos_hit, win_pos, C)
     cand_pos = win_pos[g_idx, cr]
-    coll_pad = torch.cat([SL.coll, torch.zeros(
-        (Gp, 1), dtype=f32, device=device)], dim=1)
-    coll_pad = coll_pad.index_put((g_idx, cand_pos), cf, accumulate=True)
-    st = st._replace(sl=SL._replace(coll=coll_pad[:, :C]))
+    coll = _sk.hist_add(SL.coll, g_idx * C + cand_pos,
+                        commit & (cand_pos < C))
+    st = st._replace(sl=SL._replace(coll=coll))
     mid = _Mid(used_pre=used_pre, dev_used_pre=dev_used_pre,
                n_feas_g=n_feas_g, n_exh_g=n_exh_g, dim_exh_g=dim_exh_g,
                act_next_g=act_next_g)
@@ -1774,8 +1787,12 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
     the card: one read of each wave's flags (its next entry test and
     the carried window's premise), the rerank's test, the eviction
     pass's gate and `nonzero` and, in mesh mode, the rescore count's
-    sum; `n_graphed` counts the waves whose body replayed a graph and
-    `n_captures` the graphs this solve captured.  `filtered_pairs`
+    sum; `n_graphed` counts the waves whose body replayed a graph,
+    `n_conflict_kernel` those whose conflict check and commits ran on
+    the node-segmented CUDA kernels (`seg_kernel`: above 2,048
+    placements a wave, on CUDA, off the mesh; counted from the commit
+    kernel's launches, replays included) and `n_captures` the graphs
+    this solve captured.  `filtered_pairs`
     counts the real [group, node] pairs (the groups with placements, the
     valid nodes) that the static feasibility rules out; it is summed on
     the card in the prologue and read with the first wave's flags, so it
@@ -2001,6 +2018,8 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         want_tables=want_tables, in_mesh=in_mesh, elastic=elastic,
         seed=seed, seed_nz=seed != 0, rg=rg, g2l=_g2l, l2g=_l2g, off=off,
         g_of_local=g_of_local)
+    if _seg_path(k):
+        _check_sort_keys(NT, Gp, V)
     c = _Inputs(
         avail=avail, reserved=reserved, valid=valid, attr_rank=attr_rank,
         attr_rank_l=attr_rank_l, ask_res=ask_res, ask_desired=ask_desired,
@@ -2037,13 +2056,14 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
         # the first wave's entry test is known on the host
         go = n_place > 0 and K > 0
         sl_ok = False
-        wave = n_resc = n_graphed = filtered = 0
+        wave = n_resc = n_graphed = n_seg = filtered = 0
         for _ in range(max_waves):
             if not go:
                 break
             take_carried = (yield ("carried", sl_ok)) if use_sl else False
             rg.step(take_carried)
             early = has_spread and wave < max(max_waves // 2, 1)
+            commits0 = _sk.thread_launches("commit")
             if gw is not None:
                 st, mid, flags = gw.body(take_carried, early)
                 n_graphed += 1
@@ -2053,6 +2073,9 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                     wave)
             if not take_carried:
                 n_resc += 1
+            # the body's commits launched the node-segmented kernel
+            # (its own launch, or a replay of a graph that holds it)
+            n_seg += _sk.thread_launches("commit") > commits0
             if wave == 0 and n_filt is not None:
                 # the filtered pairs ride on the first wave's flags
                 flags = torch.cat([flags.to(i64), n_filt.view(1)])
@@ -2108,6 +2131,7 @@ def solve_steps(avail, reserved, used0, valid, node_dc, attr_rank,
                        evict=st.out_evict if has_preempt else None,
                        commit_wave=st.out_wave if has_preempt else None,
                        n_syncs=rg.syncs, n_graphed=n_graphed,
+                       n_conflict_kernel=n_seg,
                        n_captures=0 if gw is None else gw.captures,
                        filtered_pairs=filtered)
 

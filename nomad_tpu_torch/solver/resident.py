@@ -37,8 +37,10 @@ asynchronous.  Every wave call on
 CUDA tensors goes through `wave_kernel.fused_wave`, which launches the
 kernel or raises.  The solves' waves, full passes and host syncs come
 back per batch (`last_waves`, `last_rescore_waves`, `last_syncs`,
-`last_graphed`, `last_captures`, and the [group, node] pairs the static
-feasibility ruled out, `last_filtered`) and each dispatch folds them
+`last_graphed`, `last_captures`, the waves whose conflict check and
+commits ran on the node-segmented kernels, `last_conflict_kernel`, and
+the [group, node] pairs the static feasibility ruled out,
+`last_filtered`) and each dispatch folds them
 into the process registry (`solve.count_dispatch`).
 
 The mesh solvers (`nomad_tpu_torch.parallel.sharded`) subclass this
@@ -64,6 +66,7 @@ import numpy as np
 import torch
 
 from ..chaos.injection import global_injections
+from . import seg_kernel as _sk
 from . import wave_kernel as _wk
 from .kernel import (MERGED_GP_MAX, NEG_INF, TOP_K, WAVE_K, _MERGED_W_CAP,
                      _WIDE_W_CAP, delta_scatter_add, delta_scatter_set,
@@ -313,43 +316,25 @@ def _per_placement(batch, name):
     return batch[name][batch["p_ask"].to(torch.int64)]
 
 
-def _prior_same_node(cand, ok, vals):
-    """For each `ok` row i, the sum of `vals` over earlier `ok` rows with
-    the same `cand` (the reference's `same @ vals`, `same` the [n, n]
-    earlier-same-node mask), 0 for other rows: a stable sort by node and
-    a segmented exclusive prefix sum.  Accumulated in float64, so sums of
-    integer-valued asks stay exact at any row count."""
-    n = cand.shape[0]
-    rows = torch.arange(n, device=cand.device)
-    key = torch.where(ok, cand, torch.iinfo(torch.int64).max)
-    s_key, s_ix = torch.sort(key, stable=True)
-    v = (vals * ok[:, None]).to(torch.float64)[s_ix]
-    cum = torch.cumsum(v, dim=0) - v
-    is_start = torch.ones(n, dtype=torch.bool, device=cand.device)
-    is_start[1:] = s_key[1:] != s_key[:-1]
-    start = torch.cummax(torch.where(is_start, rows, 0), dim=0).values
-    prior = torch.zeros_like(v).index_put_((s_ix,), cum - cum[start])
-    return prior.to(vals.dtype)
-
-
 def _revalidate(node, used, dev_used, cand, ok, res_k, dev_k):
     """The serial plan applier over placements in row order: a placement
     commits when its node still fits it after every earlier ok placement
     on the same node (conservative one-round semantics: a bounced
     placement's load still counts toward later rows, so a bounce can
     cascade; every bounce is STATUS_RETRY).  Returns (used, dev_used,
-    commit)."""
+    commit).  The earlier rows' sums and the commits run over one
+    sort of the rows by node (`seg_kernel`), exact for integer asks at
+    any row count."""
     cand = cand.to(torch.int64)
-    prior = _prior_same_node(cand, ok, res_k)
-    prior_dev = _prior_same_node(cand, ok, dev_k)
+    seg = _sk.sort_segments(cand, ok)
+    prior = _sk.prior_sum(seg, res_k)
+    prior_dev = _sk.prior_sum(seg, dev_k)
     fits = ((used[cand] + prior + res_k) <= node["avail"][cand]).all(-1)
     dev_fits = ((dev_used[cand] + prior_dev + dev_k)
                 <= node["dev_cap"][cand]).all(-1)
     commit = ok & fits & dev_fits
-    cm = commit[:, None]
-    used = used.index_put((cand,), res_k * cm, accumulate=True)
-    dev_used = dev_used.index_put((cand,), dev_k * cm, accumulate=True)
-    return used, dev_used, commit
+    return (_sk.seg_add(seg, used, res_k, commit),
+            _sk.seg_add(seg, dev_used, dev_k, commit), commit)
 
 
 def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
@@ -357,10 +342,10 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
     """B solves in turn, threading usage from batch to batch.  Returns
     (used, dev_used, out [B, K, 2*TOP_K+1], evict [B, K, E] (zeros
     [B, K, 1] without the eviction pass), waves [B], rescores [B],
-    syncs [B], graphed [B], captures [B], filtered [B])."""
+    syncs [B], graphed [B], captures [B], filtered [B], conflict [B])."""
     used, dev_used = used0, dev_used0
     outs, evicts, waves, rescores, syncs = [], [], [], [], []
-    graphed, captures, filtered = [], [], []
+    graphed, captures, filtered, conflict = [], [], [], []
     for b, (n_place, seed) in enumerate(zip(n_places, seeds)):
         batch = _batch(stacked, b)
         res = _solve_one(node, used, dev_used, batch, int(n_place),
@@ -376,11 +361,13 @@ def _stream_kernel(node, used0, dev_used0, stacked, n_places, seeds, *,
         graphed.append(res.n_graphed)
         captures.append(res.n_captures)
         filtered.append(res.filtered_pairs)
+        conflict.append(res.n_conflict_kernel)
         used, dev_used = res.used_final, res.dev_used_final
     return (used, dev_used, torch.stack(outs), torch.stack(evicts),
             np.asarray(waves, np.int32), np.asarray(rescores, np.int32),
             np.asarray(syncs, np.int32), np.asarray(graphed, np.int32),
-            np.asarray(captures, np.int32), np.asarray(filtered, np.int64))
+            np.asarray(captures, np.int32), np.asarray(filtered, np.int64),
+            np.asarray(conflict, np.int32))
 
 
 def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -393,7 +380,7 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     batch's slot-0 placements revalidated in batch order against the
     cumulative usage, bouncing what no longer fits.  Returns (used,
     dev_used, out [B, K, 2*TOP_K+1] f32, waves [B], rescores [B],
-    syncs [B], graphed [B], captures [B], filtered [B])."""
+    syncs [B], graphed [B], captures [B], filtered [B], conflict [B])."""
     kw["shortlist_c"] = -1
     res = [_solve_one(node, used0, dev_used0, _batch(stacked, b), int(n),
                       int(s), **kw)
@@ -419,7 +406,8 @@ def _parallel_kernel(node, used0, dev_used0, stacked, n_places, seeds,
             np.asarray([r.n_syncs for r in res], np.int32),
             np.asarray([r.n_graphed for r in res], np.int32),
             np.asarray([r.n_captures for r in res], np.int32),
-            np.asarray([r.filtered_pairs for r in res], np.int64))
+            np.asarray([r.filtered_pairs for r in res], np.int64),
+            np.asarray([r.n_conflict_kernel for r in res], np.int32))
 
 
 def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
@@ -431,12 +419,13 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
     placements a sibling lane beat to a node bounce to STATUS_RETRY with
     every score slot nulled.  B must be a multiple of `lanes` (the host
     pads with n_place = 0 rows).  Returns (used, dev_used, out, waves,
-    rescores, syncs, filtered, bounced, committed), each per batch.  Lanes in
-    lock-step open no profiler ranges: `solve_lanes` opens the waves."""
+    rescores, syncs, filtered, conflict, bounced, committed), each per
+    batch.  Lanes in lock-step open no profiler ranges: `solve_lanes`
+    opens the waves."""
     L = lanes
     used, dev_used = used0, dev_used0
     outs, waves, rescores, syncs, filtered = [], [], [], [], []
-    bounced, committed = [], []
+    conflict, bounced, committed = [], [], []
     for c in range(len(n_places) // L):
         bs = range(c * L, (c + 1) * L)
         batches = [_batch(stacked, b) for b in bs]
@@ -463,12 +452,13 @@ def _lane_stream_kernel(node, used0, dev_used0, stacked, n_places, seeds,
         rescores += [r.n_rescore for r in res]
         syncs += [r.n_syncs for r in res]
         filtered += [r.filtered_pairs for r in res]
+        conflict += [r.n_conflict_kernel for r in res]
         bounced.append((okf & ~commit).reshape(L, K).sum(dim=1))
         committed.append(commit.reshape(L, K).sum(dim=1))
     return (used, dev_used, torch.cat(outs), np.asarray(waves, np.int32),
             np.asarray(rescores, np.int32), np.asarray(syncs, np.int32),
-            np.asarray(filtered, np.int64), torch.cat(bounced),
-            torch.cat(committed))
+            np.asarray(filtered, np.int64), np.asarray(conflict, np.int32),
+            torch.cat(bounced), torch.cat(committed))
 
 
 class ResidentSolver:
@@ -528,14 +518,15 @@ class ResidentSolver:
         #: serial stream); fetch with lane_counters()
         self.last_lane_counters = None
         #: per-batch wave, full-rescore wave and host-sync counts of the
-        #: last stream, its waves replayed as CUDA graphs and graphs
-        #: captured, and the [group, node] pairs its static feasibility
-        #: ruled out
+        #: last stream, its waves replayed as CUDA graphs, graphs
+        #: captured and waves on the node-segmented kernels, and the
+        #: [group, node] pairs its static feasibility ruled out
         self.last_waves = None
         self.last_rescore_waves = None
         self.last_syncs = None
         self.last_graphed = None
         self.last_captures = None
+        self.last_conflict_kernel = None
         self.last_filtered = None
         self.delta_counters = {
             "delta_applies": 0, "repack_fallbacks": 0,
@@ -940,13 +931,14 @@ class ResidentSolver:
         (self._used, self._dev_used, out, self.last_evict,
          self.last_waves, self.last_rescore_waves, self.last_syncs,
          self.last_graphed, self.last_captures,
-         self.last_filtered) = _stream_kernel(
+         self.last_filtered, self.last_conflict_kernel) = _stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, compact=self._compact, has_preempt=preempt,
             **self._solve_kw(batches, has_distinct))
         count_dispatch(self.last_waves, self.last_rescore_waves,
                        self.last_syncs, self.last_graphed,
-                       self.last_captures, self.last_filtered)
+                       self.last_captures, self.last_filtered,
+                       self.last_conflict_kernel)
         return out
 
     def _solve_lanes(self, batches: Sequence[PackedBatch], seeds,
@@ -963,16 +955,18 @@ class ResidentSolver:
         seed_list = ([0] * B if seeds is None else list(seeds)) + [0] * pad
         kw = self._solve_kw(batches, has_distinct)
         (self._used, self._dev_used, out, waves, rescores, syncs, filtered,
-         bounced, committed) = _lane_stream_kernel(
+         conflict, bounced, committed) = _lane_stream_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             seed_list, lanes=L, compact=self._compact, **kw)
         # the padding lanes' waves and syncs too, but not as solves
-        count_dispatch(waves, rescores, syncs, filtered=filtered, solves=B)
+        count_dispatch(waves, rescores, syncs, filtered=filtered,
+                       conflict_kernel=conflict, solves=B)
         self.last_evict = None
         self.last_waves = waves[:B]
         self.last_rescore_waves = rescores[:B]
         self.last_syncs = syncs[:B]
         self.last_filtered = filtered[:B]
+        self.last_conflict_kernel = conflict[:B]
         self.last_graphed = self.last_captures = np.zeros(B, np.int32)
         self.last_lane_counters = {
             "lanes": L, "chunks": (B + pad) // L,
@@ -1026,7 +1020,7 @@ class ResidentSolver:
         if not chunks:
             raise ValueError("solve_stream_pipelined needs >= 1 chunk")
         outs, waves, rescores, syncs, evicts = [], [], [], [], []
-        graphed, captures, filtered = [], [], []
+        graphed, captures, filtered, conflict = [], [], [], []
         pack_s = dispatch_s = delta_s = 0.0
         bytes_shipped = 0
 
@@ -1058,6 +1052,7 @@ class ResidentSolver:
             graphed.append(self.last_graphed)
             captures.append(self.last_captures)
             filtered.append(self.last_filtered)
+            conflict.append(self.last_conflict_kernel)
             evicts.append(self.last_evict)
             bytes_shipped += self.last_dispatch_bytes
             t1 = time.perf_counter()
@@ -1074,6 +1069,7 @@ class ResidentSolver:
         self.last_graphed = graphed
         self.last_captures = captures
         self.last_filtered = filtered
+        self.last_conflict_kernel = conflict
         self.last_evict = evicts
         self.last_pipeline_stats = {
             "pack_s": pack_s, "dispatch_s": dispatch_s,
@@ -1082,7 +1078,8 @@ class ResidentSolver:
             "bytes_dispatched": bytes_shipped,
             "waves": _total(waves), "syncs": _total(syncs),
             "waves_graphed": _total(graphed),
-            "graph_captures": _total(captures)}
+            "graph_captures": _total(captures),
+            "waves_conflict_kernel": _total(conflict)}
         return unpack_stream(packed)
 
     def solve_parallel(self, batches: Sequence[PackedBatch]
@@ -1100,11 +1097,12 @@ class ResidentSolver:
         kw = self._solve_kw(batches, self._has_distinct(batches))
         kw.pop("stack_commit")
         (self._used, self._dev_used, out, waves, rescores, syncs,
-         graphed, captures, self.last_filtered) = _parallel_kernel(
+         graphed, captures, self.last_filtered,
+         conflict) = _parallel_kernel(
             self._dev_node, self._used, self._dev_used, stacked, n_places,
             range(1, len(batches) + 1), **kw)
         count_dispatch(waves, rescores, syncs, graphed, captures,
-                       self.last_filtered)
+                       self.last_filtered, conflict)
         return unpack_stream(out)
 
     # -------------------------------------------------------- reporting

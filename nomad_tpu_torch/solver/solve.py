@@ -757,7 +757,8 @@ class Solver:
                            trace_attrs["rescore_waves"],
                            trace_attrs["syncs"], trace_attrs["graphed"],
                            trace_attrs["captures"],
-                           trace_attrs["filtered_pairs"])
+                           trace_attrs["filtered_pairs"],
+                           trace_attrs["conflict_kernel"])
         trace_attrs["kernel_wall_s"] = round(
             time.perf_counter() - _solve_t0, 6)
         trace_attrs["resident"] = used_resident
@@ -1104,6 +1105,7 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
              "shortlist_waves": waves - rescore,
              "syncs": int(res.n_syncs),
              "graphed": int(res.n_graphed),
+             "conflict_kernel": int(res.n_conflict_kernel),
              "captures": int(res.n_captures),
              "evict_commits": evicted,
              "unfinished": int(np.asarray(res.unfinished).sum())}
@@ -1120,17 +1122,19 @@ def solve_trace_attrs(pb: PackedBatch, res, device,
 
 
 def count_dispatch(waves, rescores, syncs, graphed=0, captures=0,
-                   filtered=0, solves=None) -> None:
+                   filtered=0, conflict_kernel=0, solves=None) -> None:
     """Fold one device dispatch's counts (ints, or per-batch arrays)
     into the process registry, served at /v1/metrics: `solver.solves`
     (the device solves: `solves`, else one a wave count), `solver.waves`,
     `solver.waves_full` (the waves that ran the full pass over the node
     planes; on a mesh, per shard), `solver.syncs` (the times the wave
     loops waited for the card), `solver.waves_graphed` (the waves whose
-    body replayed a CUDA graph), `solver.graph_captures` (the graphs
-    captured) and `solver.pairs_filtered` (the real [group, node] pairs
-    that the solves' static feasibility ruled out: Nomad's
-    `NodesFiltered` summed over the groups).  A worker's device solve
+    body replayed a CUDA graph), `solver.waves_conflict_kernel` (the
+    waves whose conflict check and commits ran on the node-segmented
+    CUDA kernels), `solver.graph_captures` (the graphs captured) and
+    `solver.pairs_filtered` (the real [group, node] pairs that the
+    solves' static feasibility ruled out: Nomad's `NodesFiltered` summed
+    over the groups).  A worker's device solve
     folds once it is fetched, a `ResidentSolver` once a dispatch;
     host-twin solves fold nothing."""
     global_metrics.incr_counter(
@@ -1140,6 +1144,8 @@ def count_dispatch(waves, rescores, syncs, graphed=0, captures=0,
     global_metrics.incr_counter("solver.syncs", float(np.sum(syncs)))
     global_metrics.incr_counter("solver.waves_graphed",
                                 float(np.sum(graphed)))
+    global_metrics.incr_counter("solver.waves_conflict_kernel",
+                                float(np.sum(conflict_kernel)))
     global_metrics.incr_counter("solver.graph_captures",
                                 float(np.sum(captures)))
     global_metrics.incr_counter("solver.pairs_filtered",

@@ -30,6 +30,8 @@ from typing import Callable, Optional
 
 import torch
 
+from . import seg_kernel as _sk
+
 #: solve signatures whose plans are kept (least recently used evicted)
 PLANS_MAX = 8
 #: signatures remembered as seen once (their second solve captures)
@@ -91,12 +93,15 @@ class Segment:
     one graph after a warm-up run of `pure` on the capture stream (lazy
     initialisation stays out of the capture); `out` holds the graph's
     static outputs, rewritten by every `replay()`.  Capturing does not
-    run the stretch: replay it."""
+    run the stretch: replay it.  `launches` holds the counted kernel
+    launches (`seg_kernel.LAUNCHES`) the capture recorded, which each
+    replay counts again."""
 
     def __init__(self, device: torch.device, pure: Callable,
                  commit: Callable):
         self.graph = None
         self.out = None
+        self.launches = collections.Counter()
         if device.type != "cuda":
             self._pure, self._commit = pure, commit
             return
@@ -106,6 +111,7 @@ class Segment:
         with torch.cuda.stream(side):
             pure()
             graph = torch.cuda.CUDAGraph()
+            before = _sk.captured()
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = pure()
@@ -114,11 +120,13 @@ class Segment:
                 graph.capture_end()
         cur.wait_stream(side)
         self.graph, self.out = graph, out
+        self.launches = _sk.captured() - before
 
     def replay(self):
         """Run the stretch; its outputs (static on CUDA)."""
         if self.graph is not None:
             self.graph.replay()
+            _sk.replayed(self.launches)
             return self.out
         out = self._pure()
         self._commit(out)

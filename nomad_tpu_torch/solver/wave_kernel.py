@@ -82,6 +82,9 @@ _MERGE_SMEM_BUDGET = 96 * 1024
 _R_CPU, _R_MEM = 0, 1
 
 _CSRC = Path(__file__).resolve().parent / "csrc" / "wave_kernel.cu"
+#: every source of the library: the fused wave and the wave body's
+#: node-segmented reductions (`seg_kernel.py`)
+_SOURCES = (_CSRC, _CSRC.with_name("seg_kernel.cu"))
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -190,25 +193,26 @@ def _flags(defines: Sequence[str]) -> list:
 
 
 def library_path(defines: Sequence[str] = ()) -> Path:
-    digest = hashlib.sha256(_CSRC.read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _SOURCES)
                             + " ".join(_flags(defines)).encode()).hexdigest()
     return _BUILD_DIR / f"wave_kernel_{digest[:16]}.so"
 
 
 def build(defines: Sequence[str] = ()) -> Path:
-    """Compile csrc/wave_kernel.cu into the build directory (no-op when
-    the library for this source and these flags exists).  Raises on a
-    compiler error.  ptxas's report of each kernel's registers, shared
-    memory and spills (`-Xptxas -v`, which changes no code) is kept
-    beside the library as `<library>.ptxas.txt`.  `defines` are macros
-    for a test build (NOMAD_WAVE_BOUNDS_CHECK, see the source)."""
+    """Compile csrc/wave_kernel.cu and csrc/seg_kernel.cu into one library
+    in the build directory (no-op when the library for these sources and
+    these flags exists).  Raises on a compiler error.  ptxas's report of
+    each kernel's registers, shared memory and spills (`-Xptxas -v`,
+    which changes no code) is kept beside the library as
+    `<library>.ptxas.txt`.  `defines` are macros for a test build
+    (NOMAD_WAVE_BOUNDS_CHECK, see the source)."""
     out = library_path(defines)
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", str(tmp),
-           str(_CSRC)]
+           *map(str, _SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -219,12 +223,16 @@ def build(defines: Sequence[str] = ()) -> Path:
 
 
 def bind(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare its launch entry point."""
+    """Load a built library and declare its launch entry points."""
     lib = ctypes.CDLL(str(path))
-    fn = lib.nomad_wave_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I] + [P] * 23 + [I] * 7 + [P] * 9 + [I] * 10 + [P]
-    fn.restype = I
+    for fn, args in (
+            (lib.nomad_wave_launch,
+             [I] + [P] * 23 + [I] * 7 + [P] * 9 + [I] * 10 + [P]),
+            (lib.nomad_seg_scan, [P, P, I, P, I, P, P, P, P, P]),
+            (lib.nomad_seg_hist, [P, P, I, I, I, P, P])):
+        fn.argtypes = args
+        fn.restype = I
     return lib
 
 

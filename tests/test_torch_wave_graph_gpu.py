@@ -109,6 +109,51 @@ def test_stream_chunk_eager_capture_replay(cuda, pallas):
 
 
 @pytest.mark.cuda
+def test_constrained_shape_on_conflict_kernels(cuda):
+    """The c3-stream chunk's shape cut to 4,000 nodes: 4 groups with a
+    datacenter spread, 8,192 placements a wave, so the conflict check
+    and the commits run on the node-segmented kernels (`seg_kernel`)
+    inside the captured body.  Eager, capture and replay place alike,
+    every wave counts in `n_conflict_kernel`, a replay counts the
+    kernels' launches as the eager solve does, and a pipelined stream
+    folds the waves into `solver.waves_conflict_kernel`."""
+    from nomad_tpu_torch.solver import seg_kernel as sk
+    from nomad_tpu_torch.utils.metrics import global_metrics
+    rs = ResidentSolver(make_nodes(4000),
+                        [make_ask("probe", 4, spread=True)], gp=4, kp=8192,
+                        pallas="score", device="cuda")
+
+    def chunk(tag):
+        return rs.pack_batch([make_ask(f"{tag}{a}", 2048, cpu=600 + 40 * a,
+                                       spread=True) for a in range(4)])
+    pb = chunk("c")
+    kw = rs._solve_kw([pb], False)
+    out = three_ways(rs, pb, 3240000001, kw)
+    assert out[0].n_waves >= 2
+    assert all(r.n_conflict_kernel == r.n_waves for r in out)
+    launched = []
+    for graphs in (False, True):
+        before = sk.LAUNCHES.copy()
+        again = solve(rs, pb, 3240000001, graphs, kw)
+        torch.cuda.synchronize()
+        assert again.n_graphed == (again.n_waves if graphs else 0)
+        launched.append(sk.LAUNCHES - before)
+    # usage and the node marks a wave at least
+    assert launched[0] == launched[1]
+    assert launched[0]["commit"] >= 2 * out[0].n_waves
+    counters = global_metrics.dump()["counters"]
+    c0 = {n: counters.get(n, 0)
+          for n in ("solver.waves", "solver.waves_conflict_kernel")}
+    rs.solve_stream_pipelined([chunk("p"), chunk("q")], seeds=[1, 2])
+    st = rs.last_pipeline_stats
+    assert st["waves_conflict_kernel"] == st["waves"] > 0
+    counters = global_metrics.dump()["counters"]
+    assert (counters["solver.waves_conflict_kernel"]
+            - c0["solver.waves_conflict_kernel"]
+            == counters["solver.waves"] - c0["solver.waves"])
+
+
+@pytest.mark.cuda
 def test_fused_round_shape_eager_capture_replay(cuda):
     """A fused round's shape: 40 groups on 2,048 nodes, "score" mode."""
     rs = solver(2000, 64, 1024, "score")
